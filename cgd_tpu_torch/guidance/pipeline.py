@@ -1,0 +1,115 @@
+"""The CLIP guidance loss, counterpart of ``cgd_tpu/guidance/pipeline.py``:
+blend x̂₀ with x by fac = sqrt(1-ᾱ[ref_t]), cut out `cutn` crops, CLIP-encode
+them, weighted spherical distances against the prompt embeddings, plus the
+range / TV / saturation losses. The sampler differentiates the returned
+scalar with respect to x through UNet, cutouts and CLIP.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cgd_tpu_torch.diffusion.gaussian import GaussianDiffusion, PMeanVariance
+from cgd_tpu_torch.diffusion.sampler import GuidanceFns, StepMeta
+from cgd_tpu_torch.guidance.cutouts import CutoutSpec, make_cutouts, sample_cutout_coords
+from cgd_tpu_torch.guidance.losses import (
+    range_loss,
+    saturation_loss,
+    spherical_dist_loss,
+    tv_loss,
+)
+from cgd_tpu_torch.models.clip.configs import CLIP_MEAN, CLIP_STD, CLIPConfig
+from cgd_tpu_torch.models.clip.model import CLIP, encode_image
+
+
+@dataclasses.dataclass(frozen=True)
+class GuidanceSettings:
+    clip_guidance_scale: float = 1000.0
+    tv_scale: float = 150.0
+    range_scale: float = 50.0
+    sat_scale: float = 0.0
+    use_magnitude: bool = False
+    cutout_power: float = 1.0
+    clip_compute_dtype: str = "bfloat16"
+
+
+def make_guidance_builder(
+    clip_model: CLIP,
+    clip_cfg: CLIPConfig,
+    target_embeds: torch.Tensor,  # [P, D] f32
+    weights: torch.Tensor,  # [P] f32, normalized (sum |.| = 1)
+    diffusion: GaussianDiffusion,
+    settings: GuidanceSettings,
+    *,
+    cached_coords: Optional[CutoutSpec] = None,
+):
+    """Returns builder(meta: StepMeta) -> GuidanceFns for the sampler. With
+    ``cached_coords`` every step reuses the first ``cutn`` of those cutout
+    coordinates; otherwise each step draws new ones from the step's
+    generator."""
+    clip_size = clip_cfg.input_resolution
+    device = target_embeds.device
+    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=device)
+    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=device)
+    sqrt_om = np.asarray(diffusion.sqrt_one_minus_alphas_cumprod, np.float32)
+    compute_dtype = torch.bfloat16 if settings.clip_compute_dtype == "bfloat16" else torch.float32
+
+    def builder(meta: StepMeta) -> GuidanceFns:
+        cutn = meta.cutn
+
+        def loss_fn(x, out: PMeanVariance, ref_t: int, gen: torch.Generator):
+            b, side_y, side_x = x.shape[0], x.shape[1], x.shape[2]
+            fac = sqrt_om[ref_t]  # f32, as the JAX blend
+            x_in = out.pred_xstart * float(fac) + x * float(np.float32(1.0) - fac)
+            if cached_coords is not None:
+                spec = CutoutSpec(*(c[:cutn] for c in cached_coords))
+            else:
+                spec = sample_cutout_coords(
+                    gen, cutn, side_x, side_y, clip_size, settings.cutout_power,
+                    device=x.device)
+            cuts = make_cutouts((x_in + 1.0) / 2.0, spec, clip_size)  # [K*B,c,c,3]
+            cuts = (cuts - mean) / std
+            embeds = encode_image(clip_model, cuts, compute_dtype=compute_dtype)
+            embeds = embeds.reshape(cutn, b, -1)
+            # [K,B,P] distances; weighted sum over prompts, mean over cutouts
+            dists = spherical_dist_loss(embeds[:, :, None, :], target_embeds[None, None])
+            clip_losses = (dists * weights).sum(-1).mean(0)  # [B]
+
+            clip_total = clip_losses.sum() * settings.clip_guidance_scale
+            range_total = range_loss(out.pred_xstart).sum() * settings.range_scale
+            tv_total = tv_loss(x_in).sum() * settings.tv_scale
+            loss = clip_total + range_total + tv_total
+            log = {"CLIP Loss": clip_total, "Range Loss": range_total, "TV Loss": tv_total}
+            if settings.sat_scale:
+                sat_total = saturation_loss(x_in).sum() * settings.sat_scale
+                log["Saturation Loss"] = sat_total
+                loss = loss + sat_total
+            log["Total Loss"] = loss
+            return loss, {k: v.detach() for k, v in log.items()}
+
+        def grad_transform(grad):
+            log = {}
+            if settings.use_magnitude:
+                rms = grad.square().mean().sqrt()
+                log["Magnitude"] = rms
+                grad = grad * rms.clamp(max=0.05) / rms.clamp_min(1e-12)
+            log["Grad"] = grad.mean()
+            return grad, log
+
+        return GuidanceFns(loss_fn, grad_transform)
+
+    return builder
+
+
+def normalize_weights(weights_list) -> np.ndarray:
+    """Reference contract (cgd/cgd.py:100-105): raise if |sum| < 1e-3, then
+    divide by |sum|."""
+    w = np.asarray(weights_list, dtype=np.float32)
+    total = w.sum()
+    if abs(float(total)) < 1e-3:
+        raise RuntimeError("The weights must not sum to 0.")
+    return w / np.abs(total)
