@@ -3,8 +3,8 @@
 Counterpart of ``cgd_tpu/api.py``: same keyword names, same generator
 contract — yields ``(batch_idx, saved_frame_path)`` per saved frame — and the
 same output tree. The slice ported so far: text prompts with weights,
-class-conditional or unconditional ADM UNet with random weights, a ViT CLIP,
-DDIM (``timestep_respacing="ddimN"``) or ancestral sampling, cutouts (fresh
+class-conditional or unconditional ADM UNet (64-512px) with random weights,
+any CLIP tower (ViT or ModifiedResNet), DDIM (``timestep_respacing="ddimN"``) or ancestral sampling, cutouts (fresh
 or cached), the spherical / TV / range / saturation losses and the magnitude
 clamp. Every other option raises rather than being ignored.
 

@@ -26,10 +26,9 @@
 // the epilogue, which keeps the result deterministic.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace cgd {
 
@@ -70,52 +69,36 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
 // exp(-v) = inf for very negative v gives __fdividef(1, inf) = 0, as wanted.
 __device__ __forceinline__ float sigmoidf_(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+// Output pixel (oy, ox) of row `row` of M tile `mt` in an h x w image, and
+// whether it lies inside. TILE_W == 0: a tile is BM consecutive pixels in
+// row-major order (K-fwd, K-dx). TILE_W > 0: a tile is a (BM / TILE_W) x
+// TILE_W patch, tiles row-major over the image (K-dx-w): at W = 512 a
+// 128-pixel row segment reads a 3 x 130-pixel halo, an 8 x 16 patch 10 x 18.
+template <int TILE_W>
+__device__ __forceinline__ bool tile_pixel(int mt, int row, int h, int w, int& oy, int& ox) {
+  if constexpr (TILE_W == 0) {
+    const int p = mt * BM + row;
+    oy = p / w;
+    ox = p - oy * w;
+    return p < h * w;
+  } else {
+    static_assert(BM % TILE_W == 0, "whole rows per tile");
+    const int tiles_x = (w + TILE_W - 1) / TILE_W;
+    const int ty = mt / tiles_x, tx = mt - ty * tiles_x;
+    oy = ty * (BM / TILE_W) + row / TILE_W;
+    ox = tx * TILE_W + row % TILE_W;
+    return oy < h && ox < w;
+  }
 }
 
-__device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&u);
-  return __bfloat1622float2(h);
-}
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  float2 a = unpack_bf16x2(u.x), b = unpack_bf16x2(u.y);
-  float2 c = unpack_bf16x2(u.z), d = unpack_bf16x2(u.w);
-  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-  f[4] = c.x; f[5] = c.y; f[6] = d.x; f[7] = d.y;
-}
-
-// 16-byte global -> shared copy; when !pred the destination is zero-filled
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 u;
-  u.x = pack_bf16x2(f[0], f[1]);
-  u.y = pack_bf16x2(f[2], f[3]);
-  u.z = pack_bf16x2(f[4], f[5]);
-  u.w = pack_bf16x2(f[6], f[7]);
-  return u;
-}
-
-// One block's K loop over K slices [kt_begin, kt_end). src: NHWC bf16 [batch, hs, ws, cin] (hs/ws are the
+// One block's K loop over K slices [kt_begin, kt_end) for M tile m0 / BM
+// (pixels mapped by tile_pixel<TILE_W>). src: NHWC bf16 [batch, hs, ws, cin] (hs/ws are the
 // SOURCE dims; with UP the conv runs on the nearest-2x image of size
 // 2hs x 2ws, read as src[oy/2, ox/2]). w: [9*cin, cout] bf16. With PROLOGUE
 // each loaded element becomes bf16(silu(x*A + B)) (A/B: [batch, cin] f32),
 // and taps outside the image load zero AFTER the activation, which is the
 // conv's zero padding of the activated tensor.
-template <bool PROLOGUE, bool UP>
+template <bool PROLOGUE, bool UP, int TILE_W = 0>
 __device__ __forceinline__ void conv_mainloop(
     const __nv_bfloat16* __restrict__ src, const __nv_bfloat16* __restrict__ w,
     const float* __restrict__ Avec, const float* __restrict__ Bvec,
@@ -126,7 +109,6 @@ __device__ __forceinline__ void conv_mainloop(
   const int wm = warp >> 1, wn = warp & 1;
   const int ho = UP ? 2 * hs : hs;
   const int wo = UP ? 2 * ws : ws;
-  const int hw = ho * wo;
 
   // A loader: rows (tid>>2) and (tid>>2)+64, one 8-channel chunk each
   const int a_chunk = (tid & 3) * 8;
@@ -134,10 +116,8 @@ __device__ __forceinline__ void conv_mainloop(
   bool a_ok[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    int p = m0 + (tid >> 2) + r * 64;
-    a_ok[r] = p < hw;
-    a_oy[r] = a_ok[r] ? p / wo : 0;
-    a_ox[r] = a_ok[r] ? p % wo : 0;
+    a_ok[r] = tile_pixel<TILE_W>(m0 / BM, (tid >> 2) + r * 64, ho, wo, a_oy[r], a_ox[r]);
+    if (!a_ok[r]) a_oy[r] = a_ox[r] = 0;
   }
   // B loader: K rows (tid>>4) and (tid>>4)+16, one 8-channel chunk each
   const int b_row = tid >> 4;

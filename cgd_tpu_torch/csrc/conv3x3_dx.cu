@@ -19,10 +19,21 @@
 //
 // Bound: compute (tensor cores), as K-fwd; the epilogue reads x once per
 // output element. Design: the shared main loop of conv3x3_common.cuh.
+//
+// K-dx-w (TILE_W = 16) is the same kernel over 8 x 16 spatial tiles instead
+// of 128 consecutive pixels. It replaces the Pallas TPU kernel
+// conv_pallas.py (_conv3x3_dx_wtiled -> _conv_dx_kernel_wtiled), which
+// assembled a W-tiled halo from nine clamped block streams to satisfy
+// Mosaic's block-shape rule; here the tile is only a different pixel map
+// (tile_pixel), with the same masked halo loads, the same epilogue and the
+// same per-tile dA/dB partials summed in tile order. At W = 512 a 128-pixel
+// row segment loads a 3 x 130 halo (3x its pixels), an 8 x 16 tile 10 x 18
+// (1.4x). The wrapper picks it for the 512^2 classes.
 #include "conv3x3_common.cuh"
 
 namespace cgd {
 
+template <int TILE_W>
 __global__ void __launch_bounds__(NTHREADS)
 conv3x3_dx_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ wt,
                   const __nv_bfloat16* __restrict__ x, const float* __restrict__ Avec,
@@ -36,8 +47,8 @@ conv3x3_dx_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __re
   int kt0, kt1;
   split_range(split, ksplit, 9 * (cg / BK), kt0, kt1);
   AccFrag acc[FM][FN];
-  conv_mainloop<false, false>(g, wt, nullptr, nullptr, h, w, cg, cx, b, m0, n0, kt0, kt1,
-                              smem, acc);
+  conv_mainloop<false, false, TILE_W>(g, wt, nullptr, nullptr, h, w, cg, cx, b, m0, n0, kt0,
+                                      kt1, smem, acc);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* cs = reinterpret_cast<float*>(smem + SMEM_C) + warp * 256;
@@ -60,8 +71,10 @@ conv3x3_dx_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __re
     for (int i = 0; i < FM; ++i) {
       wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
-      const int p = m0 + wm * WARP_M + i * 16 + r;
-      if (p < hw && n < cx) {
+      int oy, ox;
+      const bool inside = tile_pixel<TILE_W>(blockIdx.x, wm * WARP_M + i * 16 + r, h, w, oy, ox);
+      if (inside && n < cx) {
+        const size_t p = (size_t)oy * w + ox;
         const size_t o = ((size_t)b * hw + p) * cx + n;
         float xv[8], d[8];
         unpack8(*reinterpret_cast<const uint4*>(x + o), xv);
@@ -108,6 +121,15 @@ conv3x3_dx_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __re
     partial[base] = pa;
     partial[base + cx] = pb;
   }
+}
+
+constexpr int DX_TILE_W = 16;  // K-dx-w: 8 x 16 pixel tiles
+
+// M tiles of an h x w image: runs of BM pixels, or K-dx-w's patches.
+inline int dx_mtiles(int h, int w, int wtiled) {
+  if (!wtiled) return (h * w + BM - 1) / BM;
+  constexpr int rows = BM / DX_TILE_W;
+  return ((h + rows - 1) / rows) * ((w + DX_TILE_W - 1) / DX_TILE_W);
 }
 
 // Split-K second pass: one thread per channel n of one EPI_ROWS-pixel chunk
@@ -165,23 +187,27 @@ __global__ void conv3x3_dx_reduce_kernel(const float* __restrict__ partial, floa
 // g [batch, h, w, cg] bf16 cotangent; wt [3,3,cg,cx] bf16; x [batch, h, w, cx]
 // bf16 pre-activation input; A, Bv [batch, cx] f32 -> dx [batch, h, w, cx]
 // bf16, dA, dB [batch, cx] f32. partial: [batch, cgd_conv3x3_dx_chunks(h, w,
-// ksplit), 2, cx] f32 scratch. ksplit > 1 splits K over that many blocks per tile and needs ws:
-// [ksplit, batch, h, w, cx] f32 scratch (null when ksplit == 1). Requires
+// ksplit, wtiled), 2, cx] f32 scratch. ksplit > 1 splits K over that many blocks per tile and needs ws:
+// [ksplit, batch, h, w, cx] f32 scratch (null when ksplit == 1). wtiled != 0
+// selects K-dx-w's 8 x 16 tiles (with ksplit == 1 only). Requires
 // cg % 32 == 0, cx % 8 == 0, 1 <= ksplit <= 9*cg/32, 16-byte aligned pointers.
 extern "C" int cgd_conv3x3_dx(const void* g, const void* wt, const void* x, const void* A,
                               const void* Bv, void* dx, void* partial, void* ws, void* dA,
                               void* dB, int batch, int h, int w, int cg, int cx, int ksplit,
-                              void* stream) {
+                              int wtiled, void* stream) {
   using namespace cgd;
   if (cg % BK || cx % 8 || batch <= 0 || h <= 0 || w <= 0 || ksplit < 1 ||
-      ksplit > 9 * (cg / BK) || (ksplit > 1 && ws == nullptr))
+      ksplit > 9 * (cg / BK) || (ksplit > 1 && ws == nullptr) || (wtiled && ksplit > 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int mtiles = (h * w + BM - 1) / BM;
-  static const cudaError_t smem_ok = allow_smem(conv3x3_dx_kernel);
+  const int mtiles = dx_mtiles(h, w, wtiled);
+  static const cudaError_t smem_ok = allow_smem(conv3x3_dx_kernel<0>);
+  static const cudaError_t smem_ok_w = allow_smem(conv3x3_dx_kernel<DX_TILE_W>);
   if (smem_ok != cudaSuccess) return (int)smem_ok;
+  if (smem_ok_w != cudaSuccess) return (int)smem_ok_w;
   dim3 grid(mtiles, (cx + BN - 1) / BN, batch * ksplit);
-  conv3x3_dx_kernel<<<grid, NTHREADS, SMEM_BYTES, s>>>(
+  auto kernel = wtiled ? conv3x3_dx_kernel<DX_TILE_W> : conv3x3_dx_kernel<0>;
+  kernel<<<grid, NTHREADS, SMEM_BYTES, s>>>(
       static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(wt),
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(A),
       static_cast<const float*>(Bv), static_cast<__nv_bfloat16*>(dx),
@@ -207,7 +233,7 @@ extern "C" int cgd_conv3x3_dx(const void* g, const void* wt, const void* x, cons
 }
 
 // Pixel chunks of the dA/dB partials buffer for an h x w image.
-extern "C" int cgd_conv3x3_dx_chunks(int h, int w, int ksplit) {
+extern "C" int cgd_conv3x3_dx_chunks(int h, int w, int ksplit, int wtiled) {
   using namespace cgd;
-  return ksplit > 1 ? (h * w + EPI_ROWS - 1) / EPI_ROWS : (h * w + BM - 1) / BM;
+  return ksplit > 1 ? (h * w + EPI_ROWS - 1) / EPI_ROWS : dx_mtiles(h, w, wtiled);
 }

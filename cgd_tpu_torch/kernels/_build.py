@@ -4,9 +4,10 @@ plain C interface, loaded with ctypes.
 The library is built at first use from the sources in ``cgd_tpu_torch/csrc``
 into ``build/cgd_tpu_torch/`` at the repository root (listed in
 ``.gitignore``), under a file name keyed by the sources' content, so an
-edited source rebuilds and an unchanged one loads the cached library.
-Nothing here runs at import time: the CPU-only test environment has no
-``nvcc``.
+edited source rebuilds and an unchanged one loads the cached library. Each
+``.cu`` compiles in its own nvcc process, all started together, and one more
+links the objects. Nothing here runs at import time: the CPU-only test
+environment has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cgd_tpu_torch"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -57,10 +58,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cgd_conv3x3_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.cgd_conv3x3_fwd.restype = i
-    lib.cgd_conv3x3_dx.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.cgd_conv3x3_dx.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.cgd_conv3x3_dx.restype = i
-    lib.cgd_conv3x3_dx_chunks.argtypes = [i, i, i]
+    lib.cgd_conv3x3_dx_chunks.argtypes = [i, i, i, i]
     lib.cgd_conv3x3_dx_chunks.restype = i
+    lib.cgd_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.cgd_attn_fwd.restype = i
+    lib.cgd_attn_bwd.argtypes = [p] * 10 + [i] * 7 + [p]
+    lib.cgd_attn_bwd.restype = i
     lib.cgd_conv3x3_tile_m.argtypes = []
     lib.cgd_conv3x3_tile_m.restype = i
     lib.cgd_error_string.argtypes = [i]
@@ -84,19 +89,40 @@ def library() -> ctypes.CDLL:
         if not so.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                   *(str(s) for s in srcs if s.suffix == ".cu")]
+            nvcc = _nvcc()
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                    f"{res.stdout}\n{res.stderr}"
-                )
+            objs, jobs = [], []
+            for src in (s for s in srcs if s.suffix == ".cu"):
+                obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+                cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True)))
+                objs.append(obj)
+            outputs = [proc.communicate()[0] for _, proc in jobs]  # wait for all
+            for (cmd, proc), out in zip(jobs, outputs):
+                _check_nvcc(cmd, proc.returncode, out)
+            link = [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            res = subprocess.run(link, capture_output=True, text=True)
+            _check_nvcc(link, res.returncode, res.stdout + res.stderr)
+            for obj in objs:
+                obj.unlink()
             build_seconds = time.perf_counter() - t0
             os.replace(tmp, so)
         _lib = _declare(ctypes.CDLL(str(so)))
         return _lib
+
+
+def _check_nvcc(cmd, returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{output}")
+
+
+def stream(dev) -> int:
+    """The handle of PyTorch's current CUDA stream on ``dev``: every kernel
+    launches there and does not synchronise."""
+    import torch
+
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def check(status: int, what: str) -> None:

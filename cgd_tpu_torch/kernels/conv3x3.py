@@ -12,6 +12,9 @@ Pallas kernels on the sampling path:
   the activation and the taps.
 - ``conv3x3_dx``: the one-pass backward of the prologue conv: transpose conv
   of the cotangent, then ``dx = acc*silu'(pre)*A`` and the dA/dB reductions.
+  At the 512^2 classes it runs as K-dx-w (8 x 16 pixel tiles instead of 128
+  consecutive pixels; see ``dx_wtiled``), which replaces the Pallas
+  ``_conv3x3_dx_wtiled``.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises. Nothing falls back from a failed build or launch.
@@ -34,12 +37,13 @@ import torch.nn.functional as F
 from cgd_tpu_torch.kernels import _build
 
 # launches of each kernel since the last reset_launch_counts()
-LAUNCHES = {"conv3x3_fwd": 0, "conv3x3_dx": 0}
+LAUNCHES = {"conv3x3_fwd": 0, "conv3x3_dx": 0, "conv3x3_dx_wtiled": 0}
 
 _K_ALIGN = 32  # kernels need Cin % 32 == 0 (one tap per K slice) ...
 _N_ALIGN = 8   # ... and Cout % 8 == 0 (16-byte vector loads and stores)
 _TILE_N = 128  # output channels per block (csrc/conv3x3_common.cuh BN)
 _MIN_SPLIT_K = 8  # K slices per split, at least
+_WTILED_MIN_W = 512  # K-dx-w from this image width up (the 512^2 classes)
 
 
 def reset_launch_counts() -> None:
@@ -124,10 +128,6 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _ksplit(dev: torch.device, tiles: int, cin: int) -> int:
     """How many blocks share the K loop of one output tile: 1 while the
     output tiles alone fill the card, else enough splits for about two
@@ -179,17 +179,29 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False) -> torch.Tensor
             None if A is None else A.data_ptr(), None if B is None else B.data_ptr(),
             None if skip is None else skip.data_ptr(), out.data_ptr(),
             None if ws_buf is None else ws_buf.data_ptr(),
-            b, hs, ws, cin_p, cout_p, int(up), ksplit, _stream(x.device),
+            b, hs, ws, cin_p, cout_p, int(up), ksplit, _build.stream(x.device),
         )
     _build.check(status, "conv3x3_fwd")
     LAUNCHES["conv3x3_fwd"] += 1
     return out[..., :cout].contiguous() if cout_p != cout else out
 
 
-def conv3x3_dx(g, wt, x, A, B) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def dx_wtiled(w: int, ksplit: int) -> bool:
+    """K-dx's tiling rule: 8 x 16 spatial tiles (K-dx-w) where a 128-pixel
+    row segment is a quarter row or less (W >= 512: the 512^2 classes, which
+    is where the JAX package's _pick_dx_tiles admits its W-tiled kernel) and
+    the output tiles fill the card without split K; 128 consecutive pixels
+    otherwise."""
+    return w >= _WTILED_MIN_W and ksplit == 1
+
+
+def conv3x3_dx(g, wt, x, A, B, wtiled: Optional[bool] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K-dx. g [b,h,w,cg] cotangent; wt [3,3,cg,cx] flipped/transposed
     weights; x [b,h,w,cx] pre-activation input; A/B [b,cx] f32
-    -> dx [b,h,w,cx] in g's dtype, dA/dB [b,cx] f32. No autograd."""
+    -> dx [b,h,w,cx] in g's dtype, dA/dB [b,cx] f32. No autograd.
+    ``wtiled`` forces the tiling (None: ``dx_wtiled``'s rule); the W-tiled
+    launches count under ``LAUNCHES["conv3x3_dx_wtiled"]``."""
     if g.device.type == "cpu":
         return conv3x3_dx_plain(g, wt, x, A, B)
     if g.device.type != "cuda":
@@ -207,8 +219,12 @@ def conv3x3_dx(g, wt, x, A, B) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor
     lib = _build.library()
     mtiles = -(-h * w_ // lib.cgd_conv3x3_tile_m())
     ksplit = _ksplit(g.device, mtiles * -(-cx_p // _TILE_N) * b, cg_p)
+    if wtiled is None:
+        wtiled = dx_wtiled(w_, ksplit)
+    if wtiled:
+        ksplit = 1
     dx = torch.empty((b, h, w_, cx_p), dtype=g.dtype, device=g.device)
-    chunks = lib.cgd_conv3x3_dx_chunks(h, w_, ksplit)
+    chunks = lib.cgd_conv3x3_dx_chunks(h, w_, ksplit, int(wtiled))
     partial = torch.empty((b, chunks, 2, cx_p), dtype=torch.float32, device=g.device)
     dA = torch.empty((b, cx_p), dtype=torch.float32, device=g.device)
     dB = torch.empty((b, cx_p), dtype=torch.float32, device=g.device)
@@ -217,10 +233,11 @@ def conv3x3_dx(g, wt, x, A, B) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor
         status = lib.cgd_conv3x3_dx(
             g.data_ptr(), wt.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(),
             dx.data_ptr(), partial.data_ptr(), None if ws_buf is None else ws_buf.data_ptr(),
-            dA.data_ptr(), dB.data_ptr(), b, h, w_, cg_p, cx_p, ksplit, _stream(g.device),
+            dA.data_ptr(), dB.data_ptr(), b, h, w_, cg_p, cx_p, ksplit, int(wtiled),
+            _build.stream(g.device),
         )
     _build.check(status, "conv3x3_dx")
-    LAUNCHES["conv3x3_dx"] += 1
+    LAUNCHES["conv3x3_dx_wtiled" if wtiled else "conv3x3_dx"] += 1
     if cx_p != cx:
         return dx[..., :cx].contiguous(), dA[:, :cx].contiguous(), dB[:, :cx].contiguous()
     return dx, dA, dB

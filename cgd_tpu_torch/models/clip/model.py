@@ -1,9 +1,11 @@
-"""CLIP ViT and text towers as PyTorch modules, counterpart of
-``cgd_tpu/models/clip/model.py`` (the ModifiedResNet tower is not ported
-yet). Module paths follow the JAX pytree (``visual.blocks.0.attn_qkv.kernel``)
-so weights carry across by name; layouts are the JAX ones (NHWC images,
-``[in, out]`` dense kernels, HWIO patch kernel). LayerNorm and softmax run in
-f32 islands inside bf16 activations.
+"""CLIP towers (ViT, ModifiedResNet, text) as PyTorch modules, counterpart
+of ``cgd_tpu/models/clip/model.py``. Module paths follow the JAX pytree
+(``visual.blocks.0.attn_qkv.kernel``, ``visual.layer3.5.conv2.kernel``) so
+weights carry across by name; layouts are the JAX ones (NHWC images,
+``[in, out]`` dense kernels, HWIO conv kernels). LayerNorm, the folded
+BatchNorm and softmax run in f32 islands inside bf16 activations. The
+ModifiedResNet's convs are plain ``F.conv2d`` (the JAX package runs them as
+XLA convs, outside its Pallas kernels).
 """
 
 from __future__ import annotations
@@ -11,9 +13,15 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from cgd_tpu_torch.models.clip.configs import CLIPConfig, TextConfig, VisionViTConfig
+from cgd_tpu_torch.models.clip.configs import (
+    CLIPConfig,
+    TextConfig,
+    VisionResNetConfig,
+    VisionViTConfig,
+)
 from cgd_tpu_torch.models.unet import Dense, Norm, _empty, init_leaves
 from cgd_tpu_torch.ops import nn as cnn
 
@@ -61,12 +69,18 @@ class Block(nn.Module):
         return x + cnn.dense(self.mlp_proj, h)
 
 
-class _PatchKernel(nn.Module):
-    """The patchify conv's HWIO kernel (no bias)."""
+class _ConvKernel(nn.Module):
+    """A bias-free HWIO conv kernel (``cgd_tpu.ops.nn.conv_init``'s kernel)."""
 
-    def __init__(self, p: int, width: int, device=None):
+    def __init__(self, kh: int, kw: int, cin: int, cout: int, device=None):
         super().__init__()
-        self.kernel = _empty((p, p, 3, width), device, torch.float32)
+        self.kernel = _empty((kh, kw, cin, cout), device, torch.float32)
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator):
+        kh, kw, cin, _ = self.kernel.shape
+        bound = 1.0 / math.sqrt(kh * kw * cin)
+        self.kernel.uniform_(-bound, bound, generator=gen)
 
 
 class ViT(nn.Module):
@@ -74,7 +88,7 @@ class ViT(nn.Module):
         super().__init__()
         self.cfg = cfg
         n_tok = (cfg.input_resolution // cfg.patch_size) ** 2 + 1
-        self.conv1 = _PatchKernel(cfg.patch_size, cfg.width, device)
+        self.conv1 = _ConvKernel(cfg.patch_size, cfg.patch_size, 3, cfg.width, device)
         self.class_embedding = _empty((cfg.width,), device, torch.float32)
         self.positional_embedding = _empty((n_tok, cfg.width), device, torch.float32)
         self.ln_pre = Norm(cfg.width, device)
@@ -109,6 +123,126 @@ class ViT(nn.Module):
         return h @ self.proj.to(h.dtype)
 
 
+# ---------------------------------------------------------------------------
+# ModifiedResNet visual tower
+# ---------------------------------------------------------------------------
+
+def _bn(p, x: torch.Tensor) -> torch.Tensor:
+    """Folded (inference) BatchNorm: x*scale + bias in f32, cast back."""
+    return (x.float() * p.scale + p.bias).to(x.dtype)
+
+
+def _conv(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Bias-free NHWC conv with the HWIO kernel, symmetric k//2 padding."""
+    k = p.kernel.to(x.dtype)
+    out = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), stride=stride,
+                   padding=(k.shape[0] // 2, k.shape[1] // 2))
+    return out.permute(0, 2, 3, 1)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, planes: int, stride: int, device=None):
+        super().__init__()
+        self.stride = stride
+        self.conv1 = _ConvKernel(1, 1, cin, planes, device)
+        self.bn1 = Norm(planes, device)
+        self.conv2 = _ConvKernel(3, 3, planes, planes, device)
+        self.bn2 = Norm(planes, device)
+        self.conv3 = _ConvKernel(1, 1, planes, planes * 4, device)
+        self.bn3 = Norm(planes * 4, device)
+        self.down_conv = self.down_bn = None
+        if stride > 1 or cin != planes * 4:
+            self.down_conv = _ConvKernel(1, 1, cin, planes * 4, device)
+            self.down_bn = Norm(planes * 4, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(_bn(self.bn1, _conv(self.conv1, x)))
+        out = F.relu(_bn(self.bn2, _conv(self.conv2, out)))
+        if self.stride > 1:
+            out = cnn.avg_pool_2x(out)  # anti-aliased rect-2 downsample
+        out = _bn(self.bn3, _conv(self.conv3, out))
+        identity = x
+        if self.down_conv is not None:
+            if self.stride > 1:
+                identity = cnn.avg_pool_2x(identity)
+            identity = _bn(self.down_bn, _conv(self.down_conv, identity))
+        return F.relu(out + identity)
+
+
+class AttnPool(nn.Module):
+    """Attention pooling whose single query is the mean token."""
+
+    def __init__(self, spacial: int, c: int, embed_dim: int, heads: int, device=None):
+        super().__init__()
+        self.heads = heads
+        self.positional_embedding = _empty((spacial ** 2 + 1, c), device, torch.float32)
+        self.q_proj = Dense(c, c, device=device)
+        self.k_proj = Dense(c, c, device=device)
+        self.v_proj = Dense(c, c, device=device)
+        self.c_proj = Dense(c, embed_dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [B, H, W, C] -> [B, embed_dim]."""
+        b, h, w, c = x.shape
+        t = x.reshape(b, h * w, c)
+        t = torch.cat([t.mean(dim=1, keepdim=True), t], dim=1)
+        t = t + self.positional_embedding.to(t.dtype)
+        d = c // self.heads
+        q = cnn.dense(self.q_proj, t[:, :1]).reshape(b, 1, self.heads, d).transpose(1, 2)
+        k = cnn.dense(self.k_proj, t).reshape(b, -1, self.heads, d).transpose(1, 2)
+        v = cnn.dense(self.v_proj, t).reshape(b, -1, self.heads, d).transpose(1, 2)
+        logits = (q @ k.transpose(-1, -2)).float() / math.sqrt(d)
+        wgt = torch.softmax(logits, dim=-1).to(t.dtype)
+        o = (wgt @ v).to(t.dtype).transpose(1, 2).reshape(b, c)
+        return cnn.dense(self.c_proj, o)
+
+
+class ModifiedResNet(nn.Module):
+    """CLIP's ResNet tower (RN50 ... RN50x16): a 3-conv stem, four stages of
+    bottlenecks with anti-aliased (avg-pool) strides, attention pooling."""
+
+    def __init__(self, cfg: VisionResNetConfig, embed_dim: int, device=None):
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.width
+        self.conv1 = _ConvKernel(3, 3, 3, w // 2, device)
+        self.bn1 = Norm(w // 2, device)
+        self.conv2 = _ConvKernel(3, 3, w // 2, w // 2, device)
+        self.bn2 = Norm(w // 2, device)
+        self.conv3 = _ConvKernel(3, 3, w // 2, w, device)
+        self.bn3 = Norm(w, device)
+        cin = w
+        for i, (blocks, planes, stride) in enumerate(
+                zip(cfg.layers, (w, w * 2, w * 4, w * 8), (1, 2, 2, 2))):
+            layer = [Bottleneck(cin, planes, stride, device)]
+            cin = planes * 4
+            layer += [Bottleneck(cin, planes, 1, device) for _ in range(blocks - 1)]
+            setattr(self, f"layer{i + 1}", nn.ModuleList(layer))
+        self.attnpool = AttnPool(cfg.input_resolution // 32, w * 32, embed_dim, cfg.heads, device)
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator):
+        """``_init_resnet``'s scales, in its order: conv kernels uniform in
+        +-1/sqrt(fan_in), unit folded BN, the attnpool's positional embedding
+        normal / sqrt(C), its projections uniform in +-1/sqrt(fan_in)."""
+        for m in self.modules():
+            if isinstance(m, (_ConvKernel, Norm, Dense)):
+                m.init_weights(gen)
+        pe = self.attnpool.positional_embedding
+        pe.normal_(generator=gen).div_(pe.shape[1] ** 0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [B, R, R, 3] normalized images -> [B, embed_dim]."""
+        h = F.relu(_bn(self.bn1, _conv(self.conv1, x, stride=2)))
+        h = F.relu(_bn(self.bn2, _conv(self.conv2, h)))
+        h = F.relu(_bn(self.bn3, _conv(self.conv3, h)))
+        h = cnn.avg_pool_2x(h)
+        for i in range(4):
+            for blk in getattr(self, f"layer{i + 1}"):
+                h = blk(h)
+        return self.attnpool(h)
+
+
 class Text(nn.Module):
     def __init__(self, cfg: TextConfig, embed_dim: int, device=None):
         super().__init__()
@@ -141,11 +275,11 @@ class Text(nn.Module):
 class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, device=None):
         super().__init__()
-        if not cfg.is_vit:
-            raise NotImplementedError(
-                f"{cfg.name}: the ModifiedResNet CLIP tower is not ported yet (ViT only)")
         self.cfg = cfg
-        self.visual = ViT(cfg.vision, cfg.embed_dim, device)
+        if cfg.is_vit:
+            self.visual = ViT(cfg.vision, cfg.embed_dim, device)
+        else:
+            self.visual = ModifiedResNet(cfg.vision, cfg.embed_dim, device)
         self.text = Text(cfg.text, cfg.embed_dim, device)
 
     def init_weights(self, gen: torch.Generator) -> "CLIP":

@@ -231,7 +231,7 @@ class ResBlock(nn.Module):
 
     def forward(self, x, emb):
         # GN+SiLU (+ the up/down resample) fused into the conv's load on the
-        # kernel route; the exact unfused chain under conv_routing("plain")
+        # kernel route; the exact unfused chain under kernel_routing("plain")
         h = cnn.fused_gn_silu_conv(self.in_norm, self.in_conv, x, resample=self.mode)
         if self.mode == "up":
             x = cnn.upsample_nearest_2x(x)

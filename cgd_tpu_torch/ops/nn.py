@@ -13,12 +13,15 @@ Parameters arrive as small modules (or any object) with the JAX leaf names
 as attributes: ``p.kernel``/``p.bias`` (conv, dense), ``p.scale``/``p.bias``
 (GroupNorm), ``p.table`` (embedding).
 
-Conv routing: by default every 3x3 stride-1 pad-1 conv goes through the conv
-family of ``cgd_tpu_torch.kernels.conv3x3`` (hand-written CUDA kernels on a
+Kernel routing: by default every 3x3 stride-1 pad-1 conv goes through the
+conv family of ``cgd_tpu_torch.kernels.conv3x3`` and the UNet's attention
+through ``cgd_tpu_torch.kernels.attention`` (hand-written CUDA kernels on a
 CUDA tensor, their plain versions on a CPU tensor), and the ResBlock chain
-GroupNorm -> SiLU -> conv is fused into the kernel's load prologue.
-``conv_routing("plain")`` forces the unfused PyTorch chain (cuDNN convs on
-the card); it exists to compare the kernels with PyTorch's own ops.
+GroupNorm -> SiLU -> conv is fused into the conv kernel's load prologue.
+``kernel_routing("plain")`` forces the unfused PyTorch chains of the JAX
+package's defaults (cuDNN convs and the einsum/softmax attention on the
+card); it exists to compare the kernels with PyTorch's own ops. The default
+equals the JAX package with ``CGD_TPU_PALLAS_ATTN=1``.
 """
 
 from __future__ import annotations
@@ -30,29 +33,30 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from cgd_tpu_torch.kernels import attention as kattn
 from cgd_tpu_torch.kernels import conv3x3 as k3
 
-_conv_routing_override: Optional[str] = None  # see conv_routing()
+_routing_override: Optional[str] = None  # see kernel_routing()
 
 
 @contextlib.contextmanager
-def conv_routing(mode: Optional[str]):
-    """Force conv routing for the dynamic extent: ``"plain"`` (unfused
-    PyTorch ops, F.conv2d) or ``None`` (the default: the kernel family).
-    Process-local and restored on exit."""
-    global _conv_routing_override
+def kernel_routing(mode: Optional[str]):
+    """Force the routing of the convs and the attention for the dynamic
+    extent: ``"plain"`` (unfused PyTorch ops: F.conv2d, einsum/softmax) or
+    ``None`` (the default: the kernels). Process-local and restored on exit."""
+    global _routing_override
     if mode not in (None, "plain"):
-        raise ValueError(f"conv_routing mode must be None or 'plain', got {mode!r}")
-    prev = _conv_routing_override
-    _conv_routing_override = mode
+        raise ValueError(f"kernel_routing mode must be None or 'plain', got {mode!r}")
+    prev = _routing_override
+    _routing_override = mode
     try:
         yield
     finally:
-        _conv_routing_override = prev
+        _routing_override = prev
 
 
 def _kernel_route() -> bool:
-    return _conv_routing_override is None
+    return _routing_override is None
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -151,7 +155,7 @@ def fused_gn_silu_conv(
     per-(batch, channel) f32 vectors A/B (act = silu(x*A + B)) that the conv
     kernel applies while loading; ``up`` is fused too. ``down`` stays
     unfused (as in the JAX package), its conv on the kernel route. Under
-    ``conv_routing("plain")`` the whole chain is unfused PyTorch.
+    ``kernel_routing("plain")`` the whole chain is unfused PyTorch.
     """
     if not _kernel_route() or resample == "down":
         h = group_norm(norm_p, x, num_groups, eps)
@@ -215,8 +219,12 @@ def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
 
 def qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Multi-head self-attention from a fused [B, T, 3C] qkv laid out
-    [q_heads | k_heads | v_heads]; q and k each scaled by d^-1/4, softmax in
-    f32 cast back to qkv's dtype. Returns [B, T, C]."""
+    [q_heads | k_heads | v_heads]; q and k each scaled by d^-1/4. Returns
+    [B, T, C]. The kernel route is K-attn-f / K-attn-b (f32 softmax, as the
+    JAX package's Pallas kernel); the plain route is the JAX default chain
+    (softmax in f32 cast back to qkv's dtype before the product with v)."""
+    if _kernel_route():
+        return kattn.qkv_attention(qkv, num_heads)
     b, t, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads

@@ -4,7 +4,8 @@ the port's copy of the registry; loading the published checkpoints is not
 ported yet.
 
 ``CGD_TPU_DEBUG_TINY=1`` swaps in the JAX package's toy-size UNet and CLIP
-(the same escape hatch as ``cgd_tpu.weights``), for CPU smoke runs.
+(the same escape hatch as ``cgd_tpu.weights``: every CLIP tower, ModifiedResNet
+included, becomes a tiny ViT), for CPU smoke runs.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ def resolve_unet(
 
 
 def resolve_clip(model_name: str, mode: str = "random", device="cuda") -> Tuple[CLIP, CLIPConfig]:
+    """Any of the registry's CLIP models, ViT or ModifiedResNet, random."""
     _check_mode(mode)
     cfg = CLIP_CONFIGS.get(model_name)
     if cfg is None:

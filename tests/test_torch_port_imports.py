@@ -23,7 +23,9 @@ MODULES = sorted(
 
 def test_every_port_module_is_listed():
     assert "cgd_tpu_torch.kernels.conv3x3" in MODULES
+    assert "cgd_tpu_torch.kernels.attention" in MODULES
     assert "cgd_tpu_torch.api" in MODULES
+    assert "cgd_tpu_torch.cli" in MODULES
     assert len(MODULES) >= 20
 
 

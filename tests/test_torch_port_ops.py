@@ -100,17 +100,17 @@ def test_fused_gn_silu_conv_forward_and_gradients(resample, with_emb_and_skip):
 
 
 def test_fused_matches_plain_routing():
-    """The kernel route (A/B fold) and conv_routing("plain") (unfused chain)
+    """The kernel route (A/B fold) and kernel_routing("plain") (unfused chain)
     compute the same function."""
     rs = _rs(5)
     x = torch.from_numpy(rs.randn(1, 8, 16, 32).astype(np.float32))
     norm, conv = _ns(_norm(32, 6)), _ns(_conv(3, 32, 48, 7))
     fused = tnn.fused_gn_silu_conv(norm, conv, x)
-    with tnn.conv_routing("plain"):
+    with tnn.kernel_routing("plain"):
         plain = tnn.fused_gn_silu_conv(norm, conv, x)
     np.testing.assert_allclose(fused.numpy(), plain.numpy(), **FWD)
     with pytest.raises(ValueError):
-        with tnn.conv_routing("spmd"):
+        with tnn.kernel_routing("spmd"):
             pass
 
 

@@ -96,11 +96,12 @@ def _draws(n_steps, seed=0):
     )
 
 
-def _pair(models, d, respacing, use_ddim, use_magnitude=False):
+def _pair(models, d, respacing, use_ddim, use_magnitude=False, rescale=False, steps=1000):
     """JAX and port (diffusion, builder, sampler cfg, model_fn) on the same
     weights, targets and cutout coordinates."""
-    jdiff = jgauss.make_diffusion(timestep_respacing=respacing)
-    tdiff = tgauss.make_diffusion(timestep_respacing=respacing)
+    kw = dict(steps=steps, timestep_respacing=respacing, rescale_timesteps=rescale)
+    jdiff = jgauss.make_diffusion(**kw)
+    tdiff = tgauss.make_diffusion(**kw)
     settings = dict(clip_guidance_scale=1000.0, tv_scale=150.0, range_scale=50.0,
                     sat_scale=10.0, use_magnitude=use_magnitude, clip_compute_dtype="float32")
     jbuilder = jpipe.make_guidance_builder(
@@ -142,6 +143,43 @@ def test_one_guided_step_matches_jax(models, use_ddim, use_magnitude):
                                  torch.Generator().manual_seed(0),
                                  noise_override=torch.from_numpy(d["noise"][0]))
     assert int(y) == 3 and "Total Loss" in log and ("Magnitude" in log) == use_magnitude
+    _close(pred, pred_ref, "pred_xstart")
+    _close(x_next, x_ref, "x_next")
+
+
+@pytest.fixture(scope="module")
+def models_512style(models):
+    """The 512px model's traits at toy size: a fractional first channel
+    multiplier (0.5, 1, 2), with the same CLIP."""
+    ukw = dict(image_size=SIZE, model_channels=32, num_res_blocks=1, attention_ds=(2,),
+               channel_mult=(0.5, 1, 2), num_head_channels=16, num_classes=10)
+    jucfg, tucfg = junet.UNetConfig(**ukw), tunet.UNetConfig(**ukw)
+    uparams = _perturb(junet.init_unet(jax.random.PRNGKey(2), jucfg), 2)
+    return dict(models, jucfg=jucfg, jparams={**models["jparams"], "unet": uparams},
+                unet=load_from_jax(tunet.UNet(tucfg), uparams))
+
+
+def test_512style_guided_step_with_rescaled_timesteps_matches_jax(models_512style):
+    """One guided DDIM step as the 512px configuration runs it:
+    rescale_timesteps=True (the model sees t * 1000 / T; T = 500 here, so
+    the rescale is not the identity it is at T = 1000) and the fractional
+    channel_mult."""
+    models = models_512style
+    d = _draws(1, seed=2)
+    jdiff, jb, jcfg, jmodel, tdiff, tb, tcfg, tmodel = _pair(
+        models, d, "ddim25", True, rescale=True, steps=500)
+    t = np.array([0, 17, 24])
+    np.testing.assert_allclose(tdiff.model_time(torch.from_numpy(t)).numpy(),
+                               np.asarray(jdiff.model_time(jnp.asarray(t))), rtol=1e-6)
+    assert float(tdiff.model_time(torch.tensor([24]))) == pytest.approx(960.0)
+    meta = jsampler.StepMeta(t=17, guided=True, cutn=CUTN)
+    jstep = jax.jit(jsampler.make_guided_step(jdiff, jmodel, jb(meta), jcfg))
+    x_ref, pred_ref, _ = jstep(models["jparams"], jnp.asarray(d["x"]), 17, 20, jnp.asarray([5]),
+                               jax.random.PRNGKey(0), noise_override=jnp.asarray(d["noise"][0]))
+    tstep = tsampler.make_guided_step(tdiff, tmodel, tb(tsampler.StepMeta(17, True, CUTN)), tcfg)
+    x_next, pred, _, _ = tstep(torch.from_numpy(d["x"]), 17, 20, torch.tensor([5]),
+                               torch.Generator().manual_seed(0),
+                               noise_override=torch.from_numpy(d["noise"][0]))
     _close(pred, pred_ref, "pred_xstart")
     _close(x_next, x_ref, "x_next")
 

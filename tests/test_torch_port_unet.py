@@ -68,9 +68,9 @@ def test_unet_forward_and_input_gradient_match_jax(class_cond, scale_shift):
 
 
 def test_plain_routing_matches_kernel_routing():
-    """conv_routing("plain") (unfused F.conv2d chain) and the default
+    """kernel_routing("plain") (unfused F.conv2d chain) and the default
     kernel route compute the same UNet."""
-    from cgd_tpu_torch.ops.nn import conv_routing
+    from cgd_tpu_torch.ops.nn import kernel_routing
 
     jcfg, tcfg = _tiny_cfgs(True)
     model = load_from_jax(tunet.UNet(tcfg), _perturbed_params(jcfg, 2))
@@ -78,7 +78,7 @@ def test_plain_routing_matches_kernel_routing():
     t, y = torch.tensor([50.0]), torch.tensor([2])
     with torch.no_grad():
         fused = model(x, t, y)
-        with conv_routing("plain"):
+        with kernel_routing("plain"):
             plain = model(x, t, y)
     np.testing.assert_allclose(fused.numpy(), plain.numpy(), **TOL)
 
@@ -117,3 +117,51 @@ def test_full_256px_parameter_tree_matches_jax():
     tshapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert tshapes == jshapes
     assert sum(np.prod(s) for s in tshapes.values()) > 500e6
+
+
+@pytest.mark.parametrize("cond", ["cond", "uncond"])
+def test_full_512px_parameter_trees_match_jax(cond):
+    """The 512px operating point (7 levels, channel_mult (0.5, 1, 1, 2, 2,
+    4, 4)): the port's block plan, parameter paths and shapes are the JAX
+    pytree's."""
+    flags = DIFFUSION_LOOKUP[cond][512]["model_flags"]
+    jcfg = junet.UNetConfig.from_flags(flags)
+    tcfg = tunet.UNetConfig.from_flags(flags)
+    assert tcfg.channel_mult == jcfg.channel_mult == (0.5, 1, 1, 2, 2, 4, 4)
+    assert tunet.block_plan(tcfg) == junet.block_plan(jcfg)
+    shapes = jax.eval_shape(lambda: junet.init_unet(jax.random.PRNGKey(0), jcfg))
+    jshapes = {
+        ".".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path): tuple(leaf.shape)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]
+    }
+    model = tunet.UNet(tcfg, device="meta")
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == jshapes
+    assert jshapes["conv_in.kernel"] == (3, 3, 3, 128)
+    assert ("label_emb.table" in jshapes) == (cond == "cond")
+
+
+def test_fractional_channel_mult_unet_matches_jax():
+    """A tiny UNet with the 512px model's fractional first multiplier
+    (channel_mult (0.5, 1, 2): 16 channels at full resolution), forward and
+    input gradient against apply_unet."""
+    kw = dict(image_size=32, model_channels=32, num_res_blocks=1, attention_ds=(2, 4),
+              channel_mult=(0.5, 1, 2), num_head_channels=16, num_classes=7)
+    jcfg, tcfg = junet.UNetConfig(**kw), tunet.UNetConfig(**kw)
+    params = _perturbed_params(jcfg, 4)
+    model = load_from_jax(tunet.UNet(tcfg), params)
+    assert model.conv_in.kernel.shape == (3, 3, 3, 16)
+    rs = np.random.RandomState(6)
+    x = rs.randn(1, 32, 32, 3).astype(np.float32)
+    t, y = np.array([400.0], np.float32), np.array([3])
+    probe = rs.randn(1, 32, 32, 6).astype(np.float32)
+
+    def jloss(x_):
+        out = junet.apply_unet(params, jcfg, x_, jnp.asarray(t), jnp.asarray(y))
+        return jnp.sum(jnp.sin(out) * probe), out
+
+    (_, ref), gref = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = model(xt, torch.from_numpy(t), torch.from_numpy(y))
+    (torch.sin(out) * torch.from_numpy(probe)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gref), **TOL)
