@@ -5,8 +5,11 @@ contract — yields ``(batch_idx, saved_frame_path)`` per saved frame — and th
 same output tree. The slice ported so far: text prompts with weights,
 class-conditional or unconditional ADM UNet (64-512px) with random weights,
 any CLIP tower (ViT or ModifiedResNet), DDIM (``timestep_respacing="ddimN"``) or ancestral sampling, cutouts (fresh
-or cached), the spherical / TV / range / saturation losses and the magnitude
-clamp. Every other option raises rather than being ignored.
+or cached), the spherical / TV / range / saturation losses, the magnitude
+clamp, and ``mesh=`` (``cgd_tpu_torch.parallel.mesh``): batch split over
+'data', the UNet's activations split by height over 'cut' (every 3x3 conv on
+K-halo), the cutouts split over every mesh device. Every other option raises
+rather than being ignored.
 
 ``device`` defaults to ``"cuda"``; with no card that is an error. The CPU is
 used only when the caller passes ``device="cpu"``.
@@ -34,6 +37,7 @@ from cgd_tpu_torch.guidance.prompts import parse_prompt
 from cgd_tpu_torch.io_utils.images import log_image
 from cgd_tpu_torch.models.clip.model import encode_text
 from cgd_tpu_torch.ops.nn import cast_conv_params
+from cgd_tpu_torch.parallel.mesh import shard_params_replicated, split_activation
 from cgd_tpu_torch.validate import check_parameters
 from cgd_tpu_torch.weights import resolve_clip, resolve_unet
 
@@ -121,13 +125,15 @@ def clip_guided_diffusion(
     mesh=None,
     wandb_project: Optional[str] = None,
 ) -> Iterator[Tuple[int, str]]:
+    if mesh is not None and any(d.type != torch.device(device).type for d in mesh.devices.flat):
+        raise ValueError(f"device={device!r} but the mesh's devices are {list(mesh.devices.flat)}")
     dev = resolve_device(device)
     _refuse(
         image_prompts=(tuple(image_prompts), ()), init_image=(init_image, None),
         init_scale=(init_scale, 0), use_augs=(use_augs, False),
         dpm_solver=(dpm_solver, False), fast_guidance=(fast_guidance, False),
         checkpoint_path=(checkpoint_path, None), resume_from=(resume_from, None),
-        mesh=(mesh, None), skip_timesteps=(skip_timesteps, 0),
+        skip_timesteps=(skip_timesteps, 0),
         reduce_clip=(reduce_clip, False), progressive_cutout=(progressive_cutout, False),
         height_offset=(height_offset, 0), width_offset=(width_offset, 0),
         wandb_project=(wandb_project, None),
@@ -152,6 +158,21 @@ def clip_guided_diffusion(
     if not use_magnitude and image_size == 64:
         use_magnitude = True
         say("Enabling magnitude for 64x64 checkpoints.")
+    if mesh is not None:
+        dev = mesh.main
+        data_size = mesh.shape["data"]
+        if batch_size % data_size != 0:
+            raise ValueError(
+                f"batch_size {batch_size} is not divisible by the mesh "
+                f"'data' axis ({data_size}) — use --mesh data=N with "
+                "N dividing the batch, or --mesh auto/cut=M for batch 1"
+            )
+        if num_cutouts % mesh.size != 0:
+            say(
+                f"(warning) num_cutouts {num_cutouts} is not divisible by "
+                f"the {mesh.size}-device mesh; cutout shards will be uneven"
+            )
+        say(f"Mesh engaged: {mesh.shape}")
     Path(prefix_path).mkdir(parents=True, exist_ok=True)
     cdtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
 
@@ -165,6 +186,9 @@ def clip_guided_diffusion(
     if cdtype == torch.bfloat16:
         cast_conv_params(unet, cdtype)
         cast_conv_params(clip_model, cdtype)
+    if mesh is not None:
+        unet.check_split(image_size, image_size, mesh.shape["cut"])
+        shard_params_replicated(unet, mesh)  # the split ops find the copies
     tokenizer = _FallbackTokenizer(clip_cfg.text.vocab_size)
 
     # ---- prompt encoding ----------------------------------------------
@@ -195,7 +219,7 @@ def clip_guided_diffusion(
     )
     builder = make_guidance_builder(
         clip_model, clip_cfg, target_embeds, weights, diffusion, settings,
-        cached_coords=cached_coords)
+        cached_coords=cached_coords, mesh=mesh)
     sampler_cfg = SamplerConfig(
         use_ddim=timestep_respacing.startswith("ddim"),
         randomize_class=(randomize_class and class_cond),
@@ -203,7 +227,10 @@ def clip_guided_diffusion(
     )
 
     def model_fn(x, t_model, y):
-        return unet(x, t_model, y, compute_dtype=cdtype)
+        if mesh is None:
+            return unet(x, t_model, y, compute_dtype=cdtype)
+        # split x over the mesh, run the split UNet, gather the output whole
+        return unet(split_activation(x, mesh), t_model, y, compute_dtype=cdtype).gather()
 
     y_init = torch.zeros((batch_size,), dtype=torch.long, device=dev) if class_cond else None
     shape = (batch_size, image_size, image_size, 3)

@@ -5,7 +5,9 @@
     python -m cgd_tpu_torch.cli --prompts "a lighthouse" -size 512 -clip RN50x16 \\
         -cutn 16 -respace ddim25 --weights-mode random
 
-``--device`` defaults to ``cuda`` and nothing falls back to the CPU. Flags
+``--device`` defaults to ``cuda`` and nothing falls back to the CPU.
+``--mesh`` builds its mesh over the visible devices of that kind (every card;
+the one CPU device for ``--device cpu``). Flags
 the port cannot honour yet raise ``NotImplementedError`` naming the flag;
 the API refuses the options it does not take (``-skip``, ``-is``,
 ``-reduce``, offsets, W&B, checkpoint loading). ``--dropout`` is accepted
@@ -31,7 +33,6 @@ REFUSED = {
     "use_augs": "-augs/--use_augs",
     "save_as_gif": "-gif/--save-as-gif",
     "save_as_video": "-mp4/--save-as-video",
-    "mesh": "--mesh",
     "profile": "--profile",
     "log_losses": "--log-losses",
     "fast_guidance": "--fast-guidance",
@@ -113,7 +114,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weights-mode", default="auto", choices=["auto", "random"],
                    help="'auto' loads checkpoints (not ported: raises); 'random' uses random init")
     p.add_argument("--mesh", default=None, type=str, metavar="SPEC",
-                   help="shard the run across devices (not ported: raises)")
+                   help="shard the run across every visible card: 'auto' "
+                        "(all devices; no-op on one device), 'data=N' (N-way "
+                        "batch parallelism, the rest split cutouts + UNet "
+                        "height), 'cut=M', or 'data=N,cut=M'. Weights are "
+                        "replicated (see cgd_tpu_torch/parallel/mesh.py)")
     p.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"],
                    help="activation dtype (the CUDA kernels take bfloat16)")
     p.add_argument("--profile", default=None, type=str,
@@ -149,6 +154,14 @@ def main(argv=None):
 
     from cgd_tpu_torch.api import clip_guided_diffusion
 
+    mesh = None
+    if args.mesh:
+        from cgd_tpu_torch.parallel.mesh import mesh_from_spec, visible_devices
+
+        mesh = mesh_from_spec(args.mesh, visible_devices(args.device))
+        if mesh is None and not args.quiet:
+            print("--mesh auto: one device visible; running single-chip")
+
     cgd_generator = clip_guided_diffusion(
         prompts=prompts,
         batch_size=args.batch_size,
@@ -181,6 +194,7 @@ def main(argv=None):
         cached_cutouts=args.cached_cutouts,
         weights_mode=args.weights_mode,
         compute_dtype=args.compute_dtype,
+        mesh=mesh,
     )
     list(enumerate(cgd_generator))  # drain the generator
 

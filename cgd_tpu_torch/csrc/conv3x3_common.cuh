@@ -98,12 +98,19 @@ __device__ __forceinline__ bool tile_pixel(int mt, int row, int h, int w, int& o
 // each loaded element becomes bf16(silu(x*A + B)) (A/B: [batch, cin] f32),
 // and taps outside the image load zero AFTER the activation, which is the
 // conv's zero padding of the activated tensor.
-template <bool PROLOGUE, bool UP, int TILE_W = 0>
+// HALO (K-halo, one shard of a height-split image): the taps of row -1 and
+// row hs read etop / ebot ([batch, 1, ws, cin] bf16, the neighbour shards'
+// boundary rows, zero at the true image edges) instead of loading zero.
+// Those rows arrive already activated: the prologue skips them.
+template <bool PROLOGUE, bool UP, int TILE_W = 0, bool HALO = false>
 __device__ __forceinline__ void conv_mainloop(
     const __nv_bfloat16* __restrict__ src, const __nv_bfloat16* __restrict__ w,
     const float* __restrict__ Avec, const float* __restrict__ Bvec,
     int hs, int ws, int cin, int cout, int b, int m0, int n0, int kt_begin, int kt_end,
-    unsigned char* smem, AccFrag (&acc)[FM][FN]) {
+    unsigned char* smem, AccFrag (&acc)[FM][FN],
+    const __nv_bfloat16* __restrict__ etop = nullptr,
+    const __nv_bfloat16* __restrict__ ebot = nullptr) {
+  static_assert(!(HALO && UP), "a halo shard takes no fused nearest-2x");
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
@@ -133,13 +140,22 @@ __device__ __forceinline__ void conv_mainloop(
   auto stage_b = [&](int st) {
     return reinterpret_cast<__nv_bfloat16*>(smem + st * STAGE_BYTES + A_BYTES);
   };
-  // is row r's tap of slice kt inside the (upsampled) image? and where
-  auto tap_src = [&](int kt, int r, int& ci0, bool& inb) {
+  // where row r's tap of slice kt reads: inb = it loads at all (else zero),
+  // in_img = from the (upsampled) image itself, which the prologue activates
+  auto tap_src = [&](int kt, int r, int& ci0, bool& inb, bool& in_img) {
     const int tap = kt / kpt;
     ci0 = (kt - tap * kpt) * BK + a_chunk;
     const int ky = tap / 3, kx = tap - ky * 3;
     const int iy = a_oy[r] + ky - 1, ix = a_ox[r] + kx - 1;
-    inb = a_ok[r] && iy >= 0 && iy < ho && ix >= 0 && ix < wo;
+    const bool col_ok = a_ok[r] && ix >= 0 && ix < wo;
+    in_img = col_ok && iy >= 0 && iy < ho;
+    if constexpr (HALO) {
+      if (col_ok && (iy == -1 || iy == ho)) {
+        inb = true;
+        return (iy < 0 ? etop : ebot) + ((size_t)b * ws + ix) * cin + ci0;
+      }
+    }
+    inb = in_img;
     const int sy = UP ? (iy >> 1) : iy, sx = UP ? (ix >> 1) : ix;
     return inb ? src + (img + (size_t)sy * ws + sx) * cin + ci0 : src;
   };
@@ -147,8 +163,8 @@ __device__ __forceinline__ void conv_mainloop(
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       int ci0;
-      bool inb;
-      const __nv_bfloat16* g = tap_src(kt, r, ci0, inb);
+      bool inb, in_img;
+      const __nv_bfloat16* g = tap_src(kt, r, ci0, inb, in_img);
       cp_async16(stage_a(st) + ((tid >> 2) + r * 64) * A_LD + a_chunk, g, inb);
       const int k = kt * BK + b_row + r * 16;
       cp_async16(stage_b(st) + (b_row + r * 16) * B_LD + (tid & 15) * 8,
@@ -156,13 +172,14 @@ __device__ __forceinline__ void conv_mainloop(
     }
   };
   // the prologue, in place on this thread's own landed chunks: out-of-image
-  // taps stay zero (the zero padding of the activated tensor)
+  // taps stay zero (the zero padding of the activated tensor) and halo rows
+  // stay as they came (activated by the caller)
   auto activate = [&](int kt, int st) {
     int ci0;
-    bool inb[2];
-    tap_src(kt, 0, ci0, inb[0]);
-    tap_src(kt, 1, ci0, inb[1]);
-    if (!inb[0] && !inb[1]) return;
+    bool inb, act[2];
+    tap_src(kt, 0, ci0, inb, act[0]);
+    tap_src(kt, 1, ci0, inb, act[1]);
+    if (!act[0] && !act[1]) return;
     const float4* ap = reinterpret_cast<const float4*>(Avec + (size_t)b * cin + ci0);
     const float4* bp = reinterpret_cast<const float4*>(Bvec + (size_t)b * cin + ci0);
     const float4 a0 = ap[0], a1 = ap[1], b0 = bp[0], b1 = bp[1];
@@ -170,7 +187,7 @@ __device__ __forceinline__ void conv_mainloop(
     const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (!inb[r]) continue;
+      if (!act[r]) continue;
       uint4* q = reinterpret_cast<uint4*>(stage_a(st) + ((tid >> 2) + r * 64) * A_LD + a_chunk);
       float f[8];
       unpack8(*q, f);

@@ -9,6 +9,13 @@
 // The epilogue adds bias (and skip) in f32 and rounds once to bf16, as the
 // Pallas kernel does (conv_pallas.py:358-361).
 //
+// K-halo (etop / ebot given): the same kernel on one shard of an image split
+// by height over a mesh, replacing _conv3x3_pallas's explicit_halo mode
+// (conv_pallas.py:335-337, reached from conv_spmd.py:139). The taps of the
+// rows above and below the shard read the neighbours' boundary rows, which
+// the caller has activated already, instead of the zero pad. A template
+// flag, so the unsplit launches compile exactly as before; no up fusion.
+//
 // Bound: compute (tensor cores) for Cin >= 256; the prologue's sigmoid runs
 // once per loaded element and N tile, a small fraction of the MMA work.
 // Design: see conv3x3_common.cuh (implicit GEMM, WMMA bf16 -> f32, a
@@ -18,11 +25,12 @@
 
 namespace cgd {
 
-template <bool PROLOGUE, bool SKIP, bool UP>
+template <bool PROLOGUE, bool SKIP, bool UP, bool HALO>
 __global__ void __launch_bounds__(NTHREADS)
 conv3x3_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                    const __nv_bfloat16* __restrict__ bias, const float* __restrict__ Avec,
                    const float* __restrict__ Bvec, const __nv_bfloat16* __restrict__ skip,
+                   const __nv_bfloat16* __restrict__ etop, const __nv_bfloat16* __restrict__ ebot,
                    __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int batch, int hs,
                    int ws_dim, int cin, int cout, int ksplit) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -32,8 +40,8 @@ conv3x3_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __r
   int kt0, kt1;
   split_range(split, ksplit, 9 * (cin / BK), kt0, kt1);
   AccFrag acc[FM][FN];
-  conv_mainloop<PROLOGUE, UP>(x, w, Avec, Bvec, hs, ws_dim, cin, cout, b, m0, n0, kt0, kt1,
-                              smem, acc);
+  conv_mainloop<PROLOGUE, UP, 0, HALO>(x, w, Avec, Bvec, hs, ws_dim, cin, cout, b, m0, n0, kt0,
+                                       kt1, smem, acc, etop, ebot);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* cs = reinterpret_cast<float*>(smem + SMEM_C) + warp * 256;
@@ -95,19 +103,20 @@ __global__ void conv3x3_splitk_epilogue(const float* __restrict__ ws,
   *reinterpret_cast<uint4*>(out + i) = pack8(v);
 }
 
-template <bool P, bool S, bool U>
+template <bool P, bool S, bool U, bool H>
 static cudaError_t launch(const void* x, const void* w, const void* bias, const void* A,
-                          const void* Bv, const void* skip, void* out, void* ws, int batch,
-                          int hs, int ws_dim, int cin, int cout, int ksplit,
-                          cudaStream_t stream) {
+                          const void* Bv, const void* skip, const void* etop, const void* ebot,
+                          void* out, void* ws, int batch, int hs, int ws_dim, int cin, int cout,
+                          int ksplit, cudaStream_t stream) {
   const int hw = (U ? 4 : 1) * hs * ws_dim;
-  static const cudaError_t smem_ok = allow_smem(conv3x3_fwd_kernel<P, S, U>);
+  static const cudaError_t smem_ok = allow_smem(conv3x3_fwd_kernel<P, S, U, H>);
   if (smem_ok != cudaSuccess) return smem_ok;
   dim3 grid((hw + BM - 1) / BM, (cout + BN - 1) / BN, batch * ksplit);
-  conv3x3_fwd_kernel<P, S, U><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
+  conv3x3_fwd_kernel<P, S, U, H><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(bias), static_cast<const float*>(A),
       static_cast<const float*>(Bv), static_cast<const __nv_bfloat16*>(skip),
+      static_cast<const __nv_bfloat16*>(etop), static_cast<const __nv_bfloat16*>(ebot),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), batch, hs, ws_dim, cin, cout,
       ksplit);
   cudaError_t err = cudaGetLastError();
@@ -125,28 +134,36 @@ static cudaError_t launch(const void* x, const void* w, const void* bias, const 
 
 // x [batch, hs, ws, cin] bf16; w [3,3,cin,cout] bf16 (HWIO = [9*cin, cout]);
 // bias [cout] bf16; A, Bv [batch, cin] f32 or null (no prologue); skip
-// [batch, ho, wo, cout] bf16 or null; out [batch, ho, wo, cout] bf16 with
+// [batch, ho, wo, cout] bf16 or null; etop, ebot [batch, 1, ws, cin] bf16, both
+// or neither (K-halo: the rows above and below this shard, post-activation;
+// no up); out [batch, ho, wo, cout] bf16 with
 // (ho, wo) = (2hs, 2ws) when up else (hs, ws). ksplit > 1 splits K over that
 // many blocks per output tile and needs ws: [ksplit, batch, ho, wo, cout]
 // f32 scratch (null when ksplit == 1). Requires cin % 32 == 0,
 // cout % 8 == 0, 1 <= ksplit <= 9*cin/32 and 16-byte aligned pointers.
 // Returns the launch status.
 extern "C" int cgd_conv3x3_fwd(const void* x, const void* w, const void* bias, const void* A,
-                               const void* Bv, const void* skip, void* out, void* ws, int batch,
-                               int hs, int ws_dim, int cin, int cout, int up, int ksplit,
-                               void* stream) {
+                               const void* Bv, const void* skip, const void* etop,
+                               const void* ebot, void* out, void* ws, int batch, int hs,
+                               int ws_dim, int cin, int cout, int up, int ksplit, void* stream) {
   using namespace cgd;
+  const bool halo = etop != nullptr;
   if (cin % BK || cout % 8 || batch <= 0 || hs <= 0 || ws_dim <= 0 || ksplit < 1 ||
-      ksplit > 9 * (cin / BK) || (ksplit > 1 && ws == nullptr))
+      ksplit > 9 * (cin / BK) || (ksplit > 1 && ws == nullptr) || halo != (ebot != nullptr) ||
+      (halo && up))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool pro = A != nullptr, sk = skip != nullptr;
-#define CGD_LAUNCH(P, S, U) \
-  return (int)launch<P, S, U>(x, w, bias, A, Bv, skip, out, ws, batch, hs, ws_dim, cin, cout, ksplit, s)
-  if (!pro && !sk && !up) CGD_LAUNCH(false, false, false);
-  if (pro && !sk && !up) CGD_LAUNCH(true, false, false);
-  if (pro && sk && !up) CGD_LAUNCH(true, true, false);
-  if (pro && !sk && up) CGD_LAUNCH(true, false, true);
+#define CGD_LAUNCH(P, S, U, H)                                                                 \
+  return (int)launch<P, S, U, H>(x, w, bias, A, Bv, skip, etop, ebot, out, ws, batch, hs, ws_dim, \
+                                 cin, cout, ksplit, s)
+  if (!pro && !sk && !up && !halo) CGD_LAUNCH(false, false, false, false);
+  if (pro && !sk && !up && !halo) CGD_LAUNCH(true, false, false, false);
+  if (pro && sk && !up && !halo) CGD_LAUNCH(true, true, false, false);
+  if (pro && !sk && up) CGD_LAUNCH(true, false, true, false);
+  if (!pro && !sk && halo) CGD_LAUNCH(false, false, false, true);
+  if (pro && !sk && halo) CGD_LAUNCH(true, false, false, true);
+  if (pro && sk && halo) CGD_LAUNCH(true, true, false, true);
 #undef CGD_LAUNCH
   return (int)cudaErrorNotSupported;
 }

@@ -3,6 +3,10 @@ blend x̂₀ with x by fac = sqrt(1-ᾱ[ref_t]), cut out `cutn` crops, CLIP-enco
 them, weighted spherical distances against the prompt embeddings, plus the
 range / TV / saturation losses. The sampler differentiates the returned
 scalar with respect to x through UNet, cutouts and CLIP.
+
+With a mesh the cutouts are split over every mesh device (the JAX package's
+``cutout_sharding``), CLIP runs on each, and the embeddings are gathered in
+cutout order; autograd sums the guidance gradient back over the devices.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from cgd_tpu_torch.guidance.losses import (
 )
 from cgd_tpu_torch.models.clip.configs import CLIP_MEAN, CLIP_STD, CLIPConfig
 from cgd_tpu_torch.models.clip.model import CLIP, encode_image
+from cgd_tpu_torch.parallel.mesh import Mesh, shard_params_replicated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,17 +51,30 @@ def make_guidance_builder(
     settings: GuidanceSettings,
     *,
     cached_coords: Optional[CutoutSpec] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Returns builder(meta: StepMeta) -> GuidanceFns for the sampler. With
     ``cached_coords`` every step reuses the first ``cutn`` of those cutout
     coordinates; otherwise each step draws new ones from the step's
-    generator."""
+    generator. With ``mesh`` the cutouts are encoded split over its devices
+    (CLIP's image tower replicated on each distinct one)."""
     clip_size = clip_cfg.input_resolution
     device = target_embeds.device
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=device)
     std = torch.tensor(CLIP_STD, dtype=torch.float32, device=device)
     sqrt_om = np.asarray(diffusion.sqrt_one_minus_alphas_cumprod, np.float32)
     compute_dtype = torch.bfloat16 if settings.clip_compute_dtype == "bfloat16" else torch.float32
+    visuals = None if mesh is None else shard_params_replicated(clip_model.visual, mesh)
+
+    def encode(cuts):
+        if mesh is None:
+            return encode_image(clip_model, cuts, compute_dtype=compute_dtype)
+        # cutn / mesh.size cutouts per device, in order (contiguous blocks,
+        # as cutout_sharding splits the leading axis)
+        parts = torch.tensor_split(cuts, mesh.size)
+        return torch.cat([
+            visuals[d](p.to(d).to(compute_dtype)).float().to(cuts.device)
+            for p, d in zip(parts, mesh.devices.flat) if len(p)])
 
     def builder(meta: StepMeta) -> GuidanceFns:
         cutn = meta.cutn
@@ -73,8 +91,7 @@ def make_guidance_builder(
                     device=x.device)
             cuts = make_cutouts((x_in + 1.0) / 2.0, spec, clip_size)  # [K*B,c,c,3]
             cuts = (cuts - mean) / std
-            embeds = encode_image(clip_model, cuts, compute_dtype=compute_dtype)
-            embeds = embeds.reshape(cutn, b, -1)
+            embeds = encode(cuts).reshape(cutn, b, -1)
             # [K,B,P] distances; weighted sum over prompts, mean over cutouts
             dists = spherical_dist_loss(embeds[:, :, None, :], target_embeds[None, None])
             clip_losses = (dists * weights).sum(-1).mean(0)  # [B]

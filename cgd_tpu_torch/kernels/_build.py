@@ -56,7 +56,7 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cgd_conv3x3_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.cgd_conv3x3_fwd.argtypes = [p] * 10 + [i] * 7 + [p]
     lib.cgd_conv3x3_fwd.restype = i
     lib.cgd_conv3x3_dx.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.cgd_conv3x3_dx.restype = i

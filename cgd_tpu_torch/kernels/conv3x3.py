@@ -9,7 +9,11 @@ Pallas kernels on the sampling path:
   fused bias, optionally with the prologue ``act = silu(x*A + B)`` (GroupNorm
   apply + emb scale-shift folded into per-(batch, channel) f32 vectors), a
   residual ``skip`` added in the output write, and a nearest-2x ``up`` between
-  the activation and the taps.
+  the activation and the taps. Given ``etop``/``ebot`` it runs as K-halo, on
+  one shard of a height-split image: the neighbour shards' boundary rows
+  (already activated) take the place of the zero pad above and below, as in
+  the Pallas kernel's ``explicit_halo`` mode (``kernels/conv_spmd.py``
+  builds them).
 - ``conv3x3_dx``: the one-pass backward of the prologue conv: transpose conv
   of the cotangent, then ``dx = acc*silu'(pre)*A`` and the dA/dB reductions.
   At the 512^2 classes it runs as K-dx-w (8 x 16 pixel tiles instead of 128
@@ -37,7 +41,7 @@ import torch.nn.functional as F
 from cgd_tpu_torch.kernels import _build
 
 # launches of each kernel since the last reset_launch_counts()
-LAUNCHES = {"conv3x3_fwd": 0, "conv3x3_dx": 0, "conv3x3_dx_wtiled": 0}
+LAUNCHES = {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0, "conv3x3_dx_wtiled": 0}
 
 _K_ALIGN = 32  # kernels need Cin % 32 == 0 (one tap per K slice) ...
 _N_ALIGN = 8   # ... and Cout % 8 == 0 (16-byte vector loads and stores)
@@ -81,6 +85,19 @@ def conv3x3_fwd_plain(x, w, bias, A=None, B=None, skip=None, up=False):
     if up:
         h = _up2(h)
     out = _conv_nhwc(h, w).float() + bias.float()
+    if skip is not None:
+        out = out + skip.float()
+    return out.to(x.dtype)
+
+
+def conv3x3_fwd_halo_plain(x, w, bias, A=None, B=None, skip=None, etop=None, ebot=None):
+    """Plain PyTorch version of K-halo: ``[etop, act(x), ebot]`` stacked on
+    H, conv with H pad 0 and W pad 1 (``conv_spmd._xla_reference`` of the
+    JAX package), the epilogue of ``conv3x3_fwd_plain``."""
+    h = x if A is None else _silu_chain(x, A, B)[2].to(x.dtype)
+    h = torch.cat([etop.to(h.dtype), h, ebot.to(h.dtype)], dim=1)
+    out = F.conv2d(h.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=(0, 1))
+    out = out.permute(0, 2, 3, 1).float() + bias.float()
     if skip is not None:
         out = out + skip.float()
     return out.to(x.dtype)
@@ -144,19 +161,31 @@ def _workspace(ksplit: int, n: int, dev: torch.device) -> Optional[torch.Tensor]
     return torch.empty(ksplit * n, dtype=torch.float32, device=dev)
 
 
-def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False) -> torch.Tensor:
+def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False, etop=None, ebot=None
+                ) -> torch.Tensor:
     """K-fwd. x [b,hs,ws,cin]; w [3,3,cin,cout]; bias [cout]; A/B [b,cin]
     f32 or None; skip [b,ho,wo,cout] or None -> [b,ho,wo,cout] in x's dtype,
-    (ho, wo) = (2hs, 2ws) with ``up``. No autograd."""
+    (ho, wo) = (2hs, 2ws) with ``up``. ``etop``/``ebot`` [b,1,ws,cin] (both or
+    neither, no ``up``): K-halo, the rows above and below x, post-activation.
+    No autograd."""
+    halo = etop is not None
+    if halo != (ebot is not None) or (halo and up):
+        raise ValueError("conv3x3_fwd: etop and ebot go together and take no up")
     if x.device.type == "cpu":
+        if halo:
+            return conv3x3_fwd_halo_plain(x, w, bias, A, B, skip, etop, ebot)
         return conv3x3_fwd_plain(x, w, bias, A, B, skip, up)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_fwd: no kernel for device {x.device}")
-    _check_cuda("conv3x3_fwd", x.device, x=x, w=w, bias=bias, A=A, B=B, skip=skip)
+    _check_cuda("conv3x3_fwd", x.device, x=x, w=w, bias=bias, A=A, B=B, skip=skip,
+                etop=etop, ebot=ebot)
     if (A is None) != (B is None) or (up and (A is None or skip is not None)):
         raise ValueError("conv3x3_fwd: unsupported fusion (A and B go together; "
                          "up needs the prologue and takes no skip)")
     b, hs, ws, cin = x.shape
+    if halo and (etop.shape != (b, 1, ws, cin) or ebot.shape != (b, 1, ws, cin)):
+        raise ValueError(f"conv3x3_fwd: etop {tuple(etop.shape)} / ebot {tuple(ebot.shape)} "
+                         f"!= {(b, 1, ws, cin)}")
     cout = w.shape[-1]
     if w.shape != (3, 3, cin, cout) or bias.shape != (cout,):
         raise ValueError(f"conv3x3_fwd: w {tuple(w.shape)} / bias {tuple(bias.shape)} "
@@ -167,6 +196,7 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False) -> torch.Tensor
     # skinny channel counts (RGB in, eps+sigma out) are zero-padded
     cin_p, cout_p = _round_up(cin, _K_ALIGN), _round_up(cout, _N_ALIGN)
     x, w, A, B = _pad_to(x, 3, cin_p), _pad_to(w, 2, cin_p), _pad_to(A, 1, cin_p), _pad_to(B, 1, cin_p)
+    etop, ebot = _pad_to(etop, 3, cin_p), _pad_to(ebot, 3, cin_p)
     w, bias, skip = _pad_to(w, 3, cout_p), _pad_to(bias, 0, cout_p), _pad_to(skip, 3, cout_p)
     out = torch.empty((b, ho, wo, cout_p), dtype=x.dtype, device=x.device)
     lib = _build.library()
@@ -177,12 +207,13 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False) -> torch.Tensor
         status = lib.cgd_conv3x3_fwd(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(),
             None if A is None else A.data_ptr(), None if B is None else B.data_ptr(),
-            None if skip is None else skip.data_ptr(), out.data_ptr(),
-            None if ws_buf is None else ws_buf.data_ptr(),
+            None if skip is None else skip.data_ptr(),
+            None if etop is None else etop.data_ptr(), None if ebot is None else ebot.data_ptr(),
+            out.data_ptr(), None if ws_buf is None else ws_buf.data_ptr(),
             b, hs, ws, cin_p, cout_p, int(up), ksplit, _build.stream(x.device),
         )
     _build.check(status, "conv3x3_fwd")
-    LAUNCHES["conv3x3_fwd"] += 1
+    LAUNCHES["conv3x3_fwd_halo" if halo else "conv3x3_fwd"] += 1
     return out[..., :cout].contiguous() if cout_p != cout else out
 
 
@@ -253,11 +284,11 @@ def _flip_t(w: torch.Tensor) -> torch.Tensor:
     return w.detach().flip(0, 1).transpose(2, 3).contiguous()
 
 
-def _dw(act: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _dw(act: torch.Tensor, w: torch.Tensor, g: torch.Tensor, padding=1) -> torch.Tensor:
     """Plain weight gradient (HWIO) of conv3x3(act, w) for cotangent g."""
     dw = torch.nn.grad.conv2d_weight(
         act.permute(0, 3, 1, 2), tuple(w.permute(3, 2, 0, 1).shape),
-        g.to(act.dtype).permute(0, 3, 1, 2), padding=1,
+        g.to(act.dtype).permute(0, 3, 1, 2), padding=padding,
     )
     return dw.permute(2, 3, 1, 0).to(w.dtype)
 

@@ -10,6 +10,12 @@ NHWC activations, HWIO conv kernels, ``[in, out]`` dense kernels.
     unet = UNet(cfg, device="cuda")
     unet.init_weights(torch.Generator("cuda").manual_seed(0))
     out = unet(x_nhwc, timesteps, y, compute_dtype=torch.bfloat16)
+
+The same forward runs on a height-split activation
+(``cgd_tpu_torch.parallel.mesh.Split``, the JAX package's
+``spatial_sharding``): the ops take it shard by shard, the attention blocks
+gather each data group whole and split it back, and the embedding path stays
+unsplit.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from torch import nn
 
 from cgd_tpu_torch.ops import nn as cnn
+from cgd_tpu_torch.parallel.mesh import Split
 
 DEFAULT_CHANNEL_MULT: Dict[int, Tuple[float, ...]] = {
     512: (0.5, 1, 1, 2, 2, 4, 4),
@@ -256,6 +263,8 @@ class AttentionBlock(nn.Module):
         self.proj = Dense(ch, ch, zero=True, device=device)
 
     def forward(self, x, emb=None):
+        if isinstance(x, Split):  # the all-gather: attention sees the whole image
+            return x.gathered(self.forward)
         b, hh, ww, c = x.shape
         flat = x.reshape(b, hh * ww, c)
         h = cnn.group_norm(self.norm, flat)
@@ -325,8 +334,11 @@ class UNet(nn.Module):
 
     def forward(self, x, timesteps, y=None, *, compute_dtype=torch.float32):
         """x: [B,H,W,in_channels]; timesteps: [B] (float ok); y: [B] int class
-        labels when class-conditional. Returns [B,H,W,out_channels] f32."""
+        labels when class-conditional. Returns [B,H,W,out_channels] f32, split
+        as x when x is a ``Split``."""
         cfg = self.cfg
+        if isinstance(x, Split):
+            self.check_split(x.shape[1], x.shape[2], x.mesh.shape["cut"])
         emb = cnn.timestep_embedding(timesteps, cfg.model_channels)
         emb = cnn.dense(self.time_embed[0], emb)
         emb = cnn.dense(self.time_embed[1], cnn.silu(emb))
@@ -345,8 +357,17 @@ class UNet(nn.Module):
         for layer in self.middle:
             h = layer(h, emb)
         for blk in self.output:
-            h = torch.cat([h, hs.pop()], dim=-1)
+            h = cnn.cat_channels(h, hs.pop())
             for layer in blk:
                 h = layer(h, emb)
         h = cnn.fused_gn_silu_conv(self.out_norm, self.out_conv, h)
         return h.float()
+
+    def check_split(self, height: int, width: int, cut: int) -> None:
+        """Every level's height must divide by the ``cut`` axis (the JAX
+        package pads uneven shards; the port refuses them)."""
+        for level in range(len(self.cfg.channel_mult)):
+            h, w = height >> level, width >> level
+            if h % cut:
+                raise ValueError(f"height split cut={cut}: UNet level {level} ({h}x{w}) "
+                                 f"does not divide by {cut}")

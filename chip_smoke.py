@@ -25,14 +25,26 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    before it and read just after, between two short runs under the plain
    routing for its step time; checks finite frames, written PNGs and that
    every kernel of the path launched;
-6. this slice's path through the CLI, ``cgd_tpu_torch.cli.main``: 512px
+6. the 512px path through the CLI, ``cgd_tpu_torch.cli.main``: 512px
    class-conditional ADM guided by CLIP RN50x16, 16 cutouts, ddim25, random
    weights, with the same checks, the step time of the plain routing before
-   and after it, and the run's peak device memory.
+   and after it, and the run's peak device memory;
+7. the height-split mesh path on the one card, ``make_mesh([dev, dev])``
+   (cut=2, shards run one after the other): (a) K-halo through
+   ``kernels.conv_spmd``, forward and input gradient, against its plain
+   version at the shard shapes of the 256px and 512px UNets (bound 1% of the
+   reference's max), timed beside K-fwd on the same shard, the plain version
+   and cuDNN on the concatenated input; (b) the full-width 512px UNet split
+   in two against the unsplit kernel UNet, forward and input gradient
+   (relative L2 <= 5e-2); (c) the 256px ViT-B/32 ddim25 guided run through
+   ``api.clip_guided_diffusion(mesh=...)``, counters reset just before it
+   and read just after: finite frames, PNGs, K-halo and attention launched,
+   K-fwd and K-dx not.
 
-Prints a JSON line of per-kernel results (launches from phase 6), and as
-its last line ``{"ok": true, "device": {...}}``. Needs one card; builds
-everything it runs.
+Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
+from phase 7c; each with its bound on the card and the library call's time
+where there is one), and as its last line ``{"ok": true, "device": {...}}``.
+Needs one card; builds everything it runs.
 """
 
 from __future__ import annotations
@@ -44,9 +56,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-FWD_TOL = DX_TOL = ATTN_TOL = 1e-2  # max |err| / max |ref|
-UNET_TOL = 5e-2                     # relative L2 error, full UNet
+FWD_TOL = DX_TOL = ATTN_TOL = HALO_TOL = 1e-2  # max |err| / max |ref|
+UNET_TOL = 5e-2                                # relative L2 error, full UNet
 PROMPTS = ["a watercolor painting of a lighthouse:1", "fog:0.5"]
+# the least time of a kernel: NVIDIA's H100 SXM data sheet, dense bf16
+# tensor-core rate and HBM3 bandwidth (at the 700 W limit)
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def _die(msg: str) -> None:
@@ -71,6 +87,23 @@ def _time_ms(fn, iters: int = 20) -> float:
 def _rel_max(a, b) -> tuple:
     err = (a.float() - b.float()).abs().max().item()
     return err, err / max(b.float().abs().max().item(), 1e-30)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the dense bf16 peak and the bytes (each input read once, each
+    output written once) over the HBM bandwidth."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _fmt(bound: dict) -> str:
+    return f"; bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}"
 
 
 def phase_kernels(k3, dev):
@@ -109,14 +142,15 @@ def phase_kernels(k3, dev):
         h = k3._up2(h) if up else h
         cms = _time_ms(lambda: k3._conv_nhwc(h, w))
         tflops = 2 * ho * ho * 9 * ci * co / ms / 1e9
+        bd = _bound(2 * ho * ho * 9 * ci * co, _nbytes(x, w, bias, A, B, skip, out))
         print(f"[3] K-fwd {name:20s} {ho}^2 {ci}->{co}: max|err| {err:.3e} "
               f"({rel:.2e} of scale) kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) "
-              f"plain {pms:.4f} ms (its cuDNN conv alone {cms:.4f} ms)")
+              f"plain {pms:.4f} ms (its cuDNN conv alone {cms:.4f} ms){_fmt(bd)}")
         if rel > FWD_TOL:
             raise AssertionError(f"K-fwd {name} {ho}^2 {ci}->{co}: {rel:.3e} > {FWD_TOL}")
         res["conv3x3_fwd"]["err"] = max(res["conv3x3_fwd"]["err"], err)
         if (ho, ci, co, sk) == (256, 256, 256, True):
-            res["conv3x3_fwd"].update(ms=ms, plain_ms=pms)
+            res["conv3x3_fwd"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd)
         if pro and not up:
             g = rn(1, ho, ho, co)
             wt = k3._flip_t(w)
@@ -135,11 +169,12 @@ def phase_kernels(k3, dev):
                 if rel > DX_TOL:
                     raise AssertionError(f"K-dx {name} {ho}^2 {part}: {rel:.3e} > {DX_TOL}")
                 res["conv3x3_dx"]["err"] = max(res["conv3x3_dx"]["err"], err)
+            bd = _bound(2 * ho * ho * 9 * ci * co, _nbytes(g, wt, x, A, B, *got))
             print(f"[3] K-dx  {name:20s} {ho}^2 {ci}->{co}: {', '.join(line)} "
                   f"kernel {ms:.4f} ms plain {pms:.4f} ms (its cuDNN conv alone "
-                  f"{cms:.4f} ms; bit-identical reruns)")
+                  f"{cms:.4f} ms; bit-identical reruns){_fmt(bd)}")
             if (ho, ci, co) == (256, 256, 256):
-                res["conv3x3_dx"].update(ms=ms, plain_ms=pms)
+                res["conv3x3_dx"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd)
 
     # K-dx-w at the 512px UNet's full-resolution classes (forward Cin -> Cout)
     res["conv3x3_dx_wtiled"] = {"err": 0.0}
@@ -165,19 +200,43 @@ def phase_kernels(k3, dev):
         lms = _time_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=False))
         pms = _time_ms(lambda: k3.conv3x3_dx_plain(g, wt, x, A, B))
         cms = _time_ms(lambda: k3._conv_nhwc(g, wt))
+        bd = _bound(2 * 512 * 512 * 9 * ci * co, _nbytes(g, wt, x, A, B, *got))
         print(f"[3] K-dx-w 512^2 {ci}->{co}: {', '.join(line)} kernel {ms:.4f} ms "
               f"(K-dx 128-pixel tiles {lms:.4f} ms) plain {pms:.4f} ms (its cuDNN conv alone "
-              f"{cms:.4f} ms; bit-identical reruns)")
+              f"{cms:.4f} ms; bit-identical reruns){_fmt(bd)}")
         if (ci, co) == (128, 128):
-            res["conv3x3_dx_wtiled"].update(ms=ms, plain_ms=pms)
+            res["conv3x3_dx_wtiled"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd)
     torch.cuda.synchronize()
     return res
 
 
+def _sdpa_backend(q, k, v) -> str:
+    """The backend F.scaled_dot_product_attention picks for these inputs:
+    the first of its priority order that runs them."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in map(SDPBackend, torch._C._get_sdp_priority_order()):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                F.scaled_dot_product_attention(q, k, v)
+            return backend.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
 def phase_attention(kattn, dev):
     """Phase 3: K-attn-f and K-attn-b against their plain versions, on the
-    fused qkv [1, T, 3*N*d] the UNet gives them (N heads of batch 1)."""
+    fused qkv [1, T, 3*N*d] the UNet gives them (N heads of batch 1), timed
+    beside F.scaled_dot_product_attention on the same q, k, v (forward, and
+    its backward alone)."""
     import torch
+    import torch.nn.functional as F
 
     gen = torch.Generator(dev).manual_seed(4321)
     # (N, T, d): the 64-512px UNets' d = 64 levels, then the 128px model's
@@ -210,22 +269,36 @@ def phase_attention(kattn, dev):
         fpms = _time_ms(lambda: kattn.attention_fwd_plain(q, k, v))
         bms = _time_ms(lambda: kattn.attention_bwd(qkv, out, lse, g, n))
         bpms = _time_ms(lambda: kattn.attention_bwd_plain(q, k, v, gh))
+        # SDPA takes [batch, heads, T, d]; 3-D inputs send it to its math path
+        q4, k4, v4, g4 = (z[None].contiguous() for z in (q, k, v, gh))
+        sq, sk, sv = (z.detach().requires_grad_(True) for z in (q4, k4, v4))
+        so = F.scaled_dot_product_attention(sq, sk, sv)
+        sfms = _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        sbms = _time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), g4, retain_graph=True))
+        backend = _sdpa_backend(q4, k4, v4)
+        bdf = _bound(4 * n * t * t * d, _nbytes(qkv, out, lse))
+        # backward: S = QK^T recomputed, then dV, dP, dQ, dK
+        bdb = _bound(10 * n * t * t * d, _nbytes(qkv, out, lse, g, dqkv))
         print(f"[3] K-attn N{n} T{t} d{d}: fwd max|err| {err:.3e} ({rel:.2e}), {', '.join(line)}; "
-              f"fwd kernel {fms:.4f} ms plain {fpms:.4f} ms, bwd kernel {bms:.4f} ms plain "
-              f"{bpms:.4f} ms (bit-identical reruns)")
+              f"fwd kernel {fms:.4f} ms plain {fpms:.4f} ms SDPA {sfms:.4f} ms{_fmt(bdf)}; bwd "
+              f"kernel {bms:.4f} ms plain {bpms:.4f} ms SDPA backward {sbms:.4f} ms{_fmt(bdb)} "
+              f"(SDPA backend {backend}; bit-identical reruns)")
         if (n, t, d) == (8, 1024, 64):
-            res["attn_fwd"].update(ms=fms, plain_ms=fpms)
-            res["attn_bwd"].update(ms=bms, plain_ms=bpms)
+            res["attn_fwd"].update(ms=fms, plain_ms=fpms, library_ms=sfms, **bdf)
+            res["attn_bwd"].update(ms=bms, plain_ms=bpms, library_ms=sbms, **bdb)
     torch.cuda.synchronize()
     return res
 
 
-def phase_unet(dev, size: int):
-    """Phase 4: full-width UNet at ``size`` px, kernels vs plain routing."""
+def _full_unet(dev, size: int):
+    """The full-width class-conditional UNet at ``size`` px, random bf16
+    conv weights with every zero-init conv re-drawn, and a probe input:
+    (unet, n_params, run) where run(split=None) -> (output, input
+    gradient)."""
     import torch
 
     from cgd_tpu_torch.models.unet import Conv, Dense, UNet, UNetConfig
-    from cgd_tpu_torch.ops.nn import cast_conv_params, kernel_routing
+    from cgd_tpu_torch.ops.nn import cast_conv_params
     from cgd_tpu_torch.registry import DIFFUSION_LOOKUP
 
     cfg = UNetConfig.from_flags(DIFFUSION_LOOKUP["cond"][size]["model_flags"])
@@ -243,12 +316,24 @@ def phase_unet(dev, size: int):
     y = torch.tensor([3], device=dev)
     probe = torch.randn(1, size, size, 6, generator=gen, device=dev)
 
-    def run():
+    def run(split=None):
+        """Output and input gradient; ``split(x)`` -> a Split input."""
         x_ = x.clone().requires_grad_(True)
-        out = unet(x_, t, y, compute_dtype=torch.bfloat16)
+        out = unet(x_ if split is None else split(x_), t, y, compute_dtype=torch.bfloat16)
+        out = out if split is None else out.gather()
         (g,) = torch.autograd.grad((out * probe).sum(), x_)
         return out.detach(), g
 
+    return unet, n_params, run
+
+
+def phase_unet(dev, size: int):
+    """Phase 4: full-width UNet at ``size`` px, kernels vs plain routing."""
+    import torch
+
+    from cgd_tpu_torch.ops.nn import kernel_routing
+
+    unet, n_params, run = _full_unet(dev, size)
     torch.cuda.reset_peak_memory_stats(dev)
     out_k, g_k = run()
     peak_k = torch.cuda.max_memory_allocated(dev)
@@ -296,8 +381,9 @@ def _check_launched(launches: dict, names, phase: str) -> None:
             raise AssertionError(f"{phase}: kernel {name} was not launched on the path")
 
 
-def phase_e2e(k3, kattn, dev, out_dir: Path) -> dict:
-    """Phase 5: the 256px slice through the public generator."""
+def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None):
+    """Phase 5: the 256px slice through the public generator; phase 7c
+    with ``mesh`` (no plain-routing runs). Returns (launches, s per step)."""
     import numpy as np
     import torch
 
@@ -307,7 +393,7 @@ def phase_e2e(k3, kattn, dev, out_dir: Path) -> dict:
     kwargs = dict(
         prompts=PROMPTS, image_size=256,
         num_cutouts=16, clip_model_name="ViT-B/32", timestep_respacing="ddim25",
-        weights_mode="random", seed=0, device=str(dev), progress=False,
+        weights_mode="random", seed=0, device=str(dev), progress=False, mesh=mesh,
     )
     frames = []
     real_log_image = api.log_image
@@ -335,17 +421,22 @@ def phase_e2e(k3, kattn, dev, out_dir: Path) -> dict:
 
     api.log_image = capture
     try:
-        # the host-bound step varies from run to run: time the plain routing
-        # before and after the kernels' run, in one process on one card
-        with kernel_routing("plain"):
-            plain_before, _, _ = timed(12, out_dir / "plain", n_frames=2)
-        frames.clear()
-        _reset_launches(k3, kattn)
-        step_s, total_s, paths = timed(12, out_dir)  # frames at steps 0, 12, 24
-        launches = _launches(k3, kattn)
-        final = frames[-1]
-        with kernel_routing("plain"):
-            plain_after, _, _ = timed(12, out_dir / "plain", n_frames=2)
+        if mesh is not None:
+            _reset_launches(k3, kattn)
+            step_s, total_s, paths = timed(12, out_dir)
+            launches = _launches(k3, kattn)
+        else:
+            # the host-bound step varies from run to run: time the plain
+            # routing before and after the kernels' run, in one process
+            with kernel_routing("plain"):
+                plain_before, _, _ = timed(12, out_dir / "plain", n_frames=2)
+            frames.clear()
+            _reset_launches(k3, kattn)
+            step_s, total_s, paths = timed(12, out_dir)  # frames at steps 0, 12, 24
+            launches = _launches(k3, kattn)
+            with kernel_routing("plain"):
+                plain_after, _, _ = timed(12, out_dir / "plain", n_frames=2)
+        final = frames[len(paths) - 1]
     finally:
         api.log_image = real_log_image
 
@@ -354,12 +445,22 @@ def phase_e2e(k3, kattn, dev, out_dir: Path) -> dict:
     if final.shape != (256, 256, 3) or not np.isfinite(final).all():
         raise AssertionError(f"final frame: shape {final.shape}, finite {np.isfinite(final).all()}")
     _check_pngs((*paths, "current.png"))
+    if mesh is not None:
+        _check_launched(launches, ("conv3x3_fwd_halo", "attn_fwd", "attn_bwd"), "phase 7c")
+        unsplit = {k: launches[k] for k in ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dx_wtiled")}
+        if any(unsplit.values()):
+            raise AssertionError(f"phase 7c: the split UNet launched unsplit convs {unsplit}")
+        print(f"[7c] 256px ddim25 guided sampling on {mesh}: {step_s * 1e3:.1f} ms per guided "
+              f"step (phase 5, unsplit: {unsplit_step_s * 1e3:.1f} ms), {total_s:.2f} s per "
+              f"image incl. model setup; launches {launches}; final frame |x|max "
+              f"{np.abs(final).max():.3f}")
+        return launches, step_s
     _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"), "phase 5")
     print(f"[5] 256px ddim25 guided sampling: {step_s * 1e3:.1f} ms per guided step "
           f"(plain routing {plain_before * 1e3:.1f} ms before, {plain_after * 1e3:.1f} ms "
           f"after), {total_s:.2f} s per image incl. model setup; launches {launches}; "
           f"final frame |x|max {np.abs(final).max():.3f}")
-    return launches
+    return launches, step_s
 
 
 def phase_cli(k3, kattn, dev, out_dir: Path) -> dict:
@@ -431,6 +532,125 @@ def phase_cli(k3, kattn, dev, out_dir: Path) -> dict:
     return launches
 
 
+def phase_halo(k3, dev):
+    """Phase 7a: K-halo through kernels.conv_spmd on two shards of one card,
+    forward and input gradient, against the plain version with autograd
+    (conv3x3_fwd_halo_plain on the same boundary rows), at the shard shapes
+    of the 256px and 512px UNets split in two."""
+    import torch
+    import torch.nn.functional as F
+
+    from cgd_tpu_torch.kernels import conv_spmd
+
+    gen = torch.Generator(dev).manual_seed(4242)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    # (name, shard H, W, cin, cout, prologue, skip): conv_in, a 256px
+    # ResBlock out_conv, the 16^2 level's split-K conv, a 512px ResBlock conv
+    cases = [
+        ("conv3x3", 128, 256, 3, 256, False, False),
+        ("conv3x3_gn_silu_add", 128, 256, 256, 256, True, True),
+        ("conv3x3_gn_silu", 8, 16, 2048, 1024, True, False),
+        ("conv3x3_gn_silu", 256, 512, 128, 128, True, False),
+    ]
+    res = {"err": 0.0}
+    for name, hs, wd, ci, co, pro, sk in cases:
+        xs = [rn(1, hs, wd, ci) for _ in range(2)]
+        w = rn(3, 3, ci, co, scale=(9 * ci) ** -0.5)
+        bias = rn(co, scale=0.1)
+        A = (1.0 + 0.2 * torch.randn(1, ci, generator=gen, device=dev)) if pro else None
+        B = (0.2 * torch.randn(1, ci, generator=gen, device=dev)) if pro else None
+        skips = [rn(1, hs, wd, co) for _ in range(2)] if sk else None
+        gs = [rn(1, hs, wd, co) for _ in range(2)]
+
+        def kernel(xs_):
+            if not pro:
+                return conv_spmd.conv3x3(xs_, w, bias)
+            if sk:
+                return conv_spmd.conv3x3_gn_silu_add(xs_, A, B, w, bias, skips)
+            return conv_spmd.conv3x3_gn_silu(xs_, A, B, w, bias)
+
+        def plain(xs_):
+            return conv_spmd.conv3x3_shards_plain(xs_, w, bias, A, B, skips)
+
+        line = []
+        for label, fn in (("kernel", kernel), ("plain", plain)):
+            xs_ = [x.clone().requires_grad_(True) for x in xs]
+            outs = fn(xs_)
+            dxs = torch.autograd.grad(outs, xs_, gs)
+            if label == "kernel":
+                got = (torch.cat(outs, 1).detach(), torch.cat(dxs, 1))
+            else:
+                want = (torch.cat(outs, 1).detach(), torch.cat(dxs, 1))
+        for part, a, b in zip(("fwd", "dx"), got, want):
+            err, rel = _rel_max(a, b)
+            line.append(f"{part} {err:.3e} ({rel:.2e})")
+            if rel > HALO_TOL:
+                raise AssertionError(f"K-halo {name} {hs}x{wd} {ci}->{co} {part}: {rel:.3e} > "
+                                     f"{HALO_TOL}")
+            res["err"] = max(res["err"], err)
+        # one shard's launch: K-halo, K-fwd on the same shard (zero pad), the
+        # plain version, and cuDNN on the rows stacked with the halo
+        x, skip = xs[1], None if skips is None else skips[1]
+        act = x if A is None else conv_spmd._act_rows(x, A, B)
+        etop = conv_spmd._act_rows(xs[0][:, -1:], A, B) if pro else xs[0][:, -1:].contiguous()
+        ebot = torch.zeros_like(etop)
+        ms = _time_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot))
+        fwd_ms = _time_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip))
+        pms = _time_ms(lambda: k3.conv3x3_fwd_halo_plain(x, w, bias, A, B, skip, etop, ebot))
+        stacked = torch.cat([etop, act, ebot], dim=1).permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1)
+        cms = _time_ms(lambda: F.conv2d(stacked, w_oihw, padding=(0, 1)))
+        out = k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot)
+        bound = _bound(2 * hs * wd * 9 * ci * co, _nbytes(x, w, bias, A, B, skip, etop, ebot, out))
+        padded = ""
+        if ci % 32:  # the wrapper zero-pads x, w, etop and ebot to Cin 32 per call
+            xp, wp, etp, ebp = (F.pad(z, (0, 0, 0, 32 - ci)) if z is w else
+                                F.pad(z, (0, 32 - ci)) for z in (x, w, etop, ebot))
+            padded = (f" (inputs padded to Cin 32 beforehand: K-halo "
+                      f"{_time_ms(lambda: k3.conv3x3_fwd(xp, wp, bias, etop=etp, ebot=ebp)):.4f}"
+                      f" ms, K-fwd {_time_ms(lambda: k3.conv3x3_fwd(xp, wp, bias)):.4f} ms)")
+        print(f"[7a] K-halo {name:20s} shard {hs}x{wd} {ci}->{co}: {', '.join(line)}; kernel "
+              f"{ms:.4f} ms (K-fwd on the shard {fwd_ms:.4f} ms){padded} plain {pms:.4f} ms, "
+              f"cuDNN on the stacked rows {cms:.4f} ms{_fmt(bound)}")
+        if (hs, ci, co, sk) == (128, 256, 256, True):
+            res.update(ms=ms, plain_ms=pms, library_ms=cms, **bound)
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_split_unet(dev):
+    """Phase 7b: the full-width 512px UNet split in two on one card against
+    the unsplit kernel UNet, forward and input gradient."""
+    import torch
+
+    from cgd_tpu_torch.parallel.mesh import make_mesh, split_activation
+
+    unet, n_params, run = _full_unet(dev, 512)
+    mesh = make_mesh([dev, dev])
+
+    def split(x):
+        return split_activation(x, mesh)
+
+    out_u, g_u = run()
+    out_s, g_s = run(split)
+    ms_u = _time_ms(run, iters=3)
+    ms_s = _time_ms(lambda: run(split), iters=3)
+    for name, a, b in (("output", out_s, out_u), ("d/dx", g_s, g_u)):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"split UNet {name}: non-finite values")
+        rel = ((a - b).norm() / b.norm()).item()
+        print(f"[7b] UNet 512px ({n_params / 1e6:.1f}M params) split cut=2 vs unsplit, {name}: "
+              f"rel L2 err {rel:.3e}")
+        if rel > UNET_TOL:
+            raise AssertionError(f"split UNet 512px {name}: rel L2 {rel:.3e} > {UNET_TOL}")
+    print(f"[7b] UNet 512px fwd + input grad: split cut=2 {ms_s:.2f} ms, unsplit {ms_u:.2f} ms")
+    del unet
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not (ROOT / "cgd_tpu_torch").is_dir():
         _die(f"no cgd_tpu_torch/ beside {Path(__file__).name}: run it from a checkout")
@@ -459,25 +679,36 @@ def main() -> None:
     print(f"[2] kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
 
+    from cgd_tpu_torch.parallel.mesh import make_mesh
+
     res = phase_kernels(k3, dev)
     res.update(phase_attention(kattn, dev))
+    res["conv3x3_fwd_halo"] = phase_halo(k3, dev)
     phase_unet(dev, 256)
     phase_unet(dev, 512)
-    phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke")
+    phase_split_unet(dev)
+    _, step_s = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke")
     launches = phase_cli(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_512")
+    mesh_launches, _ = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_mesh",
+                                 mesh=make_mesh([dev, dev]), unsplit_step_s=step_s)
+    launches["conv3x3_fwd_halo"] = mesh_launches["conv3x3_fwd_halo"]
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),
+        "conv3x3_fwd_halo": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu",
+                             "cgd_tpu/kernels/conv_pallas.py:364 (explicit_halo, via "
+                             "cgd_tpu/kernels/conv_spmd.py:139)"),
         "conv3x3_dx": ("cgd_tpu_torch/csrc/conv3x3_dx.cu", "cgd_tpu/kernels/conv_pallas.py:779"),
         "conv3x3_dx_wtiled": ("cgd_tpu_torch/csrc/conv3x3_dx.cu",
                               "cgd_tpu/kernels/conv_pallas.py:680"),
         "attn_fwd": ("cgd_tpu_torch/csrc/attn_fwd.cu", "cgd_tpu/kernels/attention_pallas.py:69"),
         "attn_bwd": ("cgd_tpu_torch/csrc/attn_bwd.cu", "cgd_tpu/kernels/attention_pallas.py:82"),
     }
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": res[name]["err"],
-         "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"]}
+         **{k: res[name][k] for k in keys}}
         for name, (src, rep) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))

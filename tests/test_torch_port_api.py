@@ -110,7 +110,7 @@ def test_cuda_device_without_a_card_raises(tiny):
 @pytest.mark.parametrize("option", [
     {"image_prompts": ["x.png"]}, {"init_image": "x.png"}, {"use_augs": True},
     {"dpm_solver": True}, {"fast_guidance": True}, {"checkpoint_path": "ck.npz"},
-    {"mesh": object()}, {"skip_timesteps": 3}, {"weights_mode": "auto"},
+    {"skip_timesteps": 3}, {"weights_mode": "auto"},
 ])
 def test_options_outside_the_slice_raise(tiny, option):
     with pytest.raises(NotImplementedError):

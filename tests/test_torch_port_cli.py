@@ -75,7 +75,7 @@ def test_uncond_turns_off_class_conditioning_and_class_randomizing(recorded):
 @pytest.mark.parametrize("argv,flag", [
     (["-imgs", "a.png"], "--image_prompts"), (["-init", "a.png"], "--init_image"),
     (["-augs"], "--use_augs"), (["-gif"], "--save-as-gif"), (["-mp4"], "--save-as-video"),
-    (["--mesh", "auto"], "--mesh"), (["--profile", "p"], "--profile"),
+    (["--profile", "p"], "--profile"),
     (["--log-losses"], "--log-losses"), (["--fast-guidance"], "--fast-guidance"),
     (["--dpm-solver"], "--dpm-solver"), (["--checkpoint", "c.npz"], "--checkpoint"),
     (["--resume", "c.npz"], "--resume"), (["--stall-timeout", "5"], "--stall-timeout"),

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from cgd_tpu_torch.kernels import attention as kattn  # noqa: E402
 from cgd_tpu_torch.kernels import conv3x3 as k3  # noqa: E402
+from cgd_tpu_torch.kernels import conv_spmd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -81,7 +82,8 @@ def test_autograd_functions_use_the_kernels(dev):
     k3.reset_launch_counts()
     out = k3.conv3x3_gn_silu_add(x, A, d["B"], d["w"], d["bias"], d["skip"])
     out.float().sum().backward()
-    assert k3.LAUNCHES == {"conv3x3_fwd": 1, "conv3x3_dx": 1, "conv3x3_dx_wtiled": 0}
+    assert k3.LAUNCHES == {"conv3x3_fwd": 1, "conv3x3_fwd_halo": 0, "conv3x3_dx": 1,
+                           "conv3x3_dx_wtiled": 0}
     assert x.grad.dtype == torch.bfloat16 and A.grad.dtype == torch.float32
 
 
@@ -110,7 +112,8 @@ def test_kdx_wtiled_matches_plain_and_is_deterministic(dev, shape):
     k3.reset_launch_counts()
     got = k3.conv3x3_dx(g, wt, x, A, B, wtiled=True)
     again = k3.conv3x3_dx(g, wt, x, A, B, wtiled=True)
-    assert k3.LAUNCHES == {"conv3x3_fwd": 0, "conv3x3_dx": 0, "conv3x3_dx_wtiled": 2}
+    assert k3.LAUNCHES == {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0,
+                           "conv3x3_dx_wtiled": 2}
     for a, ref, c in zip(got, k3.conv3x3_dx_plain(g, wt, x, A, B), again):
         _close(a, ref)
         assert torch.equal(a, c)
@@ -158,3 +161,100 @@ def test_attention_unsupported_head_dim_or_dtype_raises(dev):
         kattn.attention_fwd(_rn(dev, 1, 16, 3 * 64), 2)
     with pytest.raises(TypeError, match="float32"):
         kattn.attention_fwd(_rn(dev, 1, 16, 3 * 64).float(), 1)
+
+
+# K-halo: (batch, shard H, W, Cin, Cout): ragged tiles, Cin = 3 (conv_in),
+# one-row shards, a split-K size
+HALO = [(2, 12, 20, 64, 96), (1, 16, 16, 3, 256), (1, 1, 8, 32, 8), (1, 8, 16, 1024, 512)]
+
+
+@pytest.mark.parametrize("shape", HALO)
+@pytest.mark.parametrize("variant", ["plain", "prologue", "skip"])
+def test_khalo_matches_plain(dev, shape, variant):
+    b, h, w, ci, co = shape
+    x, skip = _rn(dev, b, h, w, ci, seed=11), _rn(dev, b, h, w, co, seed=12)
+    etop, ebot = _rn(dev, b, 1, w, ci, seed=13), _rn(dev, b, 1, w, ci, seed=14)
+    wk = _rn(dev, 3, 3, ci, co, scale=(9 * ci) ** -0.5, seed=15)
+    bias = _rn(dev, co, scale=0.1, seed=16)
+    A = B = None
+    if variant != "plain":
+        A, B = 1.0 + 0.2 * _rn(dev, b, ci, seed=17).float(), 0.2 * _rn(dev, b, ci, seed=18).float()
+    skip = skip if variant == "skip" else None
+    k3.reset_launch_counts()
+    out = k3.conv3x3_fwd(x, wk, bias, A, B, skip, etop=etop, ebot=ebot)
+    assert k3.LAUNCHES["conv3x3_fwd_halo"] == 1 and k3.LAUNCHES["conv3x3_fwd"] == 0
+    _close(out, k3.conv3x3_fwd_halo_plain(x, wk, bias, A, B, skip, etop, ebot))
+
+
+def test_khalo_with_up_raises(dev):
+    x = _rn(dev, 1, 8, 8, 32)
+    with pytest.raises(ValueError, match="etop and ebot"):
+        k3.conv3x3_fwd(x, _rn(dev, 3, 3, 32, 32), _rn(dev, 32), x.float()[:, 0, 0],
+                       x.float()[:, 0, 0], up=True, etop=x[:, :1], ebot=x[:, :1])
+
+
+@pytest.mark.parametrize("variant", ["plain", "gn", "gn_add"])
+def test_split_conv_forward_and_gradient_match_plain(dev, variant):
+    """Three shards on one card through conv_spmd against the plain halo conv
+    with autograd."""
+    ci, co = 64, 32
+    xs = [_rn(dev, 1, 8, 24, ci, seed=20 + i) for i in range(3)]
+    skips = [_rn(dev, 1, 8, 24, co, seed=30 + i) for i in range(3)]
+    gs = [_rn(dev, 1, 8, 24, co, seed=40 + i) for i in range(3)]
+    wk, bias = _rn(dev, 3, 3, ci, co, scale=(9 * ci) ** -0.5, seed=50), _rn(dev, co, seed=51)
+    A = (1.0 + 0.2 * _rn(dev, 1, ci, seed=52).float()) if variant != "plain" else None
+    B = (0.2 * _rn(dev, 1, ci, seed=53).float()) if variant != "plain" else None
+    sk = skips if variant == "gn_add" else None
+
+    def kernel(xs_):
+        if A is None:
+            return conv_spmd.conv3x3(xs_, wk, bias)
+        if sk is None:
+            return conv_spmd.conv3x3_gn_silu(xs_, A, B, wk, bias)
+        return conv_spmd.conv3x3_gn_silu_add(xs_, A, B, wk, bias, sk)
+
+    def plain(xs_):
+        return conv_spmd.conv3x3_shards_plain(xs_, wk, bias, A, B, sk)
+
+    results = []
+    for fn in (kernel, plain):
+        xs_ = [x.clone().requires_grad_(True) for x in xs]
+        outs = fn(xs_)
+        grads = torch.autograd.grad(outs, xs_, gs)
+        results.append((torch.cat(outs, 1).detach(), torch.cat(grads, 1)))
+    for got, want in zip(*results):
+        _close(got, want)
+
+
+def test_split_unet_matches_unsplit_and_runs_on_khalo(dev):
+    """A small bf16 UNet split cut=2 on one card against the same UNet
+    unsplit (relative L2 <= 5e-2, two bf16 routes); the split run launches
+    K-halo and no unsplit conv."""
+    from cgd_tpu_torch.models.unet import UNet, UNetConfig
+    from cgd_tpu_torch.ops.nn import cast_conv_params
+    from cgd_tpu_torch.parallel.mesh import make_mesh, split_activation
+
+    cfg = UNetConfig(image_size=64, model_channels=64, num_res_blocks=1, attention_ds=(2,),
+                     channel_mult=(1, 2), num_head_channels=64, num_classes=10)
+    gen = torch.Generator(dev).manual_seed(0)
+    unet = cast_conv_params(UNet(cfg, device=dev).init_weights(gen), torch.bfloat16)
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.add_((0.05 * torch.randn(p.shape, generator=gen, device=dev)).to(p.dtype))
+    x = torch.randn(1, 64, 64, 3, generator=gen, device=dev)
+    t, y = torch.tensor([300.0], device=dev), torch.tensor([2], device=dev)
+    mesh = make_mesh([dev, dev])
+
+    def run(split):
+        x_ = x.clone().requires_grad_(True)
+        out = unet(split_activation(x_, mesh) if split else x_, t, y, compute_dtype=torch.bfloat16)
+        out = out.gather() if split else out
+        return out.detach(), torch.autograd.grad(out.square().sum(), x_)[0]
+
+    ref = run(False)
+    k3.reset_launch_counts()
+    got = run(True)
+    assert k3.LAUNCHES["conv3x3_fwd_halo"] > 0
+    assert k3.LAUNCHES["conv3x3_fwd"] == k3.LAUNCHES["conv3x3_dx"] == 0
+    for a, b in zip(got, ref):
+        assert ((a - b).norm() / b.norm()).item() <= 5e-2
