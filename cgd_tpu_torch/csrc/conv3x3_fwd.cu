@@ -13,68 +13,71 @@
 // by height over a mesh, replacing _conv3x3_pallas's explicit_halo mode
 // (conv_pallas.py:335-337, reached from conv_spmd.py:139). The taps of the
 // rows above and below the shard read the neighbours' boundary rows, which
-// the caller has activated already, instead of the zero pad. A template
-// flag, so the unsplit launches compile exactly as before; no up fusion.
+// the caller has activated already, instead of the zero pad: the staged
+// rows -1 and H of a patch at the shard's top or bottom come from etop and
+// ebot. A template flag; no up fusion.
 //
-// Bound: compute (tensor cores) for Cin >= 256; the prologue's sigmoid runs
-// once per loaded element and N tile, a small fraction of the MMA work.
-// Design: see conv3x3_common.cuh (implicit GEMM, WMMA bf16 -> f32, a
-// four-stage cp.async ring in shared memory, in-kernel pad-1 halo, split K
-// for the small images).
+// Bound: compute (tensor cores) for Cin >= 128; the prologue's sigmoid runs
+// once per staged input element (and N tile). Design: see
+// conv3x3_common.cuh (TMA-staged input patches, wgmma bf16 -> f32 with a
+// producer warpgroup, the pad-1 halo from the TMA's zero fill, split K for
+// the small images).
+#include <chrono>
+
 #include "conv3x3_common.cuh"
 
 namespace cgd {
 
-template <bool PROLOGUE, bool SKIP, bool UP, bool HALO>
-__global__ void __launch_bounds__(NTHREADS)
-conv3x3_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                   const __nv_bfloat16* __restrict__ bias, const float* __restrict__ Avec,
-                   const float* __restrict__ Bvec, const __nv_bfloat16* __restrict__ skip,
-                   const __nv_bfloat16* __restrict__ etop, const __nv_bfloat16* __restrict__ ebot,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int batch, int hs,
-                   int ws_dim, int cin, int cout, int ksplit) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.z % batch, split = blockIdx.z / batch;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int hw = (UP ? 4 : 1) * hs * ws_dim;
-  int kt0, kt1;
-  split_range(split, ksplit, 9 * (cin / BK), kt0, kt1);
-  AccFrag acc[FM][FN];
-  conv_mainloop<PROLOGUE, UP, 0, HALO>(x, w, Avec, Bvec, hs, ws_dim, cin, cout, b, m0, n0, kt0,
-                                       kt1, smem, acc, etop, ebot);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* cs = reinterpret_cast<float*>(smem + SMEM_C) + warp * 256;
-  if (ksplit > 1) {  // partial sums; conv3x3_splitk_epilogue finishes
-    store_partial(acc, cs, ws + ((size_t)split * batch + b) * hw * cout, hw, cout, m0, n0);
-    return;
-  }
-  const int wm = warp >> 1, wn = warp & 1;
-  const int r = lane >> 1, c8 = (lane & 1) * 8;
+template <int BN, bool PROLOGUE, bool SKIP, bool UP, bool HALO>
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv3x3_fwd_kernel(const __grid_constant__ ConvMaps maps, const __nv_bfloat16* __restrict__ bias,
+                   const float* __restrict__ Avec, const float* __restrict__ Bvec,
+                   const __nv_bfloat16* __restrict__ skip, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ ws, int batch, int hs, int ws_dim, int cin, int cout,
+                   int ksplit) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ Barriers bar;
+  unsigned char* smem = conv_setup(smem_raw, bar, PROLOGUE);
+  const ConvGeom g = make_geom(batch, hs, ws_dim, cin, UP, BN, ksplit);
+  if (threadIdx.x < NTHREADS - NCONSUMERS) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) conv_producer<BN, PROLOGUE, UP, HALO>(maps, g, bar, smem);
+  } else {
+    setmaxnreg_inc<232>();
+    float acc[BN / 2];
+    conv_mainloop<BN, PROLOGUE, UP>(g, bar, smem, Avec, Bvec, acc);
+    static_assert(Epi<BN>::TILE_BYTES <= Layout<BN, UP>::SMEM_BYTES - SMEM_ALIGN,
+                  "staged tile");
+    const float* c = stage_acc<BN>(acc, smem);
+    const size_t hw = (size_t)g.ho * g.wo;
+    if (ksplit > 1) {  // partial sums; conv3x3_splitk_epilogue finishes
+      store_partial<BN>(c, g, ws + ((size_t)(blockIdx.z / batch) * batch + g.b) * hw * cout, cout);
+      return;
+    }
+    // out = bf16(acc + bias [+ skip]), 8 channels of a pixel per thread
+    const int ct = threadIdx.x - (NTHREADS - NCONSUMERS);
+    const int grp = ct % Epi<BN>::GROUPS, po = ct / Epi<BN>::GROUPS;
+    const int n = g.n0 + grp * 8;
+    if (n >= cout) return;
+    float bv[8];
+    unpack8(*reinterpret_cast<const uint4*>(bias + n), bv);
+#pragma unroll 4
+    for (int pass = 0; pass < Epi<BN>::PASSES; ++pass) {
+      const int p = pass * Epi<BN>::PIX_PER_PASS + po;
+      const int oy = g.y0 + p / PATCH_W, ox = g.x0 + p % PATCH_W;
+      if (oy >= g.ho || ox >= g.wo) continue;
+      const size_t o = ((size_t)g.b * hw + (size_t)oy * g.wo + ox) * cout + n;
+      const float4* src = reinterpret_cast<const float4*>(c + p * Epi<BN>::PITCH + grp * 8);
+      const float4 s0 = src[0], s1 = src[1];
+      float v[8] = {s0.x + bv[0], s0.y + bv[1], s0.z + bv[2], s0.w + bv[3],
+                    s1.x + bv[4], s1.y + bv[5], s1.z + bv[6], s1.w + bv[7]};
+      if constexpr (SKIP) {
+        float sv[8];
+        unpack8(*reinterpret_cast<const uint4*>(skip + o), sv);
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int p = m0 + wm * WARP_M + i * 16 + r;
-      const int n = n0 + wn * WARP_N + j * 16 + c8;
-      if (p < hw && n < cout) {
-        float v[8], t[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = cs[r * 16 + c8 + e];
-        unpack8(*reinterpret_cast<const uint4*>(bias + n), t);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] += t[e];
-        const size_t o = ((size_t)b * hw + p) * cout + n;
-        if constexpr (SKIP) {
-          unpack8(*reinterpret_cast<const uint4*>(skip + o), t);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] += t[e];
-        }
-        *reinterpret_cast<uint4*>(out + o) = pack8(v);
+        for (int e = 0; e < 8; ++e) v[e] += sv[e];
       }
-      __syncwarp();
+      *reinterpret_cast<uint4*>(out + o) = pack8(v);
     }
   }
 }
@@ -103,31 +106,44 @@ __global__ void conv3x3_splitk_epilogue(const float* __restrict__ ws,
   *reinterpret_cast<uint4*>(out + i) = pack8(v);
 }
 
-template <bool P, bool S, bool U, bool H>
-static cudaError_t launch(const void* x, const void* w, const void* bias, const void* A,
-                          const void* Bv, const void* skip, const void* etop, const void* ebot,
-                          void* out, void* ws, int batch, int hs, int ws_dim, int cin, int cout,
-                          int ksplit, cudaStream_t stream) {
-  const int hw = (U ? 4 : 1) * hs * ws_dim;
-  static const cudaError_t smem_ok = allow_smem(conv3x3_fwd_kernel<P, S, U, H>);
-  if (smem_ok != cudaSuccess) return smem_ok;
-  dim3 grid((hw + BM - 1) / BM, (cout + BN - 1) / BN, batch * ksplit);
-  conv3x3_fwd_kernel<P, S, U, H><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<const float*>(A),
+template <int BN, bool P, bool S, bool U, bool H>
+static int launch(const ConvMaps& maps, const void* bias, const void* A, const void* Bv,
+                  const void* skip, void* out, void* ws, int batch, int hs, int ws_dim, int cin,
+                  int cout, int ksplit, cudaStream_t stream) {
+  const int ho = U ? 2 * hs : hs, wo = U ? 2 * ws_dim : ws_dim;
+  constexpr int smem = Layout<BN, U>::SMEM_BYTES;
+  static const cudaError_t smem_ok = allow_smem(conv3x3_fwd_kernel<BN, P, S, U, H>, smem);
+  if (smem_ok != cudaSuccess) return (int)smem_ok;
+  const dim3 grid(((ho + PATCH_H - 1) / PATCH_H) * ((wo + PATCH_W - 1) / PATCH_W),
+                  (cout + BN - 1) / BN, batch * ksplit);
+  conv3x3_fwd_kernel<BN, P, S, U, H><<<grid, NTHREADS, smem, stream>>>(
+      maps, static_cast<const __nv_bfloat16*>(bias), static_cast<const float*>(A),
       static_cast<const float*>(Bv), static_cast<const __nv_bfloat16*>(skip),
-      static_cast<const __nv_bfloat16*>(etop), static_cast<const __nv_bfloat16*>(ebot),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), batch, hs, ws_dim, cin, cout,
       ksplit);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || ksplit == 1) return err;
-  const size_t total = (size_t)batch * hw * cout;
+  if (err != cudaSuccess || ksplit == 1) return (int)err;
+  const size_t total = (size_t)batch * ho * wo * cout;
   const unsigned threads = 256, blocks = (unsigned)((total / 8 + threads - 1) / threads);
   conv3x3_splitk_epilogue<<<blocks, threads, 0, stream>>>(
       static_cast<const float*>(ws), static_cast<const __nv_bfloat16*>(bias),
       static_cast<const __nv_bfloat16*>(skip), static_cast<__nv_bfloat16*>(out), total, cout,
       ksplit);
-  return cudaGetLastError();
+  return (int)cudaGetLastError();
+}
+
+template <bool P, bool S, bool U, bool H>
+static int launch_bn(int bn, const ConvMaps& maps, const void* bias, const void* A,
+                     const void* Bv, const void* skip, void* out, void* ws, int batch, int hs,
+                     int ws_dim, int cin, int cout, int ksplit, cudaStream_t stream) {
+  if (bn == 16)
+    return launch<16, P, S, U, H>(maps, bias, A, Bv, skip, out, ws, batch, hs, ws_dim, cin, cout,
+                                  ksplit, stream);
+  if (bn == 128)
+    return launch<128, P, S, U, H>(maps, bias, A, Bv, skip, out, ws, batch, hs, ws_dim, cin, cout,
+                                   ksplit, stream);
+  return launch<256, P, S, U, H>(maps, bias, A, Bv, skip, out, ws, batch, hs, ws_dim, cin, cout,
+                                 ksplit, stream);
 }
 
 }  // namespace cgd
@@ -137,26 +153,32 @@ static cudaError_t launch(const void* x, const void* w, const void* bias, const 
 // [batch, ho, wo, cout] bf16 or null; etop, ebot [batch, 1, ws, cin] bf16, both
 // or neither (K-halo: the rows above and below this shard, post-activation;
 // no up); out [batch, ho, wo, cout] bf16 with
-// (ho, wo) = (2hs, 2ws) when up else (hs, ws). ksplit > 1 splits K over that
-// many blocks per output tile and needs ws: [ksplit, batch, ho, wo, cout]
-// f32 scratch (null when ksplit == 1). Requires cin % 32 == 0,
-// cout % 8 == 0, 1 <= ksplit <= 9*cin/32 and 16-byte aligned pointers.
-// Returns the launch status.
+// (ho, wo) = (2hs, 2ws) when up else (hs, ws). bn: the N tile (16, 128 or
+// 256). ksplit > 1 splits the Cin chunks over that many blocks per output
+// tile and needs ws: [ksplit, batch, ho, wo, cout] f32 scratch (null when
+// ksplit == 1). Requires cin % 64 == 0, cout % 8 == 0, 1 <= ksplit <=
+// cin/64 and 16-byte aligned pointers (kernels/conv3x3.py conv_plan makes
+// the same plan). Returns the launch status (cudaError_t, or
+// cgd::ENCODE_ERROR + the CUresult of a failed tensor-map encode).
 extern "C" int cgd_conv3x3_fwd(const void* x, const void* w, const void* bias, const void* A,
                                const void* Bv, const void* skip, const void* etop,
                                const void* ebot, void* out, void* ws, int batch, int hs,
-                               int ws_dim, int cin, int cout, int up, int ksplit, void* stream) {
+                               int ws_dim, int cin, int cout, int up, int bn, int ksplit,
+                               void* stream) {
   using namespace cgd;
   const bool halo = etop != nullptr;
-  if (cin % BK || cout % 8 || batch <= 0 || hs <= 0 || ws_dim <= 0 || ksplit < 1 ||
-      ksplit > 9 * (cin / BK) || (ksplit > 1 && ws == nullptr) || halo != (ebot != nullptr) ||
-      (halo && up))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool pro = A != nullptr, sk = skip != nullptr;
-#define CGD_LAUNCH(P, S, U, H)                                                                 \
-  return (int)launch<P, S, U, H>(x, w, bias, A, Bv, skip, etop, ebot, out, ws, batch, hs, ws_dim, \
-                                 cin, cout, ksplit, s)
+  if (cin % BK || cout % 8 || batch <= 0 || hs <= 0 || ws_dim <= 0 || ksplit < 1 ||
+      ksplit > cin / BK || (ksplit > 1 && ws == nullptr) || halo != (ebot != nullptr) ||
+      (halo && up) || (up && !pro) || (bn != 16 && bn != 128 && bn != 256))
+    return (int)cudaErrorInvalidValue;
+  ConvMaps maps;
+  if (int st = make_conv_maps(&maps, x, etop, ebot, w, batch, hs, ws_dim, cin, cout, bn, up))
+    return st;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CGD_LAUNCH(P, S, U, H) \
+  return launch_bn<P, S, U, H>(bn, maps, bias, A, Bv, skip, out, ws, batch, hs, ws_dim, cin, cout, \
+                               ksplit, s)
   if (!pro && !sk && !up && !halo) CGD_LAUNCH(false, false, false, false);
   if (pro && !sk && !up && !halo) CGD_LAUNCH(true, false, false, false);
   if (pro && sk && !up && !halo) CGD_LAUNCH(true, true, false, false);
@@ -168,8 +190,25 @@ extern "C" int cgd_conv3x3_fwd(const void* x, const void* w, const void* bias, c
   return (int)cudaErrorNotSupported;
 }
 
-extern "C" int cgd_conv3x3_tile_m() { return cgd::BM; }
+// Dynamic shared memory of one block of the conv family's kernels for N tile
+// bn, with or without up (what conv_plan computes).
+extern "C" int cgd_conv3x3_smem_bytes(int bn, int up) { return cgd::smem_bytes(bn, up != 0); }
+
+// Host seconds per launch to encode the tensor maps of one K-halo launch
+// (four maps, the most any launch encodes) over a 256 x 256 x 256 bf16 image
+// at `buf` (a device buffer of at least 32 MiB), averaged over `reps`
+// launches; negative if an encode fails.
+extern "C" double cgd_conv3x3_encode_seconds(const void* buf, int reps) {
+  using namespace cgd;
+  ConvMaps maps;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i)
+    if (make_conv_maps(&maps, buf, buf, buf, buf, 1, 256, 256, 256, 256, 256, false))
+      return -1.0;
+  return std::chrono::duration<double>(std::chrono::steady_clock::now() - t0).count() / reps;
+}
 
 extern "C" const char* cgd_error_string(int status) {
+  if (status >= cgd::ENCODE_ERROR) return "cuTensorMapEncodeTiled failed (CUresult = status - 100000)";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

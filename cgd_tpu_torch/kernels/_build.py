@@ -56,18 +56,20 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cgd_conv3x3_fwd.argtypes = [p] * 10 + [i] * 7 + [p]
+    lib.cgd_conv3x3_fwd.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.cgd_conv3x3_fwd.restype = i
-    lib.cgd_conv3x3_dx.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.cgd_conv3x3_dx.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.cgd_conv3x3_dx.restype = i
     lib.cgd_conv3x3_dx_chunks.argtypes = [i, i, i, i]
     lib.cgd_conv3x3_dx_chunks.restype = i
+    lib.cgd_conv3x3_smem_bytes.argtypes = [i, i]
+    lib.cgd_conv3x3_smem_bytes.restype = i
+    lib.cgd_conv3x3_encode_seconds.argtypes = [p, i]
+    lib.cgd_conv3x3_encode_seconds.restype = ctypes.c_double
     lib.cgd_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.cgd_attn_fwd.restype = i
     lib.cgd_attn_bwd.argtypes = [p] * 10 + [i] * 7 + [p]
     lib.cgd_attn_bwd.restype = i
-    lib.cgd_conv3x3_tile_m.argtypes = []
-    lib.cgd_conv3x3_tile_m.restype = i
     lib.cgd_error_string.argtypes = [i]
     lib.cgd_error_string.restype = ctypes.c_char_p
     return lib
@@ -125,8 +127,18 @@ def stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# the conv entry points return this plus the CUresult of a failed
+# cuTensorMapEncodeTiled (csrc/conv3x3_common.cuh ENCODE_ERROR)
+ENCODE_ERROR = 100000
+
+
 def check(status: int, what: str) -> None:
-    """Raise on a nonzero cudaError_t returned by a kernel's C entry point."""
+    """Raise on a nonzero status returned by a kernel's C entry point: a
+    cudaError_t, or ENCODE_ERROR + the CUresult of a failed tensor-map
+    encode."""
+    if status >= ENCODE_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed: CUresult "
+                           f"{status - ENCODE_ERROR}")
     if status != 0:
         msg = library().cgd_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA launch failed: cudaError_t {status} ({msg})")

@@ -16,9 +16,12 @@ Pallas kernels on the sampling path:
   builds them).
 - ``conv3x3_dx``: the one-pass backward of the prologue conv: transpose conv
   of the cotangent, then ``dx = acc*silu'(pre)*A`` and the dA/dB reductions.
-  At the 512^2 classes it runs as K-dx-w (8 x 16 pixel tiles instead of 128
-  consecutive pixels; see ``dx_wtiled``), which replaces the Pallas
-  ``_conv3x3_dx_wtiled``.
+  At the 512^2 classes its launches are counted as K-dx-w (see
+  ``dx_wtiled``), the class that replaces the Pallas ``_conv3x3_dx_wtiled``.
+
+Both kernels share one Hopper main loop (TMA-staged input patches, wgmma,
+a producer warpgroup); ``conv_plan`` is the launch geometry the wrapper and
+the kernel agree on.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises. Nothing falls back from a failed build or launch.
@@ -43,11 +46,16 @@ from cgd_tpu_torch.kernels import _build
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES = {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0, "conv3x3_dx_wtiled": 0}
 
-_K_ALIGN = 32  # kernels need Cin % 32 == 0 (one tap per K slice) ...
-_N_ALIGN = 8   # ... and Cout % 8 == 0 (16-byte vector loads and stores)
-_TILE_N = 128  # output channels per block (csrc/conv3x3_common.cuh BN)
-_MIN_SPLIT_K = 8  # K slices per split, at least
-_WTILED_MIN_W = 512  # K-dx-w from this image width up (the 512^2 classes)
+_K_ALIGN = 64  # kernels need Cin % 64 == 0 (one 128-byte K chunk) ...
+_N_ALIGN = 8   # ... and Cout % 8 == 0 (16-byte TMA strides)
+_WTILED_MIN_W = 512  # the K-dx-w class from this image width up (the 512^2 classes)
+
+# the launch geometry of csrc/conv3x3_common.cuh (conv_plan mirrors it)
+PATCH_H, PATCH_W = 8, 16  # output patch of one block: 128 pixels
+BK = 64                   # input channels per K chunk
+SMEM_MAX = 232448         # shared memory one block may take on the H100
+_SMEM_STATIC, _SMEM_ALIGN = 256, 1024
+_MIN_SPLIT_CHUNKS = 2     # K chunks per split, at least
 
 
 def reset_launch_counts() -> None:
@@ -145,14 +153,65 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _ksplit(dev: torch.device, tiles: int, cin: int) -> int:
-    """How many blocks share the K loop of one output tile: 1 while the
-    output tiles alone fill the card, else enough splits for about two
-    blocks per SM (the 16x16 and 8x8 levels of the 256px UNet)."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if tiles >= sms:
-        return 1
-    return max(1, min(-(-2 * sms // tiles), 9 * cin // _K_ALIGN // _MIN_SPLIT_K))
+def tile_n(cout: int) -> int:
+    """The N tile for ``cout`` (padded) output channels: 16 for the
+    eps/sigma output conv, 128 up to 128 channels, else 256."""
+    return 16 if cout <= 16 else 128 if cout <= 128 else 256
+
+
+def smem_bytes(bn: int, up: bool) -> Tuple[int, int]:
+    """(dynamic shared memory of one block, B ring stages), as
+    ``cgd::Layout``: three A stages of the staged patch (10 rows, 6 with up,
+    each row in 1 KB-aligned slots), as many B stages (BK x bn bf16) as fit,
+    at most 6, and 1 KB of alignment slack. The prologue activates in place
+    and takes no memory of its own."""
+    rh, rw = (PATCH_H // 2 + 2, PATCH_W // 2 + 2) if up else (PATCH_H + 2, PATCH_W + 2)
+    a = 3 * rh * _round_up(rw * BK * 2, _SMEM_ALIGN)
+    b_bytes = BK * bn * 2
+    stages = min(6, (SMEM_MAX - _SMEM_STATIC - _SMEM_ALIGN - a) // b_bytes)
+    return a + stages * b_bytes + _SMEM_ALIGN, stages
+
+
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int, up: bool = False,
+              halo: bool = False, sms: int = 132, split: bool = True) -> dict:
+    """The launch plan of one K-fwd / K-dx call, the geometry the wrapper
+    and the kernel must agree on (the C entry point checks what it is given
+    and sizes shared memory the same way; a card test holds the two equal).
+
+    ``h``/``w`` are the input image's; ``cin``/``cout`` the unpadded channel
+    counts (K-dx: Cg / Cx). The output (2h x 2w with ``up``) is tiled in 8 x 16
+    patches, Cout in N tiles of ``bn``, Cin in chunks of BK = 64. Split K
+    (chunks over ``ksplit`` blocks) when the tiles alone do not fill the
+    ``sms`` SMs, one block each, at least two chunks per split. Per chunk a
+    block stages its patch's input window (output rows / cols -1 .. 8 / 16,
+    in source coordinates with ``up``) one row per TMA load."""
+    cin_p, cout_p = _round_up(cin, _K_ALIGN), _round_up(cout, _N_ALIGN)
+    ho, wo = (2 * h, 2 * w) if up else (h, w)
+    bn = tile_n(cout_p)
+    patches = -(-ho // PATCH_H) * -(-wo // PATCH_W)
+    ntiles = -(-cout_p // bn)
+    chunks = cin_p // BK
+    tiles = patches * ntiles * b
+    ksplit = 1
+    if split and tiles < sms:
+        ksplit = max(1, min(-(-sms // tiles), chunks // _MIN_SPLIT_CHUNKS))
+    rh, rw = (PATCH_H // 2 + 2, PATCH_W // 2 + 2) if up else (PATCH_H + 2, PATCH_W + 2)
+    smem, b_stages = smem_bytes(bn, up)
+    box_n = min(bn, 64)
+    return dict(
+        cin=cin_p, cout=cout_p, ho=ho, wo=wo, patch=(PATCH_H, PATCH_W), bk=BK, bn=bn,
+        chunks=chunks, ksplit=ksplit, grid=(patches, ntiles, b * ksplit),
+        # the staged window (rows x cols) and the TMA boxes, innermost first:
+        # one row of x (K-halo: of etop / ebot too), BK rows of the weight
+        window=(rh, rw), box_x=(BK, rw, 1, 1), box_halo=(BK, rw, 1, 1) if halo else None,
+        swizzle_x=128, box_w=(box_n, BK), swizzle_w=128 if box_n == 64 else 32,
+        strides_x=(cin_p * 2, w * cin_p * 2, h * w * cin_p * 2), stride_w=cout_p * 2,
+        smem_bytes=smem, b_stages=b_stages,
+    )
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _workspace(ksplit: int, n: int, dev: torch.device) -> Optional[torch.Tensor]:
@@ -193,15 +252,15 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False, etop=None, ebot
     ho, wo = (2 * hs, 2 * ws) if up else (hs, ws)
     if skip is not None and skip.shape != (b, ho, wo, cout):
         raise ValueError(f"conv3x3_fwd: skip {tuple(skip.shape)} != {(b, ho, wo, cout)}")
+    plan = conv_plan(b, hs, ws, cin, cout, up, halo, _sms(x.device))
     # skinny channel counts (RGB in, eps+sigma out) are zero-padded
-    cin_p, cout_p = _round_up(cin, _K_ALIGN), _round_up(cout, _N_ALIGN)
+    cin_p, cout_p = plan["cin"], plan["cout"]
     x, w, A, B = _pad_to(x, 3, cin_p), _pad_to(w, 2, cin_p), _pad_to(A, 1, cin_p), _pad_to(B, 1, cin_p)
     etop, ebot = _pad_to(etop, 3, cin_p), _pad_to(ebot, 3, cin_p)
     w, bias, skip = _pad_to(w, 3, cout_p), _pad_to(bias, 0, cout_p), _pad_to(skip, 3, cout_p)
     out = torch.empty((b, ho, wo, cout_p), dtype=x.dtype, device=x.device)
     lib = _build.library()
-    tiles = -(-ho * wo // lib.cgd_conv3x3_tile_m()) * -(-cout_p // _TILE_N) * b
-    ksplit = _ksplit(x.device, tiles, cin_p)
+    ksplit = plan["ksplit"]
     ws_buf = _workspace(ksplit, out.numel(), x.device)
     with torch.cuda.device(x.device):
         status = lib.cgd_conv3x3_fwd(
@@ -210,7 +269,7 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False, etop=None, ebot
             None if skip is None else skip.data_ptr(),
             None if etop is None else etop.data_ptr(), None if ebot is None else ebot.data_ptr(),
             out.data_ptr(), None if ws_buf is None else ws_buf.data_ptr(),
-            b, hs, ws, cin_p, cout_p, int(up), ksplit, _build.stream(x.device),
+            b, hs, ws, cin_p, cout_p, int(up), plan["bn"], ksplit, _build.stream(x.device),
         )
     _build.check(status, "conv3x3_fwd")
     LAUNCHES["conv3x3_fwd_halo" if halo else "conv3x3_fwd"] += 1
@@ -218,11 +277,11 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False, etop=None, ebot
 
 
 def dx_wtiled(w: int, ksplit: int) -> bool:
-    """K-dx's tiling rule: 8 x 16 spatial tiles (K-dx-w) where a 128-pixel
-    row segment is a quarter row or less (W >= 512: the 512^2 classes, which
-    is where the JAX package's _pick_dx_tiles admits its W-tiled kernel) and
-    the output tiles fill the card without split K; 128 consecutive pixels
-    otherwise."""
+    """K-dx's launch classes: K-dx-w (``LAUNCHES["conv3x3_dx_wtiled"]``)
+    where W >= 512 (the 512^2 classes, where the JAX package's
+    _pick_dx_tiles admits its W-tiled kernel) and the output tiles fill the
+    card without split K; K-dx otherwise. Both run the same kernel over
+    8 x 16 output patches."""
     return w >= _WTILED_MIN_W and ksplit == 1
 
 
@@ -231,8 +290,9 @@ def conv3x3_dx(g, wt, x, A, B, wtiled: Optional[bool] = None
     """K-dx. g [b,h,w,cg] cotangent; wt [3,3,cg,cx] flipped/transposed
     weights; x [b,h,w,cx] pre-activation input; A/B [b,cx] f32
     -> dx [b,h,w,cx] in g's dtype, dA/dB [b,cx] f32. No autograd.
-    ``wtiled`` forces the tiling (None: ``dx_wtiled``'s rule); the W-tiled
-    launches count under ``LAUNCHES["conv3x3_dx_wtiled"]``."""
+    ``wtiled`` forces the launch class (None: ``dx_wtiled``'s rule; True
+    also forbids split K); K-dx-w launches count under
+    ``LAUNCHES["conv3x3_dx_wtiled"]``."""
     if g.device.type == "cpu":
         return conv3x3_dx_plain(g, wt, x, A, B)
     if g.device.type != "cuda":
@@ -244,16 +304,15 @@ def conv3x3_dx(g, wt, x, A, B, wtiled: Optional[bool] = None
             or B.shape != (b, cx):
         raise ValueError("conv3x3_dx: shapes do not fit "
                          f"g {tuple(g.shape)}, wt {tuple(wt.shape)}, x {tuple(x.shape)}")
-    cg_p, cx_p = _round_up(cg, _K_ALIGN), _round_up(cx, _N_ALIGN)
+    plan = conv_plan(b, h, w_, cg, cx, sms=_sms(g.device))
+    if wtiled is None:
+        wtiled = dx_wtiled(w_, plan["ksplit"])
+    if wtiled:
+        plan = conv_plan(b, h, w_, cg, cx, sms=_sms(g.device), split=False)
+    cg_p, cx_p, ksplit = plan["cin"], plan["cout"], plan["ksplit"]
     g, wt = _pad_to(g, 3, cg_p), _pad_to(wt, 2, cg_p)
     wt, x, A, B = _pad_to(wt, 3, cx_p), _pad_to(x, 3, cx_p), _pad_to(A, 1, cx_p), _pad_to(B, 1, cx_p)
     lib = _build.library()
-    mtiles = -(-h * w_ // lib.cgd_conv3x3_tile_m())
-    ksplit = _ksplit(g.device, mtiles * -(-cx_p // _TILE_N) * b, cg_p)
-    if wtiled is None:
-        wtiled = dx_wtiled(w_, ksplit)
-    if wtiled:
-        ksplit = 1
     dx = torch.empty((b, h, w_, cx_p), dtype=g.dtype, device=g.device)
     chunks = lib.cgd_conv3x3_dx_chunks(h, w_, ksplit, int(wtiled))
     partial = torch.empty((b, chunks, 2, cx_p), dtype=torch.float32, device=g.device)
@@ -264,7 +323,7 @@ def conv3x3_dx(g, wt, x, A, B, wtiled: Optional[bool] = None
         status = lib.cgd_conv3x3_dx(
             g.data_ptr(), wt.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(),
             dx.data_ptr(), partial.data_ptr(), None if ws_buf is None else ws_buf.data_ptr(),
-            dA.data_ptr(), dB.data_ptr(), b, h, w_, cg_p, cx_p, ksplit, int(wtiled),
+            dA.data_ptr(), dB.data_ptr(), b, h, w_, cg_p, cx_p, plan["bn"], ksplit, int(wtiled),
             _build.stream(g.device),
         )
     _build.check(status, "conv3x3_dx")

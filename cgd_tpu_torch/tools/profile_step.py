@@ -10,8 +10,9 @@ profiler off (host clock, synchronised), and profiles the five steps from
 10 to 15 (each window includes one frame's PNG write). Prints, per guided
 step: the wall time, the device time of all kernels (busy) and the idle
 share of the wall time, the device operations, the device time of the
-hand-written kernels (``cgd::``), and the kernels that take the most device
-time. Needs a CUDA card.
+hand-written kernels (``cgd::``), the kernels that take the most device
+time, and every hand-written kernel template with its device time and
+launches. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -77,8 +78,13 @@ def main(argv=None) -> None:
     print(f"{label}: wall {wall * 1e3:.1f} ms per guided step; device busy {busy:.1f} ms "
           f"(idle {1 - busy / (wall * 1e3):.0%}); {len(kernels) / STEPS:.0f} device ops "
           f"(kernels, copies, memsets) per step; hand-written kernels {mine:.1f} ms")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (t, n) in ranked[:TOP]:
         print(f"  {t:8.3f} ms  {n / STEPS:7.1f}x  {name[:110]}")
+    print("hand-written kernels, every template:")
+    for name, (t, n) in ranked:
+        if "cgd::" in name:
+            print(f"  {t:8.3f} ms  {n / STEPS:7.1f}x  {name[:110]}")
 
 
 if __name__ == "__main__":

@@ -6,13 +6,16 @@
 Phases, each of which raises (and the script exits nonzero) on failure:
 1. require a CUDA card; print ``nvidia-smi --query-gpu=name,power.limit``;
 2. build the hand-written kernels from ``cgd_tpu_torch/csrc`` (nvcc, one
-   process per source, in parallel);
+   process per source, in parallel), and time the host's TMA tensor-map
+   encode that every conv launch makes;
 3. hold each kernel against its plain PyTorch version in bf16 at the shape
-   classes of the 256px and 512px UNets (the conv family, K-dx-w at 512^2,
-   the attention forward and its three gradients at every T and head dim),
-   checking that K-dx, K-dx-w and K-attn-b reruns are bit-identical (bound:
-   max |err| <= 1% of the reference's max |value|, the order of bf16
-   rounding), and time both;
+   classes of the 256px and 512px UNets (the conv family, including the
+   512px UNet's own 512^2 128->128 prologue+residual class, K-dx-w at
+   512^2, the attention forward and its three gradients at every T and head
+   dim), checking that K-dx, K-dx-w and K-attn-b reruns are bit-identical
+   (bound: max |err| <= 1% of the reference's max |value|, the order of
+   bf16 rounding), and time both, with cuDNN's bare conv on the same input,
+   and each conv's TFLOP/s and share of its bound;
 4. the full-width 256px and 512px class-conditional UNets (random weights,
    every zero-init conv re-drawn so the kernels' output reaches the result):
    forward and input gradient with the kernels against
@@ -102,8 +105,14 @@ def _bound(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def _fmt(bound: dict) -> str:
-    return f"; bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}"
+def _fmt(bound: dict, ms: float = None) -> str:
+    """The bound, and with ``ms`` the kernel's share of it (bound / time)."""
+    share = "" if ms is None else f", {bound['bound_ms'] / ms:.1%} of it reached"
+    return f"; bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}{share}"
+
+
+def _tflops(flops: float, ms: float) -> str:
+    return f"{flops / ms / 1e9:.1f} TFLOP/s"
 
 
 def phase_kernels(k3, dev):
@@ -119,6 +128,7 @@ def phase_kernels(k3, dev):
     cases = [
         ("conv3x3", 256, 3, 256, False, False, False),
         ("conv3x3_gn_silu_add", 256, 256, 256, True, True, False),
+        ("conv3x3_gn_silu_add", 512, 128, 128, True, True, False),
         ("conv3x3_gn_silu_up", 128, 512, 512, True, False, True),
         ("conv3x3_gn_silu", 16, 2048, 1024, True, False, False),
         ("conv3x3_gn_silu", 256, 256, 6, True, False, False),
@@ -141,11 +151,12 @@ def phase_kernels(k3, dev):
         h = x if A is None else k3._silu_chain(x, A, B)[2].to(x.dtype)
         h = k3._up2(h) if up else h
         cms = _time_ms(lambda: k3._conv_nhwc(h, w))
-        tflops = 2 * ho * ho * 9 * ci * co / ms / 1e9
-        bd = _bound(2 * ho * ho * 9 * ci * co, _nbytes(x, w, bias, A, B, skip, out))
+        flops = 2 * ho * ho * 9 * ci * co
+        bd = _bound(flops, _nbytes(x, w, bias, A, B, skip, out))
         print(f"[3] K-fwd {name:20s} {ho}^2 {ci}->{co}: max|err| {err:.3e} "
-              f"({rel:.2e} of scale) kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) "
-              f"plain {pms:.4f} ms (its cuDNN conv alone {cms:.4f} ms){_fmt(bd)}")
+              f"({rel:.2e} of scale) kernel {ms:.4f} ms ({_tflops(flops, ms)}) "
+              f"plain {pms:.4f} ms (its cuDNN conv alone {cms:.4f} ms, "
+              f"{ms / cms:.2f}x){_fmt(bd, ms)}")
         if rel > FWD_TOL:
             raise AssertionError(f"K-fwd {name} {ho}^2 {ci}->{co}: {rel:.3e} > {FWD_TOL}")
         res["conv3x3_fwd"]["err"] = max(res["conv3x3_fwd"]["err"], err)
@@ -169,10 +180,12 @@ def phase_kernels(k3, dev):
                 if rel > DX_TOL:
                     raise AssertionError(f"K-dx {name} {ho}^2 {part}: {rel:.3e} > {DX_TOL}")
                 res["conv3x3_dx"]["err"] = max(res["conv3x3_dx"]["err"], err)
-            bd = _bound(2 * ho * ho * 9 * ci * co, _nbytes(g, wt, x, A, B, *got))
+            flops = 2 * ho * ho * 9 * ci * co
+            bd = _bound(flops, _nbytes(g, wt, x, A, B, *got))
             print(f"[3] K-dx  {name:20s} {ho}^2 {ci}->{co}: {', '.join(line)} "
-                  f"kernel {ms:.4f} ms plain {pms:.4f} ms (its cuDNN conv alone "
-                  f"{cms:.4f} ms; bit-identical reruns){_fmt(bd)}")
+                  f"kernel {ms:.4f} ms ({_tflops(flops, ms)}) plain {pms:.4f} ms (its cuDNN "
+                  f"conv alone {cms:.4f} ms, {ms / cms:.2f}x; bit-identical reruns)"
+                  f"{_fmt(bd, ms)}")
             if (ho, ci, co) == (256, 256, 256):
                 res["conv3x3_dx"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd)
 
@@ -197,13 +210,13 @@ def phase_kernels(k3, dev):
                 raise AssertionError(f"K-dx-w 512^2 {ci}->{co} {part}: {rel:.3e} > {DX_TOL}")
             res["conv3x3_dx_wtiled"]["err"] = max(res["conv3x3_dx_wtiled"]["err"], err)
         ms = _time_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=True))
-        lms = _time_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=False))
         pms = _time_ms(lambda: k3.conv3x3_dx_plain(g, wt, x, A, B))
         cms = _time_ms(lambda: k3._conv_nhwc(g, wt))
-        bd = _bound(2 * 512 * 512 * 9 * ci * co, _nbytes(g, wt, x, A, B, *got))
+        flops = 2 * 512 * 512 * 9 * ci * co
+        bd = _bound(flops, _nbytes(g, wt, x, A, B, *got))
         print(f"[3] K-dx-w 512^2 {ci}->{co}: {', '.join(line)} kernel {ms:.4f} ms "
-              f"(K-dx 128-pixel tiles {lms:.4f} ms) plain {pms:.4f} ms (its cuDNN conv alone "
-              f"{cms:.4f} ms; bit-identical reruns){_fmt(bd)}")
+              f"({_tflops(flops, ms)}; {ms / cms:.2f}x cuDNN's conv alone, {cms:.4f} ms) "
+              f"plain {pms:.4f} ms (bit-identical reruns){_fmt(bd, ms)}")
         if (ci, co) == (128, 128):
             res["conv3x3_dx_wtiled"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd)
     torch.cuda.synchronize()
@@ -604,17 +617,19 @@ def phase_halo(k3, dev):
         w_oihw = w.permute(3, 2, 0, 1)
         cms = _time_ms(lambda: F.conv2d(stacked, w_oihw, padding=(0, 1)))
         out = k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot)
-        bound = _bound(2 * hs * wd * 9 * ci * co, _nbytes(x, w, bias, A, B, skip, etop, ebot, out))
+        flops = 2 * hs * wd * 9 * ci * co
+        bound = _bound(flops, _nbytes(x, w, bias, A, B, skip, etop, ebot, out))
         padded = ""
-        if ci % 32:  # the wrapper zero-pads x, w, etop and ebot to Cin 32 per call
-            xp, wp, etp, ebp = (F.pad(z, (0, 0, 0, 32 - ci)) if z is w else
-                                F.pad(z, (0, 32 - ci)) for z in (x, w, etop, ebot))
-            padded = (f" (inputs padded to Cin 32 beforehand: K-halo "
+        if ci % k3.BK:  # the wrapper zero-pads x, w, etop and ebot to Cin 64 per call
+            xp, wp, etp, ebp = (F.pad(z, (0, 0, 0, k3.BK - ci)) if z is w else
+                                F.pad(z, (0, k3.BK - ci)) for z in (x, w, etop, ebot))
+            padded = (f" (inputs padded to Cin {k3.BK} beforehand: K-halo "
                       f"{_time_ms(lambda: k3.conv3x3_fwd(xp, wp, bias, etop=etp, ebot=ebp)):.4f}"
                       f" ms, K-fwd {_time_ms(lambda: k3.conv3x3_fwd(xp, wp, bias)):.4f} ms)")
         print(f"[7a] K-halo {name:20s} shard {hs}x{wd} {ci}->{co}: {', '.join(line)}; kernel "
-              f"{ms:.4f} ms (K-fwd on the shard {fwd_ms:.4f} ms){padded} plain {pms:.4f} ms, "
-              f"cuDNN on the stacked rows {cms:.4f} ms{_fmt(bound)}")
+              f"{ms:.4f} ms ({_tflops(flops, ms)}; K-fwd on the shard {fwd_ms:.4f} ms){padded} "
+              f"plain {pms:.4f} ms, cuDNN on the stacked rows {cms:.4f} ms ({ms / cms:.2f}x)"
+              f"{_fmt(bound, ms)}")
         if (hs, ci, co, sk) == (128, 256, 256, True):
             res.update(ms=ms, plain_ms=pms, library_ms=cms, **bound)
     torch.cuda.synchronize()
@@ -675,9 +690,17 @@ def main() -> None:
     from cgd_tpu_torch.kernels import conv3x3 as k3
 
     t0 = time.perf_counter()
-    _build.library()
+    lib = _build.library()
     print(f"[2] kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
+    # the conv launches encode their TMA tensor maps on the host, per call
+    buf = torch.empty(256 * 256 * 256, dtype=torch.bfloat16, device=dev)
+    enc_s = lib.cgd_conv3x3_encode_seconds(buf.data_ptr(), 2000)
+    if enc_s < 0:
+        raise AssertionError("cuTensorMapEncodeTiled failed")
+    print(f"[2] TMA tensor-map encode: {enc_s * 1e6:.2f} us of host time per conv launch "
+          f"(four maps, as K-halo encodes; the most any launch does)")
+    del buf
 
     from cgd_tpu_torch.parallel.mesh import make_mesh
 

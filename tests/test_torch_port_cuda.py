@@ -258,3 +258,69 @@ def test_split_unet_matches_unsplit_and_runs_on_khalo(dev):
     assert k3.LAUNCHES["conv3x3_fwd"] == k3.LAUNCHES["conv3x3_dx"] == 0
     for a, b in zip(got, ref):
         assert ((a - b).norm() / b.norm()).item() <= 5e-2
+
+
+# The Hopper main loop's instances: (batch, H, W, Cin, Cout, up) for each N
+# tile (Cout 8 / 16 -> 16, 96 / 128 -> 128, 256 / 1024 -> 256), an image
+# narrower than a 16-wide patch, up from a ragged source, and split K over
+# chunk ranges that start past the first chunk (5 and 7 chunks)
+MAINLOOP = [(1, 24, 24, 128, 8, False), (1, 20, 36, 64, 16, False), (1, 24, 40, 128, 96, False),
+            (2, 16, 48, 64, 128, False), (1, 32, 32, 128, 256, False),
+            (1, 16, 16, 256, 1024, False), (1, 8, 12, 128, 64, False), (1, 5, 9, 128, 128, True),
+            (1, 7, 11, 64, 256, True), (1, 4, 4, 320, 128, False), (1, 8, 8, 448, 256, False)]
+
+
+@pytest.mark.parametrize("shape,variant", [(s, v) for s in MAINLOOP
+                                           for v in (["up"] if s[5] else ["plain", "prologue", "skip"])])
+def test_kfwd_mainloop_instances_match_plain(dev, shape, variant):
+    b, h, w, ci, co, up = shape
+    ho, wo = (2 * h, 2 * w) if up else (h, w)
+    x, w_ = _rn(dev, b, h, w, ci, seed=60), _rn(dev, 3, 3, ci, co, scale=(9 * ci) ** -0.5, seed=61)
+    bias, skip = _rn(dev, co, scale=0.1, seed=62), _rn(dev, b, ho, wo, co, seed=63)
+    A = B = None
+    if variant != "plain":
+        A, B = 1.0 + 0.2 * _rn(dev, b, ci, seed=64).float(), 0.2 * _rn(dev, b, ci, seed=65).float()
+    skip = skip if variant == "skip" else None
+    out = k3.conv3x3_fwd(x, w_, bias, A, B, skip, up)
+    _close(out, k3.conv3x3_fwd_plain(x, w_, bias, A, B, skip, up))
+    assert torch.equal(out, k3.conv3x3_fwd(x, w_, bias, A, B, skip, up))
+
+
+@pytest.mark.parametrize("shape", [s for s in MAINLOOP if not s[5]])
+def test_kdx_mainloop_instances_match_plain_and_are_deterministic(dev, shape):
+    b, h, w, ci, co, _ = shape
+    x, g = _rn(dev, b, h, w, ci, seed=70), _rn(dev, b, h, w, co, seed=71)
+    wt = k3._flip_t(_rn(dev, 3, 3, ci, co, scale=(9 * ci) ** -0.5, seed=72))
+    A = 1.0 + 0.2 * _rn(dev, b, ci, seed=73).float()
+    B = 0.2 * _rn(dev, b, ci, seed=74).float()
+    got = k3.conv3x3_dx(g, wt, x, A, B)
+    again = k3.conv3x3_dx(g, wt, x, A, B)
+    for a, ref, c in zip(got, k3.conv3x3_dx_plain(g, wt, x, A, B), again):
+        _close(a, ref)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("variant", ["plain", "prologue", "skip"])
+def test_khalo_shard_of_height_8(dev, variant):
+    """An 8-row shard: its one row of patches touches both neighbours."""
+    b, h, w, ci, co = 1, 8, 40, 128, 256
+    x, skip = _rn(dev, b, h, w, ci, seed=80), _rn(dev, b, h, w, co, seed=81)
+    etop, ebot = _rn(dev, b, 1, w, ci, seed=82), _rn(dev, b, 1, w, ci, seed=83)
+    wk, bias = _rn(dev, 3, 3, ci, co, scale=(9 * ci) ** -0.5, seed=84), _rn(dev, co, seed=85)
+    A = B = None
+    if variant != "plain":
+        A, B = 1.0 + 0.2 * _rn(dev, b, ci, seed=86).float(), 0.2 * _rn(dev, b, ci, seed=87).float()
+    skip = skip if variant == "skip" else None
+    out = k3.conv3x3_fwd(x, wk, bias, A, B, skip, etop=etop, ebot=ebot)
+    _close(out, k3.conv3x3_fwd_halo_plain(x, wk, bias, A, B, skip, etop, ebot))
+
+
+def test_the_kernel_sizes_shared_memory_as_the_plan(dev):
+    from cgd_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for bn in (16, 128, 256):
+        for up in (False, True):
+            assert lib.cgd_conv3x3_smem_bytes(bn, int(up)) == k3.smem_bytes(bn, up)[0]
+    buf = torch.empty(256 ** 3, dtype=torch.bfloat16, device=dev)
+    assert lib.cgd_conv3x3_encode_seconds(buf.data_ptr(), 10) > 0
