@@ -1,283 +1,401 @@
-// K-attn-b: multi-head self-attention backward, for sm_90a.
+// K-attn-b: multi-head self-attention backward on Hopper (sm_90a), head dims
+// 64 and 128 (192 and 256 run PR 2's body, attn_wmma.cu).
 //
 // Replaces the Pallas TPU kernel cgd_tpu/kernels/attention_pallas.py
 // (_run_bwd -> _bwd_kernel): given dO, with P = softmax(S), S = q.k^T/sqrt(d),
 //   dV = P^T.dO,  dP = dO.V^T,  dS = P o (dP - D),  D = rowsum(dO o O),
 //   dQ = dS.K/sqrt(d),  dK = dS^T.Q/sqrt(d).
 // The TPU kernel recomputes one head's whole P in VMEM; here P is recomputed
-// tile by tile from Q, K and the forward's per-row log-sum-exp, in three
+// tile by tile from Q, K and the forward's per-row log-sum-exp, in two
 // launches with no float atomics, so reruns are bit-identical (the guided
 // step's gradient feeds a sampler whose resume is promised bit-exact):
-//   1. attn_bwd_dot: D per row (f32; from the bf16 O the forward wrote);
-//   2. attn_bwd_dkdv: one block per (kv tile, batch*head), looping over q
-//      tiles; dK and dV accumulate in f32 in shared memory;
-//   3. attn_bwd_dq: one block per (q tile, batch*head), looping over kv
-//      tiles; dQ accumulates in f32 in shared memory.
-// Every product runs on the tensor cores (WMMA, bf16 in, f32 accumulate),
-// with P and dS rounded to bf16 as their MMA operands; D, the softmax
-// recompute and dS are f32. Streamed tiles are double-buffered with cp.async.
+//   1. attn_bwd_dq: one block per (64-row q tile, batch*head). It loads its
+//      rows of Q, dO and O, computes D for them (f32, from the bf16 O the
+//      forward wrote) and writes it for launch 2, then loops over the K/V
+//      tiles: S = Q.K^T and dP = dO.V^T (wgmma, A = Q / dO from shared memory,
+//      B = K / V K-major), P = exp2(S*log2(e)/sqrt(d) - lse*log2(e)) and
+//      dS = P o (dP - D) in registers, dQ += dS.K (A = dS repacked from the
+//      accumulator, B = K MN-major);
+//   2. attn_bwd_dkdv: one block per (64-row kv tile, batch*head), looping
+//      over the q tiles: S^T = K.Q^T and dP^T = V.dO^T (A = K / V from shared
+//      memory, B = Q / dO K-major), P^T and dS^T in registers, dV += P^T.dO
+//      and dK += dS^T.Q (A from the accumulators, B = dO / Q MN-major: the
+//      same swizzled tiles read the other way).
+// Both split their loop between the two consumer warpgroups and combine in a
+// fixed order (attn_common.cuh). Every accumulator stays in registers; P and
+// dS round to bf16 as operands, D, the softmax recompute and dS are f32.
+// The A operands that lie in shared memory anyway (Q, dO, K, V) are read
+// there by descriptor (wgmma's SS form): at d = 128 the dK/dV kernel holds
+// 128 f32 accumulators a thread, and register fragments of K and V would
+// not fit beside them.
 //
-// Bound: as the forward, small and latency-bound at the UNet's T <= 1024.
+// Rows past T: their lse reads +inf, so their P is exactly 0; columns past T
+// in the dQ kernel are masked to P = 0 (the TMA zero-fills K there).
+//
+// Bound: 10*T^2*d FLOP per head (S recomputed twice, dP twice, dV, dK, dQ),
+// tensor cores on paper; at the UNet's shapes, latency, as the forward.
 #include "attn_common.cuh"
 
 namespace cgd {
 namespace attn {
 
-// D[n, t] = sum_c dO[n, t, c] * O[n, t, c]; one thread per row.
-__global__ void attn_bwd_dot(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                             float* __restrict__ Dvec, int T, int heads, int d, int out_stride,
-                             int rows) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const int n = i / T, t = i - n * T, b = n / heads, h = n - b * heads;
-  const size_t off = ((size_t)b * T + t) * out_stride + (size_t)h * d;
-  float s = 0.f;
-  for (int c = 0; c < d; c += 8) {
-    float a[8], g[8];
-    unpack8(*reinterpret_cast<const uint4*>(o + off + c), a);
-    unpack8(*reinterpret_cast<const uint4*>(dout + off + c), g);
+struct BwdMaps {
+  CUtensorMap qkv, out, dout;
+};
+
+// ---------------------------------------------------------------------------
+// 1. dQ (and D)
+// ---------------------------------------------------------------------------
+
+template <int D>
+__device__ __forceinline__ void dq_producer(const BwdMaps& m, Bars& bar, unsigned char* smem, int b,
+                                            int h, int q0, int C, int ntiles) {
+  using L = DqLayout<D>;
+  mbar_expect_tx(&bar.tile_full, 3 * Tile<D>::BYTES);
+  for (int x = 0; x < Tile<D>::BOXES; ++x) {
+    const int ch = h * D + x * BOX;
+    tma_load_3d(smem + x * BOX_BYTES, &m.qkv, &bar.tile_full, ch, q0, b);
+    tma_load_3d(smem + L::OFF_DO + x * BOX_BYTES, &m.dout, &bar.tile_full, ch, q0, b);
+    tma_load_3d(smem + L::OFF_O + x * BOX_BYTES, &m.out, &bar.tile_full, ch, q0, b);
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % STAGES;
+    if (i >= STAGES) mbar_wait(&bar.empty[s], ((i / STAGES) + 1) & 1);
+    mbar_expect_tx(&bar.full[s], L::STAGE);
+    unsigned char* st = smem + L::OFF_STAGES + s * L::STAGE;
+    for (int x = 0; x < Tile<D>::BOXES; ++x) {
+      tma_load_3d(st + x * BOX_BYTES, &m.qkv, &bar.full[s], C + h * D + x * BOX, i * ROWS, b);
+      tma_load_3d(st + Tile<D>::BYTES + x * BOX_BYTES, &m.qkv, &bar.full[s],
+                  2 * C + h * D + x * BOX, i * ROWS, b);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void dq_consumer(Bars& bar, unsigned char* smem,
+                                            const float* __restrict__ lse,
+                                            float* __restrict__ Dvec, bf16* __restrict__ dqkv,
+                                            int T, int split, float sl2, float scale, int n, int b,
+                                            int h, int q0, int C, int ntiles) {
+  using L = DqLayout<D>;
+  const int wg = threadIdx.x / 128 - 1;
+  float* vec = reinterpret_cast<float*>(smem + L::OFF_VEC);  // [0, 64): lse*log2(e); [64, 128): D
+  mbar_wait(&bar.tile_full, 0);
+  {  // D = rowsum(dO o O) for the block's rows, four threads a row
+    const int ct = threadIdx.x - (NTHREADS - NCONSUMERS), row = ct >> 2, part = ct & 3;
+    float acc = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) s += a[e] * g[e];
-  }
-  Dvec[i] = s;
-}
-
-template <int D>
-constexpr int dkdv_smem() {
-  using C = Cfg<D>;
-  return 6 * C::TILE_BYTES + 4 * C::TILE * 4 + 2 * C::S_BYTES + 2 * C::P_BYTES +
-         2 * C::ACC_BYTES;
-}
-
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::NT)
-attn_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-              const bf16* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ Dvec, bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
-              int heads, int in_stride, int out_stride, int grad_stride, float scale) {
-  using C = Cfg<D>;
-  constexpr int NT = C::NT, R = C::ROWS, QT = C::TILE;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);                   // [R][LD]
-  bf16* Vs = Ks + R * C::LD;                                  // [R][LD]
-  bf16* Qs = Vs + R * C::LD;                                  // [2][QT][LD]
-  bf16* dOs = Qs + 2 * QT * C::LD;                            // [2][QT][LD]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * QT * C::LD);  // [2][QT] lse * log2(e)
-  float* Dl = Ls + 2 * QT;                                    // [2][QT]
-  float* Ss = Dl + 2 * QT;                                    // [R][LDS]: P^T, f32
-  float* dPs = Ss + R * C::LDS;                               // [R][LDS]: dP^T
-  bf16* Pb = reinterpret_cast<bf16*>(dPs + R * C::LDS);       // [R][LDP]
-  bf16* dSb = Pb + R * C::LDP;                                // [R][LDP]
-  float* dKs = reinterpret_cast<float*>(dSb + R * C::LDP);    // [R][LDF]
-  float* dVs = dKs + R * C::LDF;                              // [R][LDF]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n = blockIdx.y, b = n / heads, h = n - b * heads;
-  const int kv0 = blockIdx.x * R;
-  const size_t in_head = (size_t)b * T * in_stride + (size_t)h * D;
-  const size_t out_head = (size_t)b * T * out_stride + (size_t)h * D;
-  const float* lse_n = lse + (size_t)n * T;
-  const float* D_n = Dvec + (size_t)n * T;
-  const int ntiles = (T + QT - 1) / QT;
-
-  // rows past T: lse = +inf makes their P exactly 0
-  auto load_q = [&](int it, int buf) {
-    load_tile<D, QT, NT>(Qs + buf * QT * C::LD, q + in_head, it * QT, T, in_stride);
-    load_tile<D, QT, NT>(dOs + buf * QT * C::LD, dout + out_head, it * QT, T, out_stride);
-    for (int i = tid; i < QT; i += NT) {
-      const int t = it * QT + i;
-      Ls[buf * QT + i] = t < T ? lse_n[t] * LOG2E : INFINITY;
-      Dl[buf * QT + i] = t < T ? D_n[t] : 0.f;
+    for (int c = part * (D / 32); c < (part + 1) * (D / 32); ++c) {
+      float o[8], g[8];
+      unpack8(*reinterpret_cast<const uint4*>(smem + L::OFF_O + chunk_off(row, c)), o);
+      unpack8(*reinterpret_cast<const uint4*>(smem + L::OFF_DO + chunk_off(row, c)), g);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc += o[e] * g[e];
     }
-  };
-  load_tile<D, R, NT>(Ks, k + in_head, kv0, T, in_stride);
-  load_tile<D, R, NT>(Vs, v + in_head, kv0, T, in_stride);
-  load_q(0, 0);
-  cp_async_commit();
-  for (int i = tid; i < 2 * R * C::LDF; i += NT) dKs[i] = 0.f;
-
-  const int row = warp * 16 + (lane >> 1), half = lane & 1;
-  const float sl2 = scale * LOG2E;
-  float* srow = Ss + row * C::LDS;
-  float* dprow = dPs + row * C::LDS;
-  bf16* pbrow = Pb + row * C::LDP;
-  bf16* dsrow = dSb + row * C::LDP;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int buf = it & 1;
-    cp_async_wait<0>();
-    __syncthreads();
-    if (it + 1 < ntiles) load_q(it + 1, buf ^ 1);
-    cp_async_commit();
-    const bf16* Qb = Qs + buf * QT * C::LD;
-    const bf16* dOb = dOs + buf * QT * C::LD;
-    const float* Lb = Ls + buf * QT;
-    const float* Db = Dl + buf * QT;
-
-    // S^T = K . Q^T and dP^T = V . dO^T for this warp's 16 kv rows
-    warp_abt<D, QT>(Ss + warp * 16 * C::LDS, C::LDS, Ks + warp * 16 * C::LD, C::LD, Qb, C::LD);
-    warp_abt<D, QT>(dPs + warp * 16 * C::LDS, C::LDS, Vs + warp * 16 * C::LD, C::LD, dOb, C::LD);
-    __syncwarp();
-    for (int c = half * (QT / 2); c < (half + 1) * (QT / 2); ++c) {
-      const float p = exp2f(srow[c] * sl2 - Lb[c]);
-      pbrow[c] = __float2bfloat16(p);
-      dsrow[c] = __float2bfloat16(p * (dprow[c] - Db[c]));
+    acc = quad_sum(acc);
+    if (part == 0) {
+      const int t = q0 + row;
+      vec[row] = t < T ? lse[(size_t)n * T + t] * LOG2E : INFINITY;  // P = 0 on rows past T
+      vec[ROWS + row] = acc;
+      if (t < T) Dvec[(size_t)n * T + t] = acc;
     }
-    __syncwarp();
-    // dV += P^T . dO ; dK += dS^T . Q
-    warp_acc_ab<QT, D>(dVs + warp * 16 * C::LDF, C::LDF, Pb + warp * 16 * C::LDP, C::LDP, dOb,
-                       C::LD);
-    warp_acc_ab<QT, D>(dKs + warp * 16 * C::LDF, C::LDF, dSb + warp * 16 * C::LDP, C::LDP, Qb,
-                       C::LD);
-    __syncwarp();
   }
+  named_barrier(1, NCONSUMERS);
+  float dq[D / 2];
+#pragma unroll
+  for (int r = 0; r < D / 2; ++r) dq[r] = 0.f;
+  if (wg < split) {
+    float l2[2], dd[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l2[e] = vec[acc_row(2 * e)];
+      dd[e] = vec[ROWS + acc_row(2 * e)];
+    }
+    for (int i = wg; i < ntiles; i += split) {
+      const int s = i % STAGES, kv0 = i * ROWS;
+      const unsigned char* kt = smem + L::OFF_STAGES + s * L::STAGE;
+      const unsigned char* vt = kt + Tile<D>::BYTES;
+      mbar_wait(&bar.full[s], (i / STAGES) & 1);
+      float sc[ROWS / 2], dp[ROWS / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<ROWS, 0>(sc, desc_k(smem, kk), desc_k(kt, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<ROWS, 0>(dp, desc_k(smem + L::OFF_DO, kk), desc_k(vt, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
 
-  const int t = kv0 + row;
-  if (t < T) {
-    const size_t g_row = ((size_t)b * T + t) * grad_stride + (size_t)h * D + half * (D / 2);
-    store_row(dk + g_row, dKs + row * C::LDF + half * (D / 2), D / 2, scale);
-    store_row(dv + g_row, dVs + row * C::LDF + half * (D / 2), D / 2, 1.f);
+      const bool ragged = kv0 + ROWS > T;
+#pragma unroll
+      for (int r = 0; r < ROWS / 2; ++r) {
+        const int e = (r >> 1) & 1;
+        const float p = ragged && kv0 + acc_col(r) >= T ? 0.f : exp2f(sc[r] * sl2 - l2[e]);
+        sc[r] = p * (dp[r] - dd[e]);
+      }
+      uint32_t dsf[ROWS / 16][4];
+      acc_to_a<ROWS>(sc, dsf);
+      fence_regs(dq);
+      fence_frags(dsf);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < ROWS / 16; ++j) wgmma_rs<D, 1>(dq, dsf[j], desc_mn(kt, j), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      if (threadIdx.x % 128 == 0) mbar_arrive(&bar.empty[s]);
+    }
+  }
+  if (split > 1) {
+    float* cmb = reinterpret_cast<float*>(smem + L::OFF_STAGES);
+    named_barrier(1, NCONSUMERS);
+    if (wg == 1) put_partial(cmb, dq);
+    named_barrier(1, NCONSUMERS);
+    if (wg == 0) add_partial(cmb, dq);
+  }
+  if (wg == 0) {
+    const float mul[2] = {scale, scale};
+    store_rows<D>(dq, mul, smem, dqkv + (size_t)b * T * 3 * C + h * D, q0, T, 3 * C);
   }
 }
 
 template <int D>
-constexpr int dq_smem() {
-  using C = Cfg<D>;
-  return 6 * C::TILE_BYTES + 2 * C::S_BYTES + C::P_BYTES + C::ACC_BYTES;
+__global__ void __launch_bounds__(NTHREADS, 1)
+attn_bwd_dq(const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
+            float* __restrict__ Dvec, bf16* __restrict__ dqkv, int T, int heads, int split,
+            float sl2, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ Bars bar;
+  unsigned char* smem = align_smem(smem_raw);
+  const int n = blockIdx.y, b = n / heads, h = n - b * heads, q0 = blockIdx.x * ROWS;
+  const int C = heads * D, ntiles = (T + ROWS - 1) / ROWS;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar.tile_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&bar.full[s], 1);
+      mbar_init(&bar.empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < NTHREADS - NCONSUMERS) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) dq_producer<D>(maps, bar, smem, b, h, q0, C, ntiles);
+  } else {
+    setmaxnreg_inc<240>();
+    dq_consumer<D>(bar, smem, lse, Dvec, dqkv, T, split, sl2, scale, n, b, h, q0, C, ntiles);
+  }
 }
 
+// ---------------------------------------------------------------------------
+// 2. dK and dV
+// ---------------------------------------------------------------------------
+
+// Thread 0 loads the block's K and V, then the (Q, dO) ring; warp 1 writes
+// each stage's row vectors (lse*log2(e), +inf past T; D, 0 past T).
 template <int D>
-__global__ void __launch_bounds__(Cfg<D>::NT)
-attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            const bf16* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ Dvec, bf16* __restrict__ dq, int T, int heads,
-            int in_stride, int out_stride, int grad_stride, float scale) {
-  using C = Cfg<D>;
-  constexpr int NT = C::NT, R = C::ROWS, KT = C::TILE;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);                  // [R][LD]
-  bf16* dOs = Qs + R * C::LD;                                // [R][LD]
-  bf16* Ks = dOs + R * C::LD;                                // [2][KT][LD]
-  bf16* Vs = Ks + 2 * KT * C::LD;                            // [2][KT][LD]
-  float* Ss = reinterpret_cast<float*>(Vs + 2 * KT * C::LD);  // [R][LDS]
-  float* dPs = Ss + R * C::LDS;                              // [R][LDS]
-  bf16* dSb = reinterpret_cast<bf16*>(dPs + R * C::LDS);     // [R][LDP]
-  float* dQs = reinterpret_cast<float*>(dSb + R * C::LDP);   // [R][LDF]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n = blockIdx.y, b = n / heads, h = n - b * heads;
-  const int q0 = blockIdx.x * R;
-  const size_t in_head = (size_t)b * T * in_stride + (size_t)h * D;
-  const size_t out_head = (size_t)b * T * out_stride + (size_t)h * D;
-  const int ntiles = (T + KT - 1) / KT;
-
-  load_tile<D, R, NT>(Qs, q + in_head, q0, T, in_stride);
-  load_tile<D, R, NT>(dOs, dout + out_head, q0, T, out_stride);
-  load_tile<D, KT, NT>(Ks, k + in_head, 0, T, in_stride);
-  load_tile<D, KT, NT>(Vs, v + in_head, 0, T, in_stride);
-  cp_async_commit();
-  for (int i = tid; i < R * C::LDF; i += NT) dQs[i] = 0.f;
-
-  const int row = warp * 16 + (lane >> 1), half = lane & 1;
-  const int t = q0 + row;
-  const float l2 = t < T ? lse[(size_t)n * T + t] * LOG2E : INFINITY;
-  const float Drow = t < T ? Dvec[(size_t)n * T + t] : 0.f;
-  const float sl2 = scale * LOG2E;
-  float* srow = Ss + row * C::LDS;
-  float* dprow = dPs + row * C::LDS;
-  bf16* dsrow = dSb + row * C::LDP;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int buf = it & 1;
-    cp_async_wait<0>();
-    __syncthreads();
-    if (it + 1 < ntiles) {
-      load_tile<D, KT, NT>(Ks + (buf ^ 1) * KT * C::LD, k + in_head, (it + 1) * KT, T, in_stride);
-      load_tile<D, KT, NT>(Vs + (buf ^ 1) * KT * C::LD, v + in_head, (it + 1) * KT, T, in_stride);
+__device__ __forceinline__ void dkdv_producer(const BwdMaps& m, Bars& bar, unsigned char* smem,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ Dvec, int T, int n, int b,
+                                              int h, int kv0, int C, int ntiles) {
+  using L = DkdvLayout<D>;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar.tile_full, 2 * Tile<D>::BYTES);
+    for (int x = 0; x < Tile<D>::BOXES; ++x) {
+      tma_load_3d(smem + x * BOX_BYTES, &m.qkv, &bar.tile_full, C + h * D + x * BOX, kv0, b);
+      tma_load_3d(smem + Tile<D>::BYTES + x * BOX_BYTES, &m.qkv, &bar.tile_full,
+                  2 * C + h * D + x * BOX, kv0, b);
     }
-    cp_async_commit();
-    const bf16* Kb = Ks + buf * KT * C::LD;
-    const bf16* Vb = Vs + buf * KT * C::LD;
-
-    // S = Q . K^T and dP = dO . V^T for this warp's 16 q rows
-    warp_abt<D, KT>(Ss + warp * 16 * C::LDS, C::LDS, Qs + warp * 16 * C::LD, C::LD, Kb, C::LD);
-    warp_abt<D, KT>(dPs + warp * 16 * C::LDS, C::LDS, dOs + warp * 16 * C::LD, C::LD, Vb, C::LD);
-    __syncwarp();
-    const int kv0 = it * KT;
-    for (int c = half * (KT / 2); c < (half + 1) * (KT / 2); ++c) {
-      const float p = kv0 + c < T ? exp2f(srow[c] * sl2 - l2) : 0.f;
-      dsrow[c] = __float2bfloat16(p * (dprow[c] - Drow));
-    }
-    __syncwarp();
-    // dQ += dS . K
-    warp_acc_ab<KT, D>(dQs + warp * 16 * C::LDF, C::LDF, dSb + warp * 16 * C::LDP, C::LDP, Kb,
-                       C::LD);
-    __syncwarp();
   }
-
-  if (t < T) {
-    const size_t g_row = ((size_t)b * T + t) * grad_stride + (size_t)h * D + half * (D / 2);
-    store_row(dq + g_row, dQs + row * C::LDF + half * (D / 2), D / 2, scale);
+  const bool vectors = threadIdx.x / 32 == 1;
+  if (threadIdx.x != 0 && !vectors) return;
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % STAGES;
+    if (i >= STAGES) mbar_wait(&bar.empty[s], ((i / STAGES) + 1) & 1);
+    unsigned char* st = smem + L::OFF_STAGES + s * L::STAGE;
+    if (vectors) {
+      float* vec = reinterpret_cast<float*>(st + L::OFF_VEC);
+      for (int j = threadIdx.x & 31; j < ROWS; j += 32) {
+        const int t = i * ROWS + j;
+        vec[j] = t < T ? lse[(size_t)n * T + t] * LOG2E : INFINITY;
+        vec[ROWS + j] = t < T ? Dvec[(size_t)n * T + t] : 0.f;
+      }
+      mbar_arrive(&bar.full[s]);
+    } else {
+      mbar_expect_tx(&bar.full[s], 2 * Tile<D>::BYTES);
+      for (int x = 0; x < Tile<D>::BOXES; ++x) {
+        const int ch = h * D + x * BOX;
+        tma_load_3d(st + x * BOX_BYTES, &m.qkv, &bar.full[s], ch, i * ROWS, b);
+        tma_load_3d(st + Tile<D>::BYTES + x * BOX_BYTES, &m.dout, &bar.full[s], ch, i * ROWS, b);
+      }
+    }
   }
 }
 
 template <int D>
-static cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-                              const void* lse, const void* Dvec, void* dq, void* dk, void* dv,
-                              int batch, int T, int heads, int in_stride, int out_stride,
-                              int grad_stride, cudaStream_t s) {
-  constexpr int b1 = dkdv_smem<D>(), b2 = dq_smem<D>();
-  static_assert(b1 <= 227 * 1024 && b2 <= 227 * 1024, "shared memory");
-  static const cudaError_t ok1 = allow_smem(attn_bwd_dkdv<D>, b1);
-  static const cudaError_t ok2 = allow_smem(attn_bwd_dq<D>, b2);
-  if (ok1 != cudaSuccess) return ok1;
-  if (ok2 != cudaSuccess) return ok2;
-  const float scale = 1.f / sqrtf((float)D);
-  dim3 grid((T + Cfg<D>::ROWS - 1) / Cfg<D>::ROWS, batch * heads);
-  const bf16 *q_ = static_cast<const bf16*>(q), *k_ = static_cast<const bf16*>(k),
-             *v_ = static_cast<const bf16*>(v), *g_ = static_cast<const bf16*>(dout);
-  const float *l_ = static_cast<const float*>(lse), *D_ = static_cast<const float*>(Dvec);
-  attn_bwd_dkdv<D><<<grid, Cfg<D>::NT, b1, s>>>(q_, k_, v_, g_, l_, D_, static_cast<bf16*>(dk),
-                                                static_cast<bf16*>(dv), T, heads, in_stride,
-                                                out_stride, grad_stride, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_bwd_dq<D><<<grid, Cfg<D>::NT, b2, s>>>(q_, k_, v_, g_, l_, D_, static_cast<bf16*>(dq), T,
-                                              heads, in_stride, out_stride, grad_stride, scale);
-  return cudaGetLastError();
+__device__ __forceinline__ void dkdv_consumer(Bars& bar, unsigned char* smem,
+                                              bf16* __restrict__ dqkv, int T, int split,
+                                              float sl2, float scale, int b, int h, int kv0, int C,
+                                              int ntiles) {
+  using L = DkdvLayout<D>;
+  const int wg = threadIdx.x / 128 - 1;
+  if (wg >= split) return;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int r = 0; r < D / 2; ++r) dk[r] = dv[r] = 0.f;
+  mbar_wait(&bar.tile_full, 0);
+  for (int i = wg; i < ntiles; i += split) {
+    const int s = i % STAGES;
+    const unsigned char* qt = smem + L::OFF_STAGES + s * L::STAGE;
+    const unsigned char* gt = qt + Tile<D>::BYTES;
+    const float* vec = reinterpret_cast<const float*>(qt + L::OFF_VEC);
+    mbar_wait(&bar.full[s], (i / STAGES) & 1);
+    float sc[ROWS / 2], dp[ROWS / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<ROWS, 0>(sc, desc_k(smem, kk), desc_k(qt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<ROWS, 0>(dp, desc_k(smem + Tile<D>::BYTES, kk), desc_k(gt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P^T and dS^T: rows are kv, columns q (their lse and D from the stage)
+#pragma unroll
+    for (int r = 0; r < ROWS / 2; ++r) {
+      const int c = acc_col(r);
+      const float p = exp2f(sc[r] * sl2 - vec[c]);
+      sc[r] = p;
+      dp[r] = p * (dp[r] - vec[ROWS + c]);
+    }
+    uint32_t pf[ROWS / 16][4], dsf[ROWS / 16][4];
+    acc_to_a<ROWS>(sc, pf);
+    acc_to_a<ROWS>(dp, dsf);
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_frags(pf);
+    fence_frags(dsf);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < ROWS / 16; ++j) wgmma_rs<D, 1>(dv, pf[j], desc_mn(gt, j), 1);
+#pragma unroll
+    for (int j = 0; j < ROWS / 16; ++j) wgmma_rs<D, 1>(dk, dsf[j], desc_mn(qt, j), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    if (threadIdx.x % 128 == 0) mbar_arrive(&bar.empty[s]);
+  }
+  if (split > 1) {
+    float* cmb = reinterpret_cast<float*>(smem + L::OFF_STAGES);
+    named_barrier(1, NCONSUMERS);
+    if (wg == 1) {
+      put_partial(cmb, dk);
+      put_partial(cmb + (D / 2) * 128, dv);
+    }
+    named_barrier(1, NCONSUMERS);
+    if (wg == 1) return;
+    add_partial(cmb, dk);
+    add_partial(cmb + (D / 2) * 128, dv);
+  }
+  // staged in the K and V tiles: every consumer's products over them are done
+  bf16* rows = dqkv + (size_t)b * T * 3 * C + h * D;
+  const float mk[2] = {scale, scale}, mv[2] = {1.f, 1.f};
+  store_rows<D>(dk, mk, smem, rows + C, kv0, T, 3 * C);
+  store_rows<D>(dv, mv, smem + Tile<D>::BYTES, rows + 2 * C, kv0, T, 3 * C);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+attn_bwd_dkdv(const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
+              const float* __restrict__ Dvec, bf16* __restrict__ dqkv, int T, int heads,
+              int split, float sl2, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ Bars bar;
+  unsigned char* smem = align_smem(smem_raw);
+  const int n = blockIdx.y, b = n / heads, h = n - b * heads, kv0 = blockIdx.x * ROWS;
+  const int C = heads * D, ntiles = (T + ROWS - 1) / ROWS;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar.tile_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&bar.full[s], 1 + 32);  // thread 0's TMA, warp 1's vectors
+      mbar_init(&bar.empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < NTHREADS - NCONSUMERS) {
+    setmaxnreg_dec<24>();
+    dkdv_producer<D>(maps, bar, smem, lse, Dvec, T, n, b, h, kv0, C, ntiles);
+  } else {
+    setmaxnreg_inc<240>();
+    dkdv_consumer<D>(bar, smem, dqkv, T, split, sl2, scale, b, h, kv0, C, ntiles);
+  }
+}
+
+template <int D>
+static int launch_bwd(const BwdMaps& maps, const void* lse, void* Dvec, void* dqkv, int batch,
+                      int T, int heads, int split, cudaStream_t s) {
+  constexpr int b1 = DqLayout<D>::SMEM, b2 = DkdvLayout<D>::SMEM;
+  static_assert(b1 + sizeof(Bars) <= SMEM_MAX && b2 + sizeof(Bars) <= SMEM_MAX, "shared memory");
+  static const cudaError_t ok1 = allow_smem(attn_bwd_dq<D>, b1);
+  static const cudaError_t ok2 = allow_smem(attn_bwd_dkdv<D>, b2);
+  if (ok1 != cudaSuccess) return (int)ok1;
+  if (ok2 != cudaSuccess) return (int)ok2;
+  const float scale = 1.f / sqrtf((float)D), sl2 = scale * LOG2E;
+  const dim3 grid((T + ROWS - 1) / ROWS, batch * heads);
+  const float* l = static_cast<const float*>(lse);
+  bf16* g = static_cast<bf16*>(dqkv);
+  attn_bwd_dq<D><<<grid, NTHREADS, b1, s>>>(maps, l, static_cast<float*>(Dvec), g, T, heads, split,
+                                            sl2, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dkdv<D><<<grid, NTHREADS, b2, s>>>(maps, l, static_cast<const float*>(Dvec), g, T,
+                                              heads, split, sl2, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace attn
 }  // namespace cgd
 
-// q, k, v as cgd_attn_fwd's inputs (in_stride); o, dout [batch, T, *] bf16
-// (out_stride: the forward's output and its cotangent); lse [batch*heads, T]
-// f32 from cgd_attn_fwd; Dvec [batch*heads, T] f32 scratch; dq, dk, dv
-// [batch, T, *] bf16 outputs (grad_stride, same head layout). d in
-// {64, 128, 192, 256}. Returns the launch status.
-extern "C" int cgd_attn_bwd(const void* q, const void* k, const void* v, const void* o,
-                            const void* dout, const void* lse, void* Dvec, void* dq, void* dk,
-                            void* dv, int batch, int T, int heads, int d, int in_stride,
-                            int out_stride, int grad_stride, void* stream) {
+// qkv [batch, T, 3*heads*d] bf16 and the forward's out [batch, T, heads*d]
+// bf16 and lse [batch*heads, T] f32; dout [batch, T, heads*d] bf16, the
+// cotangent of out; Dvec [batch*heads, T] f32 scratch (D, written by launch
+// 1, read by launch 2) -> dqkv [batch, T, 3*heads*d] bf16 (dq | dk | dv in
+// qkv's layout). d in {64, 128}; tile, stages and split as cgd_attn_fwd's.
+// Pointers 16-byte aligned. Two launches on `stream`; returns the status.
+extern "C" int cgd_attn_bwd(const void* qkv, const void* out, const void* dout, const void* lse,
+                            void* Dvec, void* dqkv, int batch, int T, int heads, int d, int tile,
+                            int stages, int split, void* stream) {
   using namespace cgd::attn;
-  if (batch <= 0 || T <= 0 || heads <= 0 || in_stride % 8 || out_stride % 8 || grad_stride % 8)
-    return (int)cudaErrorInvalidValue;
-  if (d != 64 && d != 128 && d != 192 && d != 256) return (int)cudaErrorNotSupported;
+  if (!plan_ok(batch, T, heads, d, tile, stages, split)) return (int)cudaErrorInvalidValue;
+  BwdMaps maps;
+  const int c = heads * d;
+  if (int st = map_rows(&maps.qkv, qkv, batch, T, 3 * c)) return st;
+  if (int st = map_rows(&maps.out, out, batch, T, c)) return st;
+  if (int st = map_rows(&maps.dout, dout, batch, T, c)) return st;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = batch * heads * T;
-  attn_bwd_dot<<<(rows + 255) / 256, 256, 0, s>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(Dvec), T,
-      heads, d, out_stride, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-#define CGD_BWD(D)                                                                              \
-  return (int)launch_bwd<D>(q, k, v, dout, lse, Dvec, dq, dk, dv, batch, T, heads, in_stride, \
-                            out_stride, grad_stride, s)
-  switch (d) {
-    case 64: CGD_BWD(64);
-    case 128: CGD_BWD(128);
-    case 192: CGD_BWD(192);
-    default: CGD_BWD(256);
-  }
-#undef CGD_BWD
+  if (d == 64) return launch_bwd<64>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
+  return launch_bwd<128>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
+}
+
+// Dynamic shared memory of one block of the Hopper bodies (kernel 0 = the
+// forward, 1 = the backward's dQ kernel, 2 = its dK/dV kernel) at head dim
+// d, what attn_plan computes; -1 for another d.
+extern "C" int cgd_attn_smem_bytes(int kernel, int d) {
+  using namespace cgd::attn;
+#define CGD_SMEM(D)                                                            \
+  if (d == D)                                                                  \
+    return kernel == 0 ? FwdLayout<D>::SMEM : kernel == 1 ? DqLayout<D>::SMEM \
+                                                          : DkdvLayout<D>::SMEM;
+  CGD_SMEM(64)
+  CGD_SMEM(128)
+#undef CGD_SMEM
+  return -1;
 }

@@ -1,134 +1,219 @@
-// Shared pieces of K-attn-f and K-attn-b: tile sizes per head dim, the
-// strided head layout, and the tile loader.
+// Shared pieces of the Hopper attention kernels, K-attn-f (attn_fwd.cu) and
+// K-attn-b (attn_bwd.cu), for head dims 64 and 128: the block's roles, the
+// swizzled tile layout and its wgmma descriptors, the accumulator layout and
+// its repacking into A fragments, the epilogue, and the host's tensor maps.
 //
-// Layout: q, k and v are read in place, one head at a time, from row-major
-// activations whose row t of batch b starts at base + (b*T + t) * stride; head
-// h is the D columns at h*D. The fused UNet qkv [B, T, 3C] gives q, k, v at
-// base offsets 0, C, 2C with stride 3C; the output [B, T, C] has stride C; a
-// plain [N, T, D] tensor is heads = 1, stride = D. The per-row log-sum-exp
-// is [B*heads, T] f32.
+// Device memory: the UNet's fused qkv [B, T, 3C] (q heads | k heads | v
+// heads; head h is the D channels at h*D of each third), the output and its
+// cotangent [B, T, C], the per-row log-sum-exp [B*heads, T] f32. The TMA
+// reads each bf16 tensor through one 3-D map, {channels, T, B}, with a box
+// of 64 channels x 64 rows x 1 image, 128B-swizzled; q, k and v are the same
+// qkv map at channel offsets h*D, C + h*D and 2C + h*D. A box that runs past
+// row T of its image is zero-filled: a 2-D [B*T, channels] view would read
+// the next image's rows instead.
 //
-// Tiles: WARPS warps own 16 rows each (the block's rows), and the loop
-// streams tiles of the other operand with the same number of rows. Every
-// warp works on its own rows of the score, probability and accumulator tiles
-// in shared memory, so only the streamed tiles need block barriers.
+// Shared memory: a tile of 64 rows x D channels is D/64 boxes of 64 rows x
+// 128 bytes (8 KB each, 1 KB aligned); 16-byte chunk c of row r lies at
+// (c / 8) * 8 KB + r * 128 + ((c % 8) ^ (r % 8)) * 16.
+//
+// Roles: 384 threads. Warpgroup 0 is the producer (thread 0 issues every TMA
+// load; setmaxnreg.dec); warpgroups 1 and 2 are the consumers
+// (setmaxnreg.inc), each running the block's whole 64-row tile through wgmma
+// with its accumulators in registers. They split the loop's streamed tiles
+// (tile i goes to consumer i % split) and combine their partial results at
+// the end in a fixed order: consumer 1 writes, consumer 0 merges and stores.
+// The split depends on the shape only, so reruns are bit-identical.
 #pragma once
 
 #include <math.h>
-#include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace cgd {
 namespace attn {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr int ROWS = 64;    // rows of every tile: the block's own, and each streamed one
+constexpr int BOX = 64;     // channels of a TMA box: 128 bytes, one swizzle row
+constexpr int BOX_BYTES = ROWS * BOX * 2;
+constexpr int STAGES = 4;   // streamed tiles in flight: two for each consumer
+constexpr int NTHREADS = 384, NCONSUMERS = 256;
+constexpr int SMEM_ALIGN = 1024;
+constexpr int SMEM_MAX = 232448;  // dynamic + static shared memory of one block
 
+// one 64-row tile of a head
 template <int D>
-struct Cfg {
-  static_assert(D % 64 == 0 && D <= 256, "head dims 64, 128, 192, 256");
-  static constexpr int WARPS = D <= 64 ? 4 : 2;  // larger D: fewer rows, same shared memory
-  static constexpr int NT = 32 * WARPS;
-  static constexpr int ROWS = 16 * WARPS;  // the block's own rows
-  static constexpr int TILE = ROWS;        // rows of each streamed tile
-  static constexpr int LD = D + 8;         // bf16 pitch of a [rows][D] tile
-  static constexpr int LDF = D + 4;        // f32 pitch of a [rows][D] accumulator
-  static constexpr int LDS = TILE + 4;     // f32 pitch of a [rows][TILE] score tile
-  static constexpr int LDP = TILE + 8;     // bf16 pitch of a [rows][TILE] probability tile
-  static constexpr int TILE_BYTES = ROWS * LD * 2;
-  static constexpr int ACC_BYTES = ROWS * LDF * 4;
-  static constexpr int S_BYTES = ROWS * LDS * 4;
-  static constexpr int P_BYTES = ROWS * LDP * 2;
-  static_assert(TILE_BYTES % 128 == 0 && ACC_BYTES % 128 == 0 && S_BYTES % 128 == 0 &&
-                    P_BYTES % 128 == 0, "region alignment");
+struct Tile {
+  static_assert(D == 64 || D == 128, "head dims 64, 128");
+  static constexpr int BYTES = ROWS * D * 2;
+  static constexpr int BOXES = D / BOX;
 };
 
-// Copy rows [t0, t0 + ROWS) of one head (D columns from `head`, row stride
-// `stride`) into a [ROWS][D + 8] shared tile; rows at or past T read zero.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* head, int t0, int T, int stride) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-    const int r = i / CH, c = (i - r * CH) * 8;
-    const bool ok = t0 + r < T;
-    cp_async16(dst + r * (D + 8) + c, ok ? head + (size_t)(t0 + r) * stride + c : head, ok);
-  }
+// Shared-memory layouts (the dynamic part; the mbarriers are static) and
+// mbarriers of the three kernels. Each stage of a ring is the streamed
+// tiles of one loop step.
+struct Bars {
+  uint64_t tile_full;  // the block's own tiles
+  uint64_t full[STAGES], empty[STAGES];
+};
+
+// K-attn-f: Q, then the ring of (K, V)
+template <int D>
+struct FwdLayout {
+  static constexpr int OFF_STAGES = Tile<D>::BYTES;
+  static constexpr int STAGE = 2 * Tile<D>::BYTES;
+  static constexpr int SMEM = OFF_STAGES + STAGES * STAGE + SMEM_ALIGN;  // + alignment slack
+  static_assert((D / 2 + 4) * 128 * 4 <= STAGES * STAGE, "combine buffer");
+};
+
+// K-attn-b's dQ kernel: Q, dO, O, the row vectors (lse*log2(e) and D, 64
+// f32 each), then the ring of (K, V)
+template <int D>
+struct DqLayout {
+  static constexpr int OFF_DO = Tile<D>::BYTES, OFF_O = 2 * Tile<D>::BYTES;
+  static constexpr int OFF_VEC = 3 * Tile<D>::BYTES;
+  static constexpr int OFF_STAGES = OFF_VEC + SMEM_ALIGN;
+  static constexpr int STAGE = 2 * Tile<D>::BYTES;
+  static constexpr int SMEM = OFF_STAGES + STAGES * STAGE + SMEM_ALIGN;
+  static_assert((D / 2) * 128 * 4 <= STAGES * STAGE, "combine buffer");
+};
+
+// K-attn-b's dK/dV kernel: K, V, then the ring of (Q, dO, the row vectors)
+template <int D>
+struct DkdvLayout {
+  static constexpr int OFF_STAGES = 2 * Tile<D>::BYTES;
+  static constexpr int OFF_VEC = 2 * Tile<D>::BYTES;  // in a stage
+  static constexpr int STAGE = OFF_VEC + SMEM_ALIGN;
+  static constexpr int SMEM = OFF_STAGES + STAGES * STAGE + SMEM_ALIGN;
+  static_assert(D * 128 * 4 <= STAGES * STAGE, "combine buffer");
+};
+
+__device__ __forceinline__ int chunk_off(int r, int c) {
+  return (c >> 3) * BOX_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-// acc (16 x 16) += A (16 x K, row-major, lda) . B (K x 16, row-major, ldb)
-template <int K>
-__device__ __forceinline__ void mma_ab(Acc& acc, const bf16* a, int lda, const bf16* b, int ldb) {
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    FragA fa;
-    FragB fb;
-    wmma::load_matrix_sync(fa, a + kk, lda);
-    wmma::load_matrix_sync(fb, b + kk * ldb, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
+// wgmma descriptors of k16 step kk over a tile (hopper.cuh, make_desc):
+// K-major, the reduction along the channels (Q.K^T, dO.V^T and their
+// transposes); MN-major, the reduction down the rows (P.V, dS.K, P^T.dO,
+// dS^T.Q).
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int kk) {
+  return make_desc(tile + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024, 1);
+}
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
+  return make_desc(tile + kk * 16 * 128, BOX_BYTES, 1024, 1);
 }
 
-// acc (16 x 16) += A (16 x K, row-major, lda) . Bt^T, Bt (16 x K, row-major, ldb)
-template <int K>
-__device__ __forceinline__ void mma_abt(Acc& acc, const bf16* a, int lda, const bf16* bt,
-                                        int ldb) {
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    FragA fa;
-    FragBt fb;
-    wmma::load_matrix_sync(fa, a + kk, lda);
-    wmma::load_matrix_sync(fb, bt + kk, ldb);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
+// The A fragment of k16 step kk of a tile for this warp's 16 rows.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const unsigned char* tile, int kk) {
+  const int lane = threadIdx.x & 31, r = 16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
+  ldmatrix_x4(a, smem_addr(tile) + chunk_off(r, 2 * kk + (lane >> 4)));
 }
 
-// Warp's 16 x N f32 tile (pitch lds) = A (16 x K) . Bt^T for Bt [N][K]
-template <int K, int N>
-__device__ __forceinline__ void warp_abt(float* s, int lds, const bf16* a, int lda, const bf16* bt,
-                                         int ldb) {
+// wgmma's m64nN f32 accumulator: element r of a consumer thread (warp w of
+// its warpgroup, lane l) is row 16w + l/4 + 8*((r/2) % 2), column
+// 8*(r/4) + 2*(l%4) + r%2. So a thread holds two rows (half = (r/2) % 2),
+// each shared with the three other lanes of its quad.
+__device__ __forceinline__ int acc_row(int r) {
+  return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2) + 8 * ((r >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int r) { return 8 * (r >> 2) + 2 * (threadIdx.x & 3) + (r & 1); }
+
+// An accumulator of N columns as the A operand of a product over those
+// columns, in registers: the pairs {8j, 8j+1}, {8j+2, 8j+3}, {8j+4, 8j+5},
+// {8j+6, 8j+7} are the four registers of k16 step j (low half = lower
+// column), rounded to bf16.
+template <int N>
+__device__ __forceinline__ void acc_to_a(const float (&s)[N / 2], uint32_t (&a)[N / 16][4]) {
 #pragma unroll
   for (int j = 0; j < N / 16; ++j) {
-    Acc acc;
-    wmma::fill_fragment(acc, 0.f);
-    mma_abt<K>(acc, a, lda, bt + j * 16 * ldb, ldb);
-    wmma::store_matrix_sync(s + j * 16, acc, lds, wmma::mem_row_major);
-  }
-}
-
-// Warp's 16 x N f32 accumulator in shared memory (pitch ldf) += A (16 x K) . B (K x N)
-template <int K, int N>
-__device__ __forceinline__ void warp_acc_ab(float* c, int ldf, const bf16* a, int lda,
-                                            const bf16* b, int ldb) {
 #pragma unroll
-  for (int j = 0; j < N / 16; ++j) {
-    Acc acc;
-    wmma::load_matrix_sync(acc, c + j * 16, ldf, wmma::mem_row_major);
-    mma_ab<K>(acc, a, lda, b + j * 16, ldb);
-    wmma::store_matrix_sync(c + j * 16, acc, ldf, wmma::mem_row_major);
+    for (int e = 0; e < 4; ++e) a[j][e] = pack_bf16x2(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
   }
 }
 
-// Write `cols` f32 values (multiple of 8) times `mul` as bf16.
-__device__ __forceinline__ void store_row(bf16* dst, const float* src, int cols, float mul) {
-  for (int c = 0; c < cols; c += 8) {
-    float f[8];
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Consumer 1's partial result for consumer 0: element r of consumer thread
+// t at [r][t], so each thread of consumer 0 reads what its twin wrote.
+template <int R>
+__device__ __forceinline__ void put_partial(float* buf, const float (&v)[R]) {
+  const int t = threadIdx.x & 127;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = src[c + e] * mul;
-    *reinterpret_cast<uint4*>(dst + c) = pack8(f);
+  for (int r = 0; r < R; ++r) buf[r * 128 + t] = v[r];
+}
+template <int R>
+__device__ __forceinline__ void add_partial(const float* buf, float (&v)[R]) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] += buf[r * 128 + t];
+}
+
+// Consumer 0's epilogue: its 64 x D accumulator, times mul[half] on each of
+// its rows, as bf16 rows row0.. (those below T) of dst (row stride `stride`
+// elements), staged through a free tile so that each thread writes 16 bytes.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], const float (&mul)[2],
+                                           unsigned char* stage, bf16* __restrict__ dst, int row0,
+                                           int T, int stride) {
+#pragma unroll
+  for (int r = 0; r < D / 2; r += 2) {
+    const int row = acc_row(r), col = acc_col(r);
+    const float m = mul[(r >> 1) & 1];
+    *reinterpret_cast<uint32_t*>(stage + chunk_off(row, col >> 3) + (col & 7) * 2) =
+        pack_bf16x2(acc[r] * m, acc[r + 1] * m);
+  }
+  named_barrier(2, 128);
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x & 127; i < ROWS * CH; i += 128) {
+    const int r = i / CH, c = i - r * CH;
+    if (row0 + r < T)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * stride + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + chunk_off(r, c));
   }
 }
 
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// 1 KB-aligned dynamic shared memory
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + SMEM_ALIGN - 1) &
+                                          ~(uintptr_t)(SMEM_ALIGN - 1));
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// [batch, T, width] bf16 as the 3-D map {width, T, batch}, box 64 channels x
+// 64 rows x 1, 128B-swizzled, zero-filled outside.
+inline int map_rows(CUtensorMap* m, const void* p, int batch, int T, int width) {
+  EncodeTiledFn f;
+  if (int st = encode_fn(&f)) return st;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)T, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)T * width * 2};
+  const cuuint32_t box[3] = {BOX, ROWS, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUresult r = f(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides,
+                       box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
+}
+
+// The launch plan the wrapper made (kernels/attention.py attn_plan): the
+// tile, the stages and the split this build takes for this shape.
+inline bool plan_ok(int batch, int T, int heads, int d, int tile, int stages, int split) {
+  const int tiles = (T + ROWS - 1) / ROWS;
+  return batch > 0 && T > 0 && heads > 0 && (d == 64 || d == 128) && tile == ROWS &&
+         stages == STAGES && split >= 1 && split <= 2 && split <= tiles;
 }
 
 }  // namespace attn

@@ -1,159 +1,234 @@
-// K-attn-f: multi-head self-attention forward, for sm_90a.
+// K-attn-f: multi-head self-attention forward on Hopper (sm_90a), head dims
+// 64 and 128 (192 and 256 run PR 2's body, attn_wmma.cu).
 //
 // Replaces the Pallas TPU kernel cgd_tpu/kernels/attention_pallas.py
 // (_run_fwd -> _fwd_kernel): out = softmax(q.k^T / sqrt(d)) . v per
 // (batch, head), softmax in f32 (the ADM q, k * d^-1/4 double scaling is the
 // same 1/sqrt(d), applied here in f32 to the f32 logits).
 //
-// The TPU kernel holds one (batch, head)'s whole T x T logits in VMEM; at
-// T = 1024 the 64 rows of one block's logits alone are 256 KB of f32, more
-// than a block's shared memory. So this is a flash-attention forward: one
-// block per (64-row q tile, batch*head), looping over 64-row K/V tiles
-// (double-buffered with cp.async) with an online softmax in f32 (running max
-// and sum per row), and writes the per-row log-sum-exp for the backward.
-// S = Q.K^T and O += P.V run on the tensor cores (WMMA, bf16 in, f32
-// accumulate). P is rounded to bf16 for its MMA: the Pallas kernel keeps P in
-// f32, and this is the one rounding the port adds. O accumulates in f32 in
-// shared memory and is rescaled there when the running max moves.
+// The TPU kernel holds one (batch, head)'s whole T x T logits in VMEM; a
+// block's shared memory cannot, so this is a flash-attention forward that
+// writes the per-row log-sum-exp for the backward. One block per (64-row q
+// tile, batch*head), laid out and split as attn_common.cuh says:
+// - the producer loads the block's Q once and streams 64-row K/V tiles into
+//   a ring of four stages;
+// - each consumer keeps Q as register A fragments (ldmatrix, once; at d =
+//   128 it reads Q's tile by descriptor instead) and, for each K/V tile of
+//   its share:
+//     S = Q.K^T: wgmma m64n64, K read K-major from the ring, into registers;
+//     columns at or past T set to -inf (the TMA zero-fills K's rows there,
+//     which would give S = 0), scaled by log2(e)/sqrt(d); the online softmax
+//     per row: max and sum over the quad of lanes that holds the row, exp2,
+//     the running (m, l) and the rescale of O by exp2(m_old - m_new), all in
+//     registers;
+//     O += P.V: P repacked from the S accumulator into bf16 A fragments
+//     (acc_to_a, no shared memory), V read MN-major from the ring;
+// - consumer 1's (m, l, O) merges into consumer 0's, which writes O/l as
+//   bf16 with 16-byte stores and the lse per row.
+// P rounds to bf16 for its product: the Pallas kernel keeps P in f32, and
+// this is the one rounding the port adds.
 //
-// Bound: at T <= 1024, d = 64 the work is small (4*T*T*d FLOP per head) and
-// latency-bound; the design keeps the logits out of device memory, reads
-// q, k, v in place from the fused [B, T, 3C] qkv and writes [B, T, C] (no
-// head transposes).
+// Bound: 4*T^2*d FLOP per head against 4*T*d*2 bytes moved, so the tensor
+// cores bound it on paper (at T = 1024, d = 64: 2.2 us for 8 heads); at the
+// UNet's small shapes (8-16 heads, T <= 1024: 16-128 blocks) it is latency:
+// the ring keeps two tiles in flight for each consumer, and the two
+// consumers' softmax and products interleave on the SM.
 #include "attn_common.cuh"
 
 namespace cgd {
 namespace attn {
 
 template <int D>
-constexpr int fwd_smem() {
-  using C = Cfg<D>;
-  return 5 * C::TILE_BYTES + C::S_BYTES + C::P_BYTES + C::ACC_BYTES;
-}
-
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::NT)
-attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse, int T,
-                int heads, int in_stride, int out_stride, float scale) {
-  using C = Cfg<D>;
-  constexpr int NT = C::NT, R = C::ROWS, KT = C::TILE;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);                          // [R][LD]
-  bf16* Ks = Qs + R * C::LD;                                         // [2][KT][LD]
-  bf16* Vs = Ks + 2 * KT * C::LD;                                    // [2][KT][LD]
-  float* Ss = reinterpret_cast<float*>(Vs + 2 * KT * C::LD);         // [R][LDS]
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + R * C::LDS);               // [R][LDP]
-  float* Os = reinterpret_cast<float*>(Ps + R * C::LDP);             // [R][LDF]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n = blockIdx.y, b = n / heads, h = n - b * heads;
-  const int q0 = blockIdx.x * R;
-  const size_t in_head = (size_t)b * T * in_stride + (size_t)h * D;
-  const int ntiles = (T + KT - 1) / KT;
-
-  load_tile<D, R, NT>(Qs, q + in_head, q0, T, in_stride);
-  load_tile<D, KT, NT>(Ks, k + in_head, 0, T, in_stride);
-  load_tile<D, KT, NT>(Vs, v + in_head, 0, T, in_stride);
-  cp_async_commit();
-  for (int i = tid; i < R * C::LDF; i += NT) Os[i] = 0.f;
-
-  // softmax state of one row, held by its two lanes; m in log2 units
-  const int row = warp * 16 + (lane >> 1), half = lane & 1;
-  float m = -INFINITY, l = 0.f;
-  const float sl2 = scale * LOG2E;
-  float* srow = Ss + row * C::LDS;
-  bf16* prow = Ps + row * C::LDP;
-  float* orow = Os + row * C::LDF;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int buf = it & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // tile it is in; every warp is done with tile it-1's buffers
-    if (it + 1 < ntiles) {
-      load_tile<D, KT, NT>(Ks + (buf ^ 1) * KT * C::LD, k + in_head, (it + 1) * KT, T, in_stride);
-      load_tile<D, KT, NT>(Vs + (buf ^ 1) * KT * C::LD, v + in_head, (it + 1) * KT, T, in_stride);
+__device__ __forceinline__ void fwd_producer(const CUtensorMap& qkv, Bars& bar, unsigned char* smem,
+                                             int b, int h, int q0, int C, int ntiles) {
+  using L = FwdLayout<D>;
+  mbar_expect_tx(&bar.tile_full, Tile<D>::BYTES);
+  for (int x = 0; x < Tile<D>::BOXES; ++x)
+    tma_load_3d(smem + x * BOX_BYTES, &qkv, &bar.tile_full, h * D + x * BOX, q0, b);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % STAGES;
+    if (i >= STAGES) mbar_wait(&bar.empty[s], ((i / STAGES) + 1) & 1);
+    mbar_expect_tx(&bar.full[s], L::STAGE);
+    unsigned char* st = smem + L::OFF_STAGES + s * L::STAGE;
+    for (int x = 0; x < Tile<D>::BOXES; ++x) {
+      tma_load_3d(st + x * BOX_BYTES, &qkv, &bar.full[s], C + h * D + x * BOX, i * ROWS, b);
+      tma_load_3d(st + Tile<D>::BYTES + x * BOX_BYTES, &qkv, &bar.full[s], 2 * C + h * D + x * BOX,
+                  i * ROWS, b);
     }
-    cp_async_commit();
-    const bf16* Kb = Ks + buf * KT * C::LD;
-    const bf16* Vb = Vs + buf * KT * C::LD;
-
-    // S (this warp's 16 rows) = Q . K^T
-    warp_abt<D, KT>(Ss + warp * 16 * C::LDS, C::LDS, Qs + warp * 16 * C::LD, C::LD, Kb, C::LD);
-    __syncwarp();
-
-    // online softmax over this tile's columns (half of them per lane)
-    const int c0 = half * (KT / 2), kv0 = it * KT;
-    float mx = -INFINITY;
-    for (int c = c0; c < c0 + KT / 2; ++c) {
-      const float s = kv0 + c < T ? srow[c] * sl2 : -INFINITY;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);  // finite: column 0 of tile 0 is valid
-    const float alpha = exp2f(m - m_new);
-    float sum = 0.f;
-    for (int c = c0; c < c0 + KT / 2; ++c) {
-      const float p = exp2f(srow[c] - m_new);
-      sum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * alpha + sum;
-    m = m_new;
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) orow[c] *= alpha;
-    __syncwarp();
-
-    // O (this warp's rows) += P . V
-    warp_acc_ab<KT, D>(Os + warp * 16 * C::LDF, C::LDF, Ps + warp * 16 * C::LDP, C::LDP, Vb,
-                       C::LD);
-    __syncwarp();
-  }
-
-  const int t = q0 + row;
-  if (t < T) {
-    const size_t out_row = ((size_t)b * T + t) * out_stride + (size_t)h * D;
-    store_row(o + out_row + half * (D / 2), orow + half * (D / 2), D / 2, 1.f / l);
-    if (half == 0) lse[(size_t)n * T + t] = (m + log2f(l)) * LN2;
   }
 }
 
 template <int D>
-static cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                              int batch, int T, int heads, int in_stride, int out_stride,
-                              cudaStream_t s) {
-  constexpr int bytes = fwd_smem<D>();
-  static_assert(bytes <= 227 * 1024, "shared memory");
-  static const cudaError_t ok = allow_smem(attn_fwd_kernel<D>, bytes);
-  if (ok != cudaSuccess) return ok;
-  dim3 grid((T + Cfg<D>::ROWS - 1) / Cfg<D>::ROWS, batch * heads);
-  attn_fwd_kernel<D><<<grid, Cfg<D>::NT, bytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), T, heads, in_stride, out_stride,
-      1.f / sqrtf((float)D));
-  return cudaGetLastError();
+__device__ __forceinline__ void fwd_consumer(Bars& bar, unsigned char* smem, bf16* __restrict__ out,
+                                             float* __restrict__ lse, int T, int split, float sl2,
+                                             int n, int b, int h, int q0, int C, int ntiles) {
+  using L = FwdLayout<D>;
+  const int wg = threadIdx.x / 128 - 1;
+  float o[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m in log2 units
+#pragma unroll
+  for (int r = 0; r < D / 2; ++r) o[r] = 0.f;
+  if (wg < split) {
+    mbar_wait(&bar.tile_full, 0);
+    // Q as register A fragments at d = 64; at d = 128 they would take 32 more
+    // registers beside O's 64 (ptxas then spills and serializes the
+    // wgmmas), so the product reads Q from its tile by descriptor
+    constexpr bool Q_REGS = D == 64;
+    uint32_t qf[Q_REGS ? D / 16 : 1][4];
+    if constexpr (Q_REGS) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], smem, kk);
+    }
+    for (int i = wg; i < ntiles; i += split) {
+      const int s = i % STAGES, kv0 = i * ROWS;
+      const unsigned char* kt = smem + L::OFF_STAGES + s * L::STAGE;
+      const unsigned char* vt = kt + Tile<D>::BYTES;
+      mbar_wait(&bar.full[s], (i / STAGES) & 1);
+      float sc[ROWS / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        if constexpr (Q_REGS) wgmma_rs<ROWS, 0>(sc, qf[kk], desc_k(kt, kk), kk > 0);
+        else wgmma_ss<ROWS, 0>(sc, desc_k(smem, kk), desc_k(kt, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      const bool ragged = kv0 + ROWS > T;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int r = 0; r < ROWS / 2; ++r) {
+        sc[r] = ragged && kv0 + acc_col(r) >= T ? -INFINITY : sc[r] * sl2;
+        mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], sc[r]);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float mn = fmaxf(m[e], quad_max(mx[e]));  // finite: every tile has a column < T
+        alpha[e] = exp2f(m[e] - mn);
+        m[e] = mn;
+        l[e] *= alpha[e];
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS / 2; ++r) {
+        sc[r] = exp2f(sc[r] - m[(r >> 1) & 1]);
+        l[(r >> 1) & 1] += sc[r];
+      }
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r) o[r] *= alpha[(r >> 1) & 1];
+      uint32_t pf[ROWS / 16][4];
+      acc_to_a<ROWS>(sc, pf);
+      fence_regs(o);
+      fence_frags(pf);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < ROWS / 16; ++j) wgmma_rs<D, 1>(o, pf[j], desc_mn(vt, j), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (threadIdx.x % 128 == 0) mbar_arrive(&bar.empty[s]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) l[e] = quad_sum(l[e]);  // a thread summed its own columns
+
+  if (split > 1) {  // consumer 1's (O, m, l) into consumer 0's; the ring is free by then
+    float* cmb = reinterpret_cast<float*>(smem + L::OFF_STAGES);
+    named_barrier(1, NCONSUMERS);
+    if (wg == 1) {
+      put_partial(cmb, o);
+      put_partial(cmb + (D / 2) * 128, m);
+      put_partial(cmb + (D / 2 + 2) * 128, l);
+    }
+    named_barrier(1, NCONSUMERS);
+    if (wg == 0) {
+      const int t = threadIdx.x & 127;
+      float a0[2], a1[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float m1 = cmb[(D / 2 + e) * 128 + t], l1 = cmb[(D / 2 + 2 + e) * 128 + t];
+        const float mn = fmaxf(m[e], m1);
+        a0[e] = exp2f(m[e] - mn);
+        a1[e] = exp2f(m1 - mn);
+        l[e] = l[e] * a0[e] + l1 * a1[e];
+        m[e] = mn;
+      }
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r)
+        o[r] = o[r] * a0[(r >> 1) & 1] + cmb[r * 128 + t] * a1[(r >> 1) & 1];
+    }
+  }
+  if (wg == 0) {
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    // staged in the Q tile: every consumer's reads of it are done
+    store_rows<D>(o, inv, smem, out + (size_t)b * T * C + h * D, q0, T, C);
+    if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = q0 + acc_row(2 * e);
+        if (t < T) lse[(size_t)n * T + t] = (m[e] + log2f(l[e])) * LN2;
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+attn_fwd_kernel(const __grid_constant__ CUtensorMap qkv, bf16* __restrict__ out,
+                float* __restrict__ lse, int T, int heads, int split, float sl2) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ Bars bar;
+  unsigned char* smem = align_smem(smem_raw);
+  const int n = blockIdx.y, b = n / heads, h = n - b * heads, q0 = blockIdx.x * ROWS;
+  const int C = heads * D, ntiles = (T + ROWS - 1) / ROWS;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar.tile_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&bar.full[s], 1);
+      mbar_init(&bar.empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < NTHREADS - NCONSUMERS) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) fwd_producer<D>(qkv, bar, smem, b, h, q0, C, ntiles);
+  } else {
+    setmaxnreg_inc<240>();
+    fwd_consumer<D>(bar, smem, out, lse, T, split, sl2, n, b, h, q0, C, ntiles);
+  }
+}
+
+template <int D>
+static int launch_fwd(const CUtensorMap& map, void* out, void* lse, int batch, int T, int heads,
+                      int split, cudaStream_t s) {
+  constexpr int smem = FwdLayout<D>::SMEM;
+  static_assert(smem + sizeof(Bars) <= SMEM_MAX, "shared memory");
+  static const cudaError_t ok = allow_smem(attn_fwd_kernel<D>, smem);
+  if (ok != cudaSuccess) return (int)ok;
+  const dim3 grid((T + ROWS - 1) / ROWS, batch * heads);
+  attn_fwd_kernel<D><<<grid, NTHREADS, smem, s>>>(map, static_cast<bf16*>(out),
+                                                  static_cast<float*>(lse), T, heads, split,
+                                                  LOG2E / sqrtf((float)D));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace attn
 }  // namespace cgd
 
-// q, k, v: one [batch, T, *] bf16 activation per operand, head h of row t at
-// ptr + (b*T + t)*in_stride + h*d; o [batch, T, *] bf16 (out_stride); lse
-// [batch*heads, T] f32. d in {64, 128, 192, 256}; strides multiples of 8 and
-// 16-byte aligned pointers. Returns the launch status.
-extern "C" int cgd_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int batch, int T, int heads, int d, int in_stride, int out_stride,
-                            void* stream) {
+// qkv [batch, T, 3*heads*d] bf16 (q heads | k heads | v heads) -> out [batch,
+// T, heads*d] bf16 and lse [batch*heads, T] f32 (natural log). d in {64,
+// 128}; tile, stages and split are the launch plan (kernels/attention.py
+// attn_plan: 64, 4, and 2 where T > 64, else 1), checked against this build.
+// Pointers 16-byte aligned. Returns the launch status (cudaError_t, or
+// cgd::ENCODE_ERROR + the CUresult of a failed tensor-map encode).
+extern "C" int cgd_attn_fwd(const void* qkv, void* out, void* lse, int batch, int T, int heads,
+                            int d, int tile, int stages, int split, void* stream) {
   using namespace cgd::attn;
-  if (batch <= 0 || T <= 0 || heads <= 0 || in_stride % 8 || out_stride % 8)
-    return (int)cudaErrorInvalidValue;
+  if (!plan_ok(batch, T, heads, d, tile, stages, split)) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (int st = map_rows(&map, qkv, batch, T, 3 * heads * d)) return st;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64: return (int)launch_fwd<64>(q, k, v, o, lse, batch, T, heads, in_stride, out_stride, s);
-    case 128: return (int)launch_fwd<128>(q, k, v, o, lse, batch, T, heads, in_stride, out_stride, s);
-    case 192: return (int)launch_fwd<192>(q, k, v, o, lse, batch, T, heads, in_stride, out_stride, s);
-    case 256: return (int)launch_fwd<256>(q, k, v, o, lse, batch, T, heads, in_stride, out_stride, s);
-  }
-  return (int)cudaErrorNotSupported;
+  if (d == 64) return launch_fwd<64>(map, out, lse, batch, T, heads, split, s);
+  return launch_fwd<128>(map, out, lse, batch, T, heads, split, s);
 }

@@ -302,7 +302,7 @@ __device__ __forceinline__ void conv_mainloop(const ConvGeom& g, Barriers& bar, 
         if (half == 0) mbar_wait(&bar.b_full[sb], (j / L::B_STAGES) & 1);
         wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < 2; ++k) Wgmma<BN>::mma(acc, frag[half][k], bdesc[k]);
+        for (int k = 0; k < 2; ++k) wgmma_rs<BN, 1>(acc, frag[half][k], bdesc[k], 1);
         wgmma_commit();
         wgmma_wait<1>();  // the previous half tap is done: its registers and stages are free
         if (half == 0 && leader && j > 0) {
@@ -419,34 +419,9 @@ __device__ __forceinline__ float sum_splits(const float* __restrict__ ws, size_t
 }
 
 // ---------------------------------------------------------------------------
-// host side: tensor maps, encoded per call (they hold the tensors' pointers)
+// host side: tensor maps, encoded per call (they hold the tensors' pointers;
+// the encoder is hopper.cuh's)
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Status codes of the C entry points: a cudaError_t, or ENCODE_ERROR + the
-// CUresult of a failed cuTensorMapEncodeTiled.
-constexpr int ENCODE_ERROR = 100000;
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no link
-// against libcuda).
-inline int encode_fn(EncodeTiledFn* fn) {
-  static EncodeTiledFn f = nullptr;
-  static int status = -1;
-  if (status < 0) {
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
-                                                    reinterpret_cast<void**>(&f),
-                                                    cudaEnableDefault, &q);
-    status = err != cudaSuccess ? (int)err
-             : q != cudaDriverEntryPointSuccess ? (int)cudaErrorSymbolNotFound : 0;
-  }
-  *fn = f;
-  return status;
-}
 
 // NHWC bf16 [n, h, w, c] as a 4-D map; box BK channels x box_w x box_h x 1,
 // 128B-swizzled (a pixel's 128 bytes are one swizzle row).
@@ -495,12 +470,6 @@ inline int make_conv_maps(ConvMaps* m, const void* x, const void* etop, const vo
     m->top = m->bot = m->x;
   }
   return map_weight(&m->w, w, cin, cout, bn >= 64 ? 64 : bn);
-}
-
-// Dynamic shared memory above 48 KB must be allowed once per kernel.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 inline int smem_bytes(int bn, bool up) {

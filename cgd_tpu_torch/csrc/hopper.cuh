@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
 // loads, wgmma with shared-memory descriptors, warpgroup register
-// reallocation and named barriers. Used by the 3x3 conv family's main loop
-// (conv3x3_common.cuh).
+// reallocation and named barriers; and on the host, the TMA tensor-map
+// encoder and the shared-memory opt-in. Used by the 3x3 conv family's main
+// loop (conv3x3_common.cuh) and the attention kernels (attn_common.cuh).
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace cgd {
@@ -69,6 +71,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
                                             int c1, int c2, int c3) {
   asm volatile(
@@ -100,6 +111,15 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
 // offsets (16-byte units) and the swizzle mode (1 = 128B, 2 = 64B, 3 = 32B).
 // Swizzled tiles must start 1024-byte aligned (the pattern repeats every
 // 1024 bytes of address), or carry the offset in base_offset (kept 0 here).
+//
+// With 128B swizzle, a tile of rows of 64 bf16 (128 bytes, one swizzle row;
+// wider operands are several such boxes side by side) is read two ways:
+// - K-major (the reduction runs along the row: trans 0): start = the box +
+//   32 bytes per k16 step, stride byte offset 1024 (the next 8 rows of M or
+//   N), the leading byte offset unused inside one swizzle row (16);
+// - MN-major (the reduction runs down the rows: trans-b 1): start = the
+//   tile + 16 rows (2 KB) per k16 step, leading byte offset = the next box of
+//   64 columns, stride byte offset 1024 (the next 8 rows of K).
 __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo,
                                               uint32_t swizzle) {
   uint64_t d = 0;
@@ -123,11 +143,21 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // The accumulators of an in-flight wgmma must not be touched before
 // wgmma_wait: this keeps their values live, in place, up to the point where
-// it stands.
+// it stands (after the wait), and pins their updates before it (before the
+// wgmma.fence that opens a group).
 template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for register A fragments: written before the wgmma.fence that
+// opens the group which reads them.
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
 }
 
 // Four 8 x 8 bf16 matrices from shared memory, one row address per lane
@@ -141,31 +171,54 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
 }
 
 
-// D[64 x N] += A[64 x 16] * B[16 x N], bf16 in, f32 accumulators. A comes
-// from registers (an ldmatrix_x4 fragment per warp), B from shared memory
-// through its descriptor, MN-major (the HWIO weight: output channels
-// contiguous), hence trans-b = 1.
-__device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+// D[64 x N] (+)= A[64 x 16] * B[16 x N], bf16 in, f32 accumulators, B from
+// shared memory through its descriptor, K-major (TB = 0) or MN-major (TB =
+// 1). The _rs forms take A from registers (per warp, the m16k16 fragment of
+// its 16 rows: ldmatrix_x4, or an accumulator repacked by acc_to_a), the _ss
+// forms from shared memory through a K-major descriptor. scale_d = 0
+// overwrites D, 1 accumulates into it.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %13;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(scale_d));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -174,12 +227,14 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %134, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
@@ -190,7 +245,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], const uint32_t (&a)[
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %133;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -207,18 +262,73 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], const uint32_t (&a)[
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(scale_d));
 }
 
-template <int N> struct Wgmma;
-template <> struct Wgmma<16> {
-  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t b) { wgmma_n16(d, a, b); }
-};
-template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b) { wgmma_n128(d, a, b); }
-};
-template <> struct Wgmma<256> {
-  static __device__ __forceinline__ void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t b) { wgmma_n256(d, a, b); }
-};
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %34;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(TB), "r"(scale_d));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 16 || N == 64 || N == 128 || N == 256, "wgmma N");
+  if constexpr (N == 16) wgmma_rs_n16<TB>(d, a, db, scale_d);
+  if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
+  if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
+  if constexpr (N == 256) wgmma_rs_n256<TB>(d, a, db, scale_d);
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(N == 64, "wgmma N");
+  wgmma_ss_n64<TB>(d, da, db, scale_d);
+}
+
+// --- host side ----------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Status codes of the C entry points: a cudaError_t, or ENCODE_ERROR + the
+// CUresult of a failed cuTensorMapEncodeTiled.
+constexpr int ENCODE_ERROR = 100000;
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no link
+// against libcuda).
+inline int encode_fn(EncodeTiledFn* fn) {
+  static EncodeTiledFn f = nullptr;
+  static int status = -1;
+  if (status < 0) {
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
+                                                    reinterpret_cast<void**>(&f),
+                                                    cudaEnableDefault, &q);
+    status = err != cudaSuccess ? (int)err
+             : q != cudaDriverEntryPointSuccess ? (int)cudaErrorSymbolNotFound : 0;
+  }
+  *fn = f;
+  return status;
+}
+
+// Dynamic shared memory above 48 KB must be allowed once per kernel.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 }  // namespace cgd

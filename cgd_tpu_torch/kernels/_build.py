@@ -27,10 +27,12 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cgd_tpu_torch"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, spills and wgmma serialization per kernel: ptxas_log()
 ]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_so: Optional[Path] = None
 build_seconds: Optional[float] = None  # wall time of the last nvcc run, None if cached
 
 
@@ -66,10 +68,18 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_conv3x3_smem_bytes.restype = i
     lib.cgd_conv3x3_encode_seconds.argtypes = [p, i]
     lib.cgd_conv3x3_encode_seconds.restype = ctypes.c_double
-    lib.cgd_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.cgd_attn_fwd.argtypes = [p] * 3 + [i] * 7 + [p]
     lib.cgd_attn_fwd.restype = i
-    lib.cgd_attn_bwd.argtypes = [p] * 10 + [i] * 7 + [p]
+    lib.cgd_attn_bwd.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.cgd_attn_bwd.restype = i
+    lib.cgd_attn_smem_bytes.argtypes = [i, i]
+    lib.cgd_attn_smem_bytes.restype = i
+    lib.cgd_attn_fwd_wmma.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.cgd_attn_fwd_wmma.restype = i
+    lib.cgd_attn_bwd_wmma.argtypes = [p] * 10 + [i] * 7 + [p]
+    lib.cgd_attn_bwd_wmma.restype = i
+    lib.cgd_attn_wmma_smem_bytes.argtypes = [i, i]
+    lib.cgd_attn_wmma_smem_bytes.restype = i
     lib.cgd_error_string.argtypes = [i]
     lib.cgd_error_string.restype = ctypes.c_char_p
     return lib
@@ -77,7 +87,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
-    global _lib, build_seconds
+    global _lib, _so, build_seconds
+    if _lib is not None:  # every launch asks: no lock once loaded
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -103,6 +115,7 @@ def library() -> ctypes.CDLL:
             outputs = [proc.communicate()[0] for _, proc in jobs]  # wait for all
             for (cmd, proc), out in zip(jobs, outputs):
                 _check_nvcc(cmd, proc.returncode, out)
+            so.with_suffix(".ptxas.log").write_text("".join(outputs))
             link = [nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
             res = subprocess.run(link, capture_output=True, text=True)
             _check_nvcc(link, res.returncode, res.stdout + res.stderr)
@@ -111,7 +124,18 @@ def library() -> ctypes.CDLL:
             build_seconds = time.perf_counter() - t0
             os.replace(tmp, so)
         _lib = _declare(ctypes.CDLL(str(so)))
+        _so = so
         return _lib
+
+
+def ptxas_log() -> str:
+    """What ptxas said (-v) when the loaded library was built: per kernel
+    its registers, spill stores / loads and shared memory, and any warning
+    that it serializes wgmmas (C7512: too few registers; C7513: an A
+    fragment written while a wgmma that reads it may be in flight)."""
+    library()
+    log = _so.with_suffix(".ptxas.log")
+    return log.read_text() if log.exists() else ""
 
 
 def _check_nvcc(cmd, returncode: int, output: str) -> None:
@@ -120,11 +144,12 @@ def _check_nvcc(cmd, returncode: int, output: str) -> None:
 
 
 def stream(dev) -> int:
-    """The handle of PyTorch's current CUDA stream on ``dev``: every kernel
-    launches there and does not synchronise."""
+    """The handle of PyTorch's current CUDA stream on ``dev`` (a CUDA
+    device with its index): every kernel launches there and does not
+    synchronise."""
     import torch
 
-    return torch.cuda.current_stream(dev).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 # the conv entry points return this plus the CUresult of a failed

@@ -1,10 +1,15 @@
 """Multi-head self-attention on Hopper: K-attn-f and K-attn-b, their plain
-PyTorch versions, and the autograd Function the UNet calls.
+PyTorch versions, the launch plan, and the autograd Function the UNet calls.
 
-Counterpart of ``cgd_tpu/kernels/attention_pallas.py``. Two hand-written CUDA
-kernels (``csrc/attn_fwd.cu``, ``csrc/attn_bwd.cu``) replace its two Pallas
-kernels: a flash-attention forward that also writes the per-row
-log-sum-exp, and a deterministic backward that recomputes P from it.
+Counterpart of ``cgd_tpu/kernels/attention_pallas.py``. Hand-written CUDA
+kernels replace its two Pallas kernels: a flash-attention forward that also
+writes the per-row log-sum-exp, and a deterministic backward that recomputes
+P from it. Head dims 64 and 128 (every UNet attention at 64-512px is d = 64)
+run the Hopper bodies of ``csrc/attn_fwd.cu`` and ``csrc/attn_bwd.cu`` (TMA
+ring, a producer warpgroup, two consumer warpgroups on ``wgmma`` with the
+softmax and the accumulators in registers; a two-launch backward); 192 and
+256 (the 128px model only) keep PR 2's WMMA bodies, ``csrc/attn_wmma.cu``.
+``attn_plan`` is the launch geometry the wrapper and the kernels agree on.
 
 - ``attention_fwd_plain`` / ``attention_bwd_plain``: exactly the math of
   ``_fwd_kernel`` / ``_bwd_kernel`` on ``[N, T, d]`` (q and k each scaled by
@@ -22,6 +27,7 @@ other than bfloat16, a failed build). Nothing falls back.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -32,7 +38,14 @@ from cgd_tpu_torch.kernels import _build
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES = {"attn_fwd": 0, "attn_bwd": 0}
 
-HEAD_DIMS = (64, 128, 192, 256)  # the kernels' templates (csrc/attn_common.cuh)
+HEAD_DIMS = (64, 128, 192, 256)  # the kernels' templates
+WGMMA_HEAD_DIMS = (64, 128)      # the Hopper bodies; the others run the WMMA bodies
+
+# the Hopper bodies' geometry (csrc/attn_common.cuh)
+ROWS = 64         # rows of every tile (the wgmma M) and of the TMA box
+STAGES = 4        # streamed tiles in the ring: two for each consumer warpgroup
+SMEM_MAX = 232448  # shared memory one block may take on the H100
+_ALIGN = 1024
 
 
 def reset_launch_counts() -> None:
@@ -89,43 +102,108 @@ def merge_heads(x: torch.Tensor, batch: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# launch plan
+# ---------------------------------------------------------------------------
+
+def _wmma_smem(d: int) -> Tuple[int, int, int]:
+    """Shared memory of PR 2's WMMA bodies (``csrc/attn_wmma.cu`` Cfg):
+    2 warps of 16 rows, padded pitches; (forward, dQ, dK/dV)."""
+    rows = 32
+    tile, acc = rows * (d + 8) * 2, rows * (d + 4) * 4
+    s, p = rows * (rows + 4) * 4, rows * (rows + 8) * 2
+    return (5 * tile + s + p + acc, 6 * tile + 2 * s + p + acc,
+            6 * tile + 4 * rows * 4 + 2 * s + 2 * p + 2 * acc)
+
+
+@functools.lru_cache(maxsize=None)
+def attn_plan(batch: int, heads: int, t: int, d: int) -> dict:
+    """The launch plan of K-attn-f / K-attn-b for ``[batch, t, 3*heads*d]``
+    (the geometry the wrapper and the kernels agree on; the C entry points
+    check the tile, stages and split they are given, and a card test holds
+    the shared memory to the kernels').
+
+    Hopper bodies (d = 64, 128): every kernel runs one block per (64-row tile,
+    batch*head): the forward and the dQ kernel own q rows and stream K/V
+    tiles, the dK/dV kernel owns kv rows and streams Q/dO tiles, through a
+    ring of ``stages`` tiles loaded by the TMA in boxes of 64 channels x 64
+    rows. The two consumer warpgroups split the streamed tiles (``split`` =
+    2; 1 when there is a single tile, so that each gets one). The backward
+    is two launches. WMMA bodies (d = 192, 256): PR 2's, 32-row tiles, 64
+    threads, a three-launch backward."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"attention: head dim {d} has no kernel (supported: {HEAD_DIMS})")
+    if d in WGMMA_HEAD_DIMS:
+        tiles = -(-t // ROWS)
+        tile = ROWS * d * 2
+        smem = {"fwd": tile + STAGES * 2 * tile + _ALIGN,
+                "bwd_dq": 3 * tile + _ALIGN + STAGES * 2 * tile + _ALIGN,
+                "bwd_dkdv": 2 * tile + STAGES * (2 * tile + _ALIGN) + _ALIGN}
+        grid = (tiles, batch * heads)
+        return dict(body="wgmma", d=d, q_tile=ROWS, kv_tile=ROWS, tiles=tiles, stages=STAGES,
+                    split=2 if tiles >= 2 else 1, grid={k: grid for k in smem}, smem=smem,
+                    box=(64, ROWS, 1), bwd_launches=2)
+    rows = 32
+    grid = (-(-t // rows), batch * heads)
+    smem = dict(zip(("fwd", "bwd_dq", "bwd_dkdv"), _wmma_smem(d)))
+    return dict(body="wmma", d=d, q_tile=rows, kv_tile=rows, tiles=grid[0], stages=2, split=1,
+                grid={k: grid for k in smem}, smem=smem, box=None, bwd_launches=3)
+
+
+# ---------------------------------------------------------------------------
 # kernel launchers
 # ---------------------------------------------------------------------------
 
-def _check(name: str, num_heads: int, **tensors) -> Tuple[int, int, int, int]:
-    qkv = tensors["qkv"]
-    if qkv.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {qkv.device}")
-    for arg, t in tensors.items():
-        if t.device != qkv.device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, expected {qkv.device}")
-        want = torch.float32 if arg == "lse" else torch.bfloat16
-        if t.dtype != want:
-            raise TypeError(f"{name}: {arg} has dtype {t.dtype}; the CUDA kernel takes {want} "
-                            "(run the UNet with compute_dtype bfloat16)")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
+def _bad(name: str, dev, arg: str, t: torch.Tensor, want) -> Exception:
+    if t.device != dev:
+        return ValueError(f"{name}: {arg} is on {t.device}, expected {dev}")
+    if t.dtype != want:
+        return TypeError(f"{name}: {arg} has dtype {t.dtype}; the CUDA kernel takes {want} "
+                         "(run the UNet with compute_dtype bfloat16)")
+    return ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
+
+
+def _check(name: str, num_heads: int, qkv: torch.Tensor, *more) -> Tuple[int, int, int, dict]:
+    """One pass over the tensors (device, dtype, contiguity, 16-byte
+    alignment; ``more`` = (name, tensor, dtype) triples), then qkv's shape.
+    Returns (b, t, c, plan)."""
+    dev = qkv.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for arg, t, want in (("qkv", qkv, torch.bfloat16), *more):
+        if t.device != dev or t.dtype != want or not t.is_contiguous() or t.data_ptr() % 16:
+            raise _bad(name, dev, arg, t, want)
     b, t, c3 = qkv.shape
     c = c3 // 3
     if c3 % 3 or c % num_heads:
         raise ValueError(f"{name}: qkv {tuple(qkv.shape)} does not split into 3 x {num_heads} heads")
-    d = c // num_heads
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} has no kernel (supported: {HEAD_DIMS})")
-    return b, t, c, d
+    return b, t, c, attn_plan(b, num_heads, t, c // num_heads)
+
+
+def _launch(dev: torch.device, fn, *args) -> int:
+    """Call a kernel's C entry point on ``dev``'s current stream (switching
+    the current device only where it differs)."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, _build.stream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, _build.stream(dev))
 
 
 def attention_fwd(qkv: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K-attn-f. qkv [B, T, 3C] bf16 on a card -> (out [B, T, C] bf16,
     lse [B*H, T] f32, the per-row log-sum-exp of the scaled logits)."""
-    b, t, c, d = _check("attention_fwd", num_heads, qkv=qkv)
+    b, t, c, plan = _check("attention_fwd", num_heads, qkv)
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b * num_heads, t), dtype=torch.float32, device=qkv.device)
-    base, es = qkv.data_ptr(), qkv.element_size()
-    with torch.cuda.device(qkv.device):
-        status = _build.library().cgd_attn_fwd(
-            base, base + c * es, base + 2 * c * es, out.data_ptr(), lse.data_ptr(),
-            b, t, num_heads, d, 3 * c, c, _build.stream(qkv.device))
+    lib, d = _build.library(), plan["d"]
+    if plan["body"] == "wgmma":
+        status = _launch(qkv.device, lib.cgd_attn_fwd, qkv.data_ptr(), out.data_ptr(),
+                         lse.data_ptr(), b, t, num_heads, d, plan["kv_tile"], plan["stages"],
+                         plan["split"])
+    else:
+        base, es = qkv.data_ptr(), qkv.element_size()
+        status = _launch(qkv.device, lib.cgd_attn_fwd_wmma, base, base + c * es,
+                         base + 2 * c * es, out.data_ptr(), lse.data_ptr(), b, t, num_heads, d,
+                         3 * c, c)
     _build.check(status, "attention_fwd")
     LAUNCHES["attn_fwd"] += 1
     return out, lse
@@ -134,17 +212,29 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torc
 def attention_bwd(qkv, out, lse, g, num_heads: int) -> torch.Tensor:
     """K-attn-b. The forward's qkv, out and lse and the cotangent g [B, T, C]
     -> dqkv [B, T, 3C] bf16 (deterministic)."""
-    b, t, c, d = _check("attention_bwd", num_heads, qkv=qkv, out=out, lse=lse, g=g)
+    bf = torch.bfloat16
+    b, t, c, plan = _check("attention_bwd", num_heads, qkv, ("out", out, bf),
+                           ("lse", lse, torch.float32), ("g", g, bf))
     if out.shape != (b, t, c) or g.shape != (b, t, c) or lse.shape != (b * num_heads, t):
         raise ValueError("attention_bwd: out / g / lse do not fit qkv")
-    dqkv = torch.empty_like(qkv)
-    dvec = torch.empty_like(lse)
-    base, gbase, es = qkv.data_ptr(), dqkv.data_ptr(), qkv.element_size()
-    with torch.cuda.device(qkv.device):
-        status = _build.library().cgd_attn_bwd(
-            base, base + c * es, base + 2 * c * es, out.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), dvec.data_ptr(), gbase, gbase + c * es, gbase + 2 * c * es,
-            b, t, num_heads, d, 3 * c, c, 3 * c, _build.stream(qkv.device))
+    # dqkv and the D scratch (f32 [B*H, T], at byte 2n: 16-byte aligned) in one
+    # allocation
+    n = b * t * 3 * c
+    buf = torch.empty(n + 2 * b * num_heads * t, dtype=bf, device=qkv.device)
+    dqkv = buf.as_strided((b, t, 3 * c), (t * 3 * c, 3 * c, 1))
+    gbase = buf.data_ptr()
+    dvec = gbase + 2 * n
+    lib, d = _build.library(), plan["d"]
+    if plan["body"] == "wgmma":
+        status = _launch(qkv.device, lib.cgd_attn_bwd, qkv.data_ptr(), out.data_ptr(),
+                         g.data_ptr(), lse.data_ptr(), dvec, gbase, b, t, num_heads, d,
+                         plan["kv_tile"], plan["stages"], plan["split"])
+    else:
+        base, es = qkv.data_ptr(), qkv.element_size()
+        status = _launch(qkv.device, lib.cgd_attn_bwd_wmma, base, base + c * es,
+                         base + 2 * c * es, out.data_ptr(), g.data_ptr(), lse.data_ptr(), dvec,
+                         gbase, gbase + c * es, gbase + 2 * c * es, b, t, num_heads, d, 3 * c,
+                         c, 3 * c)
     _build.check(status, "attention_bwd")
     LAUNCHES["attn_bwd"] += 1
     return dqkv

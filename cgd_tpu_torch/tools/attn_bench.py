@@ -1,0 +1,130 @@
+"""The attention kernels on the card against ``F.scaled_dot_product_attention``
+(SDPA): device time, host time and eager time per call.
+
+    python cgd_tpu_torch/tools/attn_bench.py [--root DIR]
+
+At the shapes ``chip_smoke.py`` phase 3 holds the kernels to ((N heads, T,
+d) of batch 1: the UNets' d = 64 levels, then the 128px model's head dims),
+it prints for K-attn-f, K-attn-b, SDPA's forward and SDPA's backward:
+
+- device ms per call: the durations of the kernels the call launches (and
+  their count), summed under ``torch.profiler`` over 20 calls;
+- host us per call: the host's wall clock over 100 calls that nothing waits
+  for (the device runs behind), i.e. what a call costs the host;
+- eager ms per call: CUDA events around 20 calls in a row, which measure the
+  larger of the two.
+
+``--root DIR`` imports ``cgd_tpu_torch`` from DIR, a checkout of another
+commit, so that two commits compare in one call on one card. Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+SHAPES = [(8, 1024, 64), (16, 256, 64), (16, 64, 64), (4, 1024, 128), (4, 256, 192),
+          (4, 64, 256)]
+
+
+def device_ms(fn, iters: int = 20):
+    """(device ms per call, kernels per call) of ``fn`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.device_time_total for e in events) / 1e3 / iters, len(events) / iters
+
+
+def host_us(fn, iters: int = 100) -> float:
+    """Host microseconds per call of ``fn``, not waiting for the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
+def eager_ms(fn, iters: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def measure(fn) -> dict:
+    dms, kernels = device_ms(fn)
+    return {"device_ms": dms, "kernels": kernels, "host_us": host_us(fn), "eager_ms": eager_ms(fn)}
+
+
+def calls(kattn, n: int, t: int, d: int, dev):
+    """The four calls at (n, t, d): K-attn-f, K-attn-b, SDPA forward, SDPA
+    backward (its kernels alone: ``autograd.grad`` of a kept graph), on the
+    same q, k, v and cotangent."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(dev).manual_seed(4321)
+    qkv = torch.randn(1, t, 3 * n * d, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn(1, t, n * d, generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = kattn.attention_fwd(qkv, n)
+    q4, k4, v4, g4 = (z[None].contiguous() for z in (*kattn.split_heads(qkv, n),
+                                                     kattn.to_heads(g, n)))
+    sq, sk, sv = (z.detach().requires_grad_(True) for z in (q4, k4, v4))
+    so = F.scaled_dot_product_attention(sq, sk, sv)
+    return {
+        "K-attn-f": lambda: kattn.attention_fwd(qkv, n),
+        "K-attn-b": lambda: kattn.attention_bwd(qkv, out, lse, g, n),
+        "SDPA fwd": lambda: F.scaled_dot_product_attention(q4, k4, v4),
+        "SDPA bwd": lambda: torch.autograd.grad(so, (sq, sk, sv), g4, retain_graph=True),
+    }
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--root", default=None,
+                   help="import cgd_tpu_torch from this checkout (default: this one)")
+    args = p.parse_args(argv)
+    sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[2]))
+    import subprocess
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("attn_bench: needs a CUDA card")
+    from cgd_tpu_torch.kernels import attention as kattn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    print(f"cgd_tpu_torch from {kattn.__file__}")
+    for n, t, d in SHAPES:
+        for name, fn in calls(kattn, n, t, d, dev).items():
+            m = measure(fn)
+            print(f"({n}, {t}, {d}) {name}: device {m['device_ms']:.4f} ms in {m['kernels']:.0f} "
+                  f"kernels, host {m['host_us']:.1f} us, eager {m['eager_ms']:.4f} ms")
+
+
+if __name__ == "__main__":
+    main()

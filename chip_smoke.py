@@ -6,8 +6,9 @@
 Phases, each of which raises (and the script exits nonzero) on failure:
 1. require a CUDA card; print ``nvidia-smi --query-gpu=name,power.limit``;
 2. build the hand-written kernels from ``cgd_tpu_torch/csrc`` (nvcc, one
-   process per source, in parallel), and time the host's TMA tensor-map
-   encode that every conv launch makes;
+   process per source, in parallel), print what ptxas said of each
+   attention kernel (registers, spill bytes, wgmma serialization), and time
+   the host's TMA tensor-map encode that every conv launch makes;
 3. hold each kernel against its plain PyTorch version in bf16 at the shape
    classes of the 256px and 512px UNets (the conv family, including the
    512px UNet's own 512^2 128->128 prologue+residual class, K-dx-w at
@@ -15,7 +16,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    dim), checking that K-dx, K-dx-w and K-attn-b reruns are bit-identical
    (bound: max |err| <= 1% of the reference's max |value|, the order of
    bf16 rounding), and time both, with cuDNN's bare conv on the same input,
-   and each conv's TFLOP/s and share of its bound;
+   and each conv's TFLOP/s and share of its bound; the attention kernels
+   also by their device time (torch.profiler) and host us per call, beside
+   F.scaled_dot_product_attention's;
 4. the full-width 256px and 512px class-conditional UNets (random weights,
    every zero-init conv re-drawn so the kernels' output reaches the result):
    forward and input gradient with the kernels against
@@ -45,8 +48,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    K-fwd and K-dx not.
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
-from phase 7c; each with its bound on the card and the library call's time
-where there is one), and as its last line ``{"ok": true, "device": {...}}``.
+from phase 7c; each with its eager and device time, its bound on the card
+and the library call's time where there is one), and as its last line
+``{"ok": true, "device": {...}}``.
 Needs one card; builds everything it runs.
 """
 
@@ -85,6 +89,38 @@ def _time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn) -> float:
+    """Device ms per call: the durations of the kernels ``fn`` launches,
+    summed under torch.profiler over 20 calls (cgd_tpu_torch/tools/attn_bench.py)."""
+    from cgd_tpu_torch.tools.attn_bench import device_ms
+
+    return device_ms(fn)[0]
+
+
+def _attn_ptxas(log: str) -> list:
+    """Per attention kernel of the build (nvcc -Xptxas -v): its registers,
+    spill bytes, and any wgmma serialization warning (C7512 / C7513)."""
+    import re
+
+    out, lines = [], log.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(_ZN3cgd(\d+)(attn\w*?)(\d+)(\w+)')", line)
+        if not m or not m.group(3).startswith("attn") or len(m.group(3)) != int(m.group(2)):
+            continue
+        mangled, ns, rest = m.group(1)[:-1], m.group(3), m.group(5)
+        fn = rest[:int(m.group(4))]
+        tmpl = re.match(r"ILi(\d+)E", rest[len(fn):])
+        info = " ".join(x.strip() for x in lines[i + 1:i + 4])
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+        regs = re.search(r"Used (\d+) registers", info)
+        warn = sorted({w for w in re.findall(r"\((C751\d)\)[^']*'" + mangled, log)})
+        out.append(f"{ns}::{fn}{f'<{tmpl.group(1)}>' if tmpl else ''}: "
+                   f"{regs.group(1) if regs else '?'} registers, spill stores / loads "
+                   f"{spill.group(1) if spill else '?'} / {spill.group(2) if spill else '?'} bytes"
+                   f"{', ' + ', '.join(warn) if warn else ''}")
+    return out
 
 
 def _rel_max(a, b) -> tuple:
@@ -161,7 +197,9 @@ def phase_kernels(k3, dev):
             raise AssertionError(f"K-fwd {name} {ho}^2 {ci}->{co}: {rel:.3e} > {FWD_TOL}")
         res["conv3x3_fwd"]["err"] = max(res["conv3x3_fwd"]["err"], err)
         if (ho, ci, co, sk) == (256, 256, 256, True):
-            res["conv3x3_fwd"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd)
+            res["conv3x3_fwd"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd,
+                                      device_ms=_device_ms(
+                                          lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, up)))
         if pro and not up:
             g = rn(1, ho, ho, co)
             wt = k3._flip_t(w)
@@ -187,7 +225,9 @@ def phase_kernels(k3, dev):
                   f"conv alone {cms:.4f} ms, {ms / cms:.2f}x; bit-identical reruns)"
                   f"{_fmt(bd, ms)}")
             if (ho, ci, co) == (256, 256, 256):
-                res["conv3x3_dx"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd)
+                res["conv3x3_dx"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd,
+                                         device_ms=_device_ms(
+                                             lambda: k3.conv3x3_dx(g, wt, x, A, B)))
 
     # K-dx-w at the 512px UNet's full-resolution classes (forward Cin -> Cout)
     res["conv3x3_dx_wtiled"] = {"err": 0.0}
@@ -218,7 +258,9 @@ def phase_kernels(k3, dev):
               f"({_tflops(flops, ms)}; {ms / cms:.2f}x cuDNN's conv alone, {cms:.4f} ms) "
               f"plain {pms:.4f} ms (bit-identical reruns){_fmt(bd, ms)}")
         if (ci, co) == (128, 128):
-            res["conv3x3_dx_wtiled"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd)
+            res["conv3x3_dx_wtiled"].update(
+                ms=ms, plain_ms=pms, library_ms=cms, **bd,
+                device_ms=_device_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=True)))
     torch.cuda.synchronize()
     return res
 
@@ -246,10 +288,14 @@ def _sdpa_backend(q, k, v) -> str:
 def phase_attention(kattn, dev):
     """Phase 3: K-attn-f and K-attn-b against their plain versions, on the
     fused qkv [1, T, 3*N*d] the UNet gives them (N heads of batch 1), timed
-    beside F.scaled_dot_product_attention on the same q, k, v (forward, and
-    its backward alone)."""
+    beside F.scaled_dot_product_attention (SDPA) on the same q, k, v (forward,
+    and its backward alone): eager ms (CUDA events around 20 calls: the larger
+    of host and device time), device ms (the kernels' own durations under
+    torch.profiler) and host us per call (tools/attn_bench.py)."""
     import torch
     import torch.nn.functional as F
+
+    from cgd_tpu_torch.tools.attn_bench import device_ms, host_us
 
     gen = torch.Generator(dev).manual_seed(4321)
     # (N, T, d): the 64-512px UNets' d = 64 levels, then the 128px model's
@@ -278,27 +324,39 @@ def phase_attention(kattn, dev):
             if r > ATTN_TOL:
                 raise AssertionError(f"K-attn-b N{n} T{t} d{d} {part}: {r:.3e} > {ATTN_TOL}")
             res["attn_bwd"]["err"] = max(res["attn_bwd"]["err"], e)
-        fms = _time_ms(lambda: kattn.attention_fwd(qkv, n))
-        fpms = _time_ms(lambda: kattn.attention_fwd_plain(q, k, v))
-        bms = _time_ms(lambda: kattn.attention_bwd(qkv, out, lse, g, n))
-        bpms = _time_ms(lambda: kattn.attention_bwd_plain(q, k, v, gh))
         # SDPA takes [batch, heads, T, d]; 3-D inputs send it to its math path
         q4, k4, v4, g4 = (z[None].contiguous() for z in (q, k, v, gh))
         sq, sk, sv = (z.detach().requires_grad_(True) for z in (q4, k4, v4))
         so = F.scaled_dot_product_attention(sq, sk, sv)
-        sfms = _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
-        sbms = _time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), g4, retain_graph=True))
+        fns = {
+            "fwd": lambda: kattn.attention_fwd(qkv, n),
+            "bwd": lambda: kattn.attention_bwd(qkv, out, lse, g, n),
+            "sdpa_fwd": lambda: F.scaled_dot_product_attention(q4, k4, v4),
+            "sdpa_bwd": lambda: torch.autograd.grad(so, (sq, sk, sv), g4, retain_graph=True),
+        }
+        eager = {key: _time_ms(fn) for key, fn in fns.items()}
+        dev_ms = {key: device_ms(fn)[0] for key, fn in fns.items()}
+        host = {key: host_us(fn) for key, fn in fns.items()}
+        fpms = _time_ms(lambda: kattn.attention_fwd_plain(q, k, v))
+        bpms = _time_ms(lambda: kattn.attention_bwd_plain(q, k, v, gh))
         backend = _sdpa_backend(q4, k4, v4)
-        bdf = _bound(4 * n * t * t * d, _nbytes(qkv, out, lse))
-        # backward: S = QK^T recomputed, then dV, dP, dQ, dK
-        bdb = _bound(10 * n * t * t * d, _nbytes(qkv, out, lse, g, dqkv))
-        print(f"[3] K-attn N{n} T{t} d{d}: fwd max|err| {err:.3e} ({rel:.2e}), {', '.join(line)}; "
-              f"fwd kernel {fms:.4f} ms plain {fpms:.4f} ms SDPA {sfms:.4f} ms{_fmt(bdf)}; bwd "
-              f"kernel {bms:.4f} ms plain {bpms:.4f} ms SDPA backward {sbms:.4f} ms{_fmt(bdb)} "
-              f"(SDPA backend {backend}; bit-identical reruns)")
+        body = kattn.attn_plan(1, n, t, d)["body"]
+        flops_f, flops_b = 4 * n * t * t * d, 10 * n * t * t * d  # bwd: S recomputed, dV, dP, dQ, dK
+        bdf = _bound(flops_f, _nbytes(qkv, out, lse))
+        bdb = _bound(flops_b, _nbytes(qkv, out, lse, g, dqkv))
+        print(f"[3] K-attn N{n} T{t} d{d} ({body} body): fwd max|err| {err:.3e} ({rel:.2e}), "
+              f"{', '.join(line)} (bit-identical reruns; SDPA backend {backend})")
+        for key, flops, bd, pms in (("fwd", flops_f, bdf, fpms), ("bwd", flops_b, bdb, bpms)):
+            print(f"[3]   {key}: kernel device {dev_ms[key]:.4f} ms ({_tflops(flops, dev_ms[key])}, "
+                  f"{bd['bound_ms'] / dev_ms[key]:.1%} of the bound), eager {eager[key]:.4f} ms, "
+                  f"host {host[key]:.1f} us/call; SDPA {key} device {dev_ms['sdpa_' + key]:.4f} ms, "
+                  f"eager {eager['sdpa_' + key]:.4f} ms, host {host['sdpa_' + key]:.1f} us/call; "
+                  f"plain {pms:.4f} ms{_fmt(bd)}")
         if (n, t, d) == (8, 1024, 64):
-            res["attn_fwd"].update(ms=fms, plain_ms=fpms, library_ms=sfms, **bdf)
-            res["attn_bwd"].update(ms=bms, plain_ms=bpms, library_ms=sbms, **bdb)
+            res["attn_fwd"].update(ms=eager["fwd"], device_ms=dev_ms["fwd"], plain_ms=fpms,
+                                   library_ms=eager["sdpa_fwd"], **bdf)
+            res["attn_bwd"].update(ms=eager["bwd"], device_ms=dev_ms["bwd"], plain_ms=bpms,
+                                   library_ms=eager["sdpa_bwd"], **bdb)
     torch.cuda.synchronize()
     return res
 
@@ -631,7 +689,8 @@ def phase_halo(k3, dev):
               f"plain {pms:.4f} ms, cuDNN on the stacked rows {cms:.4f} ms ({ms / cms:.2f}x)"
               f"{_fmt(bound, ms)}")
         if (hs, ci, co, sk) == (128, 256, 256, True):
-            res.update(ms=ms, plain_ms=pms, library_ms=cms, **bound)
+            res.update(ms=ms, plain_ms=pms, library_ms=cms, **bound, device_ms=_device_ms(
+                lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot)))
     torch.cuda.synchronize()
     return res
 
@@ -693,6 +752,9 @@ def main() -> None:
     lib = _build.library()
     print(f"[2] kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
+    # what ptxas said of the attention kernels (their consumers must not spill)
+    for line in _attn_ptxas(_build.ptxas_log()):
+        print(f"[2] ptxas {line}")
     # the conv launches encode their TMA tensor maps on the host, per call
     buf = torch.empty(256 * 256 * 256, dtype=torch.bfloat16, device=dev)
     enc_s = lib.cgd_conv3x3_encode_seconds(buf.data_ptr(), 2000)
@@ -727,7 +789,7 @@ def main() -> None:
         "attn_fwd": ("cgd_tpu_torch/csrc/attn_fwd.cu", "cgd_tpu/kernels/attention_pallas.py:69"),
         "attn_bwd": ("cgd_tpu_torch/csrc/attn_bwd.cu", "cgd_tpu/kernels/attention_pallas.py:82"),
     }
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": res[name]["err"],

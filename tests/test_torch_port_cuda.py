@@ -127,9 +127,11 @@ def test_kdx_takes_the_wtiled_mode_at_512_wide_images(dev):
 
 
 # (batch, heads, T, head dim): the UNet's T = 1024 / 64 at d = 64, ragged T,
-# and the other head dims (the 128px model)
+# the other head dims (the 128px model), and T across the two consumers'
+# split and the batch boundary (a tile past row T of one image must read
+# zeros, not the next image's rows)
 ATTN = [(1, 8, 1024, 64), (1, 16, 64, 64), (2, 3, 100, 64), (1, 4, 256, 128), (1, 2, 77, 192),
-        (2, 2, 45, 256)]
+        (2, 2, 45, 256), (2, 8, 1000, 64), (1, 4, 65, 64), (2, 2, 129, 128)]
 
 
 @pytest.mark.parametrize("b,h,t,d", ATTN)
@@ -145,6 +147,77 @@ def test_attention_kernels_match_plain_and_backward_is_deterministic(dev, b, h, 
     for got, ref in zip(dqkv.chunk(3, dim=-1), refs):
         _close(got, kattn.merge_heads(ref, b))
     assert kattn.LAUNCHES == {"attn_fwd": 1, "attn_bwd": 2}
+
+
+@pytest.mark.parametrize("b,h,t,d", [(1, 8, 1024, 64), (2, 3, 100, 64), (2, 2, 129, 128),
+                                     (1, 2, 77, 192)])
+def test_attention_lse_is_the_logsumexp_of_the_logits(dev, b, h, t, d):
+    """The forward's lse [B*H, T] (natural log) against torch.logsumexp of
+    the plain f32 logits of the same bf16 q, k (atol 1e-3 on values of
+    ~log(T): the same f32 statistics, summed in another order, with exp2's
+    few-ulp approximation)."""
+    qkv = _rn(dev, b, t, 3 * h * d, seed=9)
+    _, lse = kattn.attention_fwd(qkv, h)
+    q, k, _ = kattn.split_heads(qkv, h)
+    logits = (q.float() @ k.float().transpose(-1, -2)) / d ** 0.5
+    assert lse.shape == (b * h, t) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-3, rtol=0)
+
+
+def _kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("d,body,launches", [(64, "attn::", 2), (128, "attn::", 2),
+                                             (192, "attn_wmma::", 3), (256, "attn_wmma::", 3)])
+def test_attention_backward_launches_by_head_dim(dev, d, body, launches):
+    """One wrapper call of K-attn-b counts one launch; on the card it is
+    two kernels at d = 64 / 128 (dQ with D, then dK/dV) and PR 2's three
+    WMMA kernels at d = 192 / 256, the body attn_plan names."""
+    h, t = 2, 100
+    qkv, g = _rn(dev, 1, t, 3 * h * d, seed=10), _rn(dev, 1, t, h * d, seed=11)
+    out, lse = kattn.attention_fwd(qkv, h)
+    assert kattn.attn_plan(1, h, t, d)["bwd_launches"] == launches
+    kattn.reset_launch_counts()
+    names = _kernel_names(lambda: kattn.attention_bwd(qkv, out, lse, g, h))
+    assert kattn.LAUNCHES == {"attn_fwd": 0, "attn_bwd": 1}
+    mine = [n for n in names if "cgd::" in n]
+    assert len(mine) == launches and all(body in n for n in mine), names
+    assert all(body in n for n in _kernel_names(lambda: kattn.attention_fwd(qkv, h)) if "cgd::" in n)
+
+
+def test_the_attention_kernels_size_shared_memory_as_the_plan(dev):
+    from cgd_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for d in kattn.HEAD_DIMS:
+        plan = kattn.attn_plan(1, 4, 256, d)
+        smem = lib.cgd_attn_smem_bytes if plan["body"] == "wgmma" else lib.cgd_attn_wmma_smem_bytes
+        for i, kernel in enumerate(("fwd", "bwd_dq", "bwd_dkdv")):
+            assert smem(i, d) == plan["smem"][kernel], (d, kernel)
+
+
+def test_the_attention_entry_points_check_the_plan(dev):
+    """A tile, stage count or split that this build does not take is
+    refused (cudaErrorInvalidValue), not run."""
+    from cgd_tpu_torch.kernels import _build
+
+    qkv = _rn(dev, 1, 128, 3 * 64, seed=12)
+    out = torch.empty(1, 128, 64, dtype=torch.bfloat16, device=dev)
+    lse = torch.empty(1, 128, device=dev)
+    lib, s = _build.library(), _build.stream(dev)
+    p = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 128, 1, 64)
+    assert lib.cgd_attn_fwd(*p, 64, kattn.STAGES, 2, s) == 0
+    for tile, stages, split in ((32, kattn.STAGES, 2), (64, 2, 2), (64, kattn.STAGES, 3)):
+        assert lib.cgd_attn_fwd(*p, tile, stages, split, s) != 0
+    one_tile = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 64, 1, 64)
+    assert lib.cgd_attn_fwd(*one_tile, 64, kattn.STAGES, 2, s) != 0  # consumer 1 would see none
+    torch.cuda.synchronize()
 
 
 def test_attention_function_uses_the_kernels(dev):
