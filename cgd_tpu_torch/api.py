@@ -11,8 +11,11 @@ clamp, and ``mesh=`` (``cgd_tpu_torch.parallel.mesh``): batch split over
 K-halo), the cutouts split over every mesh device. Every other option raises
 rather than being ignored.
 
-``device`` defaults to ``"cuda"``; with no card that is an error. The CPU is
-used only when the caller passes ``device="cpu"``.
+The signature is ``cgd_tpu.api.clip_guided_diffusion``'s, keyword for keyword
+and default for default (tests/test_torch_port_api.py pins it), except
+``device``: it defaults to ``"cuda"``, and with no card that is an error. The
+CPU is used only when the caller passes ``device="cpu"``. ``dropout`` is
+taken and, as in the JAX package's sampling, never applied.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from cgd_tpu_torch.models.clip.model import encode_text
 from cgd_tpu_torch.ops.nn import cast_conv_params
 from cgd_tpu_torch.parallel.mesh import shard_params_replicated, split_activation
 from cgd_tpu_torch.validate import check_parameters
-from cgd_tpu_torch.weights import resolve_clip, resolve_unet
+from cgd_tpu_torch.weights import CACHE_PATH, resolve_clip, resolve_unet
 
 
 class _FallbackTokenizer:
@@ -102,12 +105,16 @@ def clip_guided_diffusion(
     seed: int = 0,
     diffusion_steps: int = 1000,
     skip_timesteps: int = 0,
+    checkpoints_dir: str = CACHE_PATH,
     clip_model_name: str = "ViT-B/32",
     randomize_class: bool = True,
     prefix_path=Path("./outputs"),
     save_frequency: int = 25,
     noise_schedule: str = "linear",
+    dropout: float = 0.0,
     device: str = "cuda",
+    wandb_project: Optional[str] = None,
+    wandb_entity: Optional[str] = None,
     use_augs: bool = False,
     use_magnitude: bool = False,
     height_offset: int = 0,
@@ -118,12 +125,17 @@ def clip_guided_diffusion(
     cached_cutouts: bool = False,
     weights_mode: str = "auto",
     compute_dtype: str = "bfloat16",
+    mesh=None,
+    noise_file: Optional[str] = None,
+    async_frames: bool = False,
+    log_losses: bool = False,
+    strict_parity: bool = True,
     dpm_solver: bool = False,
     fast_guidance: bool = False,
     checkpoint_path: Optional[str] = None,
     resume_from: Optional[str] = None,
-    mesh=None,
-    wandb_project: Optional[str] = None,
+    stall_pet=None,
+    device_lock=None,
 ) -> Iterator[Tuple[int, str]]:
     if mesh is not None and any(d.type != torch.device(device).type for d in mesh.devices.flat):
         raise ValueError(f"device={device!r} but the mesh's devices are {list(mesh.devices.flat)}")
@@ -136,7 +148,11 @@ def clip_guided_diffusion(
         skip_timesteps=(skip_timesteps, 0),
         reduce_clip=(reduce_clip, False), progressive_cutout=(progressive_cutout, False),
         height_offset=(height_offset, 0), width_offset=(width_offset, 0),
-        wandb_project=(wandb_project, None),
+        wandb_project=(wandb_project, None), wandb_entity=(wandb_entity, None),
+        checkpoints_dir=(str(checkpoints_dir), CACHE_PATH), noise_file=(noise_file, None),
+        async_frames=(async_frames, False), log_losses=(log_losses, False),
+        strict_parity=(strict_parity, True), stall_pet=(stall_pet, None),
+        device_lock=(device_lock, None),
     )
     if compute_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"compute_dtype must be 'bfloat16' or 'float32', got {compute_dtype!r}")
@@ -187,7 +203,6 @@ def clip_guided_diffusion(
         cast_conv_params(unet, cdtype)
         cast_conv_params(clip_model, cdtype)
     if mesh is not None:
-        unet.check_split(image_size, image_size, mesh.shape["cut"])
         shard_params_replicated(unet, mesh)  # the split ops find the copies
     tokenizer = _FallbackTokenizer(clip_cfg.text.vocab_size)
 
@@ -227,7 +242,9 @@ def clip_guided_diffusion(
     )
 
     def model_fn(x, t_model, y):
-        if mesh is None:
+        # an image height the 'cut' axis does not divide runs whole, as its
+        # levels below one that it does not divide (parallel/mesh.py)
+        if mesh is None or x.shape[1] % mesh.shape["cut"]:
             return unet(x, t_model, y, compute_dtype=cdtype)
         # split x over the mesh, run the split UNet, gather the output whole
         return unet(split_activation(x, mesh), t_model, y, compute_dtype=cdtype).gather()

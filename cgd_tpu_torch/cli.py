@@ -10,21 +10,17 @@
 the one CPU device for ``--device cpu``). Flags
 the port cannot honour yet raise ``NotImplementedError`` naming the flag;
 the API refuses the options it does not take (``-skip``, ``-is``,
-``-reduce``, offsets, W&B, checkpoint loading). ``--dropout`` is accepted
-and, as in the JAX package's sampling, never applied.
+``-reduce``, offsets, W&B, ``-ckpts``, checkpoint loading). ``--dropout`` is
+accepted and, as in the JAX package's sampling, never applied.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 from pathlib import Path
 
 from cgd_tpu_torch.registry import CLIP_MODEL_NAMES
-
-# the reference's checkpoint cache (cgd_tpu.io_utils.download.CACHE_PATH);
-# read only by checkpoint loading, which is not ported
-CACHE_PATH = os.path.expanduser("~/.cache/clip-guided-diffusion")
+from cgd_tpu_torch.weights import CACHE_PATH
 
 # flags the port cannot honour yet: argparse dest -> spelling
 REFUSED = {
@@ -180,11 +176,14 @@ def main(argv=None):
         seed=args.seed,
         diffusion_steps=args.diffusion_steps,
         skip_timesteps=args.skip_timesteps,
+        checkpoints_dir=str(args.checkpoints_dir),
         clip_model_name=args.clip_model,
         noise_schedule=args.noise_schedule,
+        dropout=args.dropout,
         device=args.device,
         prefix_path=prefix_path,
         wandb_project=args.wandb_project,
+        wandb_entity=args.wandb_entity,
         use_magnitude=args.use_magnitude,
         height_offset=args.height_offset,
         width_offset=args.width_offset,

@@ -1,5 +1,5 @@
 // K-attn-b: multi-head self-attention backward on Hopper (sm_90a), head dims
-// 64 and 128 (192 and 256 run PR 2's body, attn_wmma.cu).
+// 64, 128, 192 and 256.
 //
 // Replaces the Pallas TPU kernel cgd_tpu/kernels/attention_pallas.py
 // (_run_bwd -> _bwd_kernel): given dO, with P = softmax(S), S = q.k^T/sqrt(d),
@@ -21,13 +21,25 @@
 //      memory, B = Q / dO K-major), P^T and dS^T in registers, dV += P^T.dO
 //      and dK += dS^T.Q (A from the accumulators, B = dO / Q MN-major: the
 //      same swizzled tiles read the other way).
-// Both split their loop between the two consumer warpgroups and combine in a
-// fixed order (attn_common.cuh). Every accumulator stays in registers; P and
-// dS round to bf16 as operands, D, the softmax recompute and dS are f32.
-// The A operands that lie in shared memory anyway (Q, dO, K, V) are read
-// there by descriptor (wgmma's SS form): at d = 128 the dK/dV kernel holds
-// 128 f32 accumulators a thread, and register fragments of K and V would
-// not fit beside them.
+// At d = 64 / 128 both kernels split their loop between the two consumer
+// warpgroups and combine in a fixed order (attn_common.cuh). At d = 192 /
+// 256 the consumers split D instead, since whole-D accumulators beside S and
+// dP spilled: in the dQ kernel consumer 0 owns columns [0, 128) of dQ and
+// consumer 1 the rest; in the dK/dV kernel, where dK and dV together are two
+// accumulators, each consumer takes one 64-column share of both in each of
+// two passes over the q tiles (shares 0 and 2 to consumer 0, 1 and 3 to
+// consumer 1), storing it straight from registers at the pass's end. A
+// 128-column share of dK and dV (128 f32 a thread) beside S^T and dP^T
+// still spilled and serialized the wgmmas once S^T's reduction ran over
+// 192 or 256 channels, in every arrangement tried (split chains, 32-column
+// S^T halves, 64-column accumulator blocks, one code path for both
+// consumers). Both consumers compute S (S^T) and dP (dP^T) over the full
+// depth for every tile of every pass: the products two to four times over,
+// which these latency-bound shapes afford. Every accumulator stays in
+// registers; P and dS round to bf16 as operands, D, the softmax recompute
+// and dS are f32. The A operands that lie in shared memory anyway (Q, dO,
+// K, V) are read there by descriptor (wgmma's SS form), as register
+// fragments would not fit beside the accumulators.
 //
 // Rows past T: their lse reads +inf, so their P is exactly 0; columns past T
 // in the dQ kernel are masked to P = 0 (the TMA zero-fills K there).
@@ -51,6 +63,7 @@ template <int D>
 __device__ __forceinline__ void dq_producer(const BwdMaps& m, Bars& bar, unsigned char* smem, int b,
                                             int h, int q0, int C, int ntiles) {
   using L = DqLayout<D>;
+  constexpr int STAGES = L::STAGES;
   mbar_expect_tx(&bar.tile_full, 3 * Tile<D>::BYTES);
   for (int x = 0; x < Tile<D>::BOXES; ++x) {
     const int ch = h * D + x * BOX;
@@ -71,14 +84,20 @@ __device__ __forceinline__ void dq_producer(const BwdMaps& m, Bars& bar, unsigne
   }
 }
 
-template <int D>
+// Columns [C0, C0 + W) of the block's dQ: all of them (W = D) where the
+// consumers split the K/V tiles and merge; this consumer's share where they
+// split D.
+template <int D, int W, int C0>
 __device__ __forceinline__ void dq_consumer(Bars& bar, unsigned char* smem,
                                             const float* __restrict__ lse,
                                             float* __restrict__ Dvec, bf16* __restrict__ dqkv,
                                             int T, int split, float sl2, float scale, int n, int b,
                                             int h, int q0, int C, int ntiles) {
   using L = DqLayout<D>;
+  constexpr int STAGES = L::STAGES, BOX0 = C0 / BOX * BOX_BYTES;
+  static_assert(L::COLS == (W < D) && C0 % BOX == 0 && W % BOX == 0, "column share");
   const int wg = threadIdx.x / 128 - 1;
+  const int first = L::COLS ? 0 : wg, step = L::COLS ? 1 : split;
   float* vec = reinterpret_cast<float*>(smem + L::OFF_VEC);  // [0, 64): lse*log2(e); [64, 128): D
   mbar_wait(&bar.tile_full, 0);
   {  // D = rowsum(dO o O) for the block's rows, four threads a row
@@ -101,29 +120,25 @@ __device__ __forceinline__ void dq_consumer(Bars& bar, unsigned char* smem,
     }
   }
   named_barrier(1, NCONSUMERS);
-  float dq[D / 2];
+  float dq[W / 2];
 #pragma unroll
-  for (int r = 0; r < D / 2; ++r) dq[r] = 0.f;
-  if (wg < split) {
+  for (int r = 0; r < W / 2; ++r) dq[r] = 0.f;
+  if (L::COLS || wg < split) {
     float l2[2], dd[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       l2[e] = vec[acc_row(2 * e)];
       dd[e] = vec[ROWS + acc_row(2 * e)];
     }
-    for (int i = wg; i < ntiles; i += split) {
+    for (int i = first; i < ntiles; i += step) {
       const int s = i % STAGES, kv0 = i * ROWS;
       const unsigned char* kt = smem + L::OFF_STAGES + s * L::STAGE;
       const unsigned char* vt = kt + Tile<D>::BYTES;
       mbar_wait(&bar.full[s], (i / STAGES) & 1);
       float sc[ROWS / 2], dp[ROWS / 2];
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<ROWS, 0>(sc, desc_k(smem, kk), desc_k(kt, kk), kk > 0);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<ROWS, 0>(dp, desc_k(smem + L::OFF_DO, kk), desc_k(vt, kk), kk > 0);
+      gemm_k<D>(sc, smem, kt);
+      gemm_k<D>(dp, smem + L::OFF_DO, vt);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -142,23 +157,26 @@ __device__ __forceinline__ void dq_consumer(Bars& bar, unsigned char* smem,
       fence_frags(dsf);
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < ROWS / 16; ++j) wgmma_rs<D, 1>(dq, dsf[j], desc_mn(kt, j), 1);
+      for (int j = 0; j < ROWS / 16; ++j) wgmma_rs<W, 1>(dq, dsf[j], desc_mn(kt + BOX0, j), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
       if (threadIdx.x % 128 == 0) mbar_arrive(&bar.empty[s]);
     }
   }
-  if (split > 1) {
+  if constexpr (L::COLS) {
+    named_barrier(1, NCONSUMERS);  // both consumers' reads of Q are done
+  } else if (split > 1) {
     float* cmb = reinterpret_cast<float*>(smem + L::OFF_STAGES);
     named_barrier(1, NCONSUMERS);
     if (wg == 1) put_partial(cmb, dq);
     named_barrier(1, NCONSUMERS);
     if (wg == 0) add_partial(cmb, dq);
   }
-  if (wg == 0) {
+  if (L::COLS || wg == 0) {  // staged in the share's boxes of the Q tile
     const float mul[2] = {scale, scale};
-    store_rows<D>(dq, mul, smem, dqkv + (size_t)b * T * 3 * C + h * D, q0, T, 3 * C);
+    store_rows<W>(dq, mul, smem + BOX0, dqkv + (size_t)b * T * 3 * C + h * D + C0, q0, T, 3 * C,
+                  2 + wg);
   }
 }
 
@@ -172,11 +190,12 @@ attn_bwd_dq(const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
   unsigned char* smem = align_smem(smem_raw);
   const int n = blockIdx.y, b = n / heads, h = n - b * heads, q0 = blockIdx.x * ROWS;
   const int C = heads * D, ntiles = (T + ROWS - 1) / ROWS;
+  using L = DqLayout<D>;
   if (threadIdx.x == 0) {
     mbar_init(&bar.tile_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(&bar.full[s], 1);
-      mbar_init(&bar.empty[s], 1);
+      mbar_init(&bar.empty[s], L::COLS ? 2 : 1);  // each consumer that reads the stage
     }
     mbar_fence_init();
   }
@@ -186,7 +205,10 @@ attn_bwd_dq(const __grid_constant__ BwdMaps maps, const float* __restrict__ lse,
     if (threadIdx.x == 0) dq_producer<D>(maps, bar, smem, b, h, q0, C, ntiles);
   } else {
     setmaxnreg_inc<240>();
-    dq_consumer<D>(bar, smem, lse, Dvec, dqkv, T, split, sl2, scale, n, b, h, q0, C, ntiles);
+    by_share<D, L::COLS>([&](auto w, auto c0) {
+      dq_consumer<D, decltype(w)::value, decltype(c0)::value>(bar, smem, lse, Dvec, dqkv, T, split,
+                                                              sl2, scale, n, b, h, q0, C, ntiles);
+    });
   }
 }
 
@@ -202,6 +224,7 @@ __device__ __forceinline__ void dkdv_producer(const BwdMaps& m, Bars& bar, unsig
                                               const float* __restrict__ Dvec, int T, int n, int b,
                                               int h, int kv0, int C, int ntiles) {
   using L = DkdvLayout<D>;
+  constexpr int STAGES = L::STAGES;
   if (threadIdx.x == 0) {
     mbar_expect_tx(&bar.tile_full, 2 * Tile<D>::BYTES);
     for (int x = 0; x < Tile<D>::BOXES; ++x) {
@@ -212,9 +235,9 @@ __device__ __forceinline__ void dkdv_producer(const BwdMaps& m, Bars& bar, unsig
   }
   const bool vectors = threadIdx.x / 32 == 1;
   if (threadIdx.x != 0 && !vectors) return;
-  for (int i = 0; i < ntiles; ++i) {
-    const int s = i % STAGES;
-    if (i >= STAGES) mbar_wait(&bar.empty[s], ((i / STAGES) + 1) & 1);
+  for (int it = 0; it < L::PASSES * ntiles; ++it) {  // q tile i of each pass
+    const int s = it % STAGES, i = it % ntiles;
+    if (it >= STAGES) mbar_wait(&bar.empty[s], ((it / STAGES) + 1) & 1);
     unsigned char* st = smem + L::OFF_STAGES + s * L::STAGE;
     if (vectors) {
       float* vec = reinterpret_cast<float*>(st + L::OFF_VEC);
@@ -235,80 +258,99 @@ __device__ __forceinline__ void dkdv_producer(const BwdMaps& m, Bars& bar, unsig
   }
 }
 
+// The block's dK and dV. At d = 64 / 128: all D columns in one pass over
+// the q tiles, which the consumers split (tile i to consumer i % split) and
+// merge. At d = 192 / 256: 64-column shares in two passes over every q tile
+// (the producer streams them twice), share 2p + c in pass p to consumer c
+// (none for consumer 1's second pass at d = 192, which only releases the
+// stages), each stored by its consumer straight from registers; S^T and
+// dP^T are computed over the full depth in every pass.
 template <int D>
 __device__ __forceinline__ void dkdv_consumer(Bars& bar, unsigned char* smem,
                                               bf16* __restrict__ dqkv, int T, int split,
                                               float sl2, float scale, int b, int h, int kv0, int C,
                                               int ntiles) {
   using L = DkdvLayout<D>;
+  constexpr int STAGES = L::STAGES, W = L::COLS ? BOX : D;  // columns of a pass
   const int wg = threadIdx.x / 128 - 1;
-  if (wg >= split) return;
-  float dk[D / 2], dv[D / 2];
-#pragma unroll
-  for (int r = 0; r < D / 2; ++r) dk[r] = dv[r] = 0.f;
-  mbar_wait(&bar.tile_full, 0);
-  for (int i = wg; i < ntiles; i += split) {
-    const int s = i % STAGES;
-    const unsigned char* qt = smem + L::OFF_STAGES + s * L::STAGE;
-    const unsigned char* gt = qt + Tile<D>::BYTES;
-    const float* vec = reinterpret_cast<const float*>(qt + L::OFF_VEC);
-    mbar_wait(&bar.full[s], (i / STAGES) & 1);
-    float sc[ROWS / 2], dp[ROWS / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<ROWS, 0>(sc, desc_k(smem, kk), desc_k(qt, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<ROWS, 0>(dp, desc_k(smem + Tile<D>::BYTES, kk), desc_k(gt, kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    fence_regs(dp);
-
-    // P^T and dS^T: rows are kv, columns q (their lse and D from the stage)
-#pragma unroll
-    for (int r = 0; r < ROWS / 2; ++r) {
-      const int c = acc_col(r);
-      const float p = exp2f(sc[r] * sl2 - vec[c]);
-      sc[r] = p;
-      dp[r] = p * (dp[r] - vec[ROWS + c]);
-    }
-    uint32_t pf[ROWS / 16][4], dsf[ROWS / 16][4];
-    acc_to_a<ROWS>(sc, pf);
-    acc_to_a<ROWS>(dp, dsf);
-    fence_regs(dv);
-    fence_regs(dk);
-    fence_frags(pf);
-    fence_frags(dsf);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < ROWS / 16; ++j) wgmma_rs<D, 1>(dv, pf[j], desc_mn(gt, j), 1);
-#pragma unroll
-    for (int j = 0; j < ROWS / 16; ++j) wgmma_rs<D, 1>(dk, dsf[j], desc_mn(qt, j), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dv);
-    fence_regs(dk);
-    if (threadIdx.x % 128 == 0) mbar_arrive(&bar.empty[s]);
-  }
-  if (split > 1) {
-    float* cmb = reinterpret_cast<float*>(smem + L::OFF_STAGES);
-    named_barrier(1, NCONSUMERS);
-    if (wg == 1) {
-      put_partial(cmb, dk);
-      put_partial(cmb + (D / 2) * 128, dv);
-    }
-    named_barrier(1, NCONSUMERS);
-    if (wg == 1) return;
-    add_partial(cmb, dk);
-    add_partial(cmb + (D / 2) * 128, dv);
-  }
-  // staged in the K and V tiles: every consumer's products over them are done
+  const int first = L::COLS ? 0 : wg, step = L::COLS ? 1 : split;
+  if (!L::COLS && wg >= split) return;
   bf16* rows = dqkv + (size_t)b * T * 3 * C + h * D;
-  const float mk[2] = {scale, scale}, mv[2] = {1.f, 1.f};
-  store_rows<D>(dk, mk, smem, rows + C, kv0, T, 3 * C);
-  store_rows<D>(dv, mv, smem + Tile<D>::BYTES, rows + 2 * C, kv0, T, 3 * C);
+  float dk[W / 2], dv[W / 2];
+  mbar_wait(&bar.tile_full, 0);
+#pragma unroll 1
+  for (int pass = 0; pass < L::PASSES; ++pass) {
+    const int col = L::COLS ? (2 * pass + wg) * BOX : 0;  // the pass's first column
+    const bool mine = col < D;
+#pragma unroll
+    for (int r = 0; r < W / 2; ++r) dk[r] = dv[r] = 0.f;
+    for (int i = first; i < ntiles; i += step) {
+      const int it = pass * ntiles + i, s = it % STAGES;
+      const unsigned char* qt = smem + L::OFF_STAGES + s * L::STAGE;
+      const unsigned char* gt = qt + Tile<D>::BYTES;
+      const float* vec = reinterpret_cast<const float*>(qt + L::OFF_VEC);
+      mbar_wait(&bar.full[s], (it / STAGES) & 1);
+      if (mine) {
+        float sc[ROWS / 2], dp[ROWS / 2];
+        wgmma_fence();
+        gemm_k<D>(sc, smem, qt);
+        gemm_k<D>(dp, smem + Tile<D>::BYTES, gt);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // P^T and dS^T: rows are kv, columns q (their lse and D from the stage)
+#pragma unroll
+        for (int r = 0; r < ROWS / 2; ++r) {
+          const int c = acc_col(r);
+          const float p = exp2f(sc[r] * sl2 - vec[c]);
+          sc[r] = p;
+          dp[r] = p * (dp[r] - vec[ROWS + c]);
+        }
+        uint32_t pf[ROWS / 16][4], dsf[ROWS / 16][4];
+        acc_to_a<ROWS>(sc, pf);
+        acc_to_a<ROWS>(dp, dsf);
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_frags(pf);
+        fence_frags(dsf);
+        const int box = col / BOX * BOX_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < ROWS / 16; ++j) wgmma_rs<W, 1>(dv, pf[j], desc_mn(gt + box, j), 1);
+#pragma unroll
+        for (int j = 0; j < ROWS / 16; ++j) wgmma_rs<W, 1>(dk, dsf[j], desc_mn(qt + box, j), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+      if (threadIdx.x % 128 == 0) mbar_arrive(&bar.empty[s]);
+    }
+    if (L::COLS && mine) {
+      store_regs<W>(dk, scale, rows + C + col, kv0, T, 3 * C);
+      store_regs<W>(dv, 1.f, rows + 2 * C + col, kv0, T, 3 * C);
+    }
+  }
+  if constexpr (!L::COLS) {
+    if (split > 1) {
+      float* cmb = reinterpret_cast<float*>(smem + L::OFF_STAGES);
+      named_barrier(1, NCONSUMERS);
+      if (wg == 1) {
+        put_partial(cmb, dk);
+        put_partial(cmb + (D / 2) * 128, dv);
+      }
+      named_barrier(1, NCONSUMERS);
+      if (wg == 1) return;
+      add_partial(cmb, dk);
+      add_partial(cmb + (D / 2) * 128, dv);
+    }
+    // staged in the K and V tiles: every consumer's products over them are done
+    const float mk[2] = {scale, scale}, mv[2] = {1.f, 1.f};
+    store_rows<D>(dk, mk, smem, rows + C, kv0, T, 3 * C, 2);
+    store_rows<D>(dv, mv, smem + Tile<D>::BYTES, rows + 2 * C, kv0, T, 3 * C, 2);
+  }
 }
 
 template <int D>
@@ -321,11 +363,12 @@ attn_bwd_dkdv(const __grid_constant__ BwdMaps maps, const float* __restrict__ ls
   unsigned char* smem = align_smem(smem_raw);
   const int n = blockIdx.y, b = n / heads, h = n - b * heads, kv0 = blockIdx.x * ROWS;
   const int C = heads * D, ntiles = (T + ROWS - 1) / ROWS;
+  using L = DkdvLayout<D>;
   if (threadIdx.x == 0) {
     mbar_init(&bar.tile_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(&bar.full[s], 1 + 32);  // thread 0's TMA, warp 1's vectors
-      mbar_init(&bar.empty[s], 1);
+      mbar_init(&bar.empty[s], L::COLS ? 2 : 1);  // each consumer that reads the stage
     }
     mbar_fence_init();
   }
@@ -368,13 +411,15 @@ static int launch_bwd(const BwdMaps& maps, const void* lse, void* Dvec, void* dq
 // bf16 and lse [batch*heads, T] f32; dout [batch, T, heads*d] bf16, the
 // cotangent of out; Dvec [batch*heads, T] f32 scratch (D, written by launch
 // 1, read by launch 2) -> dqkv [batch, T, 3*heads*d] bf16 (dq | dk | dv in
-// qkv's layout). d in {64, 128}; tile, stages and split as cgd_attn_fwd's.
+// qkv's layout). d in {64, 128, 192, 256}; tile and split as cgd_attn_fwd's,
+// stages bwd_stages(d).
 // Pointers 16-byte aligned. Two launches on `stream`; returns the status.
 extern "C" int cgd_attn_bwd(const void* qkv, const void* out, const void* dout, const void* lse,
                             void* Dvec, void* dqkv, int batch, int T, int heads, int d, int tile,
                             int stages, int split, void* stream) {
   using namespace cgd::attn;
-  if (!plan_ok(batch, T, heads, d, tile, stages, split)) return (int)cudaErrorInvalidValue;
+  if (!plan_ok(batch, T, heads, d, tile, stages, bwd_stages(d), split))
+    return (int)cudaErrorInvalidValue;
   BwdMaps maps;
   const int c = heads * d;
   if (int st = map_rows(&maps.qkv, qkv, batch, T, 3 * c)) return st;
@@ -382,7 +427,9 @@ extern "C" int cgd_attn_bwd(const void* qkv, const void* out, const void* dout, 
   if (int st = map_rows(&maps.dout, dout, batch, T, c)) return st;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_bwd<64>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
-  return launch_bwd<128>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
+  if (d == 128) return launch_bwd<128>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
+  if (d == 192) return launch_bwd<192>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
+  return launch_bwd<256>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
 }
 
 // Dynamic shared memory of one block of the Hopper bodies (kernel 0 = the
@@ -396,6 +443,8 @@ extern "C" int cgd_attn_smem_bytes(int kernel, int d) {
                                                           : DkdvLayout<D>::SMEM;
   CGD_SMEM(64)
   CGD_SMEM(128)
+  CGD_SMEM(192)
+  CGD_SMEM(256)
 #undef CGD_SMEM
   return -1;
 }

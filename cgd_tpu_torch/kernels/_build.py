@@ -74,12 +74,6 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_attn_bwd.restype = i
     lib.cgd_attn_smem_bytes.argtypes = [i, i]
     lib.cgd_attn_smem_bytes.restype = i
-    lib.cgd_attn_fwd_wmma.argtypes = [p] * 5 + [i] * 6 + [p]
-    lib.cgd_attn_fwd_wmma.restype = i
-    lib.cgd_attn_bwd_wmma.argtypes = [p] * 10 + [i] * 7 + [p]
-    lib.cgd_attn_bwd_wmma.restype = i
-    lib.cgd_attn_wmma_smem_bytes.argtypes = [i, i]
-    lib.cgd_attn_wmma_smem_bytes.restype = i
     lib.cgd_error_string.argtypes = [i]
     lib.cgd_error_string.restype = ctypes.c_char_p
     return lib

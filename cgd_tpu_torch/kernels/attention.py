@@ -4,12 +4,12 @@ PyTorch versions, the launch plan, and the autograd Function the UNet calls.
 Counterpart of ``cgd_tpu/kernels/attention_pallas.py``. Hand-written CUDA
 kernels replace its two Pallas kernels: a flash-attention forward that also
 writes the per-row log-sum-exp, and a deterministic backward that recomputes
-P from it. Head dims 64 and 128 (every UNet attention at 64-512px is d = 64)
-run the Hopper bodies of ``csrc/attn_fwd.cu`` and ``csrc/attn_bwd.cu`` (TMA
-ring, a producer warpgroup, two consumer warpgroups on ``wgmma`` with the
-softmax and the accumulators in registers; a two-launch backward); 192 and
-256 (the 128px model only) keep PR 2's WMMA bodies, ``csrc/attn_wmma.cu``.
-``attn_plan`` is the launch geometry the wrapper and the kernels agree on.
+P from it. Every head dim (64: the UNets at 64, 256 and 512px; 128, 192 and
+256: the 128px model) runs the Hopper bodies of ``csrc/attn_fwd.cu`` and
+``csrc/attn_bwd.cu``: a TMA ring, a producer warpgroup, two consumer
+warpgroups on ``wgmma`` with the softmax and the accumulators in registers,
+and a two-launch backward. ``attn_plan`` is the launch geometry the wrapper
+and the kernels agree on.
 
 - ``attention_fwd_plain`` / ``attention_bwd_plain``: exactly the math of
   ``_fwd_kernel`` / ``_bwd_kernel`` on ``[N, T, d]`` (q and k each scaled by
@@ -35,22 +35,34 @@ import torch
 
 from cgd_tpu_torch.kernels import _build
 
-# launches of each kernel since the last reset_launch_counts()
-LAUNCHES = {"attn_fwd": 0, "attn_bwd": 0}
-
 HEAD_DIMS = (64, 128, 192, 256)  # the kernels' templates
-WGMMA_HEAD_DIMS = (64, 128)      # the Hopper bodies; the others run the WMMA bodies
 
-# the Hopper bodies' geometry (csrc/attn_common.cuh)
+# launches of each kernel since the last reset_launch_counts(), in all and by
+# head dim
+LAUNCHES = {"attn_fwd": 0, "attn_bwd": 0}
+LAUNCHES_BY_D = {d: {"attn_fwd": 0, "attn_bwd": 0} for d in HEAD_DIMS}
+
+# the kernels' geometry (csrc/attn_common.cuh)
 ROWS = 64         # rows of every tile (the wgmma M) and of the TMA box
-STAGES = 4        # streamed tiles in the ring: two for each consumer warpgroup
+BOX = 64          # channels of a TMA box, and of the smallest column share
+# streamed tiles in each ring (fwd_stages / bwd_stages): the most that fit a
+# block in an even count, so that stage s always serves consumer s % 2
+FWD_STAGES = {64: 4, 128: 4, 192: 4, 256: 2}
+BWD_STAGES = {64: 4, 128: 4, 192: 2, 256: 2}
+COLS0 = 128       # consumer 0's columns where the forward and dQ kernels split D
 SMEM_MAX = 232448  # shared memory one block may take on the H100
 _ALIGN = 1024
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, *LAUNCHES_BY_D.values()):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name: str, d: int) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_D[d][name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -105,16 +117,6 @@ def merge_heads(x: torch.Tensor, batch: int) -> torch.Tensor:
 # launch plan
 # ---------------------------------------------------------------------------
 
-def _wmma_smem(d: int) -> Tuple[int, int, int]:
-    """Shared memory of PR 2's WMMA bodies (``csrc/attn_wmma.cu`` Cfg):
-    2 warps of 16 rows, padded pitches; (forward, dQ, dK/dV)."""
-    rows = 32
-    tile, acc = rows * (d + 8) * 2, rows * (d + 4) * 4
-    s, p = rows * (rows + 4) * 4, rows * (rows + 8) * 2
-    return (5 * tile + s + p + acc, 6 * tile + 2 * s + p + acc,
-            6 * tile + 4 * rows * 4 + 2 * s + 2 * p + 2 * acc)
-
-
 @functools.lru_cache(maxsize=None)
 def attn_plan(batch: int, heads: int, t: int, d: int) -> dict:
     """The launch plan of K-attn-f / K-attn-b for ``[batch, t, 3*heads*d]``
@@ -122,31 +124,34 @@ def attn_plan(batch: int, heads: int, t: int, d: int) -> dict:
     check the tile, stages and split they are given, and a card test holds
     the shared memory to the kernels').
 
-    Hopper bodies (d = 64, 128): every kernel runs one block per (64-row tile,
-    batch*head): the forward and the dQ kernel own q rows and stream K/V
-    tiles, the dK/dV kernel owns kv rows and streams Q/dO tiles, through a
-    ring of ``stages`` tiles loaded by the TMA in boxes of 64 channels x 64
-    rows. The two consumer warpgroups split the streamed tiles (``split`` =
-    2; 1 when there is a single tile, so that each gets one). The backward
-    is two launches. WMMA bodies (d = 192, 256): PR 2's, 32-row tiles, 64
-    threads, a three-launch backward."""
+    Every kernel runs one block per (64-row tile, batch*head): the forward
+    and the dQ kernel own q rows and stream K/V tiles, the dK/dV kernel owns
+    kv rows and streams Q/dO tiles, through a ring of ``stages[kernel]``
+    tiles loaded by the TMA in boxes of 64 channels x 64 rows (d / 64 boxes a
+    tile). At d = 64 / 128 the two consumer warpgroups split the streamed
+    tiles (``split`` = 2; 1 when there is a single tile, so that each gets
+    one); at 192 / 256 they split D instead, and ``cols[kernel]`` gives each
+    consumer's column ranges of the output, one per pass over the streamed
+    tiles (the dK/dV kernel takes 64-column shares in two passes); ``cols``
+    is None where the tiles are split. The backward is two launches."""
     if d not in HEAD_DIMS:
         raise ValueError(f"attention: head dim {d} has no kernel (supported: {HEAD_DIMS})")
-    if d in WGMMA_HEAD_DIMS:
-        tiles = -(-t // ROWS)
-        tile = ROWS * d * 2
-        smem = {"fwd": tile + STAGES * 2 * tile + _ALIGN,
-                "bwd_dq": 3 * tile + _ALIGN + STAGES * 2 * tile + _ALIGN,
-                "bwd_dkdv": 2 * tile + STAGES * (2 * tile + _ALIGN) + _ALIGN}
-        grid = (tiles, batch * heads)
-        return dict(body="wgmma", d=d, q_tile=ROWS, kv_tile=ROWS, tiles=tiles, stages=STAGES,
-                    split=2 if tiles >= 2 else 1, grid={k: grid for k in smem}, smem=smem,
-                    box=(64, ROWS, 1), bwd_launches=2)
-    rows = 32
-    grid = (-(-t // rows), batch * heads)
-    smem = dict(zip(("fwd", "bwd_dq", "bwd_dkdv"), _wmma_smem(d)))
-    return dict(body="wmma", d=d, q_tile=rows, kv_tile=rows, tiles=grid[0], stages=2, split=1,
-                grid={k: grid for k in smem}, smem=smem, box=None, bwd_launches=3)
+    tiles = -(-t // ROWS)
+    tile = ROWS * d * 2
+    fs, bs = FWD_STAGES[d], BWD_STAGES[d]
+    smem = {"fwd": tile + fs * 2 * tile + _ALIGN,
+            "bwd_dq": 3 * tile + _ALIGN + bs * 2 * tile + _ALIGN,
+            "bwd_dkdv": 2 * tile + bs * (2 * tile + _ALIGN) + _ALIGN}
+    grid = (tiles, batch * heads)
+    cols = None
+    if d > 128:
+        halves = (((0, COLS0),), ((COLS0, d),))
+        passes = tuple(tuple((c, c + BOX) for c in range(BOX * wg, d, 2 * BOX)) for wg in (0, 1))
+        cols = {"fwd": halves, "bwd_dq": halves, "bwd_dkdv": passes}
+    return dict(body="wgmma", d=d, q_tile=ROWS, kv_tile=ROWS, tiles=tiles,
+                stages={"fwd": fs, "bwd_dq": bs, "bwd_dkdv": bs},
+                split=2 if tiles >= 2 else 1, cols=cols,
+                grid={k: grid for k in smem}, smem=smem, box=(BOX, ROWS, 1), bwd_launches=2)
 
 
 # ---------------------------------------------------------------------------
@@ -194,18 +199,12 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torc
     b, t, c, plan = _check("attention_fwd", num_heads, qkv)
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b * num_heads, t), dtype=torch.float32, device=qkv.device)
-    lib, d = _build.library(), plan["d"]
-    if plan["body"] == "wgmma":
-        status = _launch(qkv.device, lib.cgd_attn_fwd, qkv.data_ptr(), out.data_ptr(),
-                         lse.data_ptr(), b, t, num_heads, d, plan["kv_tile"], plan["stages"],
-                         plan["split"])
-    else:
-        base, es = qkv.data_ptr(), qkv.element_size()
-        status = _launch(qkv.device, lib.cgd_attn_fwd_wmma, base, base + c * es,
-                         base + 2 * c * es, out.data_ptr(), lse.data_ptr(), b, t, num_heads, d,
-                         3 * c, c)
+    d = plan["d"]
+    status = _launch(qkv.device, _build.library().cgd_attn_fwd, qkv.data_ptr(), out.data_ptr(),
+                     lse.data_ptr(), b, t, num_heads, d, plan["kv_tile"], plan["stages"]["fwd"],
+                     plan["split"])
     _build.check(status, "attention_fwd")
-    LAUNCHES["attn_fwd"] += 1
+    _count("attn_fwd", d)
     return out, lse
 
 
@@ -223,20 +222,12 @@ def attention_bwd(qkv, out, lse, g, num_heads: int) -> torch.Tensor:
     buf = torch.empty(n + 2 * b * num_heads * t, dtype=bf, device=qkv.device)
     dqkv = buf.as_strided((b, t, 3 * c), (t * 3 * c, 3 * c, 1))
     gbase = buf.data_ptr()
-    dvec = gbase + 2 * n
-    lib, d = _build.library(), plan["d"]
-    if plan["body"] == "wgmma":
-        status = _launch(qkv.device, lib.cgd_attn_bwd, qkv.data_ptr(), out.data_ptr(),
-                         g.data_ptr(), lse.data_ptr(), dvec, gbase, b, t, num_heads, d,
-                         plan["kv_tile"], plan["stages"], plan["split"])
-    else:
-        base, es = qkv.data_ptr(), qkv.element_size()
-        status = _launch(qkv.device, lib.cgd_attn_bwd_wmma, base, base + c * es,
-                         base + 2 * c * es, out.data_ptr(), g.data_ptr(), lse.data_ptr(), dvec,
-                         gbase, gbase + c * es, gbase + 2 * c * es, b, t, num_heads, d, 3 * c,
-                         c, 3 * c)
+    d = plan["d"]
+    status = _launch(qkv.device, _build.library().cgd_attn_bwd, qkv.data_ptr(), out.data_ptr(),
+                     g.data_ptr(), lse.data_ptr(), gbase + 2 * n, gbase, b, t, num_heads, d,
+                     plan["kv_tile"], plan["stages"]["bwd_dq"], plan["split"])
     _build.check(status, "attention_bwd")
-    LAUNCHES["attn_bwd"] += 1
+    _count("attn_bwd", d)
     return dqkv
 
 

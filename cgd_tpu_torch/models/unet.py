@@ -14,8 +14,9 @@ NHWC activations, HWIO conv kernels, ``[in, out]`` dense kernels.
 The same forward runs on a height-split activation
 (``cgd_tpu_torch.parallel.mesh.Split``, the JAX package's
 ``spatial_sharding``): the ops take it shard by shard, the attention blocks
-gather each data group whole and split it back, and the embedding path stays
-unsplit.
+gather each data group whole and split it back, a level whose height the
+'cut' axis does not divide runs whole (``parallel/mesh.py``), and the
+embedding path stays unsplit.
 """
 
 from __future__ import annotations
@@ -337,8 +338,6 @@ class UNet(nn.Module):
         labels when class-conditional. Returns [B,H,W,out_channels] f32, split
         as x when x is a ``Split``."""
         cfg = self.cfg
-        if isinstance(x, Split):
-            self.check_split(x.shape[1], x.shape[2], x.mesh.shape["cut"])
         emb = cnn.timestep_embedding(timesteps, cfg.model_channels)
         emb = cnn.dense(self.time_embed[0], emb)
         emb = cnn.dense(self.time_embed[1], cnn.silu(emb))
@@ -362,12 +361,3 @@ class UNet(nn.Module):
                 h = layer(h, emb)
         h = cnn.fused_gn_silu_conv(self.out_norm, self.out_conv, h)
         return h.float()
-
-    def check_split(self, height: int, width: int, cut: int) -> None:
-        """Every level's height must divide by the ``cut`` axis (the JAX
-        package pads uneven shards; the port refuses them)."""
-        for level in range(len(self.cfg.channel_mult)):
-            h, w = height >> level, width >> level
-            if h % cut:
-                raise ValueError(f"height split cut={cut}: UNet level {level} ({h}x{w}) "
-                                 f"does not divide by {cut}")

@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from cgd_tpu_torch.kernels import attention as kattn
 from cgd_tpu_torch.kernels import conv3x3 as k3
 from cgd_tpu_torch.kernels import conv_spmd
-from cgd_tpu_torch.parallel.mesh import Split
+from cgd_tpu_torch.parallel.mesh import Split, split_activation
 
 _routing_override: Optional[str] = None  # see kernel_routing()
 
@@ -315,8 +315,12 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
-    """2x2 average pool: f32 sum, cast back, then * 0.25 in x's dtype."""
+    """2x2 average pool: f32 sum, cast back, then * 0.25 in x's dtype. A
+    split activation pools shard by shard, or, into a level whose height the
+    'cut' axis does not divide, whole (the level runs unsplit)."""
     if isinstance(x, Split):
+        if (x.shape[1] // 2) % x.mesh.shape["cut"]:
+            return avg_pool_2x(x.gather())
         return x.map(avg_pool_2x)
     b, h, w, c = x.shape
     s = x.float().reshape(b, h // 2, 2, w // 2, 2, c).sum((2, 4))
@@ -325,7 +329,11 @@ def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
 
 def cat_channels(a, b):
     """Concatenate on the channel axis (the UNet's skip connections),
-    shard by shard for split activations."""
+    shard by shard for split activations; a whole one beside a split one
+    (up from a level that runs unsplit) is split like it first."""
+    if isinstance(a, Split) != isinstance(b, Split):
+        mesh = (a if isinstance(a, Split) else b).mesh
+        a, b = (z if isinstance(z, Split) else split_activation(z, mesh) for z in (a, b))
     if isinstance(a, Split):
         return a.zip_map(b, lambda u, v: torch.cat([u, v], dim=-1))
     return torch.cat([a, b], dim=-1)

@@ -12,8 +12,14 @@ one after the other (``make_mesh([cuda0, cuda0])`` is a ``cut=2`` mesh on one
 card, ``make_mesh([cpu, cpu])`` one on the CPU).
 
 ``Split`` is the height-split activation: per-shard NHWC tensors, batch over
-``data`` and rows top to bottom over ``cut``. The ops of
-``cgd_tpu_torch.ops.nn`` and the UNet take it wherever they take a tensor.
+``data`` and rows top to bottom over ``cut``, in shards of equal height. The
+ops of ``cgd_tpu_torch.ops.nn`` and the UNet take it wherever they take a
+tensor. A UNet level whose height the ``cut`` axis does not divide (``cut=4``
+below a 24px image's 12^2 level, ``cut=3`` at any power-of-two size) runs
+whole on the mesh's first device: the downsample into it gathers the
+activation, and the skip connection on the way up splits it again. The JAX
+package pads such a level's last shards under GSPMD instead; both compute
+the same values (tests/test_torch_port_mesh.py holds the two together).
 """
 
 from __future__ import annotations
@@ -206,18 +212,19 @@ class Split:
             return self.zip_map(other, lambda a, b: a + b)
         return self.map_rows(lambda t, u: t + u, other)
 
-    def gathered(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Split":
+    def gathered(self, fn: Callable[[torch.Tensor], torch.Tensor]):
         """Apply ``fn`` to each data group whole (its shards concatenated on
         H on the group's first device) and split the result back into equal
         heights (``fn`` may change the height, as a stride-2 conv does): the
-        attention's all-gather."""
-        out = []
-        for row in self.shards:
-            home = row[0].device
-            whole = fn(torch.cat([t.to(home) for t in row], dim=1))
-            parts = whole.chunk(len(row), dim=1)
-            out.append([p.to(t.device) for p, t in zip(parts, row)])
-        return Split(out, self.mesh)
+        attention's all-gather. A result whose height the shards do not
+        divide comes back whole, on the mesh's first device (the module
+        docstring)."""
+        wholes = [fn(torch.cat([t.to(row[0].device) for t in row], dim=1)) for row in self.shards]
+        cut = len(self.shards[0])
+        if wholes[0].shape[1] % cut:
+            return torch.cat([w.to(self.mesh.main) for w in wholes], dim=0)
+        return Split([[p.to(t.device) for p, t in zip(w.chunk(cut, dim=1), row)]
+                      for w, row in zip(wholes, self.shards)], self.mesh)
 
     def gather(self) -> torch.Tensor:
         """The whole tensor on the mesh's first device."""

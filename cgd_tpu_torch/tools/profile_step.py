@@ -3,6 +3,7 @@ window of guided steps of the API's sampling loop.
 
     python -m cgd_tpu_torch.tools.profile_step                 # 256px, ViT-B/32
     python -m cgd_tpu_torch.tools.profile_step --mesh-cut 2    # split cut=2 on one card
+    python -m cgd_tpu_torch.tools.profile_step --size 128      # the 128px model (d = 128-256)
 
 Runs a ddim25 guided sample (random weights, 16 cutouts, batch 1, bf16),
 times the five guided steps between the frames at steps 5 and 10 with the
@@ -11,13 +12,14 @@ profiler off (host clock, synchronised), and profiles the five steps from
 step: the wall time, the device time of all kernels (busy) and the idle
 share of the wall time, the device operations, the device time of the
 hand-written kernels (``cgd::``), the kernels that take the most device
-time, and every hand-written kernel template with its device time and
-launches. Needs a CUDA card.
+time, every hand-written kernel template with its device time and
+launches, and the attention's device time by head dim. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import time
 from collections import defaultdict
@@ -82,9 +84,15 @@ def main(argv=None) -> None:
     for name, (t, n) in ranked[:TOP]:
         print(f"  {t:8.3f} ms  {n / STEPS:7.1f}x  {name[:110]}")
     print("hand-written kernels, every template:")
+    attn = defaultdict(float)
     for name, (t, n) in ranked:
         if "cgd::" in name:
             print(f"  {t:8.3f} ms  {n / STEPS:7.1f}x  {name[:110]}")
+        d = re.search(r"cgd::attn::\w+<(\d+)>", name)
+        if d:
+            attn[int(d.group(1))] += t
+    print("attention per step by head dim: " + ", ".join(
+        f"d = {d}: {t:.3f} ms" for d, t in sorted(attn.items())) + f"; total {sum(attn.values()):.3f} ms")
 
 
 if __name__ == "__main__":

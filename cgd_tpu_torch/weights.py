@@ -23,6 +23,10 @@ from cgd_tpu_torch.registry import DIFFUSION_LOOKUP
 
 _WEIGHTS_SEED = 0  # random weights are fixed, as cgd_tpu's PRNGKey(0) init
 
+# the reference's checkpoint cache (cgd_tpu.io_utils.download.CACHE_PATH);
+# read only by checkpoint loading, which is not ported
+CACHE_PATH = os.path.expanduser("~/.cache/clip-guided-diffusion")
+
 
 def _check_mode(mode: str) -> None:
     if mode != "random":

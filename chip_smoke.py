@@ -12,16 +12,18 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 3. hold each kernel against its plain PyTorch version in bf16 at the shape
    classes of the 256px and 512px UNets (the conv family, including the
    512px UNet's own 512^2 128->128 prologue+residual class, K-dx-w at
-   512^2, the attention forward and its three gradients at every T and head
-   dim), checking that K-dx, K-dx-w and K-attn-b reruns are bit-identical
-   (bound: max |err| <= 1% of the reference's max |value|, the order of
-   bf16 rounding), and time both, with cuDNN's bare conv on the same input,
-   and each conv's TFLOP/s and share of its bound; the attention kernels
-   also by their device time (torch.profiler) and host us per call, beside
-   F.scaled_dot_product_attention's;
-4. the full-width 256px and 512px class-conditional UNets (random weights,
-   every zero-init conv re-drawn so the kernels' output reaches the result):
-   forward and input gradient with the kernels against
+   512^2) and of the 128px model (the attention at every T and head dim,
+   with ragged T and batches at d = 192 / 256), checking that K-dx, K-dx-w
+   and K-attn-b reruns are bit-identical (bound: max |err| <= 1% of the
+   reference's max |value|, the order of bf16 rounding), and time both: every
+   conv row by CUDA events and by its device time under torch.profiler,
+   beside cuDNN's bare conv on the same input (eager and device), with
+   TFLOP/s and share of the bound on the device time; the attention kernels
+   by their device time (torch.profiler), eager time and host us per call,
+   beside F.scaled_dot_product_attention's;
+4. the full-width 256px, 512px and 128px class-conditional UNets (random
+   weights, every zero-init conv re-drawn so the kernels' output reaches the
+   result): forward and input gradient with the kernels against
    ``kernel_routing("plain")`` (bound: relative L2 error <= 5e-2 — two bf16
    routes that round at different points through ~60-90 convs and 16
    attention blocks; a wrong tap, halo or softmax gives O(1)); prints each
@@ -30,7 +32,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    cutouts, ViT-B/32, ddim25, random weights, the launch counters reset just
    before it and read just after, between two short runs under the plain
    routing for its step time; checks finite frames, written PNGs and that
-   every kernel of the path launched;
+   every kernel of the path launched; then the same at the API's default
+   size, the 128px model (attention at d = 128, 192 and 256), checking that
+   the attention launched at each of the three head dims;
 6. the 512px path through the CLI, ``cgd_tpu_torch.cli.main``: 512px
    class-conditional ADM guided by CLIP RN50x16, 16 cutouts, ddim25, random
    weights, with the same checks, the step time of the plain routing before
@@ -187,19 +191,19 @@ def phase_kernels(k3, dev):
         h = x if A is None else k3._silu_chain(x, A, B)[2].to(x.dtype)
         h = k3._up2(h) if up else h
         cms = _time_ms(lambda: k3._conv_nhwc(h, w))
+        dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, up))
+        cdms = _device_ms(lambda: k3._conv_nhwc(h, w))
         flops = 2 * ho * ho * 9 * ci * co
         bd = _bound(flops, _nbytes(x, w, bias, A, B, skip, out))
         print(f"[3] K-fwd {name:20s} {ho}^2 {ci}->{co}: max|err| {err:.3e} "
-              f"({rel:.2e} of scale) kernel {ms:.4f} ms ({_tflops(flops, ms)}) "
-              f"plain {pms:.4f} ms (its cuDNN conv alone {cms:.4f} ms, "
-              f"{ms / cms:.2f}x){_fmt(bd, ms)}")
+              f"({rel:.2e} of scale) kernel {ms:.4f} ms, device {dms:.4f} ms "
+              f"({_tflops(flops, dms)}) plain {pms:.4f} ms (its cuDNN conv alone {cms:.4f} ms, "
+              f"device {cdms:.4f} ms: {dms / cdms:.2f}x){_fmt(bd, dms)}")
         if rel > FWD_TOL:
             raise AssertionError(f"K-fwd {name} {ho}^2 {ci}->{co}: {rel:.3e} > {FWD_TOL}")
         res["conv3x3_fwd"]["err"] = max(res["conv3x3_fwd"]["err"], err)
         if (ho, ci, co, sk) == (256, 256, 256, True):
-            res["conv3x3_fwd"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd,
-                                      device_ms=_device_ms(
-                                          lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, up)))
+            res["conv3x3_fwd"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd, device_ms=dms)
         if pro and not up:
             g = rn(1, ho, ho, co)
             wt = k3._flip_t(w)
@@ -211,6 +215,8 @@ def phase_kernels(k3, dev):
             ms = _time_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B))
             pms = _time_ms(lambda: k3.conv3x3_dx_plain(g, wt, x, A, B))
             cms = _time_ms(lambda: k3._conv_nhwc(g, wt))
+            dms = _device_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B))
+            cdms = _device_ms(lambda: k3._conv_nhwc(g, wt))
             line = []
             for part, a, b in zip(("dx", "dA", "dB"), got, want):
                 err, rel = _rel_max(a, b)
@@ -221,13 +227,11 @@ def phase_kernels(k3, dev):
             flops = 2 * ho * ho * 9 * ci * co
             bd = _bound(flops, _nbytes(g, wt, x, A, B, *got))
             print(f"[3] K-dx  {name:20s} {ho}^2 {ci}->{co}: {', '.join(line)} "
-                  f"kernel {ms:.4f} ms ({_tflops(flops, ms)}) plain {pms:.4f} ms (its cuDNN "
-                  f"conv alone {cms:.4f} ms, {ms / cms:.2f}x; bit-identical reruns)"
-                  f"{_fmt(bd, ms)}")
+                  f"kernel {ms:.4f} ms, device {dms:.4f} ms ({_tflops(flops, dms)}) plain "
+                  f"{pms:.4f} ms (its cuDNN conv alone {cms:.4f} ms, device {cdms:.4f} ms: "
+                  f"{dms / cdms:.2f}x; bit-identical reruns){_fmt(bd, dms)}")
             if (ho, ci, co) == (256, 256, 256):
-                res["conv3x3_dx"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd,
-                                         device_ms=_device_ms(
-                                             lambda: k3.conv3x3_dx(g, wt, x, A, B)))
+                res["conv3x3_dx"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd, device_ms=dms)
 
     # K-dx-w at the 512px UNet's full-resolution classes (forward Cin -> Cout)
     res["conv3x3_dx_wtiled"] = {"err": 0.0}
@@ -252,15 +256,17 @@ def phase_kernels(k3, dev):
         ms = _time_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=True))
         pms = _time_ms(lambda: k3.conv3x3_dx_plain(g, wt, x, A, B))
         cms = _time_ms(lambda: k3._conv_nhwc(g, wt))
+        dms = _device_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=True))
+        cdms = _device_ms(lambda: k3._conv_nhwc(g, wt))
         flops = 2 * 512 * 512 * 9 * ci * co
         bd = _bound(flops, _nbytes(g, wt, x, A, B, *got))
-        print(f"[3] K-dx-w 512^2 {ci}->{co}: {', '.join(line)} kernel {ms:.4f} ms "
-              f"({_tflops(flops, ms)}; {ms / cms:.2f}x cuDNN's conv alone, {cms:.4f} ms) "
-              f"plain {pms:.4f} ms (bit-identical reruns){_fmt(bd, ms)}")
+        print(f"[3] K-dx-w 512^2 {ci}->{co}: {', '.join(line)} kernel {ms:.4f} ms, device "
+              f"{dms:.4f} ms ({_tflops(flops, dms)}; cuDNN's conv alone {cms:.4f} ms, device "
+              f"{cdms:.4f} ms: {dms / cdms:.2f}x) plain {pms:.4f} ms (bit-identical reruns)"
+              f"{_fmt(bd, dms)}")
         if (ci, co) == (128, 128):
-            res["conv3x3_dx_wtiled"].update(
-                ms=ms, plain_ms=pms, library_ms=cms, **bd,
-                device_ms=_device_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=True)))
+            res["conv3x3_dx_wtiled"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd,
+                                            device_ms=dms)
     torch.cuda.synchronize()
     return res
 
@@ -298,32 +304,45 @@ def phase_attention(kattn, dev):
     from cgd_tpu_torch.tools.attn_bench import device_ms, host_us
 
     gen = torch.Generator(dev).manual_seed(4321)
-    # (N, T, d): the 64-512px UNets' d = 64 levels, then the 128px model's
-    # d = 128 / 192 / 256 (4 heads at 512 / 768 / 1024 channels)
-    cases = [(8, 1024, 64), (16, 256, 64), (16, 64, 64), (4, 1024, 128), (4, 256, 192),
-             (4, 64, 256)]
+    # (batch, N, T, d): the 64-512px UNets' d = 64 levels, then the 128px
+    # model's d = 128 / 192 / 256 (4 heads at 512 / 768 / 1024 channels),
+    # each timed; then ragged T and batches at d = 192 / 256 (held to the
+    # plain version only)
+    cases = [(1, 8, 1024, 64), (1, 16, 256, 64), (1, 16, 64, 64), (1, 4, 1024, 128),
+             (1, 4, 256, 192), (1, 4, 64, 256), (1, 2, 77, 192), (2, 2, 45, 256),
+             (2, 2, 300, 192), (1, 2, 200, 256)]
     res = {"attn_fwd": {"err": 0.0}, "attn_bwd": {"err": 0.0}}
-    for n, t, d in cases:
-        qkv = torch.randn(1, t, 3 * n * d, generator=gen, device=dev).to(torch.bfloat16)
-        g = torch.randn(1, t, n * d, generator=gen, device=dev).to(torch.bfloat16)
+    for bt, n, t, d in cases:
+        qkv = torch.randn(bt, t, 3 * n * d, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(bt, t, n * d, generator=gen, device=dev).to(torch.bfloat16)
         q, k, v = kattn.split_heads(qkv, n)
         gh = kattn.to_heads(g, n)
         out, lse = kattn.attention_fwd(qkv, n)
-        err, rel = _rel_max(out, kattn.merge_heads(kattn.attention_fwd_plain(q, k, v), 1))
+        err, rel = _rel_max(out, kattn.merge_heads(kattn.attention_fwd_plain(q, k, v), bt))
+        name = f"B{bt} N{n} T{t} d{d}"
         if rel > ATTN_TOL:
-            raise AssertionError(f"K-attn-f N{n} T{t} d{d}: {rel:.3e} > {ATTN_TOL}")
+            raise AssertionError(f"K-attn-f {name}: {rel:.3e} > {ATTN_TOL}")
         res["attn_fwd"]["err"] = max(res["attn_fwd"]["err"], err)
         dqkv = kattn.attention_bwd(qkv, out, lse, g, n)
         if not torch.equal(dqkv, kattn.attention_bwd(qkv, out, lse, g, n)):
-            raise AssertionError(f"K-attn-b N{n} T{t} d{d}: repeated runs differ")
+            raise AssertionError(f"K-attn-b {name}: repeated runs differ")
         line = []
         for part, a, b in zip(("dq", "dk", "dv"), dqkv.chunk(3, dim=-1),
                               kattn.attention_bwd_plain(q, k, v, gh)):
-            e, r = _rel_max(a, kattn.merge_heads(b, 1))
+            e, r = _rel_max(a, kattn.merge_heads(b, bt))
             line.append(f"{part} {e:.3e} ({r:.2e})")
             if r > ATTN_TOL:
-                raise AssertionError(f"K-attn-b N{n} T{t} d{d} {part}: {r:.3e} > {ATTN_TOL}")
+                raise AssertionError(f"K-attn-b {name} {part}: {r:.3e} > {ATTN_TOL}")
             res["attn_bwd"]["err"] = max(res["attn_bwd"]["err"], e)
+        plan = kattn.attn_plan(bt, n, t, d)
+        split = (f"D split {plan['cols']['fwd']} / dK,dV {plan['cols']['bwd_dkdv']}"
+                 if plan["cols"] else f"tile split {plan['split']}")
+        label = (f"{plan['body']} body, stages {tuple(plan['stages'].values())}, {split}, "
+                 f"{plan['bwd_launches']} bwd launches")
+        if bt > 1 or (n, t, d) in ((2, 77, 192), (2, 200, 256)):
+            print(f"[3] K-attn {name} ({label}): fwd max|err| {err:.3e} ({rel:.2e}), "
+                  f"{', '.join(line)} (bit-identical reruns)")
+            continue
         # SDPA takes [batch, heads, T, d]; 3-D inputs send it to its math path
         q4, k4, v4, g4 = (z[None].contiguous() for z in (q, k, v, gh))
         sq, sk, sv = (z.detach().requires_grad_(True) for z in (q4, k4, v4))
@@ -340,17 +359,17 @@ def phase_attention(kattn, dev):
         fpms = _time_ms(lambda: kattn.attention_fwd_plain(q, k, v))
         bpms = _time_ms(lambda: kattn.attention_bwd_plain(q, k, v, gh))
         backend = _sdpa_backend(q4, k4, v4)
-        body = kattn.attn_plan(1, n, t, d)["body"]
         flops_f, flops_b = 4 * n * t * t * d, 10 * n * t * t * d  # bwd: S recomputed, dV, dP, dQ, dK
         bdf = _bound(flops_f, _nbytes(qkv, out, lse))
         bdb = _bound(flops_b, _nbytes(qkv, out, lse, g, dqkv))
-        print(f"[3] K-attn N{n} T{t} d{d} ({body} body): fwd max|err| {err:.3e} ({rel:.2e}), "
+        print(f"[3] K-attn {name} ({label}): fwd max|err| {err:.3e} ({rel:.2e}), "
               f"{', '.join(line)} (bit-identical reruns; SDPA backend {backend})")
         for key, flops, bd, pms in (("fwd", flops_f, bdf, fpms), ("bwd", flops_b, bdb, bpms)):
             print(f"[3]   {key}: kernel device {dev_ms[key]:.4f} ms ({_tflops(flops, dev_ms[key])}, "
                   f"{bd['bound_ms'] / dev_ms[key]:.1%} of the bound), eager {eager[key]:.4f} ms, "
-                  f"host {host[key]:.1f} us/call; SDPA {key} device {dev_ms['sdpa_' + key]:.4f} ms, "
-                  f"eager {eager['sdpa_' + key]:.4f} ms, host {host['sdpa_' + key]:.1f} us/call; "
+                  f"host {host[key]:.1f} us/call; SDPA {key} device {dev_ms['sdpa_' + key]:.4f} ms "
+                  f"({dev_ms[key] / dev_ms['sdpa_' + key]:.2f}x), eager "
+                  f"{eager['sdpa_' + key]:.4f} ms, host {host['sdpa_' + key]:.1f} us/call; "
                   f"plain {pms:.4f} ms{_fmt(bd)}")
         if (n, t, d) == (8, 1024, 64):
             res["attn_fwd"].update(ms=eager["fwd"], device_ms=dev_ms["fwd"], plain_ms=fpms,
@@ -452,9 +471,11 @@ def _check_launched(launches: dict, names, phase: str) -> None:
             raise AssertionError(f"{phase}: kernel {name} was not launched on the path")
 
 
-def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None):
-    """Phase 5: the 256px slice through the public generator; phase 7c
-    with ``mesh`` (no plain-routing runs). Returns (launches, s per step)."""
+def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None, size=256):
+    """Phase 5: the 256px slice through the public generator, and the
+    128px model at the API's defaults (``size=128``: head dims 128, 192 and
+    256); phase 7c with ``mesh`` (no plain-routing runs). Returns (launches,
+    s per step)."""
     import numpy as np
     import torch
 
@@ -462,7 +483,7 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None):
     from cgd_tpu_torch.ops.nn import kernel_routing
 
     kwargs = dict(
-        prompts=PROMPTS, image_size=256,
+        prompts=PROMPTS, image_size=size,
         num_cutouts=16, clip_model_name="ViT-B/32", timestep_respacing="ddim25",
         weights_mode="random", seed=0, device=str(dev), progress=False, mesh=mesh,
     )
@@ -505,6 +526,7 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None):
             _reset_launches(k3, kattn)
             step_s, total_s, paths = timed(12, out_dir)  # frames at steps 0, 12, 24
             launches = _launches(k3, kattn)
+            by_d = {d: dict(n) for d, n in kattn.LAUNCHES_BY_D.items()}
             with kernel_routing("plain"):
                 plain_after, _, _ = timed(12, out_dir / "plain", n_frames=2)
         final = frames[len(paths) - 1]
@@ -513,7 +535,7 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None):
 
     if len(paths) != 3:
         raise AssertionError(f"expected frames at steps 0, 12, 24; got {paths}")
-    if final.shape != (256, 256, 3) or not np.isfinite(final).all():
+    if final.shape != (size, size, 3) or not np.isfinite(final).all():
         raise AssertionError(f"final frame: shape {final.shape}, finite {np.isfinite(final).all()}")
     _check_pngs((*paths, "current.png"))
     if mesh is not None:
@@ -527,9 +549,16 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None):
               f"{np.abs(final).max():.3f}")
         return launches, step_s
     _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"), "phase 5")
-    print(f"[5] 256px ddim25 guided sampling: {step_s * 1e3:.1f} ms per guided step "
+    # every head dim of the model on the Hopper bodies: d = 64 at 256px;
+    # 128 / 192 / 256 at 128px (the 32^2 / 16^2 / 8^2 levels)
+    for d in ((128, 192, 256) if size == 128 else (64,)):
+        if kattn.attn_plan(1, 4, 64, d)["body"] != "wgmma":
+            raise AssertionError(f"phase 5 {size}px: attention at d = {d} is not on the Hopper body")
+        _check_launched(by_d[d], ("attn_fwd", "attn_bwd"), f"phase 5 {size}px, d = {d}")
+    print(f"[5] {size}px ddim25 guided sampling: {step_s * 1e3:.1f} ms per guided step "
           f"(plain routing {plain_before * 1e3:.1f} ms before, {plain_after * 1e3:.1f} ms "
-          f"after), {total_s:.2f} s per image incl. model setup; launches {launches}; "
+          f"after), {total_s:.2f} s per image incl. model setup; launches {launches}, "
+          f"attention by head dim {({d: n for d, n in by_d.items() if any(n.values())})}; "
           f"final frame |x|max {np.abs(final).max():.3f}")
     return launches, step_s
 
@@ -771,8 +800,10 @@ def main() -> None:
     res["conv3x3_fwd_halo"] = phase_halo(k3, dev)
     phase_unet(dev, 256)
     phase_unet(dev, 512)
+    phase_unet(dev, 128)
     phase_split_unet(dev)
     _, step_s = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke")
+    phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_128", size=128)
     launches = phase_cli(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_512")
     mesh_launches, _ = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_mesh",
                                  mesh=make_mesh([dev, dev]), unsplit_step_s=step_s)

@@ -4,7 +4,9 @@ valid PNG files, the device rule (no silent CPU run when CUDA is asked for),
 options outside the ported slice raising, and the copied prompt parser,
 tokenizer, registry and parameter validation pinned to the originals."""
 
+import inspect
 import struct
+import threading
 import zlib
 
 import numpy as np
@@ -12,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from cgd_tpu import api as japi  # noqa: E402
 from cgd_tpu import registry as jregistry  # noqa: E402
 from cgd_tpu import validate as jvalidate  # noqa: E402
 from cgd_tpu.api import _FallbackTokenizer as JTokenizer  # noqa: E402
@@ -115,6 +118,46 @@ def test_cuda_device_without_a_card_raises(tiny):
 def test_options_outside_the_slice_raise(tiny, option):
     with pytest.raises(NotImplementedError):
         next(api.clip_guided_diffusion(**{**KW, **option}))
+
+
+def _default(p):
+    """A parameter's default, an empty sequence as ``()`` (the port takes
+    ``()`` where the JAX package writes ``[]``)."""
+    return tuple(p.default) if isinstance(p.default, (list, tuple)) else p.default
+
+
+def test_signature_matches_the_jax_api():
+    """Every keyword of cgd_tpu.api.clip_guided_diffusion, in its order and
+    with its default; only ``device`` differs (the port's runs on the card
+    unless asked for the CPU)."""
+    jp = inspect.signature(japi.clip_guided_diffusion).parameters
+    tp = inspect.signature(api.clip_guided_diffusion).parameters
+    assert list(tp) == list(jp)
+    assert jp["device"].default == "" and tp["device"].default == "cuda"
+    for name in jp:
+        assert tp[name].kind == jp[name].kind, name
+        if name != "device":
+            assert _default(tp[name]) == _default(jp[name]), name
+
+
+@pytest.mark.parametrize("option", [
+    {"checkpoints_dir": "ckpts"}, {"wandb_entity": "team"}, {"noise_file": "noise.npz"},
+    {"async_frames": True}, {"log_losses": True}, {"strict_parity": False},
+    {"stall_pet": lambda phase: None}, {"device_lock": threading.Lock()},
+], ids=lambda o: next(iter(o)))
+def test_jax_keywords_the_port_cannot_honour_raise_by_name(tiny, option):
+    (name,) = option
+    with pytest.raises(NotImplementedError, match=name):
+        next(api.clip_guided_diffusion(**{**KW, **option}))
+
+
+def test_dropout_is_taken_and_never_applied(tiny):
+    """Sampling runs the UNet without dropout, as the JAX package's does."""
+    a = [open(p, "rb").read() for _, p in api.clip_guided_diffusion(
+        prefix_path=tiny / "a", dropout=0.0, **KW)]
+    b = [open(p, "rb").read() for _, p in api.clip_guided_diffusion(
+        prefix_path=tiny / "b", dropout=0.3, **KW)]
+    assert a == b
 
 
 def test_invalid_parameters_raise_via_check_parameters(tiny):

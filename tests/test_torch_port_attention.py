@@ -34,7 +34,7 @@ def _qkv(shape, seed):
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 128, 192, 256])
 def test_plain_versions_match_flash_mha_interpret(d):
     q, k, v, g = (_qkv((3, 24, d), s) for s in range(4))
     jq, jk, jv = map(jnp.asarray, (q, k, v))

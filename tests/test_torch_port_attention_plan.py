@@ -1,15 +1,16 @@
 """The attention kernels' launch plan (``kernels.attention.attn_plan``) on the CPU.
 
 The plan is the geometry that the wrapper and the CUDA kernels must agree on
-(the body a head dim runs, the 64-row tiles, the ring's stages, the split of
-the streamed tiles over the two consumer warpgroups, the grids, the shared
+(the body, the 64-row tiles, each ring's stages, the split of the streamed
+tiles or of D over the two consumer warpgroups, the grids, the shared
 memory, the TMA box). These tests hold it, for every attention of the
 class-conditional UNets at 64, 128, 256 and 512 px (the 128px model is the
 one with head dims 128, 192 and 256) and for the ragged shapes of the card
 tests, to what the kernels need: tiles that cover T, a split that gives each
-consumer a tile, shared memory within a block's 227 KB, TMA boxes and strides
-the hardware takes. The shapes come from the full-size UNets run on the
-``meta`` device with the attention calls recorded.
+consumer a tile, column shares on 64-channel box boundaries, shared memory
+within a block's 227 KB, TMA boxes and strides the hardware takes. The
+shapes come from the full-size UNets run on the ``meta`` device with the
+attention calls recorded.
 """
 
 import pytest
@@ -56,7 +57,8 @@ def _unet_attentions(size):
 # the card tests' shapes (tests/test_torch_port_cuda.py ATTN): ragged T,
 # batches, T across the split (65) and a one-tile T (45)
 _RAGGED = [(1, 8, 1024, 64), (1, 16, 64, 64), (2, 3, 100, 64), (1, 4, 256, 128), (1, 2, 77, 192),
-           (2, 2, 45, 256), (2, 8, 1000, 64), (1, 4, 65, 64), (2, 2, 129, 128)]
+           (2, 2, 45, 256), (2, 8, 1000, 64), (1, 4, 65, 64), (2, 2, 129, 128), (1, 4, 256, 192),
+           (1, 4, 64, 256), (2, 2, 300, 192), (1, 2, 200, 256)]
 
 
 @pytest.fixture(scope="module")
@@ -96,9 +98,9 @@ def test_every_consumer_gets_a_tile(shapes, group):
         split = plan["split"]
         assert split >= 1
         assert all(any(i % split == c for i in range(plan["tiles"])) for c in range(split))
-        if plan["body"] == "wgmma":
-            assert split == (2 if plan["tiles"] >= 2 else 1), (b, h, t, d)
-            assert plan["stages"] >= 2 * split  # two tiles in flight for each consumer
+        assert split == (2 if plan["tiles"] >= 2 else 1), (b, h, t, d)
+        for stages in plan["stages"].values():  # stage s always serves consumer s % 2
+            assert stages % 2 == 0 and stages >= split
 
 
 @pytest.mark.parametrize("group", GROUPS)
@@ -107,18 +109,16 @@ def test_shared_memory_fits_one_block(shapes, group):
         plan = kattn.attn_plan(b, h, t, d)
         for kernel, smem in plan["smem"].items():
             assert 0 < smem <= kattn.SMEM_MAX - _STATIC, (b, h, t, d, kernel)
-        if plan["body"] == "wgmma":  # the ring and the block's own tiles at least
-            tile = plan["q_tile"] * d * 2
-            assert plan["smem"]["fwd"] >= (1 + 2 * plan["stages"]) * tile
+        tile = plan["q_tile"] * d * 2  # the ring and the block's own tiles at least
+        assert plan["smem"]["fwd"] >= (1 + 2 * plan["stages"]["fwd"]) * tile
+        assert plan["smem"]["bwd_dq"] >= (3 + 2 * plan["stages"]["bwd_dq"]) * tile
+        assert plan["smem"]["bwd_dkdv"] >= (2 + 2 * plan["stages"]["bwd_dkdv"]) * tile
 
 
 @pytest.mark.parametrize("group", GROUPS)
 def test_tma_boxes_and_strides(shapes, group):
     for b, h, t, d in shapes[group]:
         plan = kattn.attn_plan(b, h, t, d)
-        if plan["body"] != "wgmma":
-            assert plan["box"] is None
-            continue
         inner, rows, depth = plan["box"]
         assert inner * 2 == 128 and d % inner == 0  # one 128B swizzle row; whole boxes per head
         assert rows == plan["q_tile"] == plan["kv_tile"] and depth == 1
@@ -127,12 +127,35 @@ def test_tma_boxes_and_strides(shapes, group):
             assert (width * 2) % 16 == 0 and (t * width * 2) % 16 == 0
 
 
+@pytest.mark.parametrize("group", GROUPS)
+def test_the_column_shares_are_whole_boxes(shapes, group):
+    """Above d = 128 the consumers split D: each kernel's shares cover the
+    head's columns once, start and end on 64-channel boxes (a swizzled
+    MN-major B operand starts at a box), and give each consumer at most 128
+    columns a pass (the accumulators that fit its registers)."""
+    for b, h, t, d in shapes[group]:
+        plan = kattn.attn_plan(b, h, t, d)
+        if d <= 128:
+            assert plan["cols"] is None
+            continue
+        for kernel, per_consumer in plan["cols"].items():
+            assert len(per_consumer) == 2, kernel
+            ranges = sorted(r for passes in per_consumer for r in passes)
+            assert ranges[0][0] == 0 and ranges[-1][1] == d, (d, kernel)
+            assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:])), (d, kernel)
+            for lo, hi in ranges:
+                assert lo % kattn.BOX == 0 and hi % kattn.BOX == 0 and 0 < hi - lo <= 128
+        assert all(hi - lo == kattn.BOX for passes in plan["cols"]["bwd_dkdv"] for lo, hi in passes)
+
+
 @pytest.mark.parametrize("d,body,launches", [(64, "wgmma", 2), (128, "wgmma", 2),
-                                             (192, "wmma", 3), (256, "wmma", 3)])
+                                             (192, "wgmma", 2), (256, "wgmma", 2)])
 def test_the_body_follows_the_head_dim(d, body, launches):
     plan = kattn.attn_plan(1, 4, 256, d)
     assert plan["body"] == body and plan["bwd_launches"] == launches
-    assert (d in kattn.WGMMA_HEAD_DIMS) == (body == "wgmma")
+    assert d in kattn.HEAD_DIMS
+    assert plan["stages"] == {"fwd": kattn.FWD_STAGES[d], "bwd_dq": kattn.BWD_STAGES[d],
+                              "bwd_dkdv": kattn.BWD_STAGES[d]}
 
 
 def test_one_tile_runs_on_one_consumer():

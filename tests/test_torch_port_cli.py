@@ -93,6 +93,27 @@ def test_options_the_api_refuses_raise_through_the_cli(monkeypatch, tmp_path):
         tcli.main(["--prompts", "x", "-skip", "3", "--device", "cpu", "--weights-mode", "random"])
 
 
+@pytest.mark.parametrize("argv,keyword", [(["-ckpts", "ckpts"], "checkpoints_dir"),
+                                          (["-ent", "team"], "wandb_entity")])
+def test_checkpoint_dir_and_wandb_entity_reach_the_api(monkeypatch, tmp_path, argv, keyword):
+    """As the JAX CLI, ``-ckpts`` and ``-ent`` go to the API, which refuses
+    what the port cannot honour by name (they were dropped silently); the
+    defaults and ``-drop`` pass."""
+    monkeypatch.setenv("CGD_TPU_DEBUG_TINY", "1")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=keyword):
+        tcli.main(["--prompts", "x", *argv, "-size", "64", "-cutn", "2", "-respace", "ddim5",
+                   "--device", "cpu", "--weights-mode", "random", "--compute-dtype", "float32",
+                   "-q"])
+
+
+def test_dropout_and_the_default_checkpoint_dir_pass_to_the_api(recorded):
+    tcli.main(["--prompts", "x", "-drop", "0.25"])
+    (kw,) = recorded
+    assert kw["dropout"] == 0.25 and kw["wandb_entity"] is None
+    assert kw["checkpoints_dir"] == tapi.CACHE_PATH
+
+
 def test_tiny_run_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setenv("CGD_TPU_DEBUG_TINY", "1")
     monkeypatch.chdir(tmp_path)

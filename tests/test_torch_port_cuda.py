@@ -127,11 +127,13 @@ def test_kdx_takes_the_wtiled_mode_at_512_wide_images(dev):
 
 
 # (batch, heads, T, head dim): the UNet's T = 1024 / 64 at d = 64, ragged T,
-# the other head dims (the 128px model), and T across the two consumers'
-# split and the batch boundary (a tile past row T of one image must read
-# zeros, not the next image's rows)
+# the other head dims (the 128px model, and its own 16^2 / 8^2 shapes), T
+# across the two consumers' split and the batch boundary (a tile past row T
+# of one image must read zeros, not the next image's rows), and rings that
+# wrap at d = 192 / 256 (two stages, more tiles)
 ATTN = [(1, 8, 1024, 64), (1, 16, 64, 64), (2, 3, 100, 64), (1, 4, 256, 128), (1, 2, 77, 192),
-        (2, 2, 45, 256), (2, 8, 1000, 64), (1, 4, 65, 64), (2, 2, 129, 128)]
+        (2, 2, 45, 256), (2, 8, 1000, 64), (1, 4, 65, 64), (2, 2, 129, 128), (1, 4, 256, 192),
+        (1, 4, 64, 256), (2, 2, 300, 192), (1, 2, 200, 256)]
 
 
 @pytest.mark.parametrize("b,h,t,d", ATTN)
@@ -147,10 +149,12 @@ def test_attention_kernels_match_plain_and_backward_is_deterministic(dev, b, h, 
     for got, ref in zip(dqkv.chunk(3, dim=-1), refs):
         _close(got, kattn.merge_heads(ref, b))
     assert kattn.LAUNCHES == {"attn_fwd": 1, "attn_bwd": 2}
+    assert kattn.LAUNCHES_BY_D[d] == kattn.LAUNCHES
+    assert all(sum(n.values()) == 0 for e, n in kattn.LAUNCHES_BY_D.items() if e != d)
 
 
 @pytest.mark.parametrize("b,h,t,d", [(1, 8, 1024, 64), (2, 3, 100, 64), (2, 2, 129, 128),
-                                     (1, 2, 77, 192)])
+                                     (1, 2, 77, 192), (2, 2, 45, 256)])
 def test_attention_lse_is_the_logsumexp_of_the_logits(dev, b, h, t, d):
     """The forward's lse [B*H, T] (natural log) against torch.logsumexp of
     the plain f32 logits of the same bf16 q, k (atol 1e-3 on values of
@@ -174,11 +178,11 @@ def _kernel_names(fn):
 
 
 @pytest.mark.parametrize("d,body,launches", [(64, "attn::", 2), (128, "attn::", 2),
-                                             (192, "attn_wmma::", 3), (256, "attn_wmma::", 3)])
+                                             (192, "attn::", 2), (256, "attn::", 2)])
 def test_attention_backward_launches_by_head_dim(dev, d, body, launches):
     """One wrapper call of K-attn-b counts one launch; on the card it is
-    two kernels at d = 64 / 128 (dQ with D, then dK/dV) and PR 2's three
-    WMMA kernels at d = 192 / 256, the body attn_plan names."""
+    two kernels at every head dim (dQ with D, then dK/dV), the Hopper
+    bodies attn_plan names."""
     h, t = 2, 100
     qkv, g = _rn(dev, 1, t, 3 * h * d, seed=10), _rn(dev, 1, t, h * d, seed=11)
     out, lse = kattn.attention_fwd(qkv, h)
@@ -197,9 +201,8 @@ def test_the_attention_kernels_size_shared_memory_as_the_plan(dev):
     lib = _build.library()
     for d in kattn.HEAD_DIMS:
         plan = kattn.attn_plan(1, 4, 256, d)
-        smem = lib.cgd_attn_smem_bytes if plan["body"] == "wgmma" else lib.cgd_attn_wmma_smem_bytes
         for i, kernel in enumerate(("fwd", "bwd_dq", "bwd_dkdv")):
-            assert smem(i, d) == plan["smem"][kernel], (d, kernel)
+            assert lib.cgd_attn_smem_bytes(i, d) == plan["smem"][kernel], (d, kernel)
 
 
 def test_the_attention_entry_points_check_the_plan(dev):
@@ -212,11 +215,18 @@ def test_the_attention_entry_points_check_the_plan(dev):
     lse = torch.empty(1, 128, device=dev)
     lib, s = _build.library(), _build.stream(dev)
     p = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 128, 1, 64)
-    assert lib.cgd_attn_fwd(*p, 64, kattn.STAGES, 2, s) == 0
-    for tile, stages, split in ((32, kattn.STAGES, 2), (64, 2, 2), (64, kattn.STAGES, 3)):
+    st = kattn.FWD_STAGES[64]
+    assert lib.cgd_attn_fwd(*p, 64, st, 2, s) == 0
+    for tile, stages, split in ((32, st, 2), (64, 2, 2), (64, st, 3)):
         assert lib.cgd_attn_fwd(*p, tile, stages, split, s) != 0
     one_tile = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 64, 1, 64)
-    assert lib.cgd_attn_fwd(*one_tile, 64, kattn.STAGES, 2, s) != 0  # consumer 1 would see none
+    assert lib.cgd_attn_fwd(*one_tile, 64, st, 2, s) != 0  # consumer 1 would see none
+    # d = 256 runs a two-stage ring: the count of d = 64 is refused there
+    qkv4 = _rn(dev, 1, 128, 3 * 256, seed=12)
+    out4 = torch.empty(1, 128, 256, dtype=torch.bfloat16, device=dev)
+    p4 = (qkv4.data_ptr(), out4.data_ptr(), lse.data_ptr(), 1, 128, 1, 256)
+    assert lib.cgd_attn_fwd(*p4, 64, kattn.FWD_STAGES[256], 2, s) == 0
+    assert lib.cgd_attn_fwd(*p4, 64, st, 2, s) != 0
     torch.cuda.synchronize()
 
 

@@ -245,12 +245,102 @@ def test_split_unet_with_conv_resample_layers_matches_unsplit(route):
 
 
 def test_split_unet_refuses_a_level_that_does_not_divide():
+    """Only the input's own height must divide by 'cut': split_activation
+    refuses it otherwise (the API then runs the UNet whole). A level below
+    it that the cut does not divide runs whole inside the split UNet (24px
+    at cut=4: level 2 is 6x6), and the output comes back split."""
     cfg = tunet.UNetConfig(image_size=32, model_channels=32, num_res_blocks=1, attention_ds=(),
                            channel_mult=(1, 2, 2, 2), num_head_channels=16)
     model = tunet.UNet(cfg).init_weights(torch.Generator().manual_seed(0))
-    x = tmesh.split_activation(torch.zeros(1, 24, 24, 3), tmesh.make_mesh([CPU] * 4))
-    with pytest.raises(ValueError, match=r"level 2 \(6x6\)"):
-        model(x, torch.tensor([1.0]))
+    mesh = tmesh.make_mesh([CPU] * 4)
+    with pytest.raises(ValueError, match="do not divide"):
+        tmesh.split_activation(torch.zeros(1, 26, 26, 3), mesh)
+    out = model(tmesh.split_activation(torch.zeros(1, 24, 24, 3), mesh), torch.tensor([1.0]))
+    assert isinstance(out, tmesh.Split) and out.shape == (1, 24, 24, 6)
+
+
+# a 24px toy UNet at cut=4: levels 24 and 12 divide, 6 and 3 do not
+_UNEVEN =dict(image_size=32, model_channels=32, num_res_blocks=1, attention_ds=(4,),
+               channel_mult=(1, 2, 2, 2), num_head_channels=16)
+
+
+def _uneven_params():
+    params = junet.init_unet(jax.random.PRNGKey(0), junet.UNetConfig(**_UNEVEN))
+    leaves, treedef = jax.tree.flatten(params)
+    rs = np.random.RandomState(7)
+    return jax.tree.unflatten(
+        treedef, [jnp.asarray(np.asarray(l) + 0.05 * rs.randn(*l.shape).astype(np.float32))
+                  for l in leaves])
+
+
+@pytest.mark.parametrize("route", [None, "plain"])
+def test_split_unet_at_levels_the_cut_does_not_divide_matches_unsplit(route):
+    """The 6^2 and 3^2 levels under cut=4 run whole (the downsample gathers,
+    the skip connection splits again), the 24^2 and 12^2 ones split: forward
+    and input gradient against the same UNet unsplit (f32, atol 1e-5 of the
+    largest value)."""
+    model = load_from_jax(tunet.UNet(tunet.UNetConfig(**_UNEVEN)), _uneven_params())
+    x, t = torch.from_numpy(_rand((1, 24, 24, 3), 8)), torch.tensor([3.0])
+    mesh = tmesh.make_mesh([CPU] * 4)
+    res = []
+    with kernel_routing(route):
+        for split in (False, True):
+            x_ = x.clone().requires_grad_(True)
+            out = model(tmesh.split_activation(x_, mesh) if split else x_, t)
+            assert isinstance(out, tmesh.Split) == split
+            out = out.gather() if split else out
+            res.append((out.detach(), torch.autograd.grad(out.square().sum(), x_)[0]))
+    for got, want in zip(res[1], res[0]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_split_unet_at_levels_the_cut_does_not_divide_matches_jax():
+    """cgd_tpu runs the same UNet spatially sharded at cut=4 under
+    conv_routing("spmd") (GSPMD pads the 6^2 and 3^2 levels' shards); the
+    port's split UNet against it, forward (atol 2e-5) and input gradient
+    (atol 1e-5 of the largest value), as the even split's test."""
+    params = _uneven_params()
+    jcfg = junet.UNetConfig(**_UNEVEN)
+    x = _rand((1, 24, 24, 3), 8)
+    t = np.array([3.0], np.float32)
+    probe = _rand((1, 24, 24, 6), 9)
+    jm = jmesh.make_mesh(jax.devices()[:4])
+
+    def jloss(x_):
+        x_ = jax.lax.with_sharding_constraint(x_, jmesh.spatial_sharding(jm))
+        out = junet.apply_unet(params, jcfg, x_, jnp.asarray(t))
+        return jnp.sum(jnp.sin(out) * probe), out
+
+    with conv_routing("spmd"):
+        (_, ref), gref = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jnp.asarray(x))
+
+    model = load_from_jax(tunet.UNet(tunet.UNetConfig(**_UNEVEN)), params)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = model(tmesh.split_activation(xt, tmesh.make_mesh([CPU] * 4)), torch.from_numpy(t))
+    out = out.gather()
+    (torch.sin(out) * torch.from_numpy(probe)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=2e-5)
+    g = np.asarray(gref)
+    np.testing.assert_allclose(xt.grad.numpy(), g, atol=1e-5 * float(np.abs(g).max()))
+
+
+def test_a_stride_two_downsample_into_a_level_the_cut_does_not_divide_runs_whole():
+    """resblock_updown=False: the stride-2 conv's output (6 rows at cut=4)
+    comes back whole from the gathered conv, and the upsample path splits
+    it again at the skip connection; split against unsplit."""
+    cfg = tunet.UNetConfig(image_size=16, model_channels=32, num_res_blocks=1, attention_ds=(),
+                           channel_mult=(1, 2), num_head_channels=16, resblock_updown=False)
+    model = tunet.UNet(cfg).init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.from_numpy(_rand(tuple(p.shape), 10)))
+    x, t = torch.from_numpy(_rand((1, 12, 12, 3), 11)), torch.tensor([5.0])
+    mesh = tmesh.make_mesh([CPU] * 4)
+    want = model(x, t)
+    got = model(tmesh.split_activation(x, mesh), t).gather()
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               atol=1e-5 * float(want.abs().max()))
 
 
 def test_one_guided_step_on_a_mesh_matches_jax(models):
@@ -337,9 +427,8 @@ def test_api_mesh_checks_batch_and_warns_on_uneven_cutouts(tiny, capsys):
     with pytest.raises(ValueError, match="mesh's devices"):
         next(tapi.clip_guided_diffusion(mesh=tmesh.make_mesh([CPU, CPU]),
                                         **{**KW, "device": "cuda"}))
-    three = tmesh.make_mesh([CPU] * 3)
-    with pytest.raises(ValueError, match="does not divide by 3"):  # 64px: 64 % 3
-        next(tapi.clip_guided_diffusion(mesh=three, progress=True, **KW))
+    three = tmesh.make_mesh([CPU] * 3)  # 64px: 64 % 3, the UNet runs whole
+    assert next(tapi.clip_guided_diffusion(mesh=three, progress=True, **KW))[0] == 0
     assert "num_cutouts 2 is not divisible by the 3-device mesh" in capsys.readouterr().out
 
 

@@ -119,6 +119,58 @@ def test_full_256px_parameter_tree_matches_jax():
     assert sum(np.prod(s) for s in tshapes.values()) > 500e6
 
 
+def test_full_128px_parameter_tree_matches_jax():
+    """The 128px model, the API's and the CLI's default size: num_heads=4
+    at every attention (head dims 128 / 192 / 256 at 32^2 / 16^2 / 8^2).
+    Its block plan, parameter paths and shapes are the JAX pytree's."""
+    flags = DIFFUSION_LOOKUP["cond"][128]["model_flags"]
+    jcfg = junet.UNetConfig.from_flags(flags)
+    tcfg = tunet.UNetConfig.from_flags(flags)
+    assert (tcfg.num_heads, tcfg.num_head_channels) == (jcfg.num_heads, jcfg.num_head_channels)
+    assert tcfg.num_heads == 4 and tcfg.num_head_channels == -1
+    assert tunet.block_plan(tcfg) == junet.block_plan(jcfg)
+    shapes = jax.eval_shape(lambda: junet.init_unet(jax.random.PRNGKey(0), jcfg))
+    jshapes = {
+        ".".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path): tuple(leaf.shape)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]
+    }
+    model = tunet.UNet(tcfg, device="meta")
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == jshapes
+    heads = {m.heads for m in model.modules() if isinstance(m, tunet.AttentionBlock)}
+    assert heads == {4}
+
+
+def test_num_heads_unet_matches_jax():
+    """A tiny UNet in the 128px model's flag style (num_heads=4,
+    num_head_channels=-1: the head dim is the level's channels / 4 and
+    grows with depth, 16 then 24 here), forward and input gradient against
+    apply_unet on the same weights (the toy configs elsewhere fix the head
+    dim with num_head_channels)."""
+    kw = dict(image_size=32, model_channels=32, num_res_blocks=1, attention_ds=(2, 4),
+              channel_mult=(1, 2, 3), num_heads=4, num_head_channels=-1, num_classes=7)
+    jcfg, tcfg = junet.UNetConfig(**kw), tunet.UNetConfig(**kw)
+    params = _perturbed_params(jcfg, 8)
+    model = load_from_jax(tunet.UNet(tcfg), params)
+    dims = sorted({m.qkv.kernel.shape[0] // m.heads for m in model.modules()
+                   if isinstance(m, tunet.AttentionBlock)})
+    assert dims == [16, 24]
+    rs = np.random.RandomState(9)
+    x = rs.randn(2, 32, 32, 3).astype(np.float32)
+    t, y = np.array([20.0, 600.0], np.float32), np.array([1, 6])
+    probe = rs.randn(2, 32, 32, 6).astype(np.float32)
+
+    def jloss(x_):
+        out = junet.apply_unet(params, jcfg, x_, jnp.asarray(t), jnp.asarray(y))
+        return jnp.sum(jnp.sin(out) * probe), out
+
+    (_, ref), gref = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = model(xt, torch.from_numpy(t), torch.from_numpy(y))
+    (torch.sin(out) * torch.from_numpy(probe)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gref), **TOL)
+
+
 @pytest.mark.parametrize("cond", ["cond", "uncond"])
 def test_full_512px_parameter_trees_match_jax(cond):
     """The 512px operating point (7 levels, channel_mult (0.5, 1, 1, 2, 2,
