@@ -7,11 +7,12 @@
 
 ``--device`` defaults to ``cuda`` and nothing falls back to the CPU.
 ``--mesh`` builds its mesh over the visible devices of that kind (every card;
-the one CPU device for ``--device cpu``). Flags
-the port cannot honour yet raise ``NotImplementedError`` naming the flag;
-the API refuses the options it does not take (``-skip``, ``-is``,
-``-reduce``, offsets, W&B, ``-ckpts``, checkpoint loading). ``--dropout`` is
-accepted and, as in the JAX package's sampling, never applied.
+the one CPU device for ``--device cpu``). ``--weights-mode auto`` (the
+default) loads the published checkpoints from ``-ckpts``; the repository
+holds no weights and no BPE merge table. Flags the port cannot honour yet
+raise ``NotImplementedError`` naming the flag; the API refuses the options
+it does not take (``-reduce``, offsets, W&B). ``--dropout`` is accepted and,
+as in the JAX package's sampling, never applied.
 """
 
 from __future__ import annotations
@@ -24,8 +25,6 @@ from cgd_tpu_torch.weights import CACHE_PATH
 
 # flags the port cannot honour yet: argparse dest -> spelling
 REFUSED = {
-    "image_prompts": "-imgs/--image_prompts",
-    "init_image": "-init/--init_image",
     "use_augs": "-augs/--use_augs",
     "save_as_gif": "-gif/--save-as-gif",
     "save_as_video": "-mp4/--save-as-video",
@@ -36,7 +35,6 @@ REFUSED = {
     "checkpoint": "--checkpoint",
     "resume": "--resume",
     "stall_timeout": "--stall-timeout",
-    "strict_parity": "--no-strict-parity",
 }
 
 
@@ -47,18 +45,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompts", "-txts", type=str, default="",
                    help="text prompt(s), '|'-separated, each optionally 'text:weight' (negative weights penalize), e.g. 'a forest:0.7|blurry:-0.4'")
     p.add_argument("--image_prompts", "-imgs", type=str, default="",
-                   help="image prompt(s) (not ported: raises)")
+                   help="image prompt(s), '|'-separated paths/URLs, each optionally 'path:weight'")
     p.add_argument("--image_size", "-size", type=int, default=128,
                    help="output resolution; a checkpoint exists for each of 64, 128, 256, 512")
     p.add_argument("--init_image", "-init", type=str, default="",
-                   help="start from this image (not ported: raises)")
+                   help="start from this image (noised to the skip point) instead of pure noise")
     p.add_argument("--init_scale", "-is", type=int, default=0,
-                   help="weight of the VGG/LPIPS perceptual loss (not ported: nonzero raises)")
+                   help="weight of the VGG/LPIPS perceptual loss pulling samples toward --init_image")
     p.add_argument("--skip_timesteps", "-skip", type=int, default=0,
-                   help="how many leading diffusion steps to skip (not ported: nonzero raises)")
+                   help="how many leading diffusion steps to skip (used with --init_image)")
     p.add_argument("--prefix", "-dir", default="outputs", type=Path, help="output directory")
     p.add_argument("--checkpoints_dir", "-ckpts", default=CACHE_PATH, type=Path,
-                   help="directory where model checkpoints are cached (checkpoint loading is not ported)")
+                   help="directory where model checkpoints are cached")
     p.add_argument("--batch_size", "-bs", type=int, default=1, help="number of images to sample at once")
     p.add_argument("--clip_guidance_scale", "-cgs", type=float, default=1000,
                    help="strength of the CLIP prompt-matching guidance")
@@ -108,7 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cached-cutouts", "-cached_cutn", action="store_true",
                    help="sample cutout coordinates once and reuse them every step")
     p.add_argument("--weights-mode", default="auto", choices=["auto", "random"],
-                   help="'auto' loads checkpoints (not ported: raises); 'random' uses random init")
+                   help="'auto' loads checkpoints (converted once to .npz.cgd); 'random' uses random init")
     p.add_argument("--mesh", default=None, type=str, metavar="SPEC",
                    help="shard the run across every visible card: 'auto' "
                         "(all devices; no-op on one device), 'data=N' (N-way "
@@ -132,7 +130,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stall-timeout", default=0.0, type=float, metavar="SECONDS",
                    help="fail instead of hanging on a stalled device (not ported: nonzero raises)")
     p.add_argument("--no-strict-parity", dest="strict_parity", action="store_false",
-                   help="fix reference quirks instead of replicating them (not ported: raises)")
+                   help="fix reference quirks instead of replicating them")
     return p
 
 
@@ -147,6 +145,7 @@ def main(argv=None):
     prefix_path = args.prefix
     Path(prefix_path).mkdir(exist_ok=True)
     prompts = args.prompts.split("|") if len(args.prompts) > 0 else []
+    image_prompts = args.image_prompts.split("|") if len(args.image_prompts) > 0 else []
 
     from cgd_tpu_torch.api import clip_guided_diffusion
 
@@ -160,6 +159,7 @@ def main(argv=None):
 
     cgd_generator = clip_guided_diffusion(
         prompts=prompts,
+        image_prompts=image_prompts,
         batch_size=args.batch_size,
         tv_scale=args.tv_scale,
         init_scale=args.init_scale,
@@ -176,6 +176,7 @@ def main(argv=None):
         seed=args.seed,
         diffusion_steps=args.diffusion_steps,
         skip_timesteps=args.skip_timesteps,
+        init_image=args.init_image,
         checkpoints_dir=str(args.checkpoints_dir),
         clip_model_name=args.clip_model,
         noise_schedule=args.noise_schedule,
@@ -194,6 +195,7 @@ def main(argv=None):
         weights_mode=args.weights_mode,
         compute_dtype=args.compute_dtype,
         mesh=mesh,
+        strict_parity=args.strict_parity,
     )
     list(enumerate(cgd_generator))  # drain the generator
 

@@ -4,7 +4,8 @@ arrays, given as numpy) into the port's modules.
 The port's module paths are the JAX pytree paths joined with dots, and its
 layouts are the JAX ones, so the conversion is a flatten with no transposes:
 ``params["input"][0][0]["in_conv"]["kernel"]`` -> ``input.0.0.in_conv.kernel``.
-The key sets must match exactly.
+The key sets must match exactly. The checkpoint converters
+(``convert/torch_*.py``) give the same flat dicts, which ``load_flat`` takes.
 """
 
 from __future__ import annotations
@@ -32,7 +33,13 @@ def flatten_pytree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 def load_from_jax(module: torch.nn.Module, params) -> torch.nn.Module:
     """Copy a JAX parameter pytree into ``module`` (same paths, same shapes;
     values cast to each parameter's dtype and device). Returns the module."""
-    flat = flatten_pytree(params)
+    return load_flat(module, flatten_pytree(params))
+
+
+def load_flat(module: torch.nn.Module, flat: Dict[str, np.ndarray]) -> torch.nn.Module:
+    """Copy a flat {dotted path: array} dict (a converted checkpoint, or a
+    ``.npz.cgd`` cache read by ``utils.pytree_io.load_flat``) into
+    ``module``; the key sets and shapes must match. Returns the module."""
     own = module.state_dict()
     missing = sorted(set(own) - set(flat))
     extra = sorted(set(flat) - set(own))

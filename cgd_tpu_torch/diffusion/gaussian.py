@@ -1,5 +1,5 @@
 """Gaussian diffusion process in PyTorch, counterpart of
-``cgd_tpu/diffusion/gaussian.py``: the (respaced) schedule, ``p_mean_variance``
+``cgd_tpu/diffusion/gaussian.py``: the (respaced) schedule, ``q_sample``, ``p_mean_variance``
 with the learned-sigma split, and the DDIM and ancestral steps with the
 fork's gradient conditioning. Images are NHWC float32.
 """
@@ -67,6 +67,13 @@ class GaussianDiffusion:
         if self.rescale_timesteps:
             return mapped * (1000.0 / self.original_num_steps)
         return mapped
+
+    def q_sample(self, x_start, t, noise):
+        """Diffuse x_start to step t: sqrt(abar_t) x_start + sqrt(1 - abar_t) noise."""
+        c = self.coeffs
+        nd = x_start.dim()
+        return (self._bcast(c.sqrt_alphas_cumprod, t, nd) * x_start
+                + self._bcast(c.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
 
     def predict_xstart_from_eps(self, x, t, eps):
         c = self.coeffs

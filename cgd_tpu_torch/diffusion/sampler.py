@@ -5,8 +5,9 @@ One guided step = UNet forward + ``p_mean_variance`` + the gradient of the
 guidance loss with respect to x, taken THROUGH the UNet (the fork's
 ``cond_fn_with_grad``: pred_xstart is on the tape) + a DDIM or ancestral
 update. The loop is a plain Python loop over the static step plan that emits
-(step, pred_xstart, x_t) at the save points of ``segment_plan``; it has no
-checkpoint/resume yet.
+(step, pred_xstart, x_t) at the save points of ``segment_plan``, starting
+from an init image noised to the first step when the leading steps are
+skipped; it has no checkpoint/resume yet.
 
 ``build_step_plan`` and ``segment_plan`` are copies of the JAX package's
 pure-Python plan helpers, pinned to the originals by
@@ -191,6 +192,8 @@ def sample_loop(
     gen: torch.Generator,
     cfg: SamplerConfig,
     *,
+    skip_timesteps: int = 0,
+    init_image: Optional[torch.Tensor] = None,  # [*shape] in [-1, 1]
     num_cutouts: int = 16,
     save_frequency: int = 1,
     y_init: Optional[torch.Tensor] = None,
@@ -199,14 +202,23 @@ def sample_loop(
     final_frame_parity: bool = False,
 ) -> Iterator[Tuple[int, torch.Tensor, torch.Tensor]]:
     """Run the guided schedule, yielding (step_index, pred_xstart, x_t) at
-    the save points: every ``save_frequency`` steps plus the final step."""
-    plan = build_step_plan(diffusion.num_timesteps, num_cutouts=num_cutouts)
-    _, save_at = segment_plan(plan, save_frequency, final_frame_parity)
+    the save points: every ``save_frequency`` steps plus the final step
+    (under ``final_frame_parity`` with ``skip_timesteps`` > 0 the final
+    step is not saved, the reference's quirk). The first
+    ``skip_timesteps`` steps are skipped: the loop starts from
+    ``q_sample(init_image or zeros, t0, noise)`` at the plan's first step
+    t0; an ``init_image`` without a skip is noised to the last step."""
+    plan = build_step_plan(diffusion.num_timesteps, skip_timesteps, num_cutouts=num_cutouts)
+    _, save_at = segment_plan(plan, save_frequency, final_frame_parity, skip_timesteps)
     device = gen.device
     if init_noise is not None:
         x = torch.as_tensor(init_noise, dtype=torch.float32, device=device)
     else:
         x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    if skip_timesteps > 0 or init_image is not None:
+        base = torch.zeros(shape, device=device) if init_image is None else init_image
+        t0 = torch.full((shape[0],), plan[0].t, dtype=torch.long, device=device)
+        x = diffusion.q_sample(base.to(device, torch.float32), t0, x)
     y = y_init
     steps = {}  # one step function per distinct (guided, cutn)
     for k, meta in enumerate(plan):

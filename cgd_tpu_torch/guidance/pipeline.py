@@ -1,8 +1,10 @@
 """The CLIP guidance loss, counterpart of ``cgd_tpu/guidance/pipeline.py``:
 blend x̂₀ with x by fac = sqrt(1-ᾱ[ref_t]), cut out `cutn` crops, CLIP-encode
 them, weighted spherical distances against the prompt embeddings, plus the
-range / TV / saturation losses. The sampler differentiates the returned
-scalar with respect to x through UNet, cutouts and CLIP.
+range / TV / saturation losses and, with an init image, the LPIPS VGG
+distance of the blend to it times ``init_scale``. The sampler
+differentiates the returned scalar with respect to x through UNet, cutouts,
+CLIP and the VGG.
 
 With a mesh the cutouts are split over every mesh device (the JAX package's
 ``cutout_sharding``), CLIP runs on each, and the embeddings are gathered in
@@ -28,6 +30,7 @@ from cgd_tpu_torch.guidance.losses import (
 )
 from cgd_tpu_torch.models.clip.configs import CLIP_MEAN, CLIP_STD, CLIPConfig
 from cgd_tpu_torch.models.clip.model import CLIP, encode_image
+from cgd_tpu_torch.models.vgg_lpips import VGGLPIPS, lpips_distance
 from cgd_tpu_torch.parallel.mesh import Mesh, shard_params_replicated
 
 
@@ -37,6 +40,7 @@ class GuidanceSettings:
     tv_scale: float = 150.0
     range_scale: float = 50.0
     sat_scale: float = 0.0
+    init_scale: float = 0.0
     use_magnitude: bool = False
     cutout_power: float = 1.0
     clip_compute_dtype: str = "bfloat16"
@@ -52,12 +56,18 @@ def make_guidance_builder(
     *,
     cached_coords: Optional[CutoutSpec] = None,
     mesh: Optional[Mesh] = None,
+    lpips: Optional[VGGLPIPS] = None,
+    init_image: Optional[torch.Tensor] = None,  # [B,H,W,3] in [-1, 1]
 ):
     """Returns builder(meta: StepMeta) -> GuidanceFns for the sampler. With
     ``cached_coords`` every step reuses the first ``cutn`` of those cutout
     coordinates; otherwise each step draws new ones from the step's
     generator. With ``mesh`` the cutouts are encoded split over its devices
-    (CLIP's image tower replicated on each distinct one)."""
+    (CLIP's image tower replicated on each distinct one). With ``lpips``
+    and ``init_image`` the loss adds ``lpips_distance(lpips, x_in,
+    init_image).sum() * init_scale`` ("Init VGG Loss"); the init image's VGG
+    taps are computed anew every step, as in the JAX package."""
+    use_init_loss = lpips is not None and init_image is not None
     clip_size = clip_cfg.input_resolution
     device = target_embeds.device
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=device)
@@ -105,6 +115,10 @@ def make_guidance_builder(
                 sat_total = saturation_loss(x_in).sum() * settings.sat_scale
                 log["Saturation Loss"] = sat_total
                 loss = loss + sat_total
+            if use_init_loss:
+                init_total = lpips_distance(lpips, x_in, init_image).sum() * settings.init_scale
+                log["Init VGG Loss"] = init_total
+                loss = loss + init_total
             log["Total Loss"] = loss
             return loss, {k: v.detach() for k, v in log.items()}
 

@@ -68,6 +68,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_conv3x3_smem_bytes.restype = i
     lib.cgd_conv3x3_encode_seconds.argtypes = [p, i]
     lib.cgd_conv3x3_encode_seconds.restype = ctypes.c_double
+    lib.cgd_conv3x3_f32.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.cgd_conv3x3_f32.restype = i
+    lib.cgd_conv3x3_f32_smem_bytes.argtypes = []
+    lib.cgd_conv3x3_f32_smem_bytes.restype = i
     lib.cgd_attn_fwd.argtypes = [p] * 3 + [i] * 7 + [p]
     lib.cgd_attn_fwd.restype = i
     lib.cgd_attn_bwd.argtypes = [p] * 6 + [i] * 7 + [p]

@@ -23,6 +23,11 @@ Both kernels share one Hopper main loop (TMA-staged input patches, wgmma,
 a producer warpgroup); ``conv_plan`` is the launch geometry the wrapper and
 the kernel agree on.
 
+At f32 operands ``conv3x3_fwd`` runs a third kernel, ``csrc/conv3x3_f32.cu``
+(K-fwd f32: the plain conv with bias, 3xTF32 ``mma.sync``; ``f32_plan`` is its
+geometry): the LPIPS VGG16's convs and their input gradients. It refuses
+the prologue, residual, up and halo modes.
+
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises. Nothing falls back from a failed build or launch.
 Each wrapper counts its kernel launches in ``LAUNCHES``.
@@ -44,7 +49,8 @@ import torch.nn.functional as F
 from cgd_tpu_torch.kernels import _build
 
 # launches of each kernel since the last reset_launch_counts()
-LAUNCHES = {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0, "conv3x3_dx_wtiled": 0}
+LAUNCHES = {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0, "conv3x3_dx_wtiled": 0,
+            "conv3x3_fwd_f32": 0}
 
 _K_ALIGN = 64  # kernels need Cin % 64 == 0 (one 128-byte K chunk) ...
 _N_ALIGN = 8   # ... and Cout % 8 == 0 (16-byte TMA strides)
@@ -124,13 +130,13 @@ def conv3x3_dx_plain(g, wt, x, A, B):
 # kernel launchers
 # ---------------------------------------------------------------------------
 
-def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
+def _check_cuda(name: str, dev: torch.device, dtype=torch.bfloat16, **tensors) -> None:
     for arg, t in tensors.items():
         if t is None:
             continue
         if t.device != dev:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {dev}")
-        want = torch.float32 if arg in ("A", "B") else torch.bfloat16
+        want = torch.float32 if arg in ("A", "B") else dtype
         if t.dtype != want:
             raise TypeError(
                 f"{name}: {arg} has dtype {t.dtype}; the CUDA kernel takes "
@@ -210,6 +216,49 @@ def conv_plan(b: int, h: int, w: int, cin: int, cout: int, up: bool = False,
     )
 
 
+# the launch geometry of csrc/conv3x3_f32.cu (f32_plan mirrors it)
+F32_PATCH = (8, 16)   # output patch of one block: 128 pixels
+F32_BK, F32_BN = 32, 64  # input channels per chunk, output channels per block
+F32_ALIGN = 4         # Cin and Cout padded to a multiple of 4 (16-byte copies)
+
+
+def f32_plan(b: int, h: int, w: int, cin: int, cout: int) -> dict:
+    """The launch plan of one K-fwd f32 call: 8 x 16 output patches by 64
+    output channels per block, one block per (patch, N tile, image); Cin in
+    chunks of 32, two cp.async stages of the 10 x 18 input window
+    ([pixel][32 + 4] floats) and of the chunk's weights ([tap][32][64 + 8])."""
+    cin_p, cout_p = _round_up(cin, F32_ALIGN), _round_up(cout, F32_ALIGN)
+    ph, pw = F32_PATCH
+    window = (ph + 2) * (pw + 2) * (F32_BK + 4)
+    weights = 9 * F32_BK * (F32_BN + 8)
+    return dict(cin=cin_p, cout=cout_p, patch=F32_PATCH, bk=F32_BK, bn=F32_BN,
+                chunks=-(-cin_p // F32_BK),
+                grid=(-(-h // ph) * -(-w // pw), -(-cout_p // F32_BN), b),
+                smem_bytes=2 * (window + weights) * 4)
+
+
+def _conv3x3_fwd_f32(x, w, bias) -> torch.Tensor:
+    """K-fwd f32 on CUDA tensors (checked by the caller's dispatch)."""
+    _check_cuda("conv3x3_fwd", x.device, torch.float32, x=x, w=w, bias=bias)
+    b, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    if w.shape != (3, 3, cin, cout) or bias.shape != (cout,):
+        raise ValueError(f"conv3x3_fwd: w {tuple(w.shape)} / bias {tuple(bias.shape)} "
+                         f"do not fit x {tuple(x.shape)}")
+    plan = f32_plan(b, h, wd, cin, cout)
+    cin_p, cout_p = plan["cin"], plan["cout"]
+    x, w = _pad_to(x, 3, cin_p), _pad_to(_pad_to(w, 2, cin_p), 3, cout_p)
+    bias = _pad_to(bias, 0, cout_p)
+    out = torch.empty((b, h, wd, cout_p), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        status = lib.cgd_conv3x3_f32(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                     b, h, wd, cin_p, cout_p, _build.stream(x.device))
+    _build.check(status, "conv3x3_fwd (f32)")
+    LAUNCHES["conv3x3_fwd_f32"] += 1
+    return out[..., :cout].contiguous() if cout_p != cout else out
+
+
 def _sms(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -226,7 +275,8 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False, etop=None, ebot
     f32 or None; skip [b,ho,wo,cout] or None -> [b,ho,wo,cout] in x's dtype,
     (ho, wo) = (2hs, 2ws) with ``up``. ``etop``/``ebot`` [b,1,ws,cin] (both or
     neither, no ``up``): K-halo, the rows above and below x, post-activation.
-    No autograd."""
+    bf16 operands on CUDA; f32 operands run K-fwd f32, the plain conv with
+    bias only. No autograd."""
     halo = etop is not None
     if halo != (ebot is not None) or (halo and up):
         raise ValueError("conv3x3_fwd: etop and ebot go together and take no up")
@@ -236,6 +286,11 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False, etop=None, ebot
         return conv3x3_fwd_plain(x, w, bias, A, B, skip, up)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_fwd: no kernel for device {x.device}")
+    if x.dtype == torch.float32:
+        if A is not None or B is not None or skip is not None or up or halo:
+            raise ValueError("conv3x3_fwd: the f32 kernel takes the plain conv only "
+                             "(no prologue, skip, up or halo)")
+        return _conv3x3_fwd_f32(x, w, bias)
     _check_cuda("conv3x3_fwd", x.device, x=x, w=w, bias=bias, A=A, B=B, skip=skip,
                 etop=etop, ebot=ebot)
     if (A is None) != (B is None) or (up and (A is None or skip is not None)):

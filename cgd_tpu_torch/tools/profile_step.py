@@ -4,6 +4,7 @@ window of guided steps of the API's sampling loop.
     python -m cgd_tpu_torch.tools.profile_step                 # 256px, ViT-B/32
     python -m cgd_tpu_torch.tools.profile_step --mesh-cut 2    # split cut=2 on one card
     python -m cgd_tpu_torch.tools.profile_step --size 128      # the 128px model (d = 128-256)
+    python -m cgd_tpu_torch.tools.profile_step --init          # init image + LPIPS + image prompt
 
 Runs a ddim25 guided sample (random weights, 16 cutouts, batch 1, bf16),
 times the five guided steps between the frames at steps 5 and 10 with the
@@ -13,7 +14,9 @@ step: the wall time, the device time of all kernels (busy) and the idle
 share of the wall time, the device operations, the device time of the
 hand-written kernels (``cgd::``), the kernels that take the most device
 time, every hand-written kernel template with its device time and
-launches, and the attention's device time by head dim. Needs a CUDA card.
+launches, and the attention's device time by head dim. ``--init`` adds the
+init-image path (random weights): an init image with skip 5, init_scale
+1000 (the LPIPS VGG16 on K-fwd f32) and an image prompt. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -23,11 +26,14 @@ import re
 import subprocess
 import time
 from collections import defaultdict
+from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from cgd_tpu_torch import api
+from cgd_tpu_torch.io_utils.images import encode_png
 from cgd_tpu_torch.parallel.mesh import make_mesh
 
 STEPS = 5  # guided steps in the profiled window (frames every 5 steps)
@@ -44,6 +50,8 @@ def main(argv=None) -> None:
     p.add_argument("--clip", default="ViT-B/32")
     p.add_argument("--mesh-cut", type=int, default=0,
                    help="split the run cut=N over N copies of the one card (0: unsplit)")
+    p.add_argument("--init", action="store_true",
+                   help="init image (skip 5, init_scale 1000) and an image prompt")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
@@ -51,11 +59,20 @@ def main(argv=None) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     mesh = make_mesh([dev] * args.mesh_cut) if args.mesh_cut else None
+    init = {}
+    if args.init:  # frames at steps 0, 5, 10, 15 of the 20 left after the skip
+        out = Path("outputs/profile_step")
+        out.mkdir(parents=True, exist_ok=True)
+        yy, xx = np.mgrid[0:args.size, 0:args.size] / args.size
+        for name, rgb in (("init.png", (xx, yy, xx * yy)), ("style.png", (yy, 1 - xx, xx))):
+            (out / name).write_bytes(encode_png((np.stack(rgb, -1) * 255).astype(np.uint8)))
+        init = dict(init_image=str(out / "init.png"), skip_timesteps=5, init_scale=1000,
+                    image_prompts=[str(out / "style.png")])
     gen = api.clip_guided_diffusion(
         prompts=["a watercolor painting of a lighthouse:1", "fog:0.5"], image_size=args.size,
         num_cutouts=16, clip_model_name=args.clip, timestep_respacing="ddim25",
         weights_mode="random", save_frequency=STEPS, progress=False, mesh=mesh,
-        prefix_path="outputs/profile_step")
+        prefix_path="outputs/profile_step", **init)
     next(gen)  # step 0: setup and the first frame
     next(gen)  # step 5: warm
     torch.cuda.synchronize()
@@ -76,7 +93,8 @@ def main(argv=None) -> None:
     busy = sum(t for t, _ in by_name.values())
     mine = sum(t for n, (t, _) in by_name.items() if "cgd::" in n)
     label = f"{args.size}px {args.clip}" + (f", mesh cut={args.mesh_cut} on one card"
-                                            if args.mesh_cut else "")
+                                            if args.mesh_cut else "") + (
+        ", init image + LPIPS + image prompt" if args.init else "")
     print(f"{label}: wall {wall * 1e3:.1f} ms per guided step; device busy {busy:.1f} ms "
           f"(idle {1 - busy / (wall * 1e3):.0%}); {len(kernels) / STEPS:.0f} device ops "
           f"(kernels, copies, memsets) per step; hand-written kernels {mine:.1f} ms")

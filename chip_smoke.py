@@ -20,14 +20,24 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    beside cuDNN's bare conv on the same input (eager and device), with
    TFLOP/s and share of the bound on the device time; the attention kernels
    by their device time (torch.profiler), eager time and host us per call,
-   beside F.scaled_dot_product_attention's;
+   beside F.scaled_dot_product_attention's; K-fwd f32 at the LPIPS VGG16's
+   conv shapes at 256^2, each forward and its input gradient, against its
+   plain version (cuDNN in full f32; bound 1% of the reference's max) and,
+   beside cuDNN's, against f64, timed beside cuDNN's f32 conv with TF32 off
+   and on, with its share of the TF32 bound, and summed over one guided
+   step's 39 launches;
 4. the full-width 256px, 512px and 128px class-conditional UNets (random
    weights, every zero-init conv re-drawn so the kernels' output reaches the
    result): forward and input gradient with the kernels against
    ``kernel_routing("plain")`` (bound: relative L2 error <= 5e-2 — two bf16
    routes that round at different points through ~60-90 convs and 16
    attention blocks; a wrong tap, halo or softmax gives O(1)); prints each
-   run's peak device memory;
+   run's peak device memory; then the full-width VGG16 LPIPS distance and
+   its input gradient at 256^2 on K-fwd f32 against the plain routing (f32;
+   bound: relative L2 error <= 1e-2), both and the plain routing with
+   cuDNN's TF32 also against f64 (the gradient passes through thirteen
+   convs and the taps' unit normalisation, which amplify the convs'
+   rounding);
 5. the 256px slice through ``cgd_tpu_torch.api.clip_guided_diffusion``: 16
    cutouts, ViT-B/32, ddim25, random weights, the launch counters reset just
    before it and read just after, between two short runs under the plain
@@ -43,18 +53,31 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    (cut=2, shards run one after the other): (a) K-halo through
    ``kernels.conv_spmd``, forward and input gradient, against its plain
    version at the shard shapes of the 256px and 512px UNets (bound 1% of the
-   reference's max), timed beside K-fwd on the same shard, the plain version
-   and cuDNN on the concatenated input; (b) the full-width 512px UNet split
+   reference's max), timed (CUDA events and device time) beside K-fwd on
+   the same shard, the plain version and cuDNN on the concatenated input; (b) the full-width 512px UNet split
    in two against the unsplit kernel UNet, forward and input gradient
    (relative L2 <= 5e-2); (c) the 256px ViT-B/32 ddim25 guided run through
    ``api.clip_guided_diffusion(mesh=...)``, counters reset just before it
    and read just after: finite frames, PNGs, K-halo and attention launched,
-   K-fwd and K-dx not.
+   K-fwd and K-dx not;
+8. the 256px init-image path from checkpoints in the reference layout: the
+   port's random 256px UNet, CLIP ViT-B/32 and LPIPS VGG16 written as the
+   published ``.pt`` / ``.pth`` files (the converters' name maps inverted
+   here) into a directory under ``outputs/``, then
+   ``api.clip_guided_diffusion(weights_mode="auto", init_image=...,
+   skip_timesteps=12, init_scale=1000, image_prompts=[...])``, ddim25, 16
+   cutouts, the tokenizer built from a tiny merge table; counters reset
+   just before it and read just after: the ``.npz.cgd`` caches written and
+   hit (read back bit-equal with the ``.pt`` files gone), finite frames,
+   PNGs, 39 K-fwd f32 launches per guided step, K-fwd, K-dx and the
+   attention launched; its step time beside phase 5's; the directory is
+   deleted after.
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
-from phase 7c; each with its eager and device time, its bound on the card
-and the library call's time where there is one), and as its last line
-``{"ok": true, "device": {...}}``.
+from phase 7c, K-fwd f32's from phase 8; each with its eager and device
+time, its bound on the card and the library call's time where there is
+one; K-fwd f32's summed over one guided step's 39 launches), and as its
+last line ``{"ok": true, "device": {...}}``.
 Needs one card; builds everything it runs.
 """
 
@@ -69,11 +92,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FWD_TOL = DX_TOL = ATTN_TOL = HALO_TOL = 1e-2  # max |err| / max |ref|
 UNET_TOL = 5e-2                                # relative L2 error, full UNet
+LPIPS_TOL = 1e-2                               # relative L2 error, full VGG16 LPIPS
 PROMPTS = ["a watercolor painting of a lighthouse:1", "fog:0.5"]
-# the least time of a kernel: NVIDIA's H100 SXM data sheet, dense bf16
-# tensor-core rate and HBM3 bandwidth (at the 700 W limit)
+# the least time of a kernel: NVIDIA's H100 SXM data sheet, dense bf16 and
+# TF32 tensor-core rates and HBM3 bandwidth (at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# the LPIPS VGG16's 3x3 convs at a 256^2 input: (H = W, Cin, Cout, how many)
+VGG16_CONVS = [(256, 3, 64, 1), (256, 64, 64, 1), (128, 64, 128, 1), (128, 128, 128, 1),
+               (64, 128, 256, 1), (64, 256, 256, 2), (32, 256, 512, 1), (32, 512, 512, 2),
+               (16, 512, 512, 3)]
+# a tiny BPE merge table (the real one is not in the repository)
+BPE_MERGES = ["t h", "th e</w>", "a n", "an d</w>", "i n", "in g</w>", "h e", "he l", "hel l",
+              "hell o</w>"]
 
 
 def _die(msg: str) -> None:
@@ -136,11 +168,11 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _bound(flops: float, nbytes: float) -> dict:
+def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations
-    over the dense bf16 peak and the bytes (each input read once, each
-    output written once) over the HBM bandwidth."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    over the dense peak (bf16 unless ``peak`` says TF32) and the bytes (each
+    input read once, each output written once) over the HBM bandwidth."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -268,6 +300,74 @@ def phase_kernels(k3, dev):
             res["conv3x3_dx_wtiled"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd,
                                             device_ms=dms)
     torch.cuda.synchronize()
+    return res
+
+
+def phase_kernels_f32(k3, dev) -> dict:
+    """Phase 3: K-fwd f32 against its plain version (cuDNN in full f32) at
+    the LPIPS VGG16's conv shapes at 256^2, each forward and its input
+    gradient (the flipped, transposed conv; Cout 3 for the first), timed
+    beside cuDNN's f32 conv with TF32 off and on. Returns the kernel's JSON
+    entry for one guided step: the sums over its 39 launches (x_in's and the
+    init image's forwards, x_in's input gradients)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(dev).manual_seed(99)
+    res = {"err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "tf32_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0}
+    for h, ci, co, n in VGG16_CONVS:
+        for grad in (False, True):
+            cin, cout = (co, ci) if grad else (ci, co)  # the input gradient: Cout -> Cin
+            x = torch.randn(1, h, h, cin, generator=gen, device=dev)
+            w = torch.randn(3, 3, cin, cout, generator=gen, device=dev) * (9 * cin) ** -0.5
+            bias = torch.zeros(cout, device=dev) if grad else torch.randn(
+                cout, generator=gen, device=dev) * 0.1
+            out = k3.conv3x3_fwd(x, w, bias)
+            ref = k3.conv3x3_fwd_plain(x, w, bias)
+            err, rel = _rel_max(out, ref)
+            if rel > FWD_TOL:
+                raise AssertionError(f"K-fwd f32 {h}^2 {cin}->{cout}: {rel:.3e} > {FWD_TOL}")
+            exact = k3._conv_nhwc(x.double(), w.double()) + bias.double()
+            f64 = (_rel_max(out.double(), exact)[1], _rel_max(ref.double(), exact)[1])
+            xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+
+            def cudnn():
+                return F.conv2d(xn, wn, bias, padding=1)
+
+            ms = _time_ms(lambda: k3.conv3x3_fwd(x, w, bias))
+            dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias))
+            pms = _time_ms(lambda: k3.conv3x3_fwd_plain(x, w, bias))
+            cms, cdms = _time_ms(cudnn), _device_ms(cudnn)
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                tms, tdms = _time_ms(cudnn), _device_ms(cudnn)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+            flops = 2 * h * h * 9 * cin * cout
+            nbytes = _nbytes(x, w, bias, out)
+            bd = _bound(flops, nbytes, PEAK_TF32_FLOPS)
+            print(f"[3] K-fwd f32 {'dx ' if grad else ''}{h}^2 {cin}->{cout} (x{n}): max|err| "
+                  f"{err:.3e} ({rel:.2e} of scale; against f64 kernel {f64[0]:.2e}, cuDNN f32 "
+                  f"{f64[1]:.2e}) kernel {ms:.4f} ms, device {dms:.4f} ms "
+                  f"({_tflops(flops, dms)}) plain {pms:.4f} ms; cuDNN f32 {cms:.4f} ms, device "
+                  f"{cdms:.4f} ms ({dms / cdms:.2f}x), cuDNN TF32 {tms:.4f} ms, device "
+                  f"{tdms:.4f} ms ({dms / tdms:.2f}x){_fmt(bd, dms)}")
+            res["err"] = max(res["err"], err)
+            per_step = n * (1 if grad else 2)  # forwards of x_in and the init image
+            for key, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                           ("library_ms", cms), ("tf32_ms", tdms),
+                           ("t_ops", flops / PEAK_TF32_FLOPS * 1e3),
+                           ("t_bytes", nbytes / PEAK_HBM_BYTES * 1e3)):
+                res[key] += per_step * v
+    torch.cuda.synchronize()
+    res["bound_ms"] = max(res["t_ops"], res["t_bytes"])
+    res["bound_by"] = "operations" if res["t_ops"] >= res["t_bytes"] else "bytes"
+    print(f"[3] K-fwd f32, one guided step at 256^2 (39 launches): kernel {res['ms']:.4f} ms, "
+          f"device {res['device_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, cuDNN f32 "
+          f"{res['library_ms']:.4f} ms, cuDNN TF32 device {res['tf32_ms']:.4f} ms; bound "
+          f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+          f"({res['bound_ms'] / res['device_ms']:.1%} of it reached)")
     return res
 
 
@@ -447,6 +547,79 @@ def phase_unet(dev, size: int):
           f"{peak_p / 2**30:.2f} GiB")
     del unet
     torch.cuda.empty_cache()
+
+
+def _lpips64(model, x, y):
+    """``lpips_distance`` in f64 (which casts its inputs to f32): the exact
+    reference the f32 routes are measured against."""
+    import torch
+
+    from cgd_tpu_torch.models.vgg_lpips import _SCALE, _SHIFT, vgg_taps
+
+    shift, scale = (torch.tensor(v, dtype=torch.float64, device=x.device) for v in (_SHIFT, _SCALE))
+    total = 0.0
+    for tx, ty, lin in zip(vgg_taps(model, (x - shift) / scale),
+                           vgg_taps(model, (y - shift) / scale), model.lins):
+        nx = tx / (tx.square().sum(-1, keepdim=True).sqrt() + 1e-10)
+        ny = ty / (ty.square().sum(-1, keepdim=True).sqrt() + 1e-10)
+        total = total + ((nx - ny).square() @ lin.kernel[:, 0]).mean(dim=(1, 2))
+    return total
+
+
+def phase_lpips(k3, dev) -> None:
+    """Phase 4: the full-width VGG16 LPIPS distance and its gradient with
+    respect to x at 256^2, the convs on K-fwd f32 against
+    ``kernel_routing("plain")`` (cuDNN in f32), random weights; both, and
+    the plain routing with cuDNN's TF32, also against f64 (the plain
+    routing on an f64 copy): the gradient's sensitivity to the convs'
+    rounding."""
+    import copy
+
+    import torch
+
+    from cgd_tpu_torch.models.vgg_lpips import VGGLPIPS, lpips_distance
+    from cgd_tpu_torch.ops.nn import kernel_routing
+
+    model = VGGLPIPS(device=dev).init_weights(torch.Generator(dev).manual_seed(5))
+    gen = torch.Generator(dev).manual_seed(6)
+    x, y = (torch.rand(1, 256, 256, 3, generator=gen, device=dev) * 2 - 1 for _ in range(2))
+
+    def run(fn=lpips_distance, m=model, dtype=torch.float32):
+        x_ = x.to(dtype).clone().requires_grad_(True)
+        d = fn(m, x_, y.to(dtype))
+        return d.detach(), torch.autograd.grad(d.sum(), x_)[0]
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    k3.reset_launch_counts()
+    got = run()
+    launches = k3.LAUNCHES["conv3x3_fwd_f32"]
+    with kernel_routing("plain"):
+        want = run()
+        exact = run(_lpips64, copy.deepcopy(model).double(), torch.float64)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = run()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    ms_k = _time_ms(run, iters=5)
+    with kernel_routing("plain"):
+        ms_p = _time_ms(run, iters=5)
+    for i, name in enumerate(("distance", "d/dx")):
+        a, b = got[i], want[i]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"LPIPS {name}: non-finite values")
+        print(f"[4] LPIPS VGG16 256^2 {name}: rel L2 err {rel(a, b):.3e} (|ref| "
+              f"{b.norm().item():.3e}); against f64: kernels {rel(a, exact[i]):.3e}, plain "
+              f"f32 {rel(b, exact[i]):.3e}, plain with cuDNN TF32 {rel(tf32[i], exact[i]):.3e}")
+        if rel(a, b) > LPIPS_TOL:
+            raise AssertionError(f"LPIPS {name}: rel L2 {rel(a, b):.3e} > {LPIPS_TOL}")
+    if launches != 39:
+        raise AssertionError(f"LPIPS distance + input gradient launched K-fwd f32 {launches} "
+                             "times, not 39")
+    print(f"[4] LPIPS VGG16 256^2 distance + input grad: kernels {ms_k:.2f} ms, plain routing "
+          f"{ms_p:.2f} ms ({launches} K-fwd f32 launches)")
 
 
 def _launches(k3, kattn) -> dict:
@@ -704,6 +877,7 @@ def phase_halo(k3, dev):
         w_oihw = w.permute(3, 2, 0, 1)
         cms = _time_ms(lambda: F.conv2d(stacked, w_oihw, padding=(0, 1)))
         out = k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot)
+        dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot))
         flops = 2 * hs * wd * 9 * ci * co
         bound = _bound(flops, _nbytes(x, w, bias, A, B, skip, etop, ebot, out))
         padded = ""
@@ -714,12 +888,11 @@ def phase_halo(k3, dev):
                       f"{_time_ms(lambda: k3.conv3x3_fwd(xp, wp, bias, etop=etp, ebot=ebp)):.4f}"
                       f" ms, K-fwd {_time_ms(lambda: k3.conv3x3_fwd(xp, wp, bias)):.4f} ms)")
         print(f"[7a] K-halo {name:20s} shard {hs}x{wd} {ci}->{co}: {', '.join(line)}; kernel "
-              f"{ms:.4f} ms ({_tflops(flops, ms)}; K-fwd on the shard {fwd_ms:.4f} ms){padded} "
-              f"plain {pms:.4f} ms, cuDNN on the stacked rows {cms:.4f} ms ({ms / cms:.2f}x)"
-              f"{_fmt(bound, ms)}")
+              f"{ms:.4f} ms, device {dms:.4f} ms ({_tflops(flops, dms)}; K-fwd on the shard "
+              f"{fwd_ms:.4f} ms){padded} plain {pms:.4f} ms, cuDNN on the stacked rows "
+              f"{cms:.4f} ms ({ms / cms:.2f}x){_fmt(bound, dms)}")
         if (hs, ci, co, sk) == (128, 256, 256, True):
-            res.update(ms=ms, plain_ms=pms, library_ms=cms, **bound, device_ms=_device_ms(
-                lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot)))
+            res.update(ms=ms, plain_ms=pms, library_ms=cms, **bound, device_ms=dms)
     torch.cuda.synchronize()
     return res
 
@@ -752,6 +925,259 @@ def phase_split_unet(dev):
     print(f"[7b] UNet 512px fwd + input grad: split cut=2 {ms_s:.2f} ms, unsplit {ms_u:.2f} ms")
     del unet
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the port's random weights written as the reference's checkpoints
+# (the converters' name maps inverted: HWIO -> OIHW, [in, out] -> [out, in],
+# scale -> weight, the attention qkv back to the legacy head-major order)
+# ---------------------------------------------------------------------------
+
+def _ref_conv(sd, p, name):
+    sd[f"{name}.weight"] = p["kernel"].permute(3, 2, 0, 1).contiguous()
+    if "bias" in p:
+        sd[f"{name}.bias"] = p["bias"]
+
+
+def _ref_linear(sd, p, name):
+    sd[f"{name}.weight"] = p["kernel"].t().contiguous()
+    sd[f"{name}.bias"] = p["bias"]
+
+
+def _ref_norm(sd, p, name):
+    sd[f"{name}.weight"], sd[f"{name}.bias"] = p["scale"], p["bias"]
+
+
+def _sub(flat: dict, prefix: str) -> dict:
+    """The leaves under ``prefix.`` of a flat state dict, keys relative."""
+    return {k[len(prefix) + 1:]: v for k, v in flat.items() if k.startswith(prefix + ".")}
+
+
+def unet_reference_sd(unet) -> dict:
+    """A UNet of the port as the published guided-diffusion state dict
+    (legacy attention order, as the 256px checkpoint)."""
+    from cgd_tpu_torch.models.unet import block_plan
+
+    cfg, flat, sd = unet.cfg, {k: v.cpu() for k, v in unet.state_dict().items()}, {}
+    _ref_linear(sd, _sub(flat, "time_embed.0"), "time_embed.0")
+    _ref_linear(sd, _sub(flat, "time_embed.1"), "time_embed.2")
+    _ref_conv(sd, _sub(flat, "conv_in"), "input_blocks.0.0")
+    input_plan, middle_plan, output_plan, _ = block_plan(cfg)
+
+    def layer(key, name, spec):
+        p = _sub(flat, key)
+        if spec[0] == "res":
+            _ref_norm(sd, _sub(p, "in_norm"), f"{name}.in_layers.0")
+            _ref_conv(sd, _sub(p, "in_conv"), f"{name}.in_layers.2")
+            _ref_linear(sd, _sub(p, "emb"), f"{name}.emb_layers.1")
+            _ref_norm(sd, _sub(p, "out_norm"), f"{name}.out_layers.0")
+            _ref_conv(sd, _sub(p, "out_conv"), f"{name}.out_layers.3")
+            if "skip.kernel" in p:
+                _ref_conv(sd, _sub(p, "skip"), f"{name}.skip_connection")
+        elif spec[0] == "attn":
+            ch, heads = spec[1], cfg.heads_for(spec[1])
+            _ref_norm(sd, _sub(p, "norm"), f"{name}.norm")
+            w, b = p["qkv.kernel"].t(), p["qkv.bias"]  # rows [q|k|v][h][d]
+            sd[f"{name}.qkv.weight"] = (w.reshape(3, heads, ch // heads, ch).transpose(0, 1)
+                                        .reshape(3 * ch, ch)[:, :, None].contiguous())
+            sd[f"{name}.qkv.bias"] = b.reshape(3, heads, ch // heads).transpose(0, 1).reshape(-1)
+            sd[f"{name}.proj_out.weight"] = p["proj.kernel"].t()[:, :, None].contiguous()
+            sd[f"{name}.proj_out.bias"] = p["proj.bias"]
+        else:
+            _ref_conv(sd, _sub(p, "conv"), f"{name}.{'op' if spec[0] == 'downsample' else 'conv'}")
+
+    for i, blk in enumerate(input_plan):
+        for j, spec in enumerate(blk):
+            layer(f"input.{i}.{j}", f"input_blocks.{i + 1}.{j}", spec)
+    for j, spec in enumerate(middle_plan):
+        layer(f"middle.{j}", f"middle_block.{j}", spec)
+    for i, blk in enumerate(output_plan):
+        for j, spec in enumerate(blk):
+            layer(f"output.{i}.{j}", f"output_blocks.{i}.{j}", spec)
+    _ref_norm(sd, _sub(flat, "out_norm"), "out.0")
+    _ref_conv(sd, _sub(flat, "out_conv"), "out.2")
+    if cfg.num_classes is not None:
+        sd["label_emb.weight"] = flat["label_emb.table"]
+    return sd
+
+
+def clip_reference_sd(clip) -> dict:
+    """A ViT CLIP of the port as OpenAI's CLIP state dict."""
+    flat, sd = {k: v.cpu() for k, v in clip.state_dict().items()}, {}
+
+    def block(p, name):
+        _ref_norm(sd, _sub(p, "ln_1"), f"{name}.ln_1")
+        sd[f"{name}.attn.in_proj_weight"] = p["attn_qkv.kernel"].t().contiguous()
+        sd[f"{name}.attn.in_proj_bias"] = p["attn_qkv.bias"]
+        _ref_linear(sd, _sub(p, "attn_out"), f"{name}.attn.out_proj")
+        _ref_norm(sd, _sub(p, "ln_2"), f"{name}.ln_2")
+        _ref_linear(sd, _sub(p, "mlp_fc"), f"{name}.mlp.c_fc")
+        _ref_linear(sd, _sub(p, "mlp_proj"), f"{name}.mlp.c_proj")
+
+    _ref_conv(sd, _sub(flat, "visual.conv1"), "visual.conv1")
+    for k in ("class_embedding", "positional_embedding", "proj"):
+        sd[f"visual.{k}"] = flat[f"visual.{k}"]
+    _ref_norm(sd, _sub(flat, "visual.ln_pre"), "visual.ln_pre")
+    _ref_norm(sd, _sub(flat, "visual.ln_post"), "visual.ln_post")
+    for i in range(clip.cfg.vision.layers):
+        block(_sub(flat, f"visual.blocks.{i}"), f"visual.transformer.resblocks.{i}")
+    sd["token_embedding.weight"] = flat["text.token_embedding"]
+    sd["positional_embedding"] = flat["text.positional_embedding"]
+    sd["text_projection"] = flat["text.text_projection"]
+    _ref_norm(sd, _sub(flat, "text.ln_final"), "ln_final")
+    for i in range(clip.cfg.text.layers):
+        block(_sub(flat, f"text.blocks.{i}"), f"transformer.resblocks.{i}")
+    return sd
+
+
+def lpips_reference_sds(model) -> tuple:
+    """The port's LPIPS VGG16 as torchvision's vgg16 features and lpips'
+    linear heads."""
+    from cgd_tpu_torch.convert.torch_lpips import CONV_IDS
+
+    flat = {k: v.cpu() for k, v in model.state_dict().items()}
+    vgg = {}
+    for i, cid in enumerate(CONV_IDS):
+        _ref_conv(vgg, _sub(flat, f"convs.{i}"), f"features.{cid}")
+    lin = {f"lin{i}.model.1.weight": flat[f"lins.{i}.kernel"][:, 0].reshape(1, -1, 1, 1)
+           for i in range(5)}
+    return vgg, lin
+
+
+def _test_image(h: int, w: int, seed: int):
+    """A smooth uint8 RGB test image (gradients and a disc)."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    rng = np.random.RandomState(seed)
+    a, b, c = rng.rand(3) * 6
+    disc = ((yy - 0.5) ** 2 + (xx - 0.5) ** 2 < 0.08).astype(np.float64)
+    rgb = np.stack([np.sin(a * xx + b * yy), np.cos(c * yy) * (1 - disc), disc], -1)
+    return ((rgb + 1) * 127.5).clip(0, 255).astype(np.uint8)
+
+
+def phase_checkpoints(k3, kattn, dev, out_dir: Path, unsplit_step_s: float) -> dict:
+    """Phase 8: the 256px init-image path from checkpoints in the reference
+    layout. The port's random 256px UNet (zero-init convs re-drawn), CLIP
+    ViT-B/32 and LPIPS VGG16 are written under the published file and key
+    names into a temporary checkpoints_dir (the two LPIPS .pth files into
+    the download cache the converter reads, pointed there), then
+    ``api.clip_guided_diffusion(weights_mode="auto", ...)`` runs with an
+    init image, skip 12 of ddim25, init_scale 1000 and an image prompt.
+    Checks the .npz.cgd caches written and hit (the .pt files deleted, the
+    weights resolved again bit-equal to the written ones), finite frames,
+    the PNGs, 39 K-fwd f32 launches per guided step, and K-fwd, K-dx and the
+    attention launched. Returns the launch counts of the run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch import api, weights
+    from cgd_tpu_torch.convert import torch_lpips
+    from cgd_tpu_torch.io_utils.images import encode_png
+    from cgd_tpu_torch.models.clip import tokenizer
+    from cgd_tpu_torch.models.clip.configs import CLIP_CONFIGS
+    from cgd_tpu_torch.models.clip.model import CLIP
+    from cgd_tpu_torch.models.unet import Conv, Dense, UNet, UNetConfig
+    from cgd_tpu_torch.models.vgg_lpips import VGGLPIPS
+    from cgd_tpu_torch.registry import DIFFUSION_LOOKUP
+
+    ckpts = out_dir / "checkpoints"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    (ckpts / "clip").mkdir(parents=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(8)
+    info = DIFFUSION_LOOKUP["cond"][256]
+    unet = UNet(UNetConfig.from_flags(info["model_flags"]), device="cpu").init_weights(gen)
+    with torch.no_grad():  # re-draw every zero-init conv / projection, as phase 4
+        for m in unet.modules():
+            if isinstance(m, (Conv, Dense)) and m.zero:
+                bound = 1.0 / float(torch.tensor(m.kernel.shape[:-1]).prod()) ** 0.5
+                m.kernel.uniform_(-bound, bound, generator=gen)
+    clip = CLIP(CLIP_CONFIGS["ViT-B/32"], device="cpu").init_weights(gen)
+    lpips = VGGLPIPS(device="cpu").init_weights(gen)
+    torch.save(unet_reference_sd(unet), ckpts / info["filename"])
+    torch.save(clip_reference_sd(clip), ckpts / "clip" / "ViT-B-32.pt")
+    vgg_sd, lin_sd = lpips_reference_sds(lpips)
+    torch.save(vgg_sd, ckpts / "vgg16-397923af.pth")
+    torch.save(lin_sd, ckpts / "lpips_vgg_v0.1.pth")
+    (out_dir / "merges.txt").write_text("#version: tiny\n" + "\n".join(BPE_MERGES) + "\n")
+    init_png, prompt_png = out_dir / "init.png", out_dir / "style.png"
+    init_png.write_bytes(encode_png(_test_image(300, 260, 1)))
+    prompt_png.write_bytes(encode_png(_test_image(224, 320, 2)))
+    write_s = time.perf_counter() - t0
+
+    frames, stamps, paths = [], [], []
+    real_log_image, real_cache, real_tok = api.log_image, torch_lpips.CACHE_PATH, \
+        tokenizer._DEFAULT_TOKENIZER
+
+    def capture(image, *a, **kw):
+        frames.append(np.asarray(image))
+        return real_log_image(image, *a, **kw)
+
+    api.log_image = capture
+    torch_lpips.CACHE_PATH = str(ckpts)  # where the LPIPS .pth files are looked up
+    tokenizer._DEFAULT_TOKENIZER = tokenizer.SimpleTokenizer(
+        str(out_dir / "merges.txt"), 256 + 2 + len(BPE_MERGES))
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches(k3, kattn)
+        t0 = time.perf_counter()
+        for _, path in api.clip_guided_diffusion(
+                prompts=PROMPTS, image_prompts=[f"{prompt_png}:1"], init_image=str(init_png),
+                skip_timesteps=12, init_scale=1000, image_size=256, num_cutouts=16,
+                clip_model_name="ViT-B/32", timestep_respacing="ddim25", weights_mode="auto",
+                checkpoints_dir=str(ckpts), seed=0, save_frequency=6, device=str(dev),
+                prefix_path=out_dir / "outputs", progress=False):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            paths.append(path)
+        launches = _launches(k3, kattn)
+        peak = torch.cuda.max_memory_allocated(dev)
+        total_s = time.perf_counter() - t0
+
+        caches = [ckpts / f"{info['filename']}.npz.cgd", ckpts / "clip" / "ViT-B-32.pt.npz.cgd",
+                  ckpts / "lpips_vgg.npz.cgd"]
+        if not all(c.is_file() for c in caches):
+            raise AssertionError(f"converted caches missing: {[str(c) for c in caches]}")
+        for pt in (ckpts / info["filename"], ckpts / "clip" / "ViT-B-32.pt",
+                   ckpts / "vgg16-397923af.pth", ckpts / "lpips_vgg_v0.1.pth"):
+            pt.unlink()  # the second resolve can only hit the caches
+        t1 = time.perf_counter()
+        loaded = (weights.resolve_unet(256, True, "auto", device=dev, checkpoints_dir=str(ckpts))[0],
+                  weights.resolve_clip("ViT-B/32", "auto", dev, str(ckpts))[0],
+                  weights.resolve_lpips("auto", dev, str(ckpts)))
+        hit_s = time.perf_counter() - t1
+    finally:
+        api.log_image, torch_lpips.CACHE_PATH = real_log_image, real_cache
+        tokenizer._DEFAULT_TOKENIZER = real_tok
+    for name, written, back in zip(("UNet", "CLIP", "LPIPS"), (unet, clip, lpips), loaded):
+        a, b = written.state_dict(), back.state_dict()
+        if a.keys() != b.keys() or not all(torch.equal(a[k], b[k].cpu()) for k in a):
+            raise AssertionError(f"phase 8: the {name} read back from its cache is not the "
+                                 "written one")
+    del loaded
+    steps = 25 - 12
+    if len(paths) != 3 or len(frames) != 3:
+        raise AssertionError(f"phase 8: expected frames at steps 0, 6, 12; got {paths}")
+    if frames[-1].shape != (256, 256, 3) or not all(np.isfinite(f).all() for f in frames):
+        raise AssertionError("phase 8: non-finite frames or a wrong shape")
+    _check_pngs((*paths, "current.png"))
+    _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"), "phase 8")
+    if launches["conv3x3_fwd_f32"] != 39 * steps:
+        raise AssertionError(f"phase 8: K-fwd f32 launched {launches['conv3x3_fwd_f32']} times, "
+                             f"not 39 x {steps} guided steps")
+    step_s = (stamps[-1] - stamps[0]) / 12
+    print(f"[8] 256px init image + skip 12 + init_scale 1000 + image prompt from reference-layout "
+          f"checkpoints (ddim25, 13 guided steps): {step_s * 1e3:.1f} ms per guided step "
+          f"(phase 5's 256px step without the init loss: {unsplit_step_s * 1e3:.1f} ms), "
+          f"{total_s:.2f} s incl. conversion and model setup; checkpoints written in "
+          f"{write_s:.1f} s, caches read back in {hit_s:.1f} s and bit-equal; peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}; final frame |x|max "
+          f"{np.abs(frames[-1]).max():.3f}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
 
 
 def main() -> None:
@@ -796,11 +1222,13 @@ def main() -> None:
     from cgd_tpu_torch.parallel.mesh import make_mesh
 
     res = phase_kernels(k3, dev)
+    res["conv3x3_fwd_f32"] = phase_kernels_f32(k3, dev)
     res.update(phase_attention(kattn, dev))
     res["conv3x3_fwd_halo"] = phase_halo(k3, dev)
     phase_unet(dev, 256)
     phase_unet(dev, 512)
     phase_unet(dev, 128)
+    phase_lpips(k3, dev)
     phase_split_unet(dev)
     _, step_s = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke")
     phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_128", size=128)
@@ -808,6 +1236,9 @@ def main() -> None:
     mesh_launches, _ = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_mesh",
                                  mesh=make_mesh([dev, dev]), unsplit_step_s=step_s)
     launches["conv3x3_fwd_halo"] = mesh_launches["conv3x3_fwd_halo"]
+    ckpt_launches = phase_checkpoints(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_ckpts",
+                                      step_s)
+    launches["conv3x3_fwd_f32"] = ckpt_launches["conv3x3_fwd_f32"]
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),
@@ -819,6 +1250,8 @@ def main() -> None:
                               "cgd_tpu/kernels/conv_pallas.py:680"),
         "attn_fwd": ("cgd_tpu_torch/csrc/attn_fwd.cu", "cgd_tpu/kernels/attention_pallas.py:69"),
         "attn_bwd": ("cgd_tpu_torch/csrc/attn_bwd.cu", "cgd_tpu/kernels/attention_pallas.py:82"),
+        "conv3x3_fwd_f32": ("cgd_tpu_torch/csrc/conv3x3_f32.cu",
+                            "cgd_tpu/kernels/conv_pallas.py:364 (f32, LPIPS VGG)"),
     }
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

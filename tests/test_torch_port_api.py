@@ -1,10 +1,14 @@
 """cgd_tpu_torch.api.clip_guided_diffusion on the CPU at toy size
 (CGD_TPU_DEBUG_TINY=1, random weights, 64px): the JAX package's output tree,
 valid PNG files, the device rule (no silent CPU run when CUDA is asked for),
-options outside the ported slice raising, and the copied prompt parser,
-tokenizer, registry and parameter validation pinned to the originals."""
+options outside the ported slice raising, the init-image path (init image,
+skip, LPIPS init loss, image prompts, both parity modes), checkpoint loading
+from a temporary ``checkpoints_dir`` (tests/torch_port_toy_checkpoints.py),
+and the copied prompt parser, tokenizer, registry and parameter validation
+pinned to the originals."""
 
 import inspect
+import os
 import struct
 import threading
 import zlib
@@ -25,6 +29,8 @@ from cgd_tpu_torch import registry as tregistry  # noqa: E402
 from cgd_tpu_torch import validate as tvalidate  # noqa: E402
 from cgd_tpu_torch.guidance.prompts import parse_prompt as tparse  # noqa: E402
 from cgd_tpu_torch.io_utils import images as timages  # noqa: E402
+from cgd_tpu_torch.models import vgg_lpips as tlpips  # noqa: E402
+from tests import torch_port_toy_checkpoints as toy  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -111,13 +117,82 @@ def test_cuda_device_without_a_card_raises(tiny):
 
 
 @pytest.mark.parametrize("option", [
-    {"image_prompts": ["x.png"]}, {"init_image": "x.png"}, {"use_augs": True},
+    {"reduce_clip": True}, {"progressive_cutout": True}, {"use_augs": True},
     {"dpm_solver": True}, {"fast_guidance": True}, {"checkpoint_path": "ck.npz"},
-    {"skip_timesteps": 3}, {"weights_mode": "auto"},
+    {"height_offset": 8}, {"resume_from": "ck.npz"},
 ])
 def test_options_outside_the_slice_raise(tiny, option):
     with pytest.raises(NotImplementedError):
         next(api.clip_guided_diffusion(**{**KW, **option}))
+
+
+def _png_file(path, h, w, seed):
+    rgb = np.random.RandomState(seed).randint(0, 256, (h, w, 3)).astype(np.uint8)
+    path.write_bytes(timages.encode_png(rgb))
+    return str(path)
+
+
+@pytest.mark.parametrize("option", ["image_prompts", "init_image", "skip_timesteps",
+                                    "weights_mode"])
+def test_the_init_image_path_options_work(tiny, monkeypatch, option):
+    """Each option that used to raise now reaches the run: an image prompt's
+    embeddings join the targets, the init image is noised in as the start,
+    the skip shortens the run, and weights_mode="auto" loads the
+    reference-layout checkpoints of a temporary checkpoints_dir."""
+    base = api.clip_guided_diffusion(prefix_path=tiny / "base", save_frequency=1, **KW)
+    base = [open(p, "rb").read() for _, p in base]
+    kw = dict(KW, save_frequency=1, prefix_path=tiny / "out")
+    if option == "image_prompts":
+        kw["image_prompts"] = [_png_file(tiny / "p.png", 50, 90, 1) + ":0.5"]
+    elif option == "init_image":
+        kw["init_image"] = _png_file(tiny / "init.png", 80, 70, 2)
+    elif option == "skip_timesteps":
+        kw["skip_timesteps"] = 3
+    else:
+        toy.install(monkeypatch, tiny, tiny / "ckpts")
+        kw.update(weights_mode="auto", checkpoints_dir=str(tiny / "ckpts"))
+    frames = [open(p, "rb").read() for _, p in api.clip_guided_diffusion(**kw)]
+    assert len(frames) == (2 if option == "skip_timesteps" else 5)
+    if option != "skip_timesteps":
+        assert frames != base
+    if option == "weights_mode":
+        assert (tiny / "ckpts" / "toy_unet.pt.npz.cgd").is_file()
+        assert (tiny / "ckpts" / "clip" / "ViT-B-32.pt.npz.cgd").is_file()
+
+
+def test_init_skip_init_scale_and_an_image_prompt_run_together(tiny, monkeypatch):
+    """The tentpole's path at toy size: the LPIPS distance is taken at every
+    guided step (against the init image), and nothing else changes the
+    frame count: ddim5 with skip 2 saves steps 0, 1, 2."""
+    calls = []
+    real = tlpips.lpips_distance
+
+    def counted(model, x, y):
+        calls.append((tuple(x.shape), tuple(y.shape)))
+        return real(model, x, y)
+
+    monkeypatch.setattr("cgd_tpu_torch.guidance.pipeline.lpips_distance", counted)
+    frames = list(api.clip_guided_diffusion(
+        init_image=_png_file(tiny / "init.png", 64, 64, 3), skip_timesteps=2, init_scale=1000,
+        image_prompts=[_png_file(tiny / "p.png", 40, 60, 4)], prefix_path=tiny / "out",
+        save_frequency=1, batch_size=2, **KW))
+    assert [b for b, _ in frames] == [0, 1] * 3
+    assert calls == [((2, 64, 64, 3), (2, 64, 64, 3))] * 3
+    for _, path in frames:
+        assert _read_png(path).shape == (64, 64, 3)
+
+
+@pytest.mark.parametrize("strict_parity", [True, False])
+def test_the_final_frame_with_a_skip_follows_strict_parity(tiny, strict_parity):
+    """ddim6 with skip 2 runs steps 0-3; save_frequency 2 saves 0 and 2, and
+    the last step only without strict parity (the reference never saves it
+    when skip > 0, cgd/cgd.py:268)."""
+    frames = list(api.clip_guided_diffusion(
+        **{**KW, "timestep_respacing": "ddim6"}, skip_timesteps=2, save_frequency=2,
+        prefix_path=tiny / "out", strict_parity=strict_parity))
+    steps = [os.path.basename(p) for _, p in frames]
+    assert steps == (["0000.png", "0002.png"] if strict_parity
+                     else ["0000.png", "0002.png", "0003.png"])
 
 
 def _default(p):
@@ -141,14 +216,39 @@ def test_signature_matches_the_jax_api():
 
 
 @pytest.mark.parametrize("option", [
-    {"checkpoints_dir": "ckpts"}, {"wandb_entity": "team"}, {"noise_file": "noise.npz"},
-    {"async_frames": True}, {"log_losses": True}, {"strict_parity": False},
+    {"wandb_project": "proj"}, {"wandb_entity": "team"}, {"noise_file": "noise.npz"},
+    {"async_frames": True}, {"log_losses": True}, {"width_offset": 8},
     {"stall_pet": lambda phase: None}, {"device_lock": threading.Lock()},
 ], ids=lambda o: next(iter(o)))
 def test_jax_keywords_the_port_cannot_honour_raise_by_name(tiny, option):
     (name,) = option
     with pytest.raises(NotImplementedError, match=name):
         next(api.clip_guided_diffusion(**{**KW, **option}))
+
+
+@pytest.mark.parametrize("name", ["checkpoints_dir", "strict_parity"])
+def test_jax_keywords_the_port_now_honours(tiny, monkeypatch, name):
+    """``checkpoints_dir``: created, its reference-layout .pt files converted
+    into .npz.cgd caches beside them, which a second run reads with the .pt
+    files gone. ``strict_parity=False``: image prompts CLIP-normalized, so
+    their embeddings, and the frames, differ from the strict run's."""
+    if name == "checkpoints_dir":
+        ckpts = tiny / "nested" / "ckpts"
+        toy.install(monkeypatch, tiny, ckpts)
+        kw = dict(KW, weights_mode="auto", checkpoints_dir=str(ckpts))
+        first = [open(p, "rb").read() for _, p in api.clip_guided_diffusion(
+            prefix_path=tiny / "a", **kw)]
+        os.remove(ckpts / "toy_unet.pt")
+        os.remove(ckpts / "clip" / "ViT-B-32.pt")
+        again = [open(p, "rb").read() for _, p in api.clip_guided_diffusion(
+            prefix_path=tiny / "b", **kw)]
+        assert first == again and len(first) == 2
+        return
+    prompt = _png_file(tiny / "p.png", 48, 48, 5)
+    runs = [[open(p, "rb").read() for _, p in api.clip_guided_diffusion(
+        **KW, image_prompts=[prompt], prefix_path=tiny / str(sp), strict_parity=sp)]
+        for sp in (True, False)]
+    assert runs[0] != runs[1]
 
 
 def test_dropout_is_taken_and_never_applied(tiny):

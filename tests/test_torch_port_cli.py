@@ -1,11 +1,14 @@
 """The port's CLI (cgd_tpu_torch/cli.py) against cgd_tpu/cli.py: the same
 parser (spellings and defaults; only --device differs, cuda), the same flag
 -> keyword mapping onto clip_guided_diffusion, refusals by flag name for
-what the port cannot honour, and one toy-size run on the CPU."""
+what the port cannot honour, and toy-size runs on the CPU, one of them the
+init-image path from reference-layout checkpoints
+(tests/torch_port_toy_checkpoints.py)."""
 
 import os
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,6 +16,8 @@ torch = pytest.importorskip("torch")
 from cgd_tpu import cli as jcli  # noqa: E402
 from cgd_tpu_torch import api as tapi  # noqa: E402
 from cgd_tpu_torch import cli as tcli  # noqa: E402
+from cgd_tpu_torch.io_utils.images import encode_png  # noqa: E402
+from tests import torch_port_toy_checkpoints as toy  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -73,13 +78,11 @@ def test_uncond_turns_off_class_conditioning_and_class_randomizing(recorded):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["-imgs", "a.png"], "--image_prompts"), (["-init", "a.png"], "--init_image"),
     (["-augs"], "--use_augs"), (["-gif"], "--save-as-gif"), (["-mp4"], "--save-as-video"),
     (["--profile", "p"], "--profile"),
     (["--log-losses"], "--log-losses"), (["--fast-guidance"], "--fast-guidance"),
     (["--dpm-solver"], "--dpm-solver"), (["--checkpoint", "c.npz"], "--checkpoint"),
     (["--resume", "c.npz"], "--resume"), (["--stall-timeout", "5"], "--stall-timeout"),
-    (["--no-strict-parity"], "--no-strict-parity"),
 ])
 def test_flags_the_port_cannot_honour_raise_by_name(recorded, argv, flag):
     with pytest.raises(NotImplementedError, match=flag):
@@ -87,24 +90,71 @@ def test_flags_the_port_cannot_honour_raise_by_name(recorded, argv, flag):
     assert recorded == []
 
 
+@pytest.mark.parametrize("argv,want", [
+    (["-imgs", "a.png|https://x/b.png:0.5"], {"image_prompts": ["a.png", "https://x/b.png:0.5"]}),
+    (["-init", "a.png", "-skip", "12", "-is", "1000"],
+     {"init_image": "a.png", "skip_timesteps": 12, "init_scale": 1000}),
+    (["--no-strict-parity"], {"strict_parity": False}),
+], ids=["-imgs", "-init", "--no-strict-parity"])
+def test_init_image_flags_reach_the_api(recorded, argv, want):
+    """As the JAX CLI: '|'-separated image prompts, the init image with its
+    skip and LPIPS scale, and --no-strict-parity go to the API."""
+    tcli.main(["--prompts", "x", *argv])
+    (kw,) = recorded
+    assert {k: kw[k] for k in want} == want
+    defaults = dict(image_prompts=[], init_image="", skip_timesteps=0, init_scale=0,
+                    strict_parity=True)
+    assert {k: kw[k] for k in defaults if k not in want} == {
+        k: v for k, v in defaults.items() if k not in want}
+
+
 def test_options_the_api_refuses_raise_through_the_cli(monkeypatch, tmp_path):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="skip_timesteps"):
-        tcli.main(["--prompts", "x", "-skip", "3", "--device", "cpu", "--weights-mode", "random"])
+    with pytest.raises(NotImplementedError, match="reduce_clip"):
+        tcli.main(["--prompts", "x", "-reduce", "--device", "cpu", "--weights-mode", "random"])
 
 
 @pytest.mark.parametrize("argv,keyword", [(["-ckpts", "ckpts"], "checkpoints_dir"),
                                           (["-ent", "team"], "wandb_entity")])
 def test_checkpoint_dir_and_wandb_entity_reach_the_api(monkeypatch, tmp_path, argv, keyword):
-    """As the JAX CLI, ``-ckpts`` and ``-ent`` go to the API, which refuses
-    what the port cannot honour by name (they were dropped silently); the
-    defaults and ``-drop`` pass."""
+    """As the JAX CLI, ``-ckpts`` and ``-ent`` go to the API (they were
+    dropped silently once): ``-ckpts`` is where ``--weights-mode auto``
+    finds the reference-layout checkpoints and writes their converted
+    caches; ``-ent`` the API refuses by name. The defaults and ``-drop``
+    pass."""
     monkeypatch.setenv("CGD_TPU_DEBUG_TINY", "1")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=keyword):
-        tcli.main(["--prompts", "x", *argv, "-size", "64", "-cutn", "2", "-respace", "ddim5",
-                   "--device", "cpu", "--weights-mode", "random", "--compute-dtype", "float32",
-                   "-q"])
+    argv_run = ["--prompts", "x", *argv, "-size", "64", "-cutn", "2", "-respace", "ddim5",
+                "--device", "cpu", "--compute-dtype", "float32", "-q"]
+    if keyword == "wandb_entity":
+        with pytest.raises(NotImplementedError, match=keyword):
+            tcli.main(argv_run + ["--weights-mode", "random"])
+        return
+    toy.install(monkeypatch, tmp_path, tmp_path / "ckpts")
+    tcli.main(argv_run + ["--weights-mode", "auto", "-freq", "2"])
+    assert (tmp_path / "ckpts" / "toy_unet.pt.npz.cgd").is_file()
+    assert (tmp_path / "ckpts" / "clip" / "ViT-B-32.pt.npz.cgd").is_file()
+    assert len(list((tmp_path / "outputs").rglob("*.png"))) == 3
+
+
+def test_the_init_image_path_from_checkpoints_through_the_cli(monkeypatch, tmp_path):
+    """The tentpole's command line at toy size: reference-layout UNet, CLIP
+    and VGG / lpips weights converted from -ckpts (the LPIPS .pth files from
+    the download cache), an init image with skip and init scale, an image
+    prompt; ddim5 with skip 2 leaves three steps, saved at 0 and 2 with
+    -freq 2."""
+    monkeypatch.chdir(tmp_path)
+    toy.install(monkeypatch, tmp_path, tmp_path / "ckpts", lpips=True)
+    rs = np.random.RandomState(0)
+    for name, shape in (("init.png", (70, 64, 3)), ("style.png", (40, 52, 3))):
+        (tmp_path / name).write_bytes(encode_png(rs.randint(0, 256, shape).astype(np.uint8)))
+    tcli.main(["--prompts", "the hello", "-init", "init.png", "-skip", "2", "-is", "1000",
+               "-imgs", "style.png:0.5", "-size", "64", "-cutn", "2", "-respace", "ddim5",
+               "-ckpts", "ckpts", "--weights-mode", "auto", "--device", "cpu",
+               "--compute-dtype", "float32", "-freq", "2", "-q"])
+    assert (tmp_path / "ckpts" / "lpips_vgg.npz.cgd").is_file()
+    pngs = sorted(p.name for p in (tmp_path / "outputs").rglob("*.png"))
+    assert pngs == ["0000.png", "0002.png"]
 
 
 def test_dropout_and_the_default_checkpoint_dir_pass_to_the_api(recorded):

@@ -220,3 +220,28 @@ def test_the_n_tile_follows_cout(cout, bn):
 def test_skinny_cin_pads_to_one_chunk():
     plan = k3.conv_plan(1, 256, 256, 3, 256)
     assert plan["cin"] == 64 and plan["chunks"] == 1 and plan["ksplit"] == 1
+
+
+# the 13 convs of the LPIPS VGG16 at a 256^2 input (H, Cin, Cout), and the
+# input gradient of the first (Cout 3)
+VGG16_256 = [(256, 3, 64), (256, 64, 64), (128, 64, 128), (128, 128, 128), (64, 128, 256),
+             (64, 256, 256), (64, 256, 256), (32, 256, 512), (32, 512, 512), (32, 512, 512),
+             (16, 512, 512), (16, 512, 512), (16, 512, 512), (256, 64, 3)]
+
+
+@pytest.mark.parametrize("h,cin,cout", VGG16_256)
+def test_the_f32_plan_covers_the_vgg16_convs(h, cin, cout):
+    """K-fwd f32: Cin / Cout padded to multiples of 4 (16-byte copies), the
+    grid covering every output pixel and channel once, Cin in 32-channel
+    chunks, two stages of the staged window and weights within a block's
+    shared memory."""
+    for b in (1, 2):
+        plan = k3.f32_plan(b, h, h, cin, cout)
+        assert plan["cin"] % 4 == 0 and plan["cin"] - cin < 4
+        assert plan["cout"] % 4 == 0 and plan["cout"] - cout < 4
+        patches, ntiles, nb = plan["grid"]
+        ph, pw = plan["patch"]
+        assert patches == -(-h // ph) * -(-h // pw)
+        assert ntiles * plan["bn"] >= plan["cout"] > (ntiles - 1) * plan["bn"] and nb == b
+        assert plan["chunks"] * plan["bk"] >= plan["cin"] > (plan["chunks"] - 1) * plan["bk"]
+        assert plan["smem_bytes"] == 217728 <= k3.SMEM_MAX

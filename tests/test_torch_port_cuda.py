@@ -83,14 +83,106 @@ def test_autograd_functions_use_the_kernels(dev):
     out = k3.conv3x3_gn_silu_add(x, A, d["B"], d["w"], d["bias"], d["skip"])
     out.float().sum().backward()
     assert k3.LAUNCHES == {"conv3x3_fwd": 1, "conv3x3_fwd_halo": 0, "conv3x3_dx": 1,
-                           "conv3x3_dx_wtiled": 0}
+                           "conv3x3_dx_wtiled": 0, "conv3x3_fwd_f32": 0}
     assert x.grad.dtype == torch.bfloat16 and A.grad.dtype == torch.float32
 
 
 def test_f32_raises_with_the_dtype_named(dev):
+    """f32 x with bf16 weights: the f32 kernel names the dtype it takes."""
     d = _inputs(dev, 1, 8, 32, 32)
     with pytest.raises(TypeError, match="float32"):
         k3.conv3x3_fwd(d["x"].float(), d["w"], d["bias"])
+
+
+# K-fwd f32 (csrc/conv3x3_f32.cu), held to its plain version with cuDNN in
+# full f32 at the conv family's bound, 1% of the reference's max (3xTF32
+# keeps about f32's precision; the bound is the family's).
+# (batch, H, W, Cin, Cout): the VGG16's first conv and its 3-channel input
+# gradient, ragged patches and N tiles, a Cin that is no multiple of 32
+F32_SHAPES = [(1, 32, 32, 3, 64), (1, 32, 32, 64, 3), (2, 20, 36, 36, 20), (1, 16, 16, 512, 512),
+              (2, 9, 17, 8, 100), (1, 64, 64, 64, 64)]
+
+
+def _f32_inputs(dev, b, h, w, ci, co, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return (torch.randn(b, h, w, ci, generator=gen, device=dev),
+            torch.randn(3, 3, ci, co, generator=gen, device=dev) * (9 * ci) ** -0.5,
+            torch.randn(co, generator=gen, device=dev) * 0.1)
+
+
+@pytest.fixture
+def full_f32():
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_kfwd_f32_matches_plain(dev, full_f32, shape):
+    x, w, bias = _f32_inputs(dev, *shape)
+    k3.reset_launch_counts()
+    out = k3.conv3x3_fwd(x, w, bias)
+    assert k3.LAUNCHES["conv3x3_fwd_f32"] == 1 and k3.LAUNCHES["conv3x3_fwd"] == 0
+    assert out.dtype == torch.float32 and out.shape == shape[:3] + (shape[4],)
+    _close(out, k3.conv3x3_fwd_plain(x, w, bias))
+
+
+def test_kfwd_f32_input_gradient_runs_on_the_f32_kernel(dev, full_f32):
+    x, w, bias = _f32_inputs(dev, 1, 24, 24, 3, 64, seed=1)
+    g = torch.randn(1, 24, 24, 64, device=dev)
+    xk = x.clone().requires_grad_(True)
+    k3.reset_launch_counts()
+    (dk,) = torch.autograd.grad(k3.conv3x3(xk, w, bias), xk, g)
+    assert k3.LAUNCHES["conv3x3_fwd_f32"] == 2  # forward, and the flipped conv for dx
+    xp = x.clone().requires_grad_(True)
+    (dp,) = torch.autograd.grad(k3.conv3x3_fwd_plain(xp, w, bias), xp, g)
+    _close(dk, dp)
+
+
+@pytest.mark.parametrize("fusion", ["prologue", "skip", "up", "halo"])
+def test_kfwd_f32_refuses_the_fused_modes(dev, fusion):
+    x, w, bias = _f32_inputs(dev, 1, 8, 8, 32, 32)
+    A = B = skip = etop = ebot = None
+    if fusion == "prologue":
+        A, B = torch.ones(1, 32, device=dev), torch.zeros(1, 32, device=dev)
+    elif fusion == "skip":
+        skip = torch.zeros(1, 8, 8, 32, device=dev)
+    elif fusion == "halo":
+        etop = ebot = torch.zeros(1, 1, 8, 32, device=dev)
+    with pytest.raises(ValueError, match="plain conv only"):
+        k3.conv3x3_fwd(x, w, bias, A, B, skip, fusion == "up", etop, ebot)
+
+
+def test_the_f32_kernel_sizes_shared_memory_as_the_plan(dev):
+    from cgd_tpu_torch.kernels import _build
+
+    assert _build.library().cgd_conv3x3_f32_smem_bytes() == k3.f32_plan(1, 16, 16, 64, 64)[
+        "smem_bytes"]
+
+
+def test_lpips_on_the_card_matches_the_plain_routing(dev, full_f32):
+    """The whole VGG16 LPIPS distance and its input gradient at 64^2, the
+    convs on K-fwd f32 against cuDNN in f32: relative L2 <= 1e-2."""
+    from cgd_tpu_torch.models.vgg_lpips import VGGLPIPS, lpips_distance
+    from cgd_tpu_torch.ops.nn import kernel_routing
+
+    model = VGGLPIPS(device=dev).init_weights(torch.Generator(dev).manual_seed(0))
+    gen = torch.Generator(dev).manual_seed(1)
+    x, y = (torch.rand(1, 64, 64, 3, generator=gen, device=dev) * 2 - 1 for _ in range(2))
+
+    def run():
+        x_ = x.clone().requires_grad_(True)
+        d = lpips_distance(model, x_, y)
+        return d.detach(), torch.autograd.grad(d.sum(), x_)[0]
+
+    k3.reset_launch_counts()
+    got = run()
+    assert k3.LAUNCHES["conv3x3_fwd_f32"] == 39
+    with kernel_routing("plain"):
+        want = run()
+    for a, b in zip(got, want):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-2
 
 
 def _rn(dev, *shape, scale=1.0, seed=0):
@@ -113,7 +205,7 @@ def test_kdx_wtiled_matches_plain_and_is_deterministic(dev, shape):
     got = k3.conv3x3_dx(g, wt, x, A, B, wtiled=True)
     again = k3.conv3x3_dx(g, wt, x, A, B, wtiled=True)
     assert k3.LAUNCHES == {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0,
-                           "conv3x3_dx_wtiled": 2}
+                           "conv3x3_dx_wtiled": 2, "conv3x3_fwd_f32": 0}
     for a, ref, c in zip(got, k3.conv3x3_dx_plain(g, wt, x, A, B), again):
         _close(a, ref)
         assert torch.equal(a, c)
