@@ -17,6 +17,12 @@ activations split by height over 'cut' (every 3x3 conv on K-halo), the
 cutouts split over every mesh device. Every other option raises rather
 than being ignored.
 
+``compute_dtype="float32"`` runs the UNet, CLIP and the glue in f32 (the
+conv family and the attention on their f32 kernels on a card) with TF32 off
+for cuDNN and cuBLAS while the generator runs, and the caller's flags back
+whenever it yields or ends; a mesh at float32 on a card is refused (K-halo
+has no f32 kernel yet).
+
 The signature is ``cgd_tpu.api.clip_guided_diffusion``'s, keyword for keyword
 and default for default (tests/test_torch_port_api.py pins it), except
 ``device``: it defaults to ``"cuda"``, and with no card that is an error. The
@@ -26,7 +32,10 @@ taken and, as in the JAX package's sampling, never applied.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import hashlib
+import inspect
 import time
 from pathlib import Path
 from typing import Iterator, Optional, Tuple
@@ -116,6 +125,51 @@ def encode_image_prompt(clip_model: CLIP, clip_cfg: CLIPConfig, img: torch.Tenso
     return encode_image(clip_model, cuts)
 
 
+@contextlib.contextmanager
+def _full_f32():
+    """cuDNN's and cuBLAS's TF32 off for the extent (PyTorch's default lets
+    cuDNN run f32 convolutions at TF32), both flags restored on exit; the
+    process's defaults are not changed."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            matmul.allow_tf32 = prev
+
+
+def _tf32_off(gen: Iterator) -> Iterator:
+    """Run the generator ``gen`` under ``_full_f32``, with the caller's flags
+    back while it is suspended at a yield."""
+    try:
+        while True:
+            with _full_f32():
+                try:
+                    item = next(gen)
+                except StopIteration:
+                    return
+            yield item
+    finally:
+        gen.close()
+
+
+def _f32_precision(fn):
+    """A call of the generator function ``fn`` with compute_dtype="float32"
+    runs under ``_tf32_off``."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        gen = fn(*args, **kwargs)
+        bound = sig.bind(*args, **kwargs)
+        return _tf32_off(gen) if bound.arguments.get("compute_dtype") == "float32" else gen
+
+    return call
+
+
 def _refuse(**unsupported) -> None:
     for name, (value, default) in unsupported.items():
         if value != default:
@@ -124,6 +178,7 @@ def _refuse(**unsupported) -> None:
                 f"(only the default {default!r} is supported)")
 
 
+@_f32_precision
 def clip_guided_diffusion(
     image_size: int = 128,
     num_cutouts: int = 16,
@@ -176,6 +231,10 @@ def clip_guided_diffusion(
 ) -> Iterator[Tuple[int, str]]:
     if mesh is not None and any(d.type != torch.device(device).type for d in mesh.devices.flat):
         raise ValueError(f"device={device!r} but the mesh's devices are {list(mesh.devices.flat)}")
+    if mesh is not None and compute_dtype == "float32" and torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            "mesh= with compute_dtype='float32' on CUDA: the height-split convs run on K-halo, "
+            "which has no float32 kernel yet (use compute_dtype='bfloat16' with a mesh)")
     dev = resolve_device(device)
     _refuse(
         use_augs=(use_augs, False),
@@ -190,8 +249,6 @@ def clip_guided_diffusion(
     )
     if compute_dtype not in ("bfloat16", "float32"):
         raise ValueError(f"compute_dtype must be 'bfloat16' or 'float32', got {compute_dtype!r}")
-    if dev.type == "cuda" and compute_dtype != "bfloat16":
-        raise ValueError("compute_dtype='float32' on CUDA: the conv kernels take bfloat16")
 
     prompts, image_prompts = list(prompts), list(image_prompts)
     check_parameters(

@@ -68,8 +68,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_conv3x3_smem_bytes.restype = i
     lib.cgd_conv3x3_encode_seconds.argtypes = [p, i]
     lib.cgd_conv3x3_encode_seconds.restype = ctypes.c_double
-    lib.cgd_conv3x3_f32.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.cgd_conv3x3_f32.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.cgd_conv3x3_f32.restype = i
+    lib.cgd_conv3x3_dx_f32.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.cgd_conv3x3_dx_f32.restype = i
+    lib.cgd_conv3x3_dx_f32_chunks.argtypes = [i, i]
+    lib.cgd_conv3x3_dx_f32_chunks.restype = i
     lib.cgd_conv3x3_f32_smem_bytes.argtypes = []
     lib.cgd_conv3x3_f32_smem_bytes.restype = i
     lib.cgd_attn_fwd.argtypes = [p] * 3 + [i] * 7 + [p]
@@ -78,6 +82,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_attn_bwd.restype = i
     lib.cgd_attn_smem_bytes.argtypes = [i, i]
     lib.cgd_attn_smem_bytes.restype = i
+    lib.cgd_attn_fwd_f32.argtypes = [p] * 3 + [i] * 5 + [p]
+    lib.cgd_attn_fwd_f32.restype = i
+    lib.cgd_attn_bwd_f32.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.cgd_attn_bwd_f32.restype = i
+    lib.cgd_attn_f32_smem_bytes.argtypes = [i, i]
+    lib.cgd_attn_f32_smem_bytes.restype = i
     lib.cgd_error_string.argtypes = [i]
     lib.cgd_error_string.restype = ctypes.c_char_p
     return lib

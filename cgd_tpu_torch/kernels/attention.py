@@ -20,9 +20,14 @@ and the kernels agree on.
 - ``qkv_attention``: the ``torch.autograd.Function`` mirroring
   ``flash_mha``'s ``custom_vjp``.
 
+At f32 operands (the UNet at ``compute_dtype="float32"``) the same entry
+points launch K-attn-f f32 and K-attn-b f32 (``csrc/attn_f32.cu``: exact f32
+FMA on the CUDA cores, the same fused qkv, log-sum-exp and two-launch
+backward; ``f32_attn_plan`` is their geometry).
+
 Dispatch: a tensor on the CPU takes the plain versions; a CUDA tensor
 launches the kernels or raises (a head dim outside 64/128/192/256, a dtype
-other than bfloat16, a failed build). Nothing falls back.
+other than bfloat16 or float32, a failed build). Nothing falls back.
 """
 
 from __future__ import annotations
@@ -39,8 +44,8 @@ HEAD_DIMS = (64, 128, 192, 256)  # the kernels' templates
 
 # launches of each kernel since the last reset_launch_counts(), in all and by
 # head dim
-LAUNCHES = {"attn_fwd": 0, "attn_bwd": 0}
-LAUNCHES_BY_D = {d: {"attn_fwd": 0, "attn_bwd": 0} for d in HEAD_DIMS}
+LAUNCHES = {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_f32": 0, "attn_bwd_f32": 0}
+LAUNCHES_BY_D = {d: dict.fromkeys(LAUNCHES, 0) for d in HEAD_DIMS}
 
 # the kernels' geometry (csrc/attn_common.cuh)
 ROWS = 64         # rows of every tile (the wgmma M) and of the TMA box
@@ -154,34 +159,71 @@ def attn_plan(batch: int, heads: int, t: int, d: int) -> dict:
                 grid={k: grid for k in smem}, smem=smem, box=(BOX, ROWS, 1), bwd_launches=2)
 
 
+# the f32 kernels' geometry (csrc/attn_f32.cu)
+F32_THREADS = 256  # 4 per row of the block's 64-row tile
+F32_ROW_PAD = 4    # floats after each shared row of d
+
+
+def f32_attn_plan(batch: int, heads: int, t: int, d: int) -> dict:
+    """The launch plan of K-attn-f f32 / K-attn-b f32 for ``[batch, t,
+    3*heads*d]`` f32 (the C entry points check the tiles; a card test holds
+    the shared memory to the kernels').
+
+    One block of 256 threads per (64-row tile, batch*head), as ``attn_plan``:
+    the forward and the dQ kernel own q rows and stream K/V tiles of
+    ``stream["fwd"]`` / ``stream["bwd_dq"]`` rows, the dK/dV kernel owns kv
+    rows and streams Q/dO tiles of ``stream["bwd_dkdv"]`` rows, each through
+    two cp.async stages. Shared rows are d + 4 floats; the scores of a
+    streamed tile are staged as [64][tile + 4] (two such arrays in the dK/dV
+    kernel, P^T and dS^T). The backward is two launches."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"attention: head dim {d} has no kernel (supported: {HEAD_DIMS})")
+    row = d + F32_ROW_PAD
+    kv, bt = 32, 16 if d >= 256 else 32
+    smem = {"fwd": 4 * (ROWS * row + 2 * 2 * kv * row + ROWS * (kv + 4)),
+            "bwd_dq": 4 * (2 * ROWS * row + 2 * 2 * bt * row + ROWS * (bt + 4)),
+            "bwd_dkdv": 4 * (2 * ROWS * row + 2 * 2 * bt * row + 2 * ROWS * (bt + 4))}
+    grid = (-(-t // ROWS), batch * heads)
+    return dict(body="f32-fma", d=d, q_tile=ROWS, tiles=grid[0], threads=F32_THREADS,
+                stream={"fwd": kv, "bwd_dq": bt, "bwd_dkdv": bt}, stages=2,
+                grid={k: grid for k in smem}, smem=smem, bwd_launches=2)
+
+
 # ---------------------------------------------------------------------------
 # kernel launchers
 # ---------------------------------------------------------------------------
+
+_DTYPES = (torch.bfloat16, torch.float32)  # a kernel set for each
+
 
 def _bad(name: str, dev, arg: str, t: torch.Tensor, want) -> Exception:
     if t.device != dev:
         return ValueError(f"{name}: {arg} is on {t.device}, expected {dev}")
     if t.dtype != want:
-        return TypeError(f"{name}: {arg} has dtype {t.dtype}; the CUDA kernel takes {want} "
-                         "(run the UNet with compute_dtype bfloat16)")
+        return TypeError(f"{name}: {arg} has dtype {t.dtype}; the CUDA kernels take "
+                         f"{want} here (qkv, out and g in bfloat16 or float32, lse in float32)")
     return ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
 
 
 def _check(name: str, num_heads: int, qkv: torch.Tensor, *more) -> Tuple[int, int, int, dict]:
     """One pass over the tensors (device, dtype, contiguity, 16-byte
-    alignment; ``more`` = (name, tensor, dtype) triples), then qkv's shape.
-    Returns (b, t, c, plan)."""
+    alignment; ``more`` = (name, tensor, dtype) triples, dtype None for
+    qkv's), then qkv's shape. Returns (b, t, c, plan), the plan of qkv's
+    dtype."""
     dev = qkv.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    for arg, t, want in (("qkv", qkv, torch.bfloat16), *more):
+    dt = qkv.dtype if qkv.dtype in _DTYPES else torch.bfloat16
+    for arg, t, want in (("qkv", qkv, dt), *more):
+        want = want or dt
         if t.device != dev or t.dtype != want or not t.is_contiguous() or t.data_ptr() % 16:
             raise _bad(name, dev, arg, t, want)
     b, t, c3 = qkv.shape
     c = c3 // 3
     if c3 % 3 or c % num_heads:
         raise ValueError(f"{name}: qkv {tuple(qkv.shape)} does not split into 3 x {num_heads} heads")
-    return b, t, c, attn_plan(b, num_heads, t, c // num_heads)
+    plan = f32_attn_plan if dt == torch.float32 else attn_plan
+    return b, t, c, plan(b, num_heads, t, c // num_heads)
 
 
 def _launch(dev: torch.device, fn, *args) -> int:
@@ -194,13 +236,21 @@ def _launch(dev: torch.device, fn, *args) -> int:
 
 
 def attention_fwd(qkv: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K-attn-f. qkv [B, T, 3C] bf16 on a card -> (out [B, T, C] bf16,
-    lse [B*H, T] f32, the per-row log-sum-exp of the scaled logits)."""
+    """K-attn-f. qkv [B, T, 3C] bf16 or f32 on a card -> (out [B, T, C] in
+    qkv's dtype, lse [B*H, T] f32, the per-row log-sum-exp of the scaled
+    logits). f32 runs K-attn-f f32."""
     b, t, c, plan = _check("attention_fwd", num_heads, qkv)
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b * num_heads, t), dtype=torch.float32, device=qkv.device)
     d = plan["d"]
-    status = _launch(qkv.device, _build.library().cgd_attn_fwd, qkv.data_ptr(), out.data_ptr(),
+    lib = _build.library()
+    if qkv.dtype == torch.float32:
+        status = _launch(qkv.device, lib.cgd_attn_fwd_f32, qkv.data_ptr(), out.data_ptr(),
+                         lse.data_ptr(), b, t, num_heads, d, plan["stream"]["fwd"])
+        _build.check(status, "attention_fwd (f32)")
+        _count("attn_fwd_f32", d)
+        return out, lse
+    status = _launch(qkv.device, lib.cgd_attn_fwd, qkv.data_ptr(), out.data_ptr(),
                      lse.data_ptr(), b, t, num_heads, d, plan["kv_tile"], plan["stages"]["fwd"],
                      plan["split"])
     _build.check(status, "attention_fwd")
@@ -210,12 +260,15 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torc
 
 def attention_bwd(qkv, out, lse, g, num_heads: int) -> torch.Tensor:
     """K-attn-b. The forward's qkv, out and lse and the cotangent g [B, T, C]
-    -> dqkv [B, T, 3C] bf16 (deterministic)."""
-    bf = torch.bfloat16
-    b, t, c, plan = _check("attention_bwd", num_heads, qkv, ("out", out, bf),
-                           ("lse", lse, torch.float32), ("g", g, bf))
+    -> dqkv [B, T, 3C] in qkv's dtype (deterministic). f32 runs K-attn-b
+    f32."""
+    b, t, c, plan = _check("attention_bwd", num_heads, qkv, ("out", out, None),
+                           ("lse", lse, torch.float32), ("g", g, None))
     if out.shape != (b, t, c) or g.shape != (b, t, c) or lse.shape != (b * num_heads, t):
         raise ValueError("attention_bwd: out / g / lse do not fit qkv")
+    if qkv.dtype == torch.float32:
+        return _attention_bwd_f32(qkv, out, lse, g, num_heads, plan)
+    bf = torch.bfloat16
     # dqkv and the D scratch (f32 [B*H, T], at byte 2n: 16-byte aligned) in one
     # allocation
     n = b * t * 3 * c
@@ -228,6 +281,24 @@ def attention_bwd(qkv, out, lse, g, num_heads: int) -> torch.Tensor:
                      plan["kv_tile"], plan["stages"]["bwd_dq"], plan["split"])
     _build.check(status, "attention_bwd")
     _count("attn_bwd", d)
+    return dqkv
+
+
+def _attention_bwd_f32(qkv, out, lse, g, num_heads: int, plan: dict) -> torch.Tensor:
+    """K-attn-b f32 on checked tensors: dqkv [B, T, 3C] f32."""
+    b, t, c3 = qkv.shape
+    # dqkv and the D scratch (f32 [B*H, T], at element n: 16-byte aligned)
+    # in one allocation
+    n = b * t * c3
+    buf = torch.empty(n + b * num_heads * t, dtype=torch.float32, device=qkv.device)
+    dqkv = buf.as_strided((b, t, c3), (t * c3, c3, 1))
+    d = plan["d"]
+    status = _launch(qkv.device, _build.library().cgd_attn_bwd_f32, qkv.data_ptr(),
+                     out.data_ptr(), g.data_ptr(), lse.data_ptr(), buf.data_ptr() + 4 * n,
+                     buf.data_ptr(), b, t, num_heads, d, plan["stream"]["bwd_dq"],
+                     plan["stream"]["bwd_dkdv"])
+    _build.check(status, "attention_bwd (f32)")
+    _count("attn_bwd_f32", d)
     return dqkv
 
 

@@ -23,10 +23,12 @@ Both kernels share one Hopper main loop (TMA-staged input patches, wgmma,
 a producer warpgroup); ``conv_plan`` is the launch geometry the wrapper and
 the kernel agree on.
 
-At f32 operands ``conv3x3_fwd`` runs a third kernel, ``csrc/conv3x3_f32.cu``
-(K-fwd f32: the plain conv with bias, 3xTF32 ``mma.sync``; ``f32_plan`` is its
-geometry): the LPIPS VGG16's convs and their input gradients. It refuses
-the prologue, residual, up and halo modes.
+At f32 operands both wrappers run ``csrc/conv3x3_f32.cu`` (3xTF32
+``mma.sync``; ``f32_plan`` is its geometry): ``conv3x3_fwd`` as K-fwd f32 in
+the plain, prologue, residual and up modes (the LPIPS VGG16's convs, and
+the UNet at ``compute_dtype="float32"``), ``conv3x3_dx`` as K-dx f32 (one
+launch shape for both of K-dx's classes, then a fixed-order dA/dB sum).
+K-halo has no f32 kernel yet: f32 with ``etop``/``ebot`` raises.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises. Nothing falls back from a failed build or launch.
@@ -50,7 +52,7 @@ from cgd_tpu_torch.kernels import _build
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES = {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0, "conv3x3_dx_wtiled": 0,
-            "conv3x3_fwd_f32": 0}
+            "conv3x3_fwd_f32": 0, "conv3x3_dx_f32": 0}
 
 _K_ALIGN = 64  # kernels need Cin % 64 == 0 (one 128-byte K chunk) ...
 _N_ALIGN = 8   # ... and Cout % 8 == 0 (16-byte TMA strides)
@@ -139,8 +141,9 @@ def _check_cuda(name: str, dev: torch.device, dtype=torch.bfloat16, **tensors) -
         want = torch.float32 if arg in ("A", "B") else dtype
         if t.dtype != want:
             raise TypeError(
-                f"{name}: {arg} has dtype {t.dtype}; the CUDA kernel takes "
-                f"{want} (run the UNet with compute_dtype bfloat16)"
+                f"{name}: {arg} has dtype {t.dtype}; with {dtype} operands the CUDA "
+                f"kernel takes {want} here (the operands share one dtype, bfloat16 "
+                "or float32; A and B are float32)"
             )
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
@@ -222,41 +225,90 @@ F32_BK, F32_BN = 32, 64  # input channels per chunk, output channels per block
 F32_ALIGN = 4         # Cin and Cout padded to a multiple of 4 (16-byte copies)
 
 
-def f32_plan(b: int, h: int, w: int, cin: int, cout: int) -> dict:
-    """The launch plan of one K-fwd f32 call: 8 x 16 output patches by 64
-    output channels per block, one block per (patch, N tile, image); Cin in
-    chunks of 32, two cp.async stages of the 10 x 18 input window
-    ([pixel][32 + 4] floats) and of the chunk's weights ([tap][32][64 + 8])."""
+def f32_plan(b: int, h: int, w: int, cin: int, cout: int, up: bool = False,
+             dx: bool = False) -> dict:
+    """The launch plan of one K-fwd f32 call (``dx``: K-dx f32, ``cin`` /
+    ``cout`` = Cg / Cx): 8 x 16 output patches by 64 output channels per
+    block, one block per (patch, N tile, image); Cin in chunks of 32, two
+    cp.async stages of the input window ([pixel][32 + 4] floats) and of the
+    chunk's weights ([tap][32][64 + 8]). The window is the patch's pad-1
+    halo, 10 x 18 pixels; with ``up`` (output 2h x 2w) it is staged at source
+    resolution, output rows / cols -1 .. 8 / 16 halved: 6 x 10. Every mode
+    takes the same shared memory. K-dx f32 writes one dA/dB partial row per
+    patch (``partial_rows``) and sums them in a second launch."""
     cin_p, cout_p = _round_up(cin, F32_ALIGN), _round_up(cout, F32_ALIGN)
     ph, pw = F32_PATCH
-    window = (ph + 2) * (pw + 2) * (F32_BK + 4)
-    weights = 9 * F32_BK * (F32_BN + 8)
-    return dict(cin=cin_p, cout=cout_p, patch=F32_PATCH, bk=F32_BK, bn=F32_BN,
-                chunks=-(-cin_p // F32_BK),
-                grid=(-(-h // ph) * -(-w // pw), -(-cout_p // F32_BN), b),
-                smem_bytes=2 * (window + weights) * 4)
+    ho, wo = (2 * h, 2 * w) if up else (h, w)
+    window = (ph // 2 + 2, pw // 2 + 2) if up else (ph + 2, pw + 2)
+    stage = (ph + 2) * (pw + 2) * (F32_BK + 4) + 9 * F32_BK * (F32_BN + 8)
+    patches = -(-ho // ph) * -(-wo // pw)
+    return dict(cin=cin_p, cout=cout_p, ho=ho, wo=wo, patch=F32_PATCH, bk=F32_BK, bn=F32_BN,
+                window=window,
+                chunks=-(-cin_p // F32_BK), grid=(patches, -(-cout_p // F32_BN), b),
+                smem_bytes=2 * stage * 4, partial_rows=patches if dx else None)
 
 
-def _conv3x3_fwd_f32(x, w, bias) -> torch.Tensor:
-    """K-fwd f32 on CUDA tensors (checked by the caller's dispatch)."""
-    _check_cuda("conv3x3_fwd", x.device, torch.float32, x=x, w=w, bias=bias)
+def _conv3x3_fwd_f32(x, w, bias, A, B, skip, up) -> torch.Tensor:
+    """K-fwd f32 on CUDA tensors, every mode but K-halo."""
+    _check_cuda("conv3x3_fwd", x.device, torch.float32, x=x, w=w, bias=bias, A=A, B=B,
+                skip=skip)
     b, h, wd, cin = x.shape
     cout = w.shape[-1]
     if w.shape != (3, 3, cin, cout) or bias.shape != (cout,):
         raise ValueError(f"conv3x3_fwd: w {tuple(w.shape)} / bias {tuple(bias.shape)} "
                          f"do not fit x {tuple(x.shape)}")
-    plan = f32_plan(b, h, wd, cin, cout)
+    plan = f32_plan(b, h, wd, cin, cout, up)
+    ho, wo = plan["ho"], plan["wo"]
+    if A is not None and (A.shape != (b, cin) or B.shape != (b, cin)):
+        raise ValueError(f"conv3x3_fwd: A {tuple(A.shape)} / B {tuple(B.shape)} != {(b, cin)}")
+    if skip is not None and skip.shape != (b, ho, wo, cout):
+        raise ValueError(f"conv3x3_fwd: skip {tuple(skip.shape)} != {(b, ho, wo, cout)}")
     cin_p, cout_p = plan["cin"], plan["cout"]
-    x, w = _pad_to(x, 3, cin_p), _pad_to(_pad_to(w, 2, cin_p), 3, cout_p)
-    bias = _pad_to(bias, 0, cout_p)
-    out = torch.empty((b, h, wd, cout_p), dtype=torch.float32, device=x.device)
+    x, w, A, B = _pad_to(x, 3, cin_p), _pad_to(_pad_to(w, 2, cin_p), 3, cout_p), \
+        _pad_to(A, 1, cin_p), _pad_to(B, 1, cin_p)
+    bias, skip = _pad_to(bias, 0, cout_p), _pad_to(skip, 3, cout_p)
+    out = torch.empty((b, ho, wo, cout_p), dtype=torch.float32, device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
-        status = lib.cgd_conv3x3_f32(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                                     b, h, wd, cin_p, cout_p, _build.stream(x.device))
+        status = lib.cgd_conv3x3_f32(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            None if A is None else A.data_ptr(), None if B is None else B.data_ptr(),
+            None if skip is None else skip.data_ptr(), out.data_ptr(),
+            b, h, wd, cin_p, cout_p, int(up), _build.stream(x.device))
     _build.check(status, "conv3x3_fwd (f32)")
     LAUNCHES["conv3x3_fwd_f32"] += 1
     return out[..., :cout].contiguous() if cout_p != cout else out
+
+
+def _conv3x3_dx_f32(g, wt, x, A, B):
+    """K-dx f32 on CUDA tensors: (dx, dA, dB)."""
+    _check_cuda("conv3x3_dx", g.device, torch.float32, g=g, wt=wt, x=x, A=A, B=B)
+    b, h, w_, cg = g.shape
+    cx = wt.shape[-1]
+    if wt.shape != (3, 3, cg, cx) or x.shape != (b, h, w_, cx) or A.shape != (b, cx) \
+            or B.shape != (b, cx):
+        raise ValueError("conv3x3_dx: shapes do not fit "
+                         f"g {tuple(g.shape)}, wt {tuple(wt.shape)}, x {tuple(x.shape)}")
+    plan = f32_plan(b, h, w_, cg, cx, dx=True)
+    cg_p, cx_p = plan["cin"], plan["cout"]
+    g, wt = _pad_to(g, 3, cg_p), _pad_to(_pad_to(wt, 2, cg_p), 3, cx_p)
+    x, A, B = _pad_to(x, 3, cx_p), _pad_to(A, 1, cx_p), _pad_to(B, 1, cx_p)
+    dev = g.device
+    dx = torch.empty((b, h, w_, cx_p), dtype=torch.float32, device=dev)
+    partial = torch.empty((b, plan["partial_rows"], 2, cx_p), dtype=torch.float32, device=dev)
+    dA = torch.empty((b, cx_p), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, cx_p), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        status = lib.cgd_conv3x3_dx_f32(
+            g.data_ptr(), wt.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(),
+            dx.data_ptr(), partial.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            b, h, w_, cg_p, cx_p, _build.stream(dev))
+    _build.check(status, "conv3x3_dx (f32)")
+    LAUNCHES["conv3x3_dx_f32"] += 1
+    if cx_p != cx:
+        return dx[..., :cx].contiguous(), dA[:, :cx].contiguous(), dB[:, :cx].contiguous()
+    return dx, dA, dB
 
 
 def _sms(dev: torch.device) -> int:
@@ -275,8 +327,8 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False, etop=None, ebot
     f32 or None; skip [b,ho,wo,cout] or None -> [b,ho,wo,cout] in x's dtype,
     (ho, wo) = (2hs, 2ws) with ``up``. ``etop``/``ebot`` [b,1,ws,cin] (both or
     neither, no ``up``): K-halo, the rows above and below x, post-activation.
-    bf16 operands on CUDA; f32 operands run K-fwd f32, the plain conv with
-    bias only. No autograd."""
+    bf16 operands on CUDA run K-fwd (K-halo with etop/ebot); f32 operands
+    run K-fwd f32 in every mode but K-halo. No autograd."""
     halo = etop is not None
     if halo != (ebot is not None) or (halo and up):
         raise ValueError("conv3x3_fwd: etop and ebot go together and take no up")
@@ -286,16 +338,16 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False, etop=None, ebot
         return conv3x3_fwd_plain(x, w, bias, A, B, skip, up)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_fwd: no kernel for device {x.device}")
-    if x.dtype == torch.float32:
-        if A is not None or B is not None or skip is not None or up or halo:
-            raise ValueError("conv3x3_fwd: the f32 kernel takes the plain conv only "
-                             "(no prologue, skip, up or halo)")
-        return _conv3x3_fwd_f32(x, w, bias)
-    _check_cuda("conv3x3_fwd", x.device, x=x, w=w, bias=bias, A=A, B=B, skip=skip,
-                etop=etop, ebot=ebot)
     if (A is None) != (B is None) or (up and (A is None or skip is not None)):
         raise ValueError("conv3x3_fwd: unsupported fusion (A and B go together; "
                          "up needs the prologue and takes no skip)")
+    if x.dtype == torch.float32:
+        if halo:
+            raise ValueError("conv3x3_fwd: K-halo (etop/ebot) has no float32 kernel; "
+                             "the height-split mesh runs at compute_dtype bfloat16")
+        return _conv3x3_fwd_f32(x, w, bias, A, B, skip, up)
+    _check_cuda("conv3x3_fwd", x.device, x=x, w=w, bias=bias, A=A, B=B, skip=skip,
+                etop=etop, ebot=ebot)
     b, hs, ws, cin = x.shape
     if halo and (etop.shape != (b, 1, ws, cin) or ebot.shape != (b, 1, ws, cin)):
         raise ValueError(f"conv3x3_fwd: etop {tuple(etop.shape)} / ebot {tuple(ebot.shape)} "
@@ -347,11 +399,15 @@ def conv3x3_dx(g, wt, x, A, B, wtiled: Optional[bool] = None
     -> dx [b,h,w,cx] in g's dtype, dA/dB [b,cx] f32. No autograd.
     ``wtiled`` forces the launch class (None: ``dx_wtiled``'s rule; True
     also forbids split K); K-dx-w launches count under
-    ``LAUNCHES["conv3x3_dx_wtiled"]``."""
+    ``LAUNCHES["conv3x3_dx_wtiled"]``. f32 operands run K-dx f32, which has
+    one launch shape for both classes (no split K), counted under
+    ``LAUNCHES["conv3x3_dx_f32"]``; ``wtiled`` changes nothing there."""
     if g.device.type == "cpu":
         return conv3x3_dx_plain(g, wt, x, A, B)
     if g.device.type != "cuda":
         raise ValueError(f"conv3x3_dx: no kernel for device {g.device}")
+    if g.dtype == torch.float32:
+        return _conv3x3_dx_f32(g, wt, x, A, B)
     _check_cuda("conv3x3_dx", g.device, g=g, wt=wt, x=x, A=A, B=B)
     b, h, w_, cg = g.shape
     cx = wt.shape[-1]

@@ -32,12 +32,17 @@ SHAPES = [(8, 1024, 64), (16, 256, 64), (16, 64, 64), (4, 1024, 128), (4, 256, 1
 def device_ms(fn, iters: int = 20):
     """(device ms per call, kernels per call) of ``fn`` under torch.profiler.
     A window in which the profiler recorded no kernel (seen once on the
-    card, for SDPA) is measured again, up to three times, then raises."""
+    card, for SDPA), or a count of kernels that is no whole multiple of the
+    calls (records dropped: seen on the card late in a long process, the
+    device time then about half the CUDA events' time), is measured again,
+    up to three times; then the last window with kernels is returned, its
+    fractional count telling of the drop, or, with none, it raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    last = None
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -45,8 +50,12 @@ def device_ms(fn, iters: int = 20):
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if events:
-            return sum(e.device_time_total for e in events) / 1e3 / iters, len(events) / iters
-    raise RuntimeError("device_ms: the profiler recorded no kernel in three windows")
+            last = sum(e.device_time_total for e in events) / 1e3 / iters, len(events) / iters
+            if len(events) % iters == 0:
+                return last
+    if last is None:
+        raise RuntimeError("device_ms: the profiler recorded no kernel in three windows")
+    return last
 
 
 def host_us(fn, iters: int = 100) -> float:

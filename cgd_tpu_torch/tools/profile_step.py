@@ -5,8 +5,10 @@ window of guided steps of the API's sampling loop.
     python -m cgd_tpu_torch.tools.profile_step --mesh-cut 2    # split cut=2 on one card
     python -m cgd_tpu_torch.tools.profile_step --size 128      # the 128px model (d = 128-256)
     python -m cgd_tpu_torch.tools.profile_step --init          # init image + LPIPS + image prompt
+    python -m cgd_tpu_torch.tools.profile_step --compute-dtype float32  # UNet, CLIP, glue in f32
 
-Runs a ddim25 guided sample (random weights, 16 cutouts, batch 1, bf16),
+Runs a ddim25 guided sample (random weights, 16 cutouts, batch 1, bf16 or
+``--compute-dtype float32``),
 times the five guided steps between the frames at steps 5 and 10 with the
 profiler off (host clock, synchronised), and profiles the five steps from
 10 to 15 (each window includes one frame's PNG write). Prints, per guided
@@ -52,6 +54,7 @@ def main(argv=None) -> None:
                    help="split the run cut=N over N copies of the one card (0: unsplit)")
     p.add_argument("--init", action="store_true",
                    help="init image (skip 5, init_scale 1000) and an image prompt")
+    p.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
@@ -72,7 +75,7 @@ def main(argv=None) -> None:
         prompts=["a watercolor painting of a lighthouse:1", "fog:0.5"], image_size=args.size,
         num_cutouts=16, clip_model_name=args.clip, timestep_respacing="ddim25",
         weights_mode="random", save_frequency=STEPS, progress=False, mesh=mesh,
-        prefix_path="outputs/profile_step", **init)
+        compute_dtype=args.compute_dtype, prefix_path="outputs/profile_step", **init)
     next(gen)  # step 0: setup and the first frame
     next(gen)  # step 5: warm
     torch.cuda.synchronize()
@@ -94,7 +97,7 @@ def main(argv=None) -> None:
     mine = sum(t for n, (t, _) in by_name.items() if "cgd::" in n)
     label = f"{args.size}px {args.clip}" + (f", mesh cut={args.mesh_cut} on one card"
                                             if args.mesh_cut else "") + (
-        ", init image + LPIPS + image prompt" if args.init else "")
+        ", init image + LPIPS + image prompt" if args.init else "") + f", {args.compute_dtype}"
     print(f"{label}: wall {wall * 1e3:.1f} ms per guided step; device busy {busy:.1f} ms "
           f"(idle {1 - busy / (wall * 1e3):.0%}); {len(kernels) / STEPS:.0f} device ops "
           f"(kernels, copies, memsets) per step; hand-written kernels {mine:.1f} ms")
@@ -106,7 +109,7 @@ def main(argv=None) -> None:
     for name, (t, n) in ranked:
         if "cgd::" in name:
             print(f"  {t:8.3f} ms  {n / STEPS:7.1f}x  {name[:110]}")
-        d = re.search(r"cgd::attn::\w+<(\d+)>", name)
+        d = re.search(r"cgd::attn(?:32)?::\w+<(\d+)", name)
         if d:
             attn[int(d.group(1))] += t
     print("attention per step by head dim: " + ", ".join(

@@ -71,13 +71,29 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    hit (read back bit-equal with the ``.pt`` files gone), finite frames,
    PNGs, 39 K-fwd f32 launches per guided step, K-fwd, K-dx and the
    attention launched; its step time beside phase 5's; the directory is
-   deleted after.
+   deleted after;
+9. ``compute_dtype="float32"`` on the card, every line with the card's name
+   and power limit: (a) K-fwd f32 in its prologue, residual and up modes at
+   phase 3's UNet shapes, K-dx f32 at 256^2, 16^2 and the W >= 512 class
+   at 512^2, K-attn-f / K-attn-b f32 at d = 64-256 and a ragged T, each
+   against its plain version in f32 (bound 1e-5 of the reference's max) and
+   against f64 beside the plain version's own error, K-dx f32's dA/dB and
+   K-attn-b f32 bit-identical over two runs, timed beside cuDNN f32 (TF32
+   off) or SDPA at f32; (b) the full 256px and 128px UNets at f32, kernels
+   vs ``kernel_routing("plain")`` (relative L2 <= 1e-4), the 128px one with
+   the f32 attention at d = 128, 192 and 256; (c) the 256px ViT-B/32 ddim25
+   run through ``api.clip_guided_diffusion(compute_dtype="float32")``: the
+   first guided step's x vs the plain routing from the same seed (relative
+   L2 <= 1e-3), finite frames, PNGs, peak memory, ms per step beside phase
+   5's, counters reset just before and read just after: every f32 kernel
+   launched and no bf16 kernel.
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
-from phase 7c, K-fwd f32's from phase 8; each with its eager and device
-time, its bound on the card and the library call's time where there is
-one; K-fwd f32's summed over one guided step's 39 launches), and as its
-last line ``{"ok": true, "device": {...}}``.
+from phase 7c, K-fwd f32's from phase 8, K-dx f32's and the f32
+attention's from phase 9c; each with its eager and device time, its bound
+on the card and the library call's time where there is one; K-fwd f32's
+summed over one guided step's 39 launches), and as its last line
+``{"ok": true, "device": {...}}``.
 Needs one card; builds everything it runs.
 """
 
@@ -93,6 +109,10 @@ ROOT = Path(__file__).resolve().parent
 FWD_TOL = DX_TOL = ATTN_TOL = HALO_TOL = 1e-2  # max |err| / max |ref|
 UNET_TOL = 5e-2                                # relative L2 error, full UNet
 LPIPS_TOL = 1e-2                               # relative L2 error, full VGG16 LPIPS
+F32_TOL = 1e-5        # max |err| / max |ref|, the f32 kernels against their plain versions
+F32_UNET_TOL = 1e-4   # relative L2 error, the full UNets at compute_dtype float32
+F32_STEP_TOL = 1e-3   # relative L2 error, the first f32 guided step's x
+CARD = "card not read yet"  # nvidia-smi's name and power limit, set by main()
 PROMPTS = ["a watercolor painting of a lighthouse:1", "fog:0.5"]
 # the least time of a kernel: NVIDIA's H100 SXM data sheet, dense bf16 and
 # TF32 tensor-core rates and HBM3 bandwidth (at the 700 W limit)
@@ -480,26 +500,40 @@ def phase_attention(kattn, dev):
     return res
 
 
-def _full_unet(dev, size: int):
-    """The full-width class-conditional UNet at ``size`` px, random bf16
-    conv weights with every zero-init conv re-drawn, and a probe input:
-    (unet, n_params, run) where run(split=None) -> (output, input
-    gradient)."""
+def _redraw_zero_init(unet, gen) -> None:
+    """Re-draw every zero-init conv / projection of a random UNet (uniform,
+    1/sqrt(fan-in)): with them zero its output, and its gradient, are
+    exactly 0 whatever the kernels compute."""
     import torch
 
-    from cgd_tpu_torch.models.unet import Conv, Dense, UNet, UNetConfig
+    from cgd_tpu_torch.models.unet import Conv, Dense
+
+    with torch.no_grad():
+        for m in unet.modules():
+            if isinstance(m, (Conv, Dense)) and m.zero:
+                bound = 1.0 / float(torch.tensor(m.kernel.shape[:-1]).prod()) ** 0.5
+                m.kernel.uniform_(-bound, bound, generator=gen)
+
+
+def _full_unet(dev, size: int, dtype=None):
+    """The full-width class-conditional UNet at ``size`` px, random conv
+    weights in ``dtype`` (bf16 by default) with every zero-init conv
+    re-drawn, and a probe input: (unet, n_params, run) where
+    run(split=None) -> (output, input gradient), the UNet at compute dtype
+    ``dtype``."""
+    import torch
+
+    from cgd_tpu_torch.models.unet import UNet, UNetConfig
     from cgd_tpu_torch.ops.nn import cast_conv_params
     from cgd_tpu_torch.registry import DIFFUSION_LOOKUP
 
     cfg = UNetConfig.from_flags(DIFFUSION_LOOKUP["cond"][size]["model_flags"])
     gen = torch.Generator(dev).manual_seed(7)
     unet = UNet(cfg, device=dev).init_weights(gen)
-    with torch.no_grad():  # re-draw every zero-init conv / projection
-        for m in unet.modules():
-            if isinstance(m, (Conv, Dense)) and m.zero:
-                bound = 1.0 / float(torch.tensor(m.kernel.shape[:-1]).prod()) ** 0.5
-                m.kernel.uniform_(-bound, bound, generator=gen)
-    cast_conv_params(unet, torch.bfloat16)
+    _redraw_zero_init(unet, gen)
+    dtype = dtype or torch.bfloat16
+    if dtype == torch.bfloat16:
+        cast_conv_params(unet, dtype)
     n_params = sum(p.numel() for p in unet.parameters())
     x = torch.randn(1, size, size, 3, generator=gen, device=dev)
     t = torch.tensor([500.0], device=dev)
@@ -509,7 +543,7 @@ def _full_unet(dev, size: int):
     def run(split=None):
         """Output and input gradient; ``split(x)`` -> a Split input."""
         x_ = x.clone().requires_grad_(True)
-        out = unet(x_ if split is None else split(x_), t, y, compute_dtype=torch.bfloat16)
+        out = unet(x_ if split is None else split(x_), t, y, compute_dtype=dtype)
         out = out if split is None else out.gather()
         (g,) = torch.autograd.grad((out * probe).sum(), x_)
         return out.detach(), g
@@ -1079,7 +1113,7 @@ def phase_checkpoints(k3, kattn, dev, out_dir: Path, unsplit_step_s: float) -> d
     from cgd_tpu_torch.models.clip import tokenizer
     from cgd_tpu_torch.models.clip.configs import CLIP_CONFIGS
     from cgd_tpu_torch.models.clip.model import CLIP
-    from cgd_tpu_torch.models.unet import Conv, Dense, UNet, UNetConfig
+    from cgd_tpu_torch.models.unet import UNet, UNetConfig
     from cgd_tpu_torch.models.vgg_lpips import VGGLPIPS
     from cgd_tpu_torch.registry import DIFFUSION_LOOKUP
 
@@ -1090,11 +1124,7 @@ def phase_checkpoints(k3, kattn, dev, out_dir: Path, unsplit_step_s: float) -> d
     gen = torch.Generator().manual_seed(8)
     info = DIFFUSION_LOOKUP["cond"][256]
     unet = UNet(UNetConfig.from_flags(info["model_flags"]), device="cpu").init_weights(gen)
-    with torch.no_grad():  # re-draw every zero-init conv / projection, as phase 4
-        for m in unet.modules():
-            if isinstance(m, (Conv, Dense)) and m.zero:
-                bound = 1.0 / float(torch.tensor(m.kernel.shape[:-1]).prod()) ** 0.5
-                m.kernel.uniform_(-bound, bound, generator=gen)
+    _redraw_zero_init(unet, gen)
     clip = CLIP(CLIP_CONFIGS["ViT-B/32"], device="cpu").init_weights(gen)
     lpips = VGGLPIPS(device="cpu").init_weights(gen)
     torch.save(unet_reference_sd(unet), ckpts / info["filename"])
@@ -1180,6 +1210,334 @@ def phase_checkpoints(k3, kattn, dev, out_dir: Path, unsplit_step_s: float) -> d
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: compute_dtype="float32" on the card
+# ---------------------------------------------------------------------------
+
+def _say9(msg: str) -> None:
+    """A phase-9 line, with the card and its power limit."""
+    print(f"[9] ({CARD}) {msg}")
+
+
+def _fwd_f64(k3, x, w, bias, A=None, B=None, skip=None, up=False):
+    """K-fwd's function evaluated in f64 (the plain versions compute in f32)."""
+    import torch
+
+    h = x.double()
+    if A is not None:
+        pre = h * A.double()[:, None, None, :] + B.double()[:, None, None, :]
+        h = pre * torch.sigmoid(pre)
+    h = k3._up2(h) if up else h
+    out = k3._conv_nhwc(h, w.double()) + bias.double()
+    return out if skip is None else out + skip.double()
+
+
+def _dx_f64(k3, g, wt, x, A, B):
+    """K-dx's function in f64: (dx, dA, dB)."""
+    import torch
+
+    acc = k3._conv_nhwc(g.double(), wt.double())
+    pre = x.double() * A.double()[:, None, None, :] + B.double()[:, None, None, :]
+    sig = torch.sigmoid(pre)
+    dpre = acc * (sig * (1.0 + pre * (1.0 - sig)))
+    return dpre * A.double()[:, None, None, :], (dpre * x.double()).sum((1, 2)), dpre.sum((1, 2))
+
+
+def _attn_f64(q, k, v, g):
+    """The attention and its backward in f64 on [N, T, d]: (out, dq, dk, dv)."""
+    q, k, v, g = (z.double() for z in (q, k, v, g))
+    s2 = q.shape[-1] ** -0.5
+    p = ((q @ k.transpose(-1, -2)) * s2).softmax(-1)
+    dp = g @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    return p @ v, (ds @ k) * s2, (ds.transpose(-1, -2) @ q) * s2, p.transpose(-1, -2) @ g
+
+
+def _row(res: dict, name: str, err: float, **numbers) -> None:
+    """Record a kernel row's error (the largest so far) and, when given, its
+    timed numbers (the JSON line's row)."""
+    entry = res.setdefault(name, {"err": 0.0})
+    entry["err"] = max(entry["err"], err)
+    entry.update(numbers)
+
+
+def phase_f32_kernels(k3, kattn, dev) -> dict:
+    """Phase 9a: K-fwd f32 in its prologue, residual and up modes, K-dx f32
+    (both classes) and K-attn-f / K-attn-b f32 against their plain versions
+    in f32 (bound F32_TOL of the reference's max) at the bf16 rows' shapes,
+    each also against an f64 evaluation beside the plain version's own
+    error; K-dx f32's dA/dB and K-attn-b f32 bit-identical over two runs.
+    Timed: CUDA events, device time (torch.profiler), the plain version,
+    and the library call (cuDNN f32 with TF32 off on the conv's actual
+    input; SDPA at f32, its backend named). Bound: FLOPs / 495 TFLOP/s
+    (TF32) or bytes / 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from cgd_tpu_torch.tools.attn_bench import device_ms
+
+    gen = torch.Generator(dev).manual_seed(909)
+
+    def kernel_ms(fn):
+        """CUDA-event ms, device ms and the kernels per call the profiler
+        counted (a fractional count: records dropped, attn_bench.device_ms)."""
+        dms, per_call = device_ms(fn)
+        return _time_ms(fn), dms, f"{per_call:g} kernels/call"
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    res = {}
+    # (name, out H = W, cin, cout, prologue, skip, up); for up, H is the output
+    convs = [("conv3x3", 256, 3, 256, False, False, False),
+             ("conv3x3_gn_silu_add", 256, 256, 256, True, True, False),
+             ("conv3x3_gn_silu_up", 128, 512, 512, True, False, True),
+             ("conv3x3_gn_silu", 16, 2048, 1024, True, False, False),
+             ("conv3x3_gn_silu", 256, 256, 6, True, False, False)]
+    for name, ho, ci, co, pro, sk, up in convs:
+        hs = ho // 2 if up else ho
+        x, w, bias = rn(1, hs, hs, ci), rn(3, 3, ci, co, scale=(9 * ci) ** -0.5), rn(co, scale=0.1)
+        A = 1.0 + 0.2 * rn(1, ci) if pro else None
+        B = 0.2 * rn(1, ci) if pro else None
+        skip = rn(1, ho, ho, co) if sk else None
+        args = (x, w, bias, A, B, skip, up)
+        out, ref = k3.conv3x3_fwd(*args), k3.conv3x3_fwd_plain(*args)
+        err, rel = _rel_max(out, ref)
+        exact = _fwd_f64(k3, *args)
+        f64 = (_rel_max(out.double(), exact)[1], _rel_max(ref.double(), exact)[1])
+        if rel > F32_TOL:
+            raise AssertionError(f"K-fwd f32 {name} {ho}^2 {ci}->{co}: {rel:.3e} > {F32_TOL}")
+        h = x if A is None else k3._silu_chain(x, A, B)[2]
+        h = k3._up2(h) if up else h
+        ms, dms, kpc = kernel_ms(lambda: k3.conv3x3_fwd(*args))
+        pms = _time_ms(lambda: k3.conv3x3_fwd_plain(*args))
+        cms, cdms = _time_ms(lambda: k3._conv_nhwc(h, w)), _device_ms(lambda: k3._conv_nhwc(h, w))
+        flops = 2 * ho * ho * 9 * ci * co
+        bd = _bound(flops, _nbytes(x, w, bias, A, B, skip, out), PEAK_TF32_FLOPS)
+        _say9(f"K-fwd f32 {name:20s} {ho}^2 {ci}->{co}: max|err| {err:.3e} ({rel:.2e} of scale; "
+              f"against f64 kernel {f64[0]:.2e}, plain f32 {f64[1]:.2e}) kernel {ms:.4f} ms, "
+              f"device {dms:.4f} ms ({kpc}, {_tflops(flops, dms)}) plain {pms:.4f} ms; cuDNN f32 "
+              f"{cms:.4f} ms, device {cdms:.4f} ms ({dms / cdms:.2f}x){_fmt(bd, dms)}")
+        _row(res, "conv3x3_fwd_f32", err)
+    # K-dx f32: (H = W, forward Cin -> Cout); 512^2 is the W >= 512 class
+    for ho, ci, co in ((256, 256, 256), (16, 2048, 1024), (256, 256, 6), (512, 256, 128)):
+        x, g = rn(1, ho, ho, ci), rn(1, ho, ho, co)
+        wt = k3._flip_t(rn(3, 3, ci, co, scale=(9 * ci) ** -0.5))
+        A, B = 1.0 + 0.2 * rn(1, ci), 0.2 * rn(1, ci)
+        args = (g, wt, x, A, B)
+        got, again = k3.conv3x3_dx(*args), k3.conv3x3_dx(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K-dx f32 {ho}^2 {ci}->{co}: repeated runs differ")
+        want, exact = k3.conv3x3_dx_plain(*args), _dx_f64(k3, *args)
+        line = []
+        for part, a, b, e in zip(("dx", "dA", "dB"), got, want, exact):
+            err, rel = _rel_max(a, b)
+            f64 = (_rel_max(a.double(), e)[1], _rel_max(b.double(), e)[1])
+            line.append(f"{part} {err:.3e} ({rel:.2e}; f64: kernel {f64[0]:.2e}, plain "
+                        f"{f64[1]:.2e})")
+            if rel > F32_TOL:
+                raise AssertionError(f"K-dx f32 {ho}^2 {ci}->{co} {part}: {rel:.3e} > {F32_TOL}")
+            _row(res, "conv3x3_dx_f32", err)
+        ms, dms, kpc = kernel_ms(lambda: k3.conv3x3_dx(*args))
+        pms = _time_ms(lambda: k3.conv3x3_dx_plain(*args))
+        cms, cdms = _time_ms(lambda: k3._conv_nhwc(g, wt)), _device_ms(lambda: k3._conv_nhwc(g, wt))
+        flops = 2 * ho * ho * 9 * ci * co
+        bd = _bound(flops, _nbytes(g, wt, x, A, B, *got), PEAK_TF32_FLOPS)
+        _say9(f"K-dx f32 {ho}^2 {ci}->{co}{' (W >= 512 class)' if ho >= 512 else ''}: "
+              f"{', '.join(line)} kernel {ms:.4f} ms, device {dms:.4f} ms ({kpc}, "
+              f"{_tflops(flops, dms)}) "
+              f"plain {pms:.4f} ms; cuDNN f32 conv alone {cms:.4f} ms, device {cdms:.4f} ms "
+              f"({dms / cdms:.2f}x); bit-identical reruns{_fmt(bd, dms)}")
+        if (ho, ci, co) == (256, 256, 256):
+            _row(res, "conv3x3_dx_f32", 0.0, ms=ms, device_ms=dms, plain_ms=pms, library_ms=cms,
+                 **bd)
+
+    # attention: (batch, N heads, T, d); the last one ragged, batch 2, untimed
+    for bt, n, t, d in ((1, 8, 1024, 64), (1, 4, 1024, 128), (1, 4, 256, 192), (1, 4, 64, 256),
+                        (2, 2, 300, 192)):
+        qkv, g = rn(bt, t, 3 * n * d), rn(bt, t, n * d)
+        q, k, v = kattn.split_heads(qkv, n)
+        gh = kattn.to_heads(g, n)
+        out, lse = kattn.attention_fwd(qkv, n)
+        ref = kattn.attention_fwd_plain(q, k, v)
+        exact = _attn_f64(q, k, v, gh)
+        err, rel = _rel_max(out, kattn.merge_heads(ref, bt))
+        f64 = (_rel_max(out.double(), kattn.merge_heads(exact[0], bt))[1],
+               _rel_max(ref.double(), exact[0])[1])
+        label = f"B{bt} N{n} T{t} d{d}"
+        if rel > F32_TOL:
+            raise AssertionError(f"K-attn-f f32 {label}: {rel:.3e} > {F32_TOL}")
+        _row(res, "attn_fwd_f32", err)
+        dqkv = kattn.attention_bwd(qkv, out, lse, g, n)
+        if not torch.equal(dqkv, kattn.attention_bwd(qkv, out, lse, g, n)):
+            raise AssertionError(f"K-attn-b f32 {label}: repeated runs differ")
+        line = []
+        for part, a, b, e in zip(("dq", "dk", "dv"), dqkv.chunk(3, dim=-1),
+                                 kattn.attention_bwd_plain(q, k, v, gh), exact[1:]):
+            b, e = kattn.merge_heads(b, bt), kattn.merge_heads(e, bt)
+            berr, brel = _rel_max(a, b)
+            bf64 = (_rel_max(a.double(), e)[1], _rel_max(b.double(), e)[1])
+            line.append(f"{part} {berr:.3e} ({brel:.2e}; f64: kernel {bf64[0]:.2e}, plain "
+                        f"{bf64[1]:.2e})")
+            if brel > F32_TOL:
+                raise AssertionError(f"K-attn-b f32 {label} {part}: {brel:.3e} > {F32_TOL}")
+            _row(res, "attn_bwd_f32", berr)
+        head = (f"K-attn f32 {label}: fwd max|err| {err:.3e} ({rel:.2e}; f64: kernel "
+                f"{f64[0]:.2e}, plain {f64[1]:.2e}), {', '.join(line)} (bit-identical reruns)")
+        if bt > 1:
+            _say9(head)
+            continue
+        q4, k4, v4, g4 = (z[None].contiguous() for z in (q, k, v, gh))
+        sq, sk, sv = (z.detach().requires_grad_(True) for z in (q4, k4, v4))
+        so = F.scaled_dot_product_attention(sq, sk, sv)
+        fns = {"fwd": lambda: kattn.attention_fwd(qkv, n),
+               "bwd": lambda: kattn.attention_bwd(qkv, out, lse, g, n),
+               "sdpa_fwd": lambda: F.scaled_dot_product_attention(q4, k4, v4),
+               "sdpa_bwd": lambda: torch.autograd.grad(so, (sq, sk, sv), g4, retain_graph=True),
+               "plain_fwd": lambda: kattn.attention_fwd_plain(q, k, v),
+               "plain_bwd": lambda: kattn.attention_bwd_plain(q, k, v, gh)}
+        eager = {key: _time_ms(fn) for key, fn in fns.items()}
+        counted = {key: device_ms(fns[key]) for key in ("fwd", "bwd", "sdpa_fwd", "sdpa_bwd")}
+        dev_ms = {key: ms for key, (ms, _) in counted.items()}
+        _say9(f"{head}; SDPA backend {_sdpa_backend(q4, k4, v4)}")
+        flops = {"fwd": 4 * n * t * t * d, "bwd": 10 * n * t * t * d}
+        for key in ("fwd", "bwd"):
+            tensors = (qkv, out, lse) if key == "fwd" else (qkv, out, lse, g, dqkv)
+            bd = _bound(flops[key], _nbytes(*tensors), PEAK_TF32_FLOPS)
+            _say9(f"  {label} {key}: kernel {eager[key]:.4f} ms, device {dev_ms[key]:.4f} ms "
+                  f"({counted[key][1]:g} kernels/call, {_tflops(flops[key], dev_ms[key])}) plain "
+                  f"{eager['plain_' + key]:.4f} ms; "
+                  f"SDPA f32 {eager['sdpa_' + key]:.4f} ms, device {dev_ms['sdpa_' + key]:.4f} ms "
+                  f"({dev_ms[key] / dev_ms['sdpa_' + key]:.2f}x){_fmt(bd, dev_ms[key])}")
+            if (n, t, d) == (8, 1024, 64):
+                _row(res, f"attn_{key}_f32", 0.0, ms=eager[key], device_ms=dev_ms[key],
+                     plain_ms=eager["plain_" + key], library_ms=eager["sdpa_" + key], **bd)
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_f32_unets(kattn, dev) -> None:
+    """Phase 9b: the full 256px and 128px UNets at compute_dtype float32
+    (every zero-init conv re-drawn), kernels against kernel_routing("plain"),
+    forward and input gradient (relative L2 <= F32_UNET_TOL); the 128px one
+    must run the f32 attention at d = 128, 192 and 256."""
+    import torch
+
+    from cgd_tpu_torch.ops.nn import kernel_routing
+
+    for size in (256, 128):
+        unet, n_params, run = _full_unet(dev, size, torch.float32)
+        kattn.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = run()
+        peak = torch.cuda.max_memory_allocated(dev)
+        by_d = {d: c["attn_fwd_f32"] + c["attn_bwd_f32"] for d, c in kattn.LAUNCHES_BY_D.items()}
+        with kernel_routing("plain"):
+            want = run()
+        ms_k = _time_ms(run, iters=3)
+        with kernel_routing("plain"):
+            ms_p = _time_ms(run, iters=3)
+        for name, a, b in zip(("output", "d/dx"), got, want):
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"f32 UNet {size}px {name}: non-finite values")
+            rel = ((a - b).norm() / b.norm()).item()
+            _say9(f"UNet {size}px f32 ({n_params / 1e6:.1f}M params) {name}: rel L2 err "
+                  f"{rel:.3e} (max|ref| {b.abs().max().item():.3e})")
+            if rel > F32_UNET_TOL:
+                raise AssertionError(f"f32 UNet {size}px {name}: rel L2 {rel:.3e} > {F32_UNET_TOL}")
+        want_d = (128, 192, 256) if size == 128 else (64,)
+        if any(by_d[d] == 0 for d in want_d):
+            raise AssertionError(f"f32 UNet {size}px: f32 attention launches by d {by_d}")
+        _say9(f"UNet {size}px f32 fwd + input grad: kernels {ms_k:.2f} ms, plain routing "
+              f"{ms_p:.2f} ms; peak memory {peak / 2**30:.2f} GiB; f32 attention launches by "
+              f"head dim {({d: c for d, c in by_d.items() if c})}")
+        del unet
+        torch.cuda.empty_cache()
+
+
+def phase_f32_e2e(k3, kattn, dev, out_dir: Path, bf16_step_s: float) -> dict:
+    """Phase 9c: the 256px ViT-B/32 ddim25 guided run through
+    ``api.clip_guided_diffusion(compute_dtype="float32")``, 16 cutouts:
+    the random UNet's zero-init layers re-drawn (as phase 4; else its
+    output and gradient are 0 and no kernel reaches the sample), the first
+    guided step's x against the plain routing's from the same seed
+    (relative L2 <= F32_STEP_TOL), finite frames, PNGs, peak device memory,
+    ms per guided step beside phase 5's bf16 step; counters reset just
+    before the run and read just after: every f32 kernel launched, no bf16
+    kernel. Returns the run's launch counts."""
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch import api
+    from cgd_tpu_torch.ops.nn import kernel_routing
+
+    real_resolve = api.resolve_unet
+
+    def resolve_redrawn(*a, **kw):
+        unet, *rest = real_resolve(*a, **kw)
+        _redraw_zero_init(unet, torch.Generator(dev).manual_seed(9))
+        return (unet, *rest)
+
+    kwargs = dict(prompts=PROMPTS, image_size=256, num_cutouts=16, clip_model_name="ViT-B/32",
+                  timestep_respacing="ddim25", weights_mode="random", seed=0, device=str(dev),
+                  progress=False, compute_dtype="float32", save_frequency=12)
+    first_x, frames, stamps, paths = [], [], [], []
+    real_loop, real_log_image = api.sample_loop, api.log_image
+
+    def spy(*a, **kw):  # the x after each yielded step (the first: step 0)
+        for item in real_loop(*a, **kw):
+            first_x.append(item[2].detach().clone())
+            yield item
+
+    def capture(image, *a, **kw):
+        frames.append(np.asarray(image))
+        return real_log_image(image, *a, **kw)
+
+    api.sample_loop, api.log_image, api.resolve_unet = spy, capture, resolve_redrawn
+    try:
+        with kernel_routing("plain"):
+            for _ in api.clip_guided_diffusion(prefix_path=out_dir / "plain", **kwargs):
+                break
+        x_plain = first_x[0]
+        first_x.clear()
+        frames.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches(k3, kattn)
+        t0 = time.perf_counter()
+        for _, path in api.clip_guided_diffusion(prefix_path=out_dir, **kwargs):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            paths.append(path)
+        launches = _launches(k3, kattn)
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        api.sample_loop, api.log_image, api.resolve_unet = real_loop, real_log_image, real_resolve
+    rel = ((first_x[0] - x_plain).norm() / x_plain.norm()).item()
+    if len(paths) != 3 or len(frames) != 3:
+        raise AssertionError(f"phase 9c: expected frames at steps 0, 12, 24; got {paths}")
+    if frames[-1].shape != (256, 256, 3) or not all(np.isfinite(f).all() for f in frames):
+        raise AssertionError("phase 9c: non-finite frames or a wrong shape")
+    _check_pngs((*paths, "current.png"))
+    if rel > F32_STEP_TOL:
+        raise AssertionError(f"phase 9c: first f32 step x, kernels vs plain: rel L2 {rel:.3e} > "
+                             f"{F32_STEP_TOL}")
+    _check_launched(launches, ("conv3x3_fwd_f32", "conv3x3_dx_f32", "attn_fwd_f32",
+                               "attn_bwd_f32"), "phase 9c")
+    bf16 = {k: launches[k] for k in ("conv3x3_fwd", "conv3x3_fwd_halo", "conv3x3_dx",
+                                     "conv3x3_dx_wtiled", "attn_fwd", "attn_bwd")}
+    if any(bf16.values()):
+        raise AssertionError(f"phase 9c: the f32 run launched bf16 kernels {bf16}")
+    step_s = (stamps[-1] - stamps[0]) / 24
+    per_step = {k: v / 25 for k, v in launches.items() if v}
+    _say9(f"256px ViT-B/32 ddim25 guided sampling at compute_dtype float32: first step's x vs "
+          f"the plain routing rel L2 {rel:.3e}; {step_s * 1e3:.1f} ms per guided step (phase 5, "
+          f"bf16: {bf16_step_s * 1e3:.1f} ms), {total_s:.2f} s per image incl. model setup; "
+          f"peak device memory {peak / 2**30:.2f} GiB; launches per step {per_step}; bf16 "
+          f"kernels {bf16}; final frame |x|max {np.abs(frames[-1]).max():.3f}")
+    return launches
+
+
 def main() -> None:
     if not (ROOT / "cgd_tpu_torch").is_dir():
         _die(f"no cgd_tpu_torch/ beside {Path(__file__).name}: run it from a checkout")
@@ -1193,6 +1551,8 @@ def main() -> None:
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
     print(f"[1] {smi}")
+    global CARD
+    CARD = smi
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
     torch.backends.cudnn.allow_tf32 = False
@@ -1239,6 +1599,14 @@ def main() -> None:
     ckpt_launches = phase_checkpoints(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_ckpts",
                                       step_s)
     launches["conv3x3_fwd_f32"] = ckpt_launches["conv3x3_fwd_f32"]
+    f32 = phase_f32_kernels(k3, kattn, dev)
+    res["conv3x3_fwd_f32"]["err"] = max(res["conv3x3_fwd_f32"]["err"],
+                                        f32.pop("conv3x3_fwd_f32")["err"])
+    res.update(f32)
+    phase_f32_unets(kattn, dev)
+    f32_launches = phase_f32_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32", step_s)
+    for name in ("conv3x3_dx_f32", "attn_fwd_f32", "attn_bwd_f32"):
+        launches[name] = f32_launches[name]
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),
@@ -1251,7 +1619,14 @@ def main() -> None:
         "attn_fwd": ("cgd_tpu_torch/csrc/attn_fwd.cu", "cgd_tpu/kernels/attention_pallas.py:69"),
         "attn_bwd": ("cgd_tpu_torch/csrc/attn_bwd.cu", "cgd_tpu/kernels/attention_pallas.py:82"),
         "conv3x3_fwd_f32": ("cgd_tpu_torch/csrc/conv3x3_f32.cu",
-                            "cgd_tpu/kernels/conv_pallas.py:364 (f32, LPIPS VGG)"),
+                            "cgd_tpu/kernels/conv_pallas.py:364 (f32: the LPIPS VGG, "
+                            "compute_dtype float32)"),
+        "conv3x3_dx_f32": ("cgd_tpu_torch/csrc/conv3x3_f32.cu",
+                           "cgd_tpu/kernels/conv_pallas.py:779 and :680 (f32)"),
+        "attn_fwd_f32": ("cgd_tpu_torch/csrc/attn_f32.cu",
+                         "cgd_tpu/kernels/attention_pallas.py:69 (f32)"),
+        "attn_bwd_f32": ("cgd_tpu_torch/csrc/attn_f32.cu",
+                         "cgd_tpu/kernels/attention_pallas.py:82 (f32)"),
     }
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -116,6 +116,48 @@ def test_cuda_device_without_a_card_raises(tiny):
         next(api.clip_guided_diffusion(prompts=["x"], weights_mode="random"))
 
 
+def test_an_f32_call_runs_with_tf32_off_and_restores_the_flags(tiny, monkeypatch):
+    """compute_dtype="float32": cuDNN's and cuBLAS's TF32 are off while the
+    generator runs (read inside each sampling step), and the caller's flags
+    are back at every yield, after the run, and after a run closed early."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    inside = []
+    real_loop = api.sample_loop
+
+    def spy(*a, **kw):
+        for item in real_loop(*a, **kw):
+            inside.append((cudnn.allow_tf32, matmul.allow_tf32))
+            yield item
+
+    monkeypatch.setattr(api, "sample_loop", spy)
+    prev = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        between = []
+        for _ in api.clip_guided_diffusion(prefix_path=tiny / "a", save_frequency=2, **KW):
+            between.append((cudnn.allow_tf32, matmul.allow_tf32))
+        after = cudnn.allow_tf32, matmul.allow_tf32
+        gen = api.clip_guided_diffusion(prefix_path=tiny / "b", **KW)
+        next(gen)
+        gen.close()
+        closed = cudnn.allow_tf32, matmul.allow_tf32
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = prev
+    assert len(inside) == 4 and set(inside) == {(False, False)}
+    assert len(between) == 3 and set(between) == {(True, True)}
+    assert after == closed == (True, True)
+
+
+def test_a_mesh_at_float32_on_cuda_is_refused_by_name(tiny):
+    """K-halo has no f32 kernel: mesh= with compute_dtype float32 on CUDA
+    raises before any device is touched (so here, without a card, too)."""
+    from cgd_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([torch.device("cuda", 0)] * 2)
+    with pytest.raises(NotImplementedError, match="mesh=.*float32"):
+        next(api.clip_guided_diffusion(**{**KW, "device": "cuda", "mesh": mesh}))
+
+
 @pytest.mark.parametrize("option", [
     {"reduce_clip": True}, {"progressive_cutout": True}, {"use_augs": True},
     {"dpm_solver": True}, {"fast_guidance": True}, {"checkpoint_path": "ck.npz"},

@@ -72,7 +72,7 @@ def test_default_route_matches_jax_pallas_attention(monkeypatch, heads):
     out, grad, jout, jgrad = _jax_and_port(heads, 3, plain=False)
     np.testing.assert_allclose(out, jout, **TOL)
     np.testing.assert_allclose(grad, jgrad, **TOL)
-    assert kattn.LAUNCHES == {"attn_fwd": 0, "attn_bwd": 0}  # CPU tensors launch nothing
+    assert not any(kattn.LAUNCHES.values())  # CPU tensors launch nothing
 
 
 @pytest.mark.parametrize("heads", [1, 2])

@@ -170,3 +170,63 @@ def test_the_plan_is_made_once_per_shape():
 def test_an_unsupported_head_dim_raises():
     with pytest.raises(ValueError, match="head dim 32"):
         kattn.attn_plan(1, 2, 16, 32)
+
+
+# K-attn-f / K-attn-b f32 (csrc/attn_f32.cu): the plan at every head dim, at
+# T = 64, 256, 1024 and ragged T, and at every attention of the UNets
+F32_TS = (64, 256, 1024, 77, 300)
+
+
+def _f32_smem(d, own, streamed, tile, scores):
+    """Bytes: ``own`` tiles of the block's 64 rows, two stages of
+    ``streamed`` tiles of ``tile`` rows, ``scores`` [64][tile + 4] arrays;
+    every row d + 4 floats."""
+    row = d + 4
+    return 4 * (own * 64 * row + 2 * streamed * tile * row + scores * 64 * (tile + 4))
+
+
+@pytest.mark.parametrize("d", kattn.HEAD_DIMS)
+@pytest.mark.parametrize("t", F32_TS)
+def test_the_f32_plan_fits_one_block(d, t):
+    plan = kattn.f32_attn_plan(2, 4, t, d)
+    stream = plan["stream"]
+    assert plan["smem"] == {
+        "fwd": _f32_smem(d, 1, 2, stream["fwd"], 1),
+        "bwd_dq": _f32_smem(d, 2, 2, stream["bwd_dq"], 1),
+        "bwd_dkdv": _f32_smem(d, 2, 2, stream["bwd_dkdv"], 2)}
+    for kernel, smem in plan["smem"].items():
+        assert 0 < smem <= kattn.SMEM_MAX, (d, t, kernel)
+    assert plan["body"] == "f32-fma" and plan["bwd_launches"] == 2 and plan["stages"] == 2
+
+
+@pytest.mark.parametrize("d", kattn.HEAD_DIMS)
+@pytest.mark.parametrize("t", F32_TS)
+def test_the_f32_tiles_cover_t_and_split_over_the_threads(d, t):
+    """64-row blocks cover T; each streamed tile splits evenly over a row's
+    threads (256 threads, 4 a row, each every fourth key); a thread's column
+    share is whole 16-byte vectors."""
+    plan = kattn.f32_attn_plan(2, 4, t, d)
+    assert (plan["tiles"] - 1) * plan["q_tile"] < t <= plan["tiles"] * plan["q_tile"]
+    assert plan["threads"] == 4 * plan["q_tile"] == 256
+    for kernel, tile in plan["stream"].items():
+        assert tile % 4 == 0 and 0 < tile <= plan["q_tile"], kernel
+        assert plan["grid"][kernel] == (plan["tiles"], 8), kernel
+    assert d % (4 * 4) == 0
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_the_f32_plan_covers_the_unet_attentions(shapes, group):
+    for b, h, t, d in shapes[group]:
+        plan = kattn.f32_attn_plan(b, h, t, d)
+        assert max(plan["smem"].values()) <= kattn.SMEM_MAX, (b, h, t, d)
+        assert plan["grid"]["fwd"] == (-(-t // 64), b * h)
+
+
+def test_the_f32_plan_streams_16_rows_in_the_backward_at_d_256():
+    """At d = 256 two stages of 32-row K/V tiles beside Q and dO (or K and
+    V) take more than a block may: the backward streams 16-row tiles."""
+    assert kattn.f32_attn_plan(1, 4, 64, 256)["stream"] == {"fwd": 32, "bwd_dq": 16,
+                                                            "bwd_dkdv": 16}
+    assert _f32_smem(256, 2, 2, 32, 1) > kattn.SMEM_MAX
+    with pytest.raises(ValueError, match="head dim 32"):
+        kattn.f32_attn_plan(1, 2, 16, 32)

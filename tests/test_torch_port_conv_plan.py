@@ -245,3 +245,94 @@ def test_the_f32_plan_covers_the_vgg16_convs(h, cin, cout):
         assert ntiles * plan["bn"] >= plan["cout"] > (ntiles - 1) * plan["bn"] and nb == b
         assert plan["chunks"] * plan["bk"] >= plan["cin"] > (plan["chunks"] - 1) * plan["bk"]
         assert plan["smem_bytes"] == 217728 <= k3.SMEM_MAX
+
+
+# K-fwd f32 in every mode and K-dx f32: what compute_dtype="float32" runs for
+# every 3x3 conv of the 128, 256 and 512px trees, forward and backward
+F32_TREES = (128, 256, 512)
+
+
+@pytest.fixture(scope="module")
+def f32_launches():
+    return {size: _with_backward(_unet_convs(size)) for size in F32_TREES}
+
+
+def _f32_plans(launches):
+    for kind, b, h, w, ci, co, up, pro, _ in launches:
+        yield (kind, b, h, w, ci, co, up, pro), k3.f32_plan(b, h, w, ci, co, up=up,
+                                                             dx=kind == "dx")
+
+
+def test_the_f32_trees_hold_every_mode(f32_launches):
+    for size in F32_TREES:
+        kinds = {(kind, up, pro) for kind, _, _, _, _, _, up, pro, _ in f32_launches[size]}
+        assert {("fwd", False, False), ("fwd", False, True), ("fwd", True, True),
+                ("dx", False, False)} <= kinds, size
+
+
+@pytest.mark.parametrize("size", F32_TREES)
+def test_the_f32_plan_covers_every_output_once(f32_launches, size):
+    """The grid's 8 x 16 patches tile the output (2h x 2w with up) once, its
+    N tiles cover Cout, its chunks Cin (both padded to multiples of 4)."""
+    for key, plan in _f32_plans(f32_launches[size]):
+        kind, b, h, w, ci, co, up, _ = key
+        assert (plan["ho"], plan["wo"]) == ((2 * h, 2 * w) if up else (h, w)), key
+        ph, pw = plan["patch"]
+        tiles_x = -(-plan["wo"] // pw)
+        count = np.zeros((plan["ho"], plan["wo"]), np.int32)
+        for t in range(plan["grid"][0]):
+            y0, x0 = (t // tiles_x) * ph, (t % tiles_x) * pw
+            assert y0 < plan["ho"] and x0 < plan["wo"], key
+            count[y0:y0 + ph, x0:x0 + pw] += 1
+        assert (count == 1).all(), key
+        assert plan["cin"] % 4 == 0 and 0 <= plan["cin"] - ci < 4, key
+        assert plan["cout"] % 4 == 0 and 0 <= plan["cout"] - co < 4, key
+        ntiles = plan["grid"][1]
+        assert (ntiles - 1) * plan["bn"] < plan["cout"] <= ntiles * plan["bn"], key
+        assert (plan["chunks"] - 1) * plan["bk"] < plan["cin"] <= plan["chunks"] * plan["bk"], key
+        assert plan["grid"][2] == b, key
+
+
+@pytest.mark.parametrize("size", F32_TREES)
+def test_the_f32_window_holds_every_tap(f32_launches, size):
+    """The staged window of a patch at (y0, x0) starts at source row / col
+    (y0 - 1, x0 - 1), with up (y0 / 2 - 1, x0 / 2 - 1); it holds exactly the
+    rows and columns the patch's taps read, and the kernel's fragment
+    address (window row (py + dy + 1) / 2 with up) names the right one."""
+    for key, plan in _f32_plans(f32_launches[size]):
+        up = key[6]
+        rh, rw = plan["window"]
+        assert (rh, rw) == ((6, 10) if up else (10, 18)), key
+        ph, pw = plan["patch"]
+        for y0 in (0, ph, plan["ho"] - ph):
+            ys = y0 // 2 - 1 if up else y0 - 1
+            needed = set()
+            for py in range(ph):
+                for dy in range(3):
+                    src = (y0 + py + dy - 1) // 2 if up else y0 + py + dy - 1
+                    needed.add(src)
+                    row = (py + dy + 1) // 2 if up else py + dy
+                    assert ys + row == src, (key, y0, py, dy)
+            assert needed == set(range(ys, ys + rh)), key
+        for x0 in (0, pw):
+            xs = x0 // 2 - 1 if up else x0 - 1
+            for px in range(pw):
+                for dx in range(3):
+                    src = (x0 + px + dx - 1) // 2 if up else x0 + px + dx - 1
+                    col = (px + dx + 1) // 2 if up else px + dx
+                    assert xs + col == src and 0 <= col < rw, (key, x0, px, dx)
+
+
+@pytest.mark.parametrize("size", F32_TREES)
+def test_the_f32_plan_fits_one_block_and_sizes_kdx(f32_launches, size):
+    """Every mode takes the plain window's shared memory (two stages of the
+    10 x 18 window and the weights), within a block's 227 KB; K-dx f32 writes
+    one dA/dB partial row per output patch."""
+    for key, plan in _f32_plans(f32_launches[size]):
+        assert plan["smem_bytes"] == 217728 <= k3.SMEM_MAX, key
+        rh, rw = plan["window"]
+        assert rh * rw <= 10 * 18, key
+        if key[0] == "dx":
+            assert plan["partial_rows"] == plan["grid"][0], key
+        else:
+            assert plan["partial_rows"] is None, key

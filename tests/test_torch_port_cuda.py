@@ -83,7 +83,7 @@ def test_autograd_functions_use_the_kernels(dev):
     out = k3.conv3x3_gn_silu_add(x, A, d["B"], d["w"], d["bias"], d["skip"])
     out.float().sum().backward()
     assert k3.LAUNCHES == {"conv3x3_fwd": 1, "conv3x3_fwd_halo": 0, "conv3x3_dx": 1,
-                           "conv3x3_dx_wtiled": 0, "conv3x3_fwd_f32": 0}
+                           "conv3x3_dx_wtiled": 0, "conv3x3_fwd_f32": 0, "conv3x3_dx_f32": 0}
     assert x.grad.dtype == torch.bfloat16 and A.grad.dtype == torch.float32
 
 
@@ -140,18 +140,92 @@ def test_kfwd_f32_input_gradient_runs_on_the_f32_kernel(dev, full_f32):
     _close(dk, dp)
 
 
-@pytest.mark.parametrize("fusion", ["prologue", "skip", "up", "halo"])
-def test_kfwd_f32_refuses_the_fused_modes(dev, fusion):
+# K-fwd f32's fused modes and K-dx f32, held to their plain versions in f32
+# at 1e-5 of the reference's max (3xTF32 with per-tap sums keeps f32's
+# precision; chip_smoke.py phase 9 uses the same bound).
+# (batch, H, W, Cin, Cout): ragged patches and N tiles, skinny channels, a
+# Cin that is no multiple of 32, the UNet's deep level
+F32_TOL = 1e-5
+F32_MODE_SHAPES = [(2, 20, 36, 36, 20), (1, 16, 16, 3, 64), (1, 24, 24, 64, 6),
+                   (1, 8, 8, 1024, 512), (2, 9, 17, 8, 100)]
+
+
+def _close32(a, b):
+    assert a.dtype == b.dtype == torch.float32
+    assert (a - b).abs().max() <= F32_TOL * b.abs().max()
+
+
+def _f32_mode_inputs(dev, b, h, w, ci, co, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * scale
+
+    return dict(x=rn(b, h, w, ci), w=rn(3, 3, ci, co, scale=(9 * ci) ** -0.5),
+                bias=rn(co, scale=0.1), A=1.0 + 0.2 * rn(b, ci), B=0.2 * rn(b, ci),
+                skip=rn(b, h, w, co), g=rn(b, h, w, co))
+
+
+@pytest.mark.parametrize("shape", F32_MODE_SHAPES)
+@pytest.mark.parametrize("variant", ["prologue", "skip", "prologue_skip", "up"])
+def test_kfwd_f32_fused_modes_match_plain(dev, full_f32, shape, variant):
+    d = _f32_mode_inputs(dev, *shape)
+    A, B = (None, None) if variant == "skip" else (d["A"], d["B"])
+    skip = d["skip"] if "skip" in variant else None
+    up = variant == "up"
+    k3.reset_launch_counts()
+    out = k3.conv3x3_fwd(d["x"], d["w"], d["bias"], A, B, skip, up)
+    assert k3.LAUNCHES["conv3x3_fwd_f32"] == 1 and k3.LAUNCHES["conv3x3_fwd"] == 0
+    b, h, w, _, co = shape
+    assert out.shape == ((b, 2 * h, 2 * w, co) if up else (b, h, w, co))
+    _close32(out, k3.conv3x3_fwd_plain(d["x"], d["w"], d["bias"], A, B, skip, up))
+
+
+@pytest.mark.parametrize("shape", F32_MODE_SHAPES + [(1, 16, 520, 64, 32)])
+def test_kdx_f32_matches_plain_and_is_deterministic(dev, full_f32, shape):
+    """Both launch classes (the last shape is W >= 512): dx, dA, dB against
+    the plain version, reruns bit-identical, one count each."""
+    d = _f32_mode_inputs(dev, *shape, seed=3)
+    wt = k3._flip_t(d["w"])
+    k3.reset_launch_counts()
+    got = k3.conv3x3_dx(d["g"], wt, d["x"], d["A"], d["B"])
+    again = k3.conv3x3_dx(d["g"], wt, d["x"], d["A"], d["B"])
+    assert k3.LAUNCHES["conv3x3_dx_f32"] == 2
+    assert k3.LAUNCHES["conv3x3_dx"] == k3.LAUNCHES["conv3x3_dx_wtiled"] == 0
+    for a, b, c in zip(got, k3.conv3x3_dx_plain(d["g"], wt, d["x"], d["A"], d["B"]), again):
+        _close32(a, b)
+        assert torch.equal(a, c)
+
+
+def test_f32_autograd_functions_use_the_f32_kernels(dev, full_f32):
+    """conv3x3_gn_silu_add at f32: forward on K-fwd f32, backward on K-dx
+    f32; conv3x3_gn_silu_up: forward and its transpose conv on K-fwd f32."""
+    d = _f32_mode_inputs(dev, 1, 16, 16, 64, 64, seed=4)
+    x = d["x"].clone().requires_grad_(True)
+    A = d["A"].clone().requires_grad_(True)
+    k3.reset_launch_counts()
+    out = k3.conv3x3_gn_silu_add(x, A, d["B"], d["w"], d["bias"], d["skip"])
+    out.sum().backward()
+    assert k3.LAUNCHES["conv3x3_fwd_f32"] == 1 and k3.LAUNCHES["conv3x3_dx_f32"] == 1
+    assert x.grad.dtype == A.grad.dtype == torch.float32
+    xp = d["x"].clone().requires_grad_(True)
+    Ap = d["A"].clone().requires_grad_(True)
+    pre = xp * Ap[:, None, None, :] + d["B"][:, None, None, :]
+    ref = k3._conv_nhwc(pre * torch.sigmoid(pre), d["w"]) + d["bias"] + d["skip"]
+    ref.sum().backward()
+    _close32(x.grad, xp.grad)
+    _close32(A.grad, Ap.grad)
+    k3.reset_launch_counts()
+    xu = d["x"].clone().requires_grad_(True)
+    k3.conv3x3_gn_silu_up(xu, d["A"], d["B"], d["w"], d["bias"]).sum().backward()
+    assert k3.LAUNCHES["conv3x3_fwd_f32"] == 2 and k3.LAUNCHES["conv3x3_dx_f32"] == 0
+
+
+def test_kfwd_f32_with_a_halo_raises_by_name(dev):
     x, w, bias = _f32_inputs(dev, 1, 8, 8, 32, 32)
-    A = B = skip = etop = ebot = None
-    if fusion == "prologue":
-        A, B = torch.ones(1, 32, device=dev), torch.zeros(1, 32, device=dev)
-    elif fusion == "skip":
-        skip = torch.zeros(1, 8, 8, 32, device=dev)
-    elif fusion == "halo":
-        etop = ebot = torch.zeros(1, 1, 8, 32, device=dev)
-    with pytest.raises(ValueError, match="plain conv only"):
-        k3.conv3x3_fwd(x, w, bias, A, B, skip, fusion == "up", etop, ebot)
+    etop = ebot = torch.zeros(1, 1, 8, 32, device=dev)
+    with pytest.raises(ValueError, match="K-halo"):
+        k3.conv3x3_fwd(x, w, bias, etop=etop, ebot=ebot)
 
 
 def test_the_f32_kernel_sizes_shared_memory_as_the_plan(dev):
@@ -159,6 +233,9 @@ def test_the_f32_kernel_sizes_shared_memory_as_the_plan(dev):
 
     assert _build.library().cgd_conv3x3_f32_smem_bytes() == k3.f32_plan(1, 16, 16, 64, 64)[
         "smem_bytes"]
+    for h, w in ((16, 16), (9, 17), (256, 256), (16, 520)):  # K-dx f32's dA/dB partial rows
+        assert _build.library().cgd_conv3x3_dx_f32_chunks(h, w) == k3.f32_plan(
+            1, h, w, 64, 64, dx=True)["partial_rows"]
 
 
 def test_lpips_on_the_card_matches_the_plain_routing(dev, full_f32):
@@ -205,7 +282,7 @@ def test_kdx_wtiled_matches_plain_and_is_deterministic(dev, shape):
     got = k3.conv3x3_dx(g, wt, x, A, B, wtiled=True)
     again = k3.conv3x3_dx(g, wt, x, A, B, wtiled=True)
     assert k3.LAUNCHES == {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0,
-                           "conv3x3_dx_wtiled": 2, "conv3x3_fwd_f32": 0}
+                           "conv3x3_dx_wtiled": 2, "conv3x3_fwd_f32": 0, "conv3x3_dx_f32": 0}
     for a, ref, c in zip(got, k3.conv3x3_dx_plain(g, wt, x, A, B), again):
         _close(a, ref)
         assert torch.equal(a, c)
@@ -240,7 +317,7 @@ def test_attention_kernels_match_plain_and_backward_is_deterministic(dev, b, h, 
     refs = kattn.attention_bwd_plain(q, k, v, kattn.to_heads(g, h))
     for got, ref in zip(dqkv.chunk(3, dim=-1), refs):
         _close(got, kattn.merge_heads(ref, b))
-    assert kattn.LAUNCHES == {"attn_fwd": 1, "attn_bwd": 2}
+    assert kattn.LAUNCHES == {"attn_fwd": 1, "attn_bwd": 2, "attn_fwd_f32": 0, "attn_bwd_f32": 0}
     assert kattn.LAUNCHES_BY_D[d] == kattn.LAUNCHES
     assert all(sum(n.values()) == 0 for e, n in kattn.LAUNCHES_BY_D.items() if e != d)
 
@@ -281,7 +358,7 @@ def test_attention_backward_launches_by_head_dim(dev, d, body, launches):
     assert kattn.attn_plan(1, h, t, d)["bwd_launches"] == launches
     kattn.reset_launch_counts()
     names = _kernel_names(lambda: kattn.attention_bwd(qkv, out, lse, g, h))
-    assert kattn.LAUNCHES == {"attn_fwd": 0, "attn_bwd": 1}
+    assert kattn.LAUNCHES == {"attn_fwd": 0, "attn_bwd": 1, "attn_fwd_f32": 0, "attn_bwd_f32": 0}
     mine = [n for n in names if "cgd::" in n]
     assert len(mine) == launches and all(body in n for n in mine), names
     assert all(body in n for n in _kernel_names(lambda: kattn.attention_fwd(qkv, h)) if "cgd::" in n)
@@ -327,15 +404,76 @@ def test_attention_function_uses_the_kernels(dev):
     kattn.reset_launch_counts()
     out = kattn.qkv_attention(qkv, 8)
     out.float().sum().backward()
-    assert kattn.LAUNCHES == {"attn_fwd": 1, "attn_bwd": 1}
+    assert kattn.LAUNCHES == {"attn_fwd": 1, "attn_bwd": 1, "attn_fwd_f32": 0, "attn_bwd_f32": 0}
     assert out.dtype == qkv.grad.dtype == torch.bfloat16
 
 
 def test_attention_unsupported_head_dim_or_dtype_raises(dev):
     with pytest.raises(ValueError, match="head dim 32"):
         kattn.attention_fwd(_rn(dev, 1, 16, 3 * 64), 2)
-    with pytest.raises(TypeError, match="float32"):
-        kattn.attention_fwd(_rn(dev, 1, 16, 3 * 64).float(), 1)
+    with pytest.raises(TypeError, match="float64"):
+        kattn.attention_fwd(_rn(dev, 1, 16, 3 * 64).double(), 1)
+
+
+# K-attn-f / K-attn-b f32 (csrc/attn_f32.cu) against their plain versions in
+# f32 at 1e-5 of the reference's max (exact f32 FMA on both sides, summed in
+# other orders)
+@pytest.mark.parametrize("b,h,t,d", ATTN)
+def test_f32_attention_kernels_match_plain_and_backward_is_deterministic(dev, b, h, t, d):
+    gen = torch.Generator(dev).manual_seed(13)
+    qkv = torch.randn(b, t, 3 * h * d, generator=gen, device=dev)
+    g = torch.randn(b, t, h * d, generator=gen, device=dev)
+    kattn.reset_launch_counts()
+    out, lse = kattn.attention_fwd(qkv, h)
+    q, k, v = kattn.split_heads(qkv, h)
+    _close32(out, kattn.merge_heads(kattn.attention_fwd_plain(q, k, v), b))
+    logits = (q @ k.transpose(-1, -2)) / d ** 0.5
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-5, rtol=0)
+    dqkv = kattn.attention_bwd(qkv, out, lse, g, h)
+    assert torch.equal(dqkv, kattn.attention_bwd(qkv, out, lse, g, h))
+    refs = kattn.attention_bwd_plain(q, k, v, kattn.to_heads(g, h))
+    for got, ref in zip(dqkv.chunk(3, dim=-1), refs):
+        _close32(got, kattn.merge_heads(ref, b))
+    assert kattn.LAUNCHES == {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_f32": 1, "attn_bwd_f32": 2}
+    assert kattn.LAUNCHES_BY_D[d] == kattn.LAUNCHES
+
+
+def test_the_f32_attention_kernels_size_shared_memory_as_the_plan(dev):
+    from cgd_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for d in kattn.HEAD_DIMS:
+        plan = kattn.f32_attn_plan(1, 4, 256, d)
+        for i, kernel in enumerate(("fwd", "bwd_dq", "bwd_dkdv")):
+            assert lib.cgd_attn_f32_smem_bytes(i, d) == plan["smem"][kernel], (d, kernel)
+
+
+def test_the_f32_attention_entry_points_check_the_plan(dev):
+    from cgd_tpu_torch.kernels import _build
+
+    qkv = torch.randn(1, 128, 3 * 256, device=dev)
+    out = torch.empty(1, 128, 256, device=dev)
+    lse = torch.empty(1, 128, device=dev)
+    lib, s = _build.library(), _build.stream(dev)
+    p = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 128, 1, 256)
+    assert lib.cgd_attn_fwd_f32(*p, kattn.f32_attn_plan(1, 1, 128, 256)["stream"]["fwd"], s) == 0
+    assert lib.cgd_attn_fwd_f32(*p, 16, s) != 0
+    dqkv = torch.empty_like(qkv)
+    dvec = torch.empty(1, 128, device=dev)
+    pb = (qkv.data_ptr(), out.data_ptr(), out.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+          dqkv.data_ptr(), 1, 128, 1, 256)
+    assert lib.cgd_attn_bwd_f32(*pb, 16, 16, s) == 0
+    assert lib.cgd_attn_bwd_f32(*pb, 32, 32, s) != 0  # d = 256 streams 16-row tiles
+    torch.cuda.synchronize()
+
+
+def test_f32_attention_function_uses_the_f32_kernels(dev):
+    qkv = torch.randn(1, 256, 3 * 512, device=dev, requires_grad=True)
+    kattn.reset_launch_counts()
+    out = kattn.qkv_attention(qkv, 4)
+    out.sum().backward()
+    assert kattn.LAUNCHES == {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_f32": 1, "attn_bwd_f32": 1}
+    assert out.dtype == qkv.grad.dtype == torch.float32
 
 
 # K-halo: (batch, shard H, W, Cin, Cout): ragged tiles, Cin = 3 (conv_in),

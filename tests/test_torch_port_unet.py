@@ -83,6 +83,42 @@ def test_plain_routing_matches_kernel_routing():
     np.testing.assert_allclose(fused.numpy(), plain.numpy(), **TOL)
 
 
+def test_the_f32_unet_calls_the_fused_functions_as_the_bf16_one_does(monkeypatch):
+    """At compute_dtype float32 the kernel route reaches exactly the fused
+    autograd Functions the bf16 UNet reaches (conv3x3, conv3x3_gn_silu, _add,
+    _up and the attention), as often, with f32 operands: on a card each
+    is an f32 kernel (K-fwd f32's modes, K-dx f32, K-attn f32), here its
+    plain version. The toy tree has down and up ResBlocks and attention."""
+    from cgd_tpu_torch.kernels import attention as kattn
+    from cgd_tpu_torch.kernels import conv3x3 as k3
+
+    calls = []
+    for mod, name in ((k3, "conv3x3"), (k3, "conv3x3_gn_silu"), (k3, "conv3x3_gn_silu_add"),
+                      (k3, "conv3x3_gn_silu_up"), (kattn, "qkv_attention")):
+        real = getattr(mod, name)
+
+        def counted(x, *args, _real=real, _name=name):
+            calls.append((_name, x.dtype))
+            return _real(x, *args)
+
+        monkeypatch.setattr(mod, name, counted)
+    jcfg, tcfg = _tiny_cfgs(True)
+    model = load_from_jax(tunet.UNet(tcfg), _perturbed_params(jcfg, 4))
+    x = torch.from_numpy(np.random.RandomState(5).randn(1, 32, 32, 3).astype(np.float32))
+    t, y = torch.tensor([80.0]), torch.tensor([3])
+    counts = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        calls.clear()
+        xt = x.clone().requires_grad_(True)
+        out = model(xt, t, y, compute_dtype=dtype)
+        out.float().sum().backward()
+        assert {dt for _, dt in calls} == {dtype} and torch.isfinite(xt.grad).all()
+        counts[dtype] = {n: sum(1 for m, _ in calls if m == n) for n, _ in calls}
+    assert counts[torch.float32] == counts[torch.bfloat16]
+    assert set(counts[torch.float32]) == {"conv3x3", "conv3x3_gn_silu", "conv3x3_gn_silu_add",
+                                          "conv3x3_gn_silu_up", "qkv_attention"}
+
+
 def test_random_init_statistics_follow_jax_init():
     """The port's own random init: zero out_convs and projections (the
     model outputs exactly 0, as the JAX init does), unit norms, and the
