@@ -18,10 +18,10 @@ cutouts split over every mesh device. Every other option raises rather
 than being ignored.
 
 ``compute_dtype="float32"`` runs the UNet, CLIP and the glue in f32 (the
-conv family and the attention on their f32 kernels on a card) with TF32 off
-for cuDNN and cuBLAS while the generator runs, and the caller's flags back
-whenever it yields or ends; a mesh at float32 on a card is refused (K-halo
-has no f32 kernel yet).
+conv family and the attention on their f32 kernels on a card; with
+``mesh=`` the height-split convs on K-halo f32) with TF32 off for cuDNN and
+cuBLAS while the generator runs, and the caller's flags back whenever it
+yields or ends.
 
 The signature is ``cgd_tpu.api.clip_guided_diffusion``'s, keyword for keyword
 and default for default (tests/test_torch_port_api.py pins it), except
@@ -231,10 +231,6 @@ def clip_guided_diffusion(
 ) -> Iterator[Tuple[int, str]]:
     if mesh is not None and any(d.type != torch.device(device).type for d in mesh.devices.flat):
         raise ValueError(f"device={device!r} but the mesh's devices are {list(mesh.devices.flat)}")
-    if mesh is not None and compute_dtype == "float32" and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            "mesh= with compute_dtype='float32' on CUDA: the height-split convs run on K-halo, "
-            "which has no float32 kernel yet (use compute_dtype='bfloat16' with a mesh)")
     dev = resolve_device(device)
     _refuse(
         use_augs=(use_augs, False),

@@ -115,7 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "replicated (see cgd_tpu_torch/parallel/mesh.py)")
     p.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"],
                    help="activation dtype: bfloat16, or float32 (the f32 kernels, TF32 off; "
-                        "no --mesh on cards)")
+                        "with --mesh the split convs on K-halo f32)")
     p.add_argument("--profile", default=None, type=str,
                    help="write a profiler trace to this directory (not ported: raises)")
     p.add_argument("--log-losses", action="store_true",

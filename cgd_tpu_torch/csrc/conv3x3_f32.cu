@@ -1,5 +1,5 @@
-// K-fwd and K-dx at f32 operands: the 3x3, stride-1, pad-1 NHWC conv family
-// for sm_90a, in every mode that compute_dtype="float32" reaches.
+// K-fwd, K-halo and K-dx at f32 operands: the 3x3, stride-1, pad-1 NHWC
+// conv family for sm_90a, in every mode that compute_dtype="float32" reaches.
 //
 // Replaces the Pallas TPU kernels of cgd_tpu/kernels/conv_pallas.py at f32
 // operands (itemsize 4, cgd_tpu/ops/nn.py:169-178 and :274-327):
@@ -10,6 +10,13 @@
 //   VGG16 reaches it (cgd_tpu/models/vgg_lpips.py:60), and the input
 //   gradient of a conv is the same conv with flipped, transposed weights
 //   and a zero bias (conv_pallas.py:553-558).
+// - K-halo (the same launcher in explicit_halo mode, conv_pallas.py:335-337,
+//   :397-399, :507-513, reached from cgd_tpu/kernels/conv_spmd.py:139, which
+//   plans it at the activation's own itemsize): K-fwd on one shard of a
+//   height-split image, rows -1 and H taken from etop / ebot, the
+//   neighbouring shards' boundary rows, already activated. The height-split
+//   UNet at compute_dtype="float32" runs every 3x3 conv on it, forward and
+//   (plain mode, flipped weights, zero bias) input gradient.
 // - K-dx (_conv3x3_dx_pallas -> _conv_dx_kernel), and its W >= 512 class
 //   (_conv3x3_dx_wtiled -> _conv_dx_kernel_wtiled), the backward of the
 //   prologue conv: acc = conv3x3(g, wt), pre = x*A + B,
@@ -62,6 +69,14 @@
 //   window row (oy + dy + 1) / 2 (the same for columns): nearest-2x is only
 //   an address. The output image is 2H x 2W, so its pad rows and columns
 //   are the source image's (conv_pallas.py:341-344).
+// - HALO: window rows -1 and h are staged from etop / ebot ([batch, 1, w,
+//   cin]) at the columns inside the image; their pad columns stay 0, as the
+//   Pallas kernel's zero columns (conv_pallas.py:346-347). The prologue
+//   skips every row outside [0, h), so the halo rows, post-activation, are
+//   not activated again. Window rows past h (a shard shorter than the 8-row
+//   patch) stay 0: they feed only outputs that are never written. No up:
+//   the Pallas kernel takes no halo with a resample (conv_pallas.py:388),
+//   and the split UNet upsamples before its conv.
 // - EPI_SKIP adds the residual in the f32 epilogue, after the bias, as the
 //   plain version's (acc + bias) + skip.
 // - EPI_DX is K-dx's epilogue: dpre and dx per output element, and the
@@ -105,6 +120,8 @@ struct Params {
   const float* B;     // [batch, cin] prologue shift (K-dx: [batch, cout])
   const float* skip;  // [batch, ho, wo, cout] (EPI_SKIP)
   const float* xpre;  // K-dx: the pre-activation input [batch, h, w, cout]
+  const float* etop;  // HALO: the row above the shard [batch, 1, w, cin]
+  const float* ebot;  // HALO: the row below the shard [batch, 1, w, cin]
   float* out;         // [batch, ho, wo, cout] (K-dx: dx)
   float* partial;     // K-dx: [batch, patches, 2, cout] dA / dB column sums
   int h, wd;          // the input image (the output is 2h x 2wd with up)
@@ -137,16 +154,25 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint
 __device__ __forceinline__ float sigmoid_f32(float v) { return 1.f / (1.f + expf(-v)); }
 
 // Stage chunk [c0, c0 + BK) of the input window and of the weights. The
-// window's top-left pixel is source pixel (sy0, sx0).
-template <bool UP>
+// window's top-left pixel is source pixel (sy0, sx0). With HALO, rows -1
+// and h come from etop / ebot; every other cell outside the image is 0.
+template <bool UP, bool HALO>
 __device__ __forceinline__ void load_stage(float* sA, float* sB, const Params& p, int b, int sy0,
                                            int sx0, int n0, int c0) {
   using Win = Window<UP>;
   for (int i = threadIdx.x; i < Win::H * Win::W * (BK / 4); i += NTHREADS) {
     const int pix = i / (BK / 4), v = i % (BK / 4);
     const int gy = sy0 + pix / Win::W, gx = sx0 + pix % Win::W, c = c0 + 4 * v;
-    const bool ok = gy >= 0 && gy < p.h && gx >= 0 && gx < p.wd && c < p.cin;
-    const float* src = ok ? p.x + (((size_t)b * p.h + gy) * p.wd + gx) * p.cin + c : p.x;
+    const bool in_row = gx >= 0 && gx < p.wd && c < p.cin;
+    const float* src = p.x;
+    bool ok = false;
+    if (gy >= 0 && gy < p.h) {
+      ok = in_row;
+      if (ok) src = p.x + (((size_t)b * p.h + gy) * p.wd + gx) * p.cin + c;
+    } else if (HALO && (gy == -1 || gy == p.h)) {
+      ok = in_row;
+      if (ok) src = (gy < 0 ? p.etop : p.ebot) + ((size_t)b * p.wd + gx) * p.cin + c;
+    }
     cp_async16(sA + pix * A_STRIDE + 4 * v, src, ok);
   }
   for (int i = threadIdx.x; i < 9 * BK * (BN / 4); i += NTHREADS) {
@@ -159,7 +185,8 @@ __device__ __forceinline__ void load_stage(float* sA, float* sB, const Params& p
 }
 
 // The prologue on a landed window: act = silu(x*A + B) in place, each
-// element once; cells outside the image and channels past Cin stay 0.
+// element once; cells outside the image and channels past Cin stay 0, and
+// K-halo's rows -1 and h (outside the image too) keep their activated values.
 template <bool UP>
 __device__ __forceinline__ void activate(float* sA, const Params& p, int b, int sy0, int sx0,
                                          int c0) {
@@ -181,9 +208,10 @@ __device__ __forceinline__ void activate(float* sA, const Params& p, int b, int 
   }
 }
 
-template <bool PRO, bool UP, int EPI>
+template <bool PRO, bool UP, bool HALO, int EPI>
 __global__ void __launch_bounds__(NTHREADS, 1)
 conv3x3_f32_kernel(const __grid_constant__ Params p) {
+  static_assert(!(HALO && (UP || EPI == EPI_DX)), "K-halo takes no up and is no K-dx");
   extern __shared__ __align__(16) float smem[];
   using Win = Window<UP>;
   const int ho = UP ? 2 * p.h : p.h, wo = UP ? 2 * p.wd : p.wd;
@@ -207,12 +235,12 @@ conv3x3_f32_kernel(const __grid_constant__ Params p) {
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   const int chunks = (p.cin + BK - 1) / BK;
-  load_stage<UP>(smem, smem + A_FLOATS, p, b, sy0, sx0, n0, 0);
+  load_stage<UP, HALO>(smem, smem + A_FLOATS, p, b, sy0, sx0, n0, 0);
   cp_async_commit();
   for (int ck = 0; ck < chunks; ++ck) {
     if (ck + 1 < chunks) {
       float* next = smem + ((ck + 1) % STAGES) * STAGE_FLOATS;
-      load_stage<UP>(next, next + A_FLOATS, p, b, sy0, sx0, n0, (ck + 1) * BK);
+      load_stage<UP, HALO>(next, next + A_FLOATS, p, b, sy0, sx0, n0, (ck + 1) * BK);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -411,9 +439,9 @@ __global__ void conv3x3_dx_f32_reduce(const float* __restrict__ partial, float* 
 
 inline int patches(int ho, int wo) { return ((ho + PH - 1) / PH) * ((wo + PW - 1) / PW); }
 
-template <bool PRO, bool UP, int EPI>
+template <bool PRO, bool UP, bool HALO, int EPI>
 static int launch(const Params& p, int batch, cudaStream_t s) {
-  auto kernel = conv3x3_f32_kernel<PRO, UP, EPI>;
+  auto kernel = conv3x3_f32_kernel<PRO, UP, HALO, EPI>;
   static const cudaError_t smem_ok =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (smem_ok != cudaSuccess) return (int)smem_ok;
@@ -426,31 +454,42 @@ static int launch(const Params& p, int batch, cudaStream_t s) {
 }  // namespace f32conv
 }  // namespace cgd
 
-// K-fwd f32. x [batch, h, w, cin] f32; w [3, 3, cin, cout] f32 (HWIO); bias
-// [cout] f32; A, Bv [batch, cin] f32 (the prologue) or both null; skip
-// [batch, ho, wo, cout] f32 or null; up != 0: nearest-2x between the
-// activation and the taps (needs A/Bv, takes no skip) -> out [batch, ho, wo,
-// cout] f32, (ho, wo) = (2h, 2w) with up. Requires cin % 4 == 0, cout % 4 ==
-// 0 and 16-byte aligned pointers (kernels/conv3x3.py f32_plan pads and plans
-// the same). Returns the launch status (a cudaError_t).
+// K-fwd f32 (K-halo f32 with etop / ebot). x [batch, h, w, cin] f32; w [3,
+// 3, cin, cout] f32 (HWIO); bias [cout] f32; A, Bv [batch, cin] f32 (the
+// prologue) or both null; skip [batch, ho, wo, cout] f32 or null; up != 0:
+// nearest-2x between the activation and the taps (needs A/Bv, takes no skip
+// and no halo); etop, ebot [batch, 1, w, cin] f32, both or neither: the
+// (activated) rows above and below x -> out [batch, ho, wo, cout] f32, (ho,
+// wo) = (2h, 2w) with up. Requires cin % 4 == 0, cout % 4 == 0 and 16-byte
+// aligned pointers (kernels/conv3x3.py f32_plan pads and plans the same).
+// Returns the launch status (a cudaError_t).
 extern "C" int cgd_conv3x3_f32(const void* x, const void* w, const void* bias, const void* A,
-                               const void* Bv, const void* skip, void* out, int batch, int h,
-                               int wd, int cin, int cout, int up, void* stream) {
+                               const void* Bv, const void* skip, const void* etop,
+                               const void* ebot, void* out, int batch, int h, int wd, int cin,
+                               int cout, int up, void* stream) {
   using namespace cgd::f32conv;
-  const bool pro = A != nullptr;
+  const bool pro = A != nullptr, halo = etop != nullptr;
   if (batch <= 0 || h <= 0 || wd <= 0 || cin <= 0 || cout <= 0 || cin % 4 || cout % 4 ||
-      pro != (Bv != nullptr) || (up && (!pro || skip != nullptr)))
+      pro != (Bv != nullptr) || (up && (!pro || skip != nullptr)) ||
+      halo != (ebot != nullptr) || (halo && up))
     return (int)cudaErrorInvalidValue;
   Params p{static_cast<const float*>(x), static_cast<const float*>(w),
            static_cast<const float*>(bias), static_cast<const float*>(A),
            static_cast<const float*>(Bv), static_cast<const float*>(skip), nullptr,
+           static_cast<const float*>(etop), static_cast<const float*>(ebot),
            static_cast<float*>(out), nullptr, h, wd, cin, cout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (up) return launch<true, true, EPI_BIAS>(p, batch, s);
-  if (pro) return skip ? launch<true, false, EPI_SKIP>(p, batch, s)
-                       : launch<true, false, EPI_BIAS>(p, batch, s);
-  return skip ? launch<false, false, EPI_SKIP>(p, batch, s)
-              : launch<false, false, EPI_BIAS>(p, batch, s);
+  if (up) return launch<true, true, false, EPI_BIAS>(p, batch, s);
+  if (halo) {
+    if (pro) return skip ? launch<true, false, true, EPI_SKIP>(p, batch, s)
+                         : launch<true, false, true, EPI_BIAS>(p, batch, s);
+    return skip ? launch<false, false, true, EPI_SKIP>(p, batch, s)
+                : launch<false, false, true, EPI_BIAS>(p, batch, s);
+  }
+  if (pro) return skip ? launch<true, false, false, EPI_SKIP>(p, batch, s)
+                       : launch<true, false, false, EPI_BIAS>(p, batch, s);
+  return skip ? launch<false, false, false, EPI_SKIP>(p, batch, s)
+              : launch<false, false, false, EPI_BIAS>(p, batch, s);
 }
 
 // K-dx f32. g [batch, h, w, cg] f32 cotangent; wt [3, 3, cg, cx] f32 (the
@@ -468,10 +507,10 @@ extern "C" int cgd_conv3x3_dx_f32(const void* g, const void* wt, const void* x, 
     return (int)cudaErrorInvalidValue;
   Params p{static_cast<const float*>(g), static_cast<const float*>(wt), nullptr,
            static_cast<const float*>(A), static_cast<const float*>(Bv), nullptr,
-           static_cast<const float*>(x), static_cast<float*>(dx), static_cast<float*>(partial),
-           h, wd, cg, cx};
+           static_cast<const float*>(x), nullptr, nullptr, static_cast<float*>(dx),
+           static_cast<float*>(partial), h, wd, cg, cx};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int err = launch<false, false, EPI_DX>(p, batch, s)) return err;
+  if (int err = launch<false, false, false, EPI_DX>(p, batch, s)) return err;
   conv3x3_dx_f32_reduce<<<dim3((cx + 31) / 32, batch), dim3(32, RED_ROWS), 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(dA), static_cast<float*>(dB),
       patches(h, wd), cx);

@@ -68,7 +68,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_conv3x3_smem_bytes.restype = i
     lib.cgd_conv3x3_encode_seconds.argtypes = [p, i]
     lib.cgd_conv3x3_encode_seconds.restype = ctypes.c_double
-    lib.cgd_conv3x3_f32.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.cgd_conv3x3_f32.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.cgd_conv3x3_f32.restype = i
     lib.cgd_conv3x3_dx_f32.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.cgd_conv3x3_dx_f32.restype = i

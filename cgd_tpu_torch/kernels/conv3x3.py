@@ -26,9 +26,10 @@ the kernel agree on.
 At f32 operands both wrappers run ``csrc/conv3x3_f32.cu`` (3xTF32
 ``mma.sync``; ``f32_plan`` is its geometry): ``conv3x3_fwd`` as K-fwd f32 in
 the plain, prologue, residual and up modes (the LPIPS VGG16's convs, and
-the UNet at ``compute_dtype="float32"``), ``conv3x3_dx`` as K-dx f32 (one
-launch shape for both of K-dx's classes, then a fixed-order dA/dB sum).
-K-halo has no f32 kernel yet: f32 with ``etop``/``ebot`` raises.
+the UNet at ``compute_dtype="float32"``) and, given ``etop``/``ebot``, as
+K-halo f32 in the plain, prologue and residual modes (the height-split UNet
+at ``compute_dtype="float32"``); ``conv3x3_dx`` as K-dx f32 (one launch
+shape for both of K-dx's classes, then a fixed-order dA/dB sum).
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises. Nothing falls back from a failed build or launch.
@@ -52,7 +53,7 @@ from cgd_tpu_torch.kernels import _build
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES = {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0, "conv3x3_dx_wtiled": 0,
-            "conv3x3_fwd_f32": 0, "conv3x3_dx_f32": 0}
+            "conv3x3_fwd_f32": 0, "conv3x3_fwd_halo_f32": 0, "conv3x3_dx_f32": 0}
 
 _K_ALIGN = 64  # kernels need Cin % 64 == 0 (one 128-byte K chunk) ...
 _N_ALIGN = 8   # ... and Cout % 8 == 0 (16-byte TMA strides)
@@ -226,16 +227,20 @@ F32_ALIGN = 4         # Cin and Cout padded to a multiple of 4 (16-byte copies)
 
 
 def f32_plan(b: int, h: int, w: int, cin: int, cout: int, up: bool = False,
-             dx: bool = False) -> dict:
+             dx: bool = False, halo: bool = False) -> dict:
     """The launch plan of one K-fwd f32 call (``dx``: K-dx f32, ``cin`` /
-    ``cout`` = Cg / Cx): 8 x 16 output patches by 64 output channels per
-    block, one block per (patch, N tile, image); Cin in chunks of 32, two
-    cp.async stages of the input window ([pixel][32 + 4] floats) and of the
-    chunk's weights ([tap][32][64 + 8]). The window is the patch's pad-1
-    halo, 10 x 18 pixels; with ``up`` (output 2h x 2w) it is staged at source
-    resolution, output rows / cols -1 .. 8 / 16 halved: 6 x 10. Every mode
-    takes the same shared memory. K-dx f32 writes one dA/dB partial row per
-    patch (``partial_rows``) and sums them in a second launch."""
+    ``cout`` = Cg / Cx; ``halo``: K-halo f32 on an ``h``-row shard): 8 x 16
+    output patches by 64 output channels per block, one block per (patch, N
+    tile, image); Cin in chunks of 32, two cp.async stages of the input
+    window ([pixel][32 + 4] floats) and of the chunk's weights
+    ([tap][32][64 + 8]). The window is the patch's pad-1 halo, 10 x 18
+    pixels; with ``up`` (output 2h x 2w) it is staged at source resolution,
+    output rows / cols -1 .. 8 / 16 halved: 6 x 10. Every mode takes the same
+    shared memory. K-dx f32 writes one dA/dB partial row per patch
+    (``partial_rows``) and sums them in a second launch. K-halo f32 stages
+    window rows -1 and h from ``etop`` / ``ebot`` (``halo_rows``, each
+    ``[b, 1, w, cin]`` padded as x), their pad columns 0; every other row
+    outside [0, h) is 0."""
     cin_p, cout_p = _round_up(cin, F32_ALIGN), _round_up(cout, F32_ALIGN)
     ph, pw = F32_PATCH
     ho, wo = (2 * h, 2 * w) if up else (h, w)
@@ -245,19 +250,24 @@ def f32_plan(b: int, h: int, w: int, cin: int, cout: int, up: bool = False,
     return dict(cin=cin_p, cout=cout_p, ho=ho, wo=wo, patch=F32_PATCH, bk=F32_BK, bn=F32_BN,
                 window=window,
                 chunks=-(-cin_p // F32_BK), grid=(patches, -(-cout_p // F32_BN), b),
-                smem_bytes=2 * stage * 4, partial_rows=patches if dx else None)
+                smem_bytes=2 * stage * 4, partial_rows=patches if dx else None,
+                halo_rows={-1: "etop", h: "ebot"} if halo else None)
 
 
-def _conv3x3_fwd_f32(x, w, bias, A, B, skip, up) -> torch.Tensor:
-    """K-fwd f32 on CUDA tensors, every mode but K-halo."""
+def _conv3x3_fwd_f32(x, w, bias, A, B, skip, up, etop=None, ebot=None) -> torch.Tensor:
+    """K-fwd f32 on CUDA tensors; K-halo f32 with ``etop``/``ebot``."""
     _check_cuda("conv3x3_fwd", x.device, torch.float32, x=x, w=w, bias=bias, A=A, B=B,
-                skip=skip)
+                skip=skip, etop=etop, ebot=ebot)
     b, h, wd, cin = x.shape
+    halo = etop is not None
+    if halo and (etop.shape != (b, 1, wd, cin) or ebot.shape != (b, 1, wd, cin)):
+        raise ValueError(f"conv3x3_fwd: etop {tuple(etop.shape)} / ebot {tuple(ebot.shape)} "
+                         f"!= {(b, 1, wd, cin)}")
     cout = w.shape[-1]
     if w.shape != (3, 3, cin, cout) or bias.shape != (cout,):
         raise ValueError(f"conv3x3_fwd: w {tuple(w.shape)} / bias {tuple(bias.shape)} "
                          f"do not fit x {tuple(x.shape)}")
-    plan = f32_plan(b, h, wd, cin, cout, up)
+    plan = f32_plan(b, h, wd, cin, cout, up, halo=halo)
     ho, wo = plan["ho"], plan["wo"]
     if A is not None and (A.shape != (b, cin) or B.shape != (b, cin)):
         raise ValueError(f"conv3x3_fwd: A {tuple(A.shape)} / B {tuple(B.shape)} != {(b, cin)}")
@@ -266,6 +276,7 @@ def _conv3x3_fwd_f32(x, w, bias, A, B, skip, up) -> torch.Tensor:
     cin_p, cout_p = plan["cin"], plan["cout"]
     x, w, A, B = _pad_to(x, 3, cin_p), _pad_to(_pad_to(w, 2, cin_p), 3, cout_p), \
         _pad_to(A, 1, cin_p), _pad_to(B, 1, cin_p)
+    etop, ebot = _pad_to(etop, 3, cin_p), _pad_to(ebot, 3, cin_p)
     bias, skip = _pad_to(bias, 0, cout_p), _pad_to(skip, 3, cout_p)
     out = torch.empty((b, ho, wo, cout_p), dtype=torch.float32, device=x.device)
     lib = _build.library()
@@ -273,10 +284,11 @@ def _conv3x3_fwd_f32(x, w, bias, A, B, skip, up) -> torch.Tensor:
         status = lib.cgd_conv3x3_f32(
             x.data_ptr(), w.data_ptr(), bias.data_ptr(),
             None if A is None else A.data_ptr(), None if B is None else B.data_ptr(),
-            None if skip is None else skip.data_ptr(), out.data_ptr(),
-            b, h, wd, cin_p, cout_p, int(up), _build.stream(x.device))
+            None if skip is None else skip.data_ptr(),
+            None if etop is None else etop.data_ptr(), None if ebot is None else ebot.data_ptr(),
+            out.data_ptr(), b, h, wd, cin_p, cout_p, int(up), _build.stream(x.device))
     _build.check(status, "conv3x3_fwd (f32)")
-    LAUNCHES["conv3x3_fwd_f32"] += 1
+    LAUNCHES["conv3x3_fwd_halo_f32" if halo else "conv3x3_fwd_f32"] += 1
     return out[..., :cout].contiguous() if cout_p != cout else out
 
 
@@ -328,7 +340,7 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False, etop=None, ebot
     (ho, wo) = (2hs, 2ws) with ``up``. ``etop``/``ebot`` [b,1,ws,cin] (both or
     neither, no ``up``): K-halo, the rows above and below x, post-activation.
     bf16 operands on CUDA run K-fwd (K-halo with etop/ebot); f32 operands
-    run K-fwd f32 in every mode but K-halo. No autograd."""
+    run K-fwd f32 (K-halo f32 with etop/ebot). No autograd."""
     halo = etop is not None
     if halo != (ebot is not None) or (halo and up):
         raise ValueError("conv3x3_fwd: etop and ebot go together and take no up")
@@ -342,10 +354,7 @@ def conv3x3_fwd(x, w, bias, A=None, B=None, skip=None, up=False, etop=None, ebot
         raise ValueError("conv3x3_fwd: unsupported fusion (A and B go together; "
                          "up needs the prologue and takes no skip)")
     if x.dtype == torch.float32:
-        if halo:
-            raise ValueError("conv3x3_fwd: K-halo (etop/ebot) has no float32 kernel; "
-                             "the height-split mesh runs at compute_dtype bfloat16")
-        return _conv3x3_fwd_f32(x, w, bias, A, B, skip, up)
+        return _conv3x3_fwd_f32(x, w, bias, A, B, skip, up, etop, ebot)
     _check_cuda("conv3x3_fwd", x.device, x=x, w=w, bias=bias, A=A, B=B, skip=skip,
                 etop=etop, ebot=ebot)
     b, hs, ws, cin = x.shape

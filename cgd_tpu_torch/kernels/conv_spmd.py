@@ -8,13 +8,15 @@ taken at the level of the whole tensor, as JAX's ``custom_vjp`` around the
 partitioned op:
 
 - forward: shard i gets the last row of shard i-1 as ``etop`` and the first
-  row of shard i+1 as ``ebot`` (activated first, with the kernel's bf16
-  rounding, for the prologue variants), zeros at the true image top and
-  bottom, and runs K-halo (``conv3x3.conv3x3_fwd(..., etop=, ebot=)``);
+  row of shard i+1 as ``ebot`` (activated first, rounded to the activation
+  dtype as the kernel rounds, for the prologue variants), zeros at the true
+  image top and bottom, and runs K-halo (``conv3x3.conv3x3_fwd(..., etop=,
+  ebot=)``: K-halo on bf16 shards, K-halo f32 on f32 ones);
 - backward: the cotangent's boundary rows are exchanged the same way and
   K-halo (plain) runs with the flipped weights; the silu'/affine chain is
-  plain PyTorch, as ``_fused_bwd_common`` with ``conv_fn=_p_plain``, and dA /
-  dB are summed over the shards (A / B carry global GroupNorm statistics).
+  plain PyTorch in f32, as ``_fused_bwd_common`` with ``conv_fn=_p_plain``,
+  and dA / dB are summed over the shards (A / B carry global GroupNorm
+  statistics); the weight gradient is cuDNN's on the stacked rows.
 
 ``place(t, device)`` puts a weight on a shard's device (``Mesh.place``: the
 replica where there is one).

@@ -34,9 +34,15 @@ def device_ms(fn, iters: int = 20):
     A window in which the profiler recorded no kernel (seen once on the
     card, for SDPA), or a count of kernels that is no whole multiple of the
     calls (records dropped: seen on the card late in a long process, the
-    device time then about half the CUDA events' time), is measured again,
-    up to three times; then the last window with kernels is returned, its
-    fractional count telling of the drop, or, with none, it raises."""
+    summed device time then about half the CUDA events' time), is measured
+    again, up to three times. If every window dropped records, the last one
+    gives each kernel's mean recorded duration times its launches per call
+    (its records over the calls, rounded up: right while fewer than one
+    launch per call of a kernel is lost), with the fractional count telling
+    of the drop; with no kernel recorded at all it raises."""
+    import math
+    from collections import defaultdict
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -49,13 +55,18 @@ def device_ms(fn, iters: int = 20):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            last = sum(e.device_time_total for e in events) / 1e3 / iters, len(events) / iters
-            if len(events) % iters == 0:
-                return last
+        if not events:
+            continue
+        if len(events) % iters == 0:
+            return sum(e.device_time_total for e in events) / 1e3 / iters, len(events) / iters
+        last = events
     if last is None:
         raise RuntimeError("device_ms: the profiler recorded no kernel in three windows")
-    return last
+    by_name = defaultdict(list)
+    for e in last:
+        by_name[e.name].append(e.device_time_total)
+    ms = sum(sum(t) / len(t) * math.ceil(len(t) / iters) for t in by_name.values()) / 1e3
+    return ms, len(last) / iters
 
 
 def host_us(fn, iters: int = 100) -> float:

@@ -79,21 +79,38 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    against its plain version in f32 (bound 1e-5 of the reference's max) and
    against f64 beside the plain version's own error, K-dx f32's dA/dB and
    K-attn-b f32 bit-identical over two runs, timed beside cuDNN f32 (TF32
-   off) or SDPA at f32; (b) the full 256px and 128px UNets at f32, kernels
-   vs ``kernel_routing("plain")`` (relative L2 <= 1e-4), the 128px one with
-   the f32 attention at d = 128, 192 and 256; (c) the 256px ViT-B/32 ddim25
+   off) or SDPA at f32; (b) the full 256px, 128px and 512px UNets at f32,
+   kernels vs ``kernel_routing("plain")`` (relative L2 <= 1e-4), the 128px
+   one with the f32 attention at d = 128, 192 and 256, the 512px one with
+   K-dx f32's W >= 512 class; (c) the 256px ViT-B/32 ddim25
    run through ``api.clip_guided_diffusion(compute_dtype="float32")``: the
    first guided step's x vs the plain routing from the same seed (relative
    L2 <= 1e-3), finite frames, PNGs, peak memory, ms per step beside phase
    5's, counters reset just before and read just after: every f32 kernel
-   launched and no bf16 kernel.
+   launched and no bf16 kernel;
+10. the height-split mesh at ``compute_dtype="float32"`` on the one card,
+   every line with the card's name and power limit: (a) K-halo f32 through
+   ``kernels.conv_spmd`` on two shards, forward and input gradient, against
+   its plain version with autograd (bound 1e-5 of the reference's max) and
+   against f64, at phase 7a's shard shapes and the 8^2 level's 4- and 2-row
+   shards, timed beside cuDNN f32 on the stacked rows, K-fwd f32 on the
+   shard and the plain version; (b) the full 256px UNet at f32 split cut=2
+   against the unsplit f32 kernel UNet (relative L2 <= 1e-4), launching
+   K-halo f32 and no other conv kernel; (c) phase 9c's run through
+   ``api.clip_guided_diffusion(mesh=make_mesh([dev, dev]),
+   compute_dtype="float32")``, counters reset just before and read just
+   after: first step's x vs the plain routing on the same mesh, frames,
+   PNGs, K-halo f32 and the f32 attention launched, no bf16 kernel and no
+   unsplit f32 conv, ms per step beside phases 9c and 7c; (d) the CLI with
+   ``--mesh cut=2 --compute-dtype float32`` over two copies of the card.
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
 from phase 7c, K-fwd f32's from phase 8, K-dx f32's and the f32
-attention's from phase 9c; each with its eager and device time, its bound
-on the card and the library call's time where there is one; K-fwd f32's
-summed over one guided step's 39 launches), and as its last line
-``{"ok": true, "device": {...}}``.
+attention's from phase 9c, K-halo f32's from phase 10c; each with its eager
+and device time, its bound on the card and the library call's time where
+there is one; K-fwd f32's summed over one guided step's 39 launches), the
+whole run's wall time, and as its last line ``{"ok": true, "device":
+{...}}``.
 Needs one card; builds everything it runs.
 """
 
@@ -123,6 +140,18 @@ PEAK_HBM_BYTES = 3.35e12
 VGG16_CONVS = [(256, 3, 64, 1), (256, 64, 64, 1), (128, 64, 128, 1), (128, 128, 128, 1),
                (64, 128, 256, 1), (64, 256, 256, 2), (32, 256, 512, 1), (32, 512, 512, 2),
                (16, 512, 512, 3)]
+# phase 10a's K-halo f32 shards (name, shard H, W, Cin, Cout, prologue,
+# skip): phase 7a's four (conv_in, a 256px ResBlock out_conv, the 16^2
+# level's 2048 -> 1024, a 512px ResBlock conv), then a 256px 8^2-level
+# ResBlock out_conv split cut=2 and cut=4 (shards shorter than a patch)
+HALO_F32_SHARDS = [
+    ("conv3x3", 128, 256, 3, 256, False, False),
+    ("conv3x3_gn_silu_add", 128, 256, 256, 256, True, True),
+    ("conv3x3_gn_silu", 8, 16, 2048, 1024, True, False),
+    ("conv3x3_gn_silu", 256, 512, 128, 128, True, False),
+    ("conv3x3_gn_silu_add", 4, 8, 1024, 1024, True, True),
+    ("conv3x3_gn_silu_add", 2, 8, 1024, 1024, True, True),
+]
 # a tiny BPE merge table (the real one is not in the repository)
 BPE_MERGES = ["t h", "th e</w>", "a n", "an d</w>", "i n", "in g</w>", "h e", "he l", "hel l",
               "hell o</w>"]
@@ -1416,20 +1445,33 @@ def phase_f32_kernels(k3, kattn, dev) -> dict:
     return res
 
 
-def phase_f32_unets(kattn, dev) -> None:
-    """Phase 9b: the full 256px and 128px UNets at compute_dtype float32
-    (every zero-init conv re-drawn), kernels against kernel_routing("plain"),
-    forward and input gradient (relative L2 <= F32_UNET_TOL); the 128px one
-    must run the f32 attention at d = 128, 192 and 256."""
+def phase_f32_unets(k3, kattn, dev) -> dict:
+    """Phase 9b: the full 256px, 128px and 512px UNets at compute_dtype
+    float32 (every zero-init conv re-drawn), kernels against
+    kernel_routing("plain"), forward and input gradient (relative L2 <=
+    F32_UNET_TOL); the 128px one must run the f32 attention at d = 128, 192
+    and 256, the 512px one K-dx f32's W >= 512 class. Returns that class's
+    launches in the 512px UNet's forward and input gradient."""
     import torch
 
     from cgd_tpu_torch.ops.nn import kernel_routing
 
-    for size in (256, 128):
+    wide = {"launches": 0}
+    real_dx = k3._conv3x3_dx_f32
+
+    def count_wide(g, *a):  # K-dx f32 launches at images W >= 512
+        wide["launches"] += g.shape[2] >= 512
+        return real_dx(g, *a)
+
+    for size in (256, 128, 512):
         unet, n_params, run = _full_unet(dev, size, torch.float32)
         kattn.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
-        got = run()
+        k3._conv3x3_dx_f32 = count_wide
+        try:
+            got = run()
+        finally:
+            k3._conv3x3_dx_f32 = real_dx
         peak = torch.cuda.max_memory_allocated(dev)
         by_d = {d: c["attn_fwd_f32"] + c["attn_bwd_f32"] for d, c in kattn.LAUNCHES_BY_D.items()}
         with kernel_routing("plain"):
@@ -1448,14 +1490,19 @@ def phase_f32_unets(kattn, dev) -> None:
         want_d = (128, 192, 256) if size == 128 else (64,)
         if any(by_d[d] == 0 for d in want_d):
             raise AssertionError(f"f32 UNet {size}px: f32 attention launches by d {by_d}")
+        if size == 512 and wide["launches"] == 0:
+            raise AssertionError("f32 UNet 512px: K-dx f32's W >= 512 class was not launched")
+        wide_line = f"; K-dx f32 at W >= 512: {wide['launches']} launches" if size == 512 else ""
         _say9(f"UNet {size}px f32 fwd + input grad: kernels {ms_k:.2f} ms, plain routing "
               f"{ms_p:.2f} ms; peak memory {peak / 2**30:.2f} GiB; f32 attention launches by "
-              f"head dim {({d: c for d, c in by_d.items() if c})}")
+              f"head dim {({d: c for d, c in by_d.items() if c})}{wide_line}")
         del unet
         torch.cuda.empty_cache()
+    return wide
 
 
-def phase_f32_e2e(k3, kattn, dev, out_dir: Path, bf16_step_s: float) -> dict:
+def phase_f32_e2e(k3, kattn, dev, out_dir: Path, bf16_step_s: float, mesh=None,
+                  f32_step_s: float = None, say=None) -> tuple:
     """Phase 9c: the 256px ViT-B/32 ddim25 guided run through
     ``api.clip_guided_diffusion(compute_dtype="float32")``, 16 cutouts:
     the random UNet's zero-init layers re-drawn (as phase 4; else its
@@ -1464,7 +1511,11 @@ def phase_f32_e2e(k3, kattn, dev, out_dir: Path, bf16_step_s: float) -> dict:
     (relative L2 <= F32_STEP_TOL), finite frames, PNGs, peak device memory,
     ms per guided step beside phase 5's bf16 step; counters reset just
     before the run and read just after: every f32 kernel launched, no bf16
-    kernel. Returns the run's launch counts."""
+    kernel. Phase 10c with ``mesh`` (the plain routing on the same mesh):
+    K-halo f32 and the f32 attention launched, no bf16 kernel and no
+    unsplit K-fwd f32 / K-dx f32, the step beside phase 9c's unsplit f32
+    step (``f32_step_s``) and phase 7c's bf16 mesh step (``bf16_step_s``).
+    Returns (launch counts, s per guided step)."""
     import numpy as np
     import torch
 
@@ -1478,9 +1529,10 @@ def phase_f32_e2e(k3, kattn, dev, out_dir: Path, bf16_step_s: float) -> dict:
         _redraw_zero_init(unet, torch.Generator(dev).manual_seed(9))
         return (unet, *rest)
 
+    say = say or _say9
     kwargs = dict(prompts=PROMPTS, image_size=256, num_cutouts=16, clip_model_name="ViT-B/32",
                   timestep_respacing="ddim25", weights_mode="random", seed=0, device=str(dev),
-                  progress=False, compute_dtype="float32", save_frequency=12)
+                  progress=False, compute_dtype="float32", save_frequency=12, mesh=mesh)
     first_x, frames, stamps, paths = [], [], [], []
     real_loop, real_log_image = api.sample_loop, api.log_image
 
@@ -1514,31 +1566,233 @@ def phase_f32_e2e(k3, kattn, dev, out_dir: Path, bf16_step_s: float) -> dict:
     finally:
         api.sample_loop, api.log_image, api.resolve_unet = real_loop, real_log_image, real_resolve
     rel = ((first_x[0] - x_plain).norm() / x_plain.norm()).item()
+    phase = "phase 9c" if mesh is None else "phase 10c"
     if len(paths) != 3 or len(frames) != 3:
-        raise AssertionError(f"phase 9c: expected frames at steps 0, 12, 24; got {paths}")
+        raise AssertionError(f"{phase}: expected frames at steps 0, 12, 24; got {paths}")
     if frames[-1].shape != (256, 256, 3) or not all(np.isfinite(f).all() for f in frames):
-        raise AssertionError("phase 9c: non-finite frames or a wrong shape")
+        raise AssertionError(f"{phase}: non-finite frames or a wrong shape")
     _check_pngs((*paths, "current.png"))
     if rel > F32_STEP_TOL:
-        raise AssertionError(f"phase 9c: first f32 step x, kernels vs plain: rel L2 {rel:.3e} > "
+        raise AssertionError(f"{phase}: first f32 step x, kernels vs plain: rel L2 {rel:.3e} > "
                              f"{F32_STEP_TOL}")
-    _check_launched(launches, ("conv3x3_fwd_f32", "conv3x3_dx_f32", "attn_fwd_f32",
-                               "attn_bwd_f32"), "phase 9c")
+    convs = ("conv3x3_fwd_f32", "conv3x3_dx_f32") if mesh is None else ("conv3x3_fwd_halo_f32",)
+    _check_launched(launches, (*convs, "attn_fwd_f32", "attn_bwd_f32"), phase)
     bf16 = {k: launches[k] for k in ("conv3x3_fwd", "conv3x3_fwd_halo", "conv3x3_dx",
                                      "conv3x3_dx_wtiled", "attn_fwd", "attn_bwd")}
     if any(bf16.values()):
-        raise AssertionError(f"phase 9c: the f32 run launched bf16 kernels {bf16}")
+        raise AssertionError(f"{phase}: the f32 run launched bf16 kernels {bf16}")
+    if mesh is not None:
+        unsplit = {k: launches[k] for k in ("conv3x3_fwd_f32", "conv3x3_dx_f32")}
+        if any(unsplit.values()):
+            raise AssertionError(f"phase 10c: the split UNet launched unsplit convs {unsplit}")
     step_s = (stamps[-1] - stamps[0]) / 24
     per_step = {k: v / 25 for k, v in launches.items() if v}
-    _say9(f"256px ViT-B/32 ddim25 guided sampling at compute_dtype float32: first step's x vs "
-          f"the plain routing rel L2 {rel:.3e}; {step_s * 1e3:.1f} ms per guided step (phase 5, "
-          f"bf16: {bf16_step_s * 1e3:.1f} ms), {total_s:.2f} s per image incl. model setup; "
-          f"peak device memory {peak / 2**30:.2f} GiB; launches per step {per_step}; bf16 "
-          f"kernels {bf16}; final frame |x|max {np.abs(frames[-1]).max():.3f}")
-    return launches
+    beside = (f"phase 5, bf16: {bf16_step_s * 1e3:.1f} ms" if mesh is None else
+              f"phase 9c, unsplit f32: {f32_step_s * 1e3:.1f} ms; phase 7c, bf16 on the mesh: "
+              f"{bf16_step_s * 1e3:.1f} ms")
+    say(f"256px ViT-B/32 ddim25 guided sampling at compute_dtype float32"
+        f"{'' if mesh is None else f' on {mesh}'}: first step's x vs the plain routing rel L2 "
+        f"{rel:.3e}; {step_s * 1e3:.1f} ms per guided step ({beside}), {total_s:.2f} s per "
+        f"image incl. model setup; peak device memory {peak / 2**30:.2f} GiB; launches per "
+        f"step {per_step}; bf16 kernels {bf16}; final frame |x|max "
+        f"{np.abs(frames[-1]).max():.3f}")
+    return launches, step_s
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the height-split mesh at compute_dtype="float32" (K-halo f32)
+# ---------------------------------------------------------------------------
+
+def _say10(msg: str) -> None:
+    """A phase-10 line, with the card and its power limit."""
+    print(f"[10] ({CARD}) {msg}")
+
+
+def phase_halo_f32(k3, dev) -> dict:
+    """Phase 10a: K-halo f32 through kernels.conv_spmd on two shards of one
+    card, forward and input gradient, against the plain version with
+    autograd (bound F32_TOL of the reference's max) and against f64 (the
+    unsplit conv of the stacked shards, which the halo exchange reproduces
+    exactly) beside the plain version's own error, at phase 7a's shard
+    shapes and the 8^2 level's 4-row (cut=2) and 2-row (cut=4) shards. One
+    shard's launch timed (CUDA events and device time) beside cuDNN f32
+    (TF32 off) on the stacked rows, K-fwd f32 on the same shard and the
+    plain version. Bound: FLOPs / 495 TFLOP/s (TF32) or bytes / 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from cgd_tpu_torch.kernels import conv_spmd
+    from cgd_tpu_torch.tools.attn_bench import device_ms
+
+    gen = torch.Generator(dev).manual_seed(1010)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    res = {"err": 0.0}
+    for name, hs, wd, ci, co, pro, sk in HALO_F32_SHARDS:
+        xs = [rn(1, hs, wd, ci) for _ in range(2)]
+        w, bias = rn(3, 3, ci, co, scale=(9 * ci) ** -0.5), rn(co, scale=0.1)
+        A = 1.0 + 0.2 * rn(1, ci) if pro else None
+        B = 0.2 * rn(1, ci) if pro else None
+        skips = [rn(1, hs, wd, co) for _ in range(2)] if sk else None
+        gs = [rn(1, hs, wd, co) for _ in range(2)]
+
+        def kernel(xs_):
+            if not pro:
+                return conv_spmd.conv3x3(xs_, w, bias)
+            if sk:
+                return conv_spmd.conv3x3_gn_silu_add(xs_, A, B, w, bias, skips)
+            return conv_spmd.conv3x3_gn_silu(xs_, A, B, w, bias)
+
+        def plain(xs_):
+            return conv_spmd.conv3x3_shards_plain(xs_, w, bias, A, B, skips)
+
+        got, want = [], []
+        for fn, into in ((kernel, got), (plain, want)):
+            k3.reset_launch_counts()
+            xs_ = [x.clone().requires_grad_(True) for x in xs]
+            outs = fn(xs_)
+            dxs = torch.autograd.grad(outs, xs_, gs)
+            into.extend((torch.cat(outs, 1).detach(), torch.cat(dxs, 1)))
+            if fn is kernel and k3.LAUNCHES["conv3x3_fwd_halo_f32"] != 4:
+                raise AssertionError(f"K-halo f32 {name}: launches {k3.LAUNCHES}, not 4 of "
+                                     "conv3x3_fwd_halo_f32")
+        x64 = torch.cat(xs, 1).double().requires_grad_(True)
+        out64 = _fwd_f64(k3, x64, w, bias, A, B, None if skips is None else torch.cat(skips, 1))
+        exact = (out64.detach(), torch.autograd.grad(out64, x64, torch.cat(gs, 1).double())[0])
+        line = []
+        for part, a, b, e in zip(("fwd", "dx"), got, want, exact):
+            err, rel = _rel_max(a, b)
+            f64 = (_rel_max(a.double(), e)[1], _rel_max(b.double(), e)[1])
+            line.append(f"{part} {err:.3e} ({rel:.2e}; f64: kernel {f64[0]:.2e}, plain "
+                        f"{f64[1]:.2e})")
+            if rel > F32_TOL:
+                raise AssertionError(f"K-halo f32 {name} {hs}x{wd} {ci}->{co} {part}: "
+                                     f"{rel:.3e} > {F32_TOL}")
+            res["err"] = max(res["err"], err)
+        # one shard's launch (the lower one: etop from the upper, a zero ebot)
+        x, skip = xs[1], None if skips is None else skips[1]
+        act = x if A is None else conv_spmd._act_rows(x, A, B)
+        etop = conv_spmd._act_rows(xs[0][:, -1:], A, B) if pro else xs[0][:, -1:].contiguous()
+        ebot = torch.zeros_like(etop)
+
+        def halo():
+            return k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot)
+
+        stacked = torch.cat([etop, act, ebot], dim=1).permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1)
+
+        def cudnn():
+            return F.conv2d(stacked, w_oihw, padding=(0, 1))
+
+        ms, (dms, per_call) = _time_ms(halo), device_ms(halo)
+        fwd_ms = _time_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip))
+        pms = _time_ms(lambda: k3.conv3x3_fwd_halo_plain(x, w, bias, A, B, skip, etop, ebot))
+        cms, cdms = _time_ms(cudnn), _device_ms(cudnn)
+        flops = 2 * hs * wd * 9 * ci * co
+        bound = _bound(flops, _nbytes(x, w, bias, A, B, skip, etop, ebot, halo()), PEAK_TF32_FLOPS)
+        _say10(f"K-halo f32 {name:20s} shard {hs}x{wd} {ci}->{co}: {', '.join(line)}; kernel "
+               f"{ms:.4f} ms, device {dms:.4f} ms ({per_call:g} kernels/call, "
+               f"{_tflops(flops, dms)}; K-fwd f32 on the shard {fwd_ms:.4f} ms) plain "
+               f"{pms:.4f} ms; cuDNN f32 on the stacked rows {cms:.4f} ms, device {cdms:.4f} ms "
+               f"({dms / cdms:.2f}x){_fmt(bound, dms)}")
+        if (hs, ci, co, sk) == (128, 256, 256, True):
+            res.update(ms=ms, plain_ms=pms, library_ms=cms, **bound, device_ms=dms)
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_split_unet_f32(k3, dev) -> None:
+    """Phase 10b: the full-width 256px UNet at compute_dtype float32 split
+    cut=2 on one card against the unsplit f32 kernel UNet, forward and input
+    gradient (relative L2 <= F32_UNET_TOL); the split run must launch K-halo
+    f32 and no other conv kernel, and no bf16 kernel."""
+    import torch
+
+    from cgd_tpu_torch.parallel.mesh import make_mesh, split_activation
+
+    unet, n_params, run = _full_unet(dev, 256, torch.float32)
+    mesh = make_mesh([dev, dev])
+
+    def split(x):
+        return split_activation(x, mesh)
+
+    out_u, g_u = run()
+    k3.reset_launch_counts()
+    out_s, g_s = run(split)
+    launches = dict(k3.LAUNCHES)
+    if launches["conv3x3_fwd_halo_f32"] == 0 or sum(launches.values()) != launches[
+            "conv3x3_fwd_halo_f32"]:
+        raise AssertionError(f"phase 10b: the split f32 UNet's conv launches {launches}")
+    ms_u = _time_ms(run, iters=3)
+    ms_s = _time_ms(lambda: run(split), iters=3)
+    for name, a, b in (("output", out_s, out_u), ("d/dx", g_s, g_u)):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"split f32 UNet {name}: non-finite values")
+        rel = ((a - b).norm() / b.norm()).item()
+        _say10(f"UNet 256px f32 ({n_params / 1e6:.1f}M params) split cut=2 vs unsplit, {name}: "
+               f"rel L2 err {rel:.3e}")
+        if rel > F32_UNET_TOL:
+            raise AssertionError(f"split f32 UNet 256px {name}: rel L2 {rel:.3e} > "
+                                 f"{F32_UNET_TOL}")
+    _say10(f"UNet 256px f32 fwd + input grad: split cut=2 {ms_s:.2f} ms, unsplit {ms_u:.2f} ms; "
+           f"conv launches of the split run {({k: v for k, v in launches.items() if v})}")
+    del unet
+    torch.cuda.empty_cache()
+
+
+def phase_f32_mesh_cli(k3, kattn, dev, out_dir: Path) -> None:
+    """Phase 10d: ``cgd_tpu_torch.cli.main`` with ``--mesh cut=2
+    --compute-dtype float32`` (256px, ViT-B/32, 16 cutouts, ddim25, random
+    weights). One card: the CLI builds its mesh over the visible cards, so
+    ``visible_devices`` is patched to give the one card twice (what
+    ``make_mesh([dev, dev])`` does for the API). Checks finite frames, the
+    PNGs, K-halo f32 and the f32 attention launched, no bf16 kernel."""
+    import numpy as np
+
+    from cgd_tpu_torch import api, cli
+    from cgd_tpu_torch.parallel import mesh as pmesh
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    argv = ["--prompts", "|".join(PROMPTS), "-size", "256", "-cutn", "16", "-respace", "ddim25",
+            "--weights-mode", "random", "-freq", "12", "--mesh", "cut=2", "--compute-dtype",
+            "float32", "-dir", str(out_dir), "-q"]
+    frames = []
+    real_log_image, real_visible = api.log_image, pmesh.visible_devices
+
+    def capture(image, *a, **kw):
+        frames.append(np.asarray(image))
+        return real_log_image(image, *a, **kw)
+
+    api.log_image = capture
+    pmesh.visible_devices = lambda kind="cuda": [dev, dev]
+    try:
+        _reset_launches(k3, kattn)
+        t0 = time.perf_counter()
+        cli.main(argv)
+        total_s = time.perf_counter() - t0
+        launches = _launches(k3, kattn)
+    finally:
+        api.log_image, pmesh.visible_devices = real_log_image, real_visible
+    pngs = sorted(out_dir.rglob("*.png"))
+    if len(frames) != 3 or len(pngs) != 3:
+        raise AssertionError(f"phase 10d: expected frames at steps 0, 12, 24; got {pngs}")
+    if frames[-1].shape != (256, 256, 3) or not all(np.isfinite(f).all() for f in frames):
+        raise AssertionError("phase 10d: non-finite frames or a wrong shape")
+    _check_pngs(pngs)
+    _check_launched(launches, ("conv3x3_fwd_halo_f32", "attn_fwd_f32", "attn_bwd_f32"),
+                    "phase 10d")
+    other = {k: v for k, v in launches.items() if v and k not in (
+        "conv3x3_fwd_halo_f32", "attn_fwd_f32", "attn_bwd_f32")}
+    if other:
+        raise AssertionError(f"phase 10d: the split f32 CLI run launched {other}")
+    _say10(f"CLI --mesh cut=2 --compute-dtype float32, 256px ddim25 (two copies of the one "
+           f"card): {total_s:.2f} s per image incl. model setup; launches {launches}")
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not (ROOT / "cgd_tpu_torch").is_dir():
         _die(f"no cgd_tpu_torch/ beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(ROOT))
@@ -1593,8 +1847,8 @@ def main() -> None:
     _, step_s = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke")
     phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_128", size=128)
     launches = phase_cli(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_512")
-    mesh_launches, _ = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_mesh",
-                                 mesh=make_mesh([dev, dev]), unsplit_step_s=step_s)
+    mesh_launches, mesh_step_s = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_mesh",
+                                           mesh=make_mesh([dev, dev]), unsplit_step_s=step_s)
     launches["conv3x3_fwd_halo"] = mesh_launches["conv3x3_fwd_halo"]
     ckpt_launches = phase_checkpoints(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_ckpts",
                                       step_s)
@@ -1603,10 +1857,18 @@ def main() -> None:
     res["conv3x3_fwd_f32"]["err"] = max(res["conv3x3_fwd_f32"]["err"],
                                         f32.pop("conv3x3_fwd_f32")["err"])
     res.update(f32)
-    phase_f32_unets(kattn, dev)
-    f32_launches = phase_f32_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32", step_s)
+    phase_f32_unets(k3, kattn, dev)
+    f32_launches, f32_step_s = phase_f32_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32",
+                                             step_s)
     for name in ("conv3x3_dx_f32", "attn_fwd_f32", "attn_bwd_f32"):
         launches[name] = f32_launches[name]
+    res["conv3x3_fwd_halo_f32"] = phase_halo_f32(k3, dev)
+    phase_split_unet_f32(k3, dev)
+    mesh_f32_launches, _ = phase_f32_e2e(
+        k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32_mesh", mesh_step_s,
+        mesh=make_mesh([dev, dev]), f32_step_s=f32_step_s, say=_say10)
+    launches["conv3x3_fwd_halo_f32"] = mesh_f32_launches["conv3x3_fwd_halo_f32"]
+    phase_f32_mesh_cli(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32_mesh_cli")
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),
@@ -1627,6 +1889,9 @@ def main() -> None:
                          "cgd_tpu/kernels/attention_pallas.py:69 (f32)"),
         "attn_bwd_f32": ("cgd_tpu_torch/csrc/attn_f32.cu",
                          "cgd_tpu/kernels/attention_pallas.py:82 (f32)"),
+        "conv3x3_fwd_halo_f32": ("cgd_tpu_torch/csrc/conv3x3_f32.cu",
+                                 "cgd_tpu/kernels/conv_pallas.py:364 (explicit_halo at f32, via "
+                                 "cgd_tpu/kernels/conv_spmd.py:139)"),
     }
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
@@ -1635,6 +1900,8 @@ def main() -> None:
          **{k: res[name][k] for k in keys}}
         for name, (src, rep) in meta.items()
     ]
+    print(f"[11] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s, the kernels' "
+          "build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

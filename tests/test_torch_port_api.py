@@ -148,13 +148,14 @@ def test_an_f32_call_runs_with_tf32_off_and_restores_the_flags(tiny, monkeypatch
     assert after == closed == (True, True)
 
 
-def test_a_mesh_at_float32_on_cuda_is_refused_by_name(tiny):
-    """K-halo has no f32 kernel: mesh= with compute_dtype float32 on CUDA
-    raises before any device is touched (so here, without a card, too)."""
+def test_a_mesh_at_float32_on_cuda_gets_past_the_argument_checks(tiny):
+    """K-halo has an f32 kernel: mesh= with compute_dtype float32 on CUDA is
+    no longer refused; without a card it stops where every CUDA call does,
+    at resolve_device's RuntimeError."""
     from cgd_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh([torch.device("cuda", 0)] * 2)
-    with pytest.raises(NotImplementedError, match="mesh=.*float32"):
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         next(api.clip_guided_diffusion(**{**KW, "device": "cuda", "mesh": mesh}))
 
 

@@ -137,10 +137,14 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ref = k3.conv3x3_fwd_plain(_t(d["x"]), _t(d["w"]), _t(d["bias"]), _t(d["A"]), _t(d["B"]))
     assert torch.equal(out, ref)
     assert k3.LAUNCHES == {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0,
-                           "conv3x3_dx_wtiled": 0, "conv3x3_fwd_f32": 0, "conv3x3_dx_f32": 0}
+                           "conv3x3_dx_wtiled": 0, "conv3x3_fwd_f32": 0,
+                           "conv3x3_fwd_halo_f32": 0, "conv3x3_dx_f32": 0}
     k3.conv3x3_fwd(_t(d["x"]).float(), _t(d["w"]).float(), _t(d["bias"]).float())
     k3.conv3x3_fwd(_t(d["x"]).float(), _t(d["w"]).float(), _t(d["bias"]).float(), _t(d["A"]),
                    _t(d["B"]), up=True)
+    rows = _t(d["x"]).float()[:, :1]
+    k3.conv3x3_fwd(_t(d["x"]).float(), _t(d["w"]).float(), _t(d["bias"]).float(), _t(d["A"]),
+                   _t(d["B"]), etop=rows, ebot=rows)
     assert not any(k3.LAUNCHES.values())  # f32 on the CPU: the plain version too
 
 

@@ -336,3 +336,40 @@ def test_the_f32_plan_fits_one_block_and_sizes_kdx(f32_launches, size):
             assert plan["partial_rows"] == plan["grid"][0], key
         else:
             assert plan["partial_rows"] is None, key
+
+
+# K-halo f32: every conv of the 256px and 512px trees split by height, as
+# the split UNet runs them at compute_dtype="float32" (forward, and the
+# backward's flipped-weight conv)
+HALO_SPLITS = [(size, cut) for size in (256, 512) for cut in (2, 4)]
+
+
+@pytest.mark.parametrize("size,cut", HALO_SPLITS)
+def test_the_f32_halo_plan_takes_rows_minus_1_and_h_from_the_neighbours(f32_launches, size,
+                                                                        cut):
+    """f32_plan(halo=True) on every K-halo launch of the split tree: window
+    rows -1 and h come from etop / ebot, rows inside the shard from x, and
+    every tap of a written output (patch rows past a short shard's h are
+    never written) lands on one of those, inside the 10 x 18 window; K-halo
+    takes the same shared memory as every other f32 mode."""
+    halo = _split(f32_launches[size], cut)
+    assert min(key[2] for key in halo) == 8 // cut < k3.F32_PATCH[0]  # the 8^2 level's shards
+    for key in halo:
+        _, b, h, w, ci, co, up, _, is_halo = key
+        assert is_halo and not up, key
+        plan = k3.f32_plan(b, h, w, ci, co, halo=True)
+        assert plan["halo_rows"] == {-1: "etop", h: "ebot"}, key
+        assert plan["window"] == (10, 18) and plan["smem_bytes"] == 217728, key
+        ph, _ = plan["patch"]
+        sources = set()
+        for y0 in range(0, plan["ho"], ph):
+            window = range(y0 - 1, y0 - 1 + plan["window"][0])
+            for oy in range(y0, min(y0 + ph, h)):
+                for dy in range(3):
+                    iy = oy + dy - 1
+                    assert iy in window, (key, oy, dy)
+                    src = "x" if 0 <= iy < h else plan["halo_rows"].get(iy)
+                    assert src is not None, (key, oy, dy)
+                    sources.add(src)
+        assert sources == {"x", "etop", "ebot"}, key
+

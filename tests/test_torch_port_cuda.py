@@ -83,7 +83,8 @@ def test_autograd_functions_use_the_kernels(dev):
     out = k3.conv3x3_gn_silu_add(x, A, d["B"], d["w"], d["bias"], d["skip"])
     out.float().sum().backward()
     assert k3.LAUNCHES == {"conv3x3_fwd": 1, "conv3x3_fwd_halo": 0, "conv3x3_dx": 1,
-                           "conv3x3_dx_wtiled": 0, "conv3x3_fwd_f32": 0, "conv3x3_dx_f32": 0}
+                           "conv3x3_dx_wtiled": 0, "conv3x3_fwd_f32": 0,
+                           "conv3x3_fwd_halo_f32": 0, "conv3x3_dx_f32": 0}
     assert x.grad.dtype == torch.bfloat16 and A.grad.dtype == torch.float32
 
 
@@ -221,11 +222,128 @@ def test_f32_autograd_functions_use_the_f32_kernels(dev, full_f32):
     assert k3.LAUNCHES["conv3x3_fwd_f32"] == 2 and k3.LAUNCHES["conv3x3_dx_f32"] == 0
 
 
-def test_kfwd_f32_with_a_halo_raises_by_name(dev):
-    x, w, bias = _f32_inputs(dev, 1, 8, 8, 32, 32)
-    etop = ebot = torch.zeros(1, 1, 8, 32, device=dev)
-    with pytest.raises(ValueError, match="K-halo"):
-        k3.conv3x3_fwd(x, w, bias, etop=etop, ebot=ebot)
+# K-halo f32 shards (batch, shard H, W, Cin, Cout): shorter than the 8-row
+# patch (the 8^2 level at cut=2 and cut=4), a height and a width that are no
+# multiple of 8 / 16, Cin 3 (conv_in), the 16^2 level's 2048 -> 1024 shard
+F32_HALO = [(1, 4, 16, 64, 64), (2, 12, 24, 64, 96), (1, 2, 8, 128, 64), (1, 8, 16, 3, 32),
+            (1, 8, 16, 2048, 1024)]
+
+
+@pytest.mark.parametrize("shape", F32_HALO)
+@pytest.mark.parametrize("variant", ["plain", "prologue", "prologue_skip"])
+def test_khalo_f32_matches_plain(dev, full_f32, shape, variant):
+    """K-halo f32 against its plain version: the neighbour rows are random
+    (post-activation values are never activated again; a kernel that did
+    would miss by far more than the bound)."""
+    b, h, w, ci, co = shape
+    d = _f32_mode_inputs(dev, b, h, w, ci, co, seed=5)
+    gen = torch.Generator(dev).manual_seed(6)
+    etop, ebot = (torch.randn(b, 1, w, ci, generator=gen, device=dev) for _ in range(2))
+    A, B = (None, None) if variant == "plain" else (d["A"], d["B"])
+    skip = d["skip"] if variant == "prologue_skip" else None
+    k3.reset_launch_counts()
+    out = k3.conv3x3_fwd(d["x"], d["w"], d["bias"], A, B, skip, etop=etop, ebot=ebot)
+    assert k3.LAUNCHES["conv3x3_fwd_halo_f32"] == 1
+    assert k3.LAUNCHES["conv3x3_fwd_f32"] == k3.LAUNCHES["conv3x3_fwd_halo"] == 0
+    assert out.shape == (b, h, w, co)
+    _close32(out, k3.conv3x3_fwd_halo_plain(d["x"], d["w"], d["bias"], A, B, skip, etop, ebot))
+
+
+@pytest.mark.parametrize("variant", ["plain", "gn", "gn_add"])
+def test_split_conv_f32_forward_and_gradient_match_plain(dev, full_f32, variant):
+    """Three f32 shards (a 4-row one among them) on one card through
+    conv_spmd against the plain halo conv with autograd: forward and input
+    gradient on K-halo f32, nothing on the bf16 kernels."""
+    ci, co = 64, 32
+    gen = torch.Generator(dev).manual_seed(7)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * scale
+
+    xs = [rn(1, h, 24, ci) for h in (8, 4, 12)]
+    skips, gs = [rn(1, x.shape[1], 24, co) for x in xs], [rn(1, x.shape[1], 24, co) for x in xs]
+    wk, bias = rn(3, 3, ci, co, scale=(9 * ci) ** -0.5), rn(co, scale=0.1)
+    A = 1.0 + 0.2 * rn(1, ci) if variant != "plain" else None
+    B = 0.2 * rn(1, ci) if variant != "plain" else None
+    sk = skips if variant == "gn_add" else None
+
+    def kernel(xs_):
+        if A is None:
+            return conv_spmd.conv3x3(xs_, wk, bias)
+        if sk is None:
+            return conv_spmd.conv3x3_gn_silu(xs_, A, B, wk, bias)
+        return conv_spmd.conv3x3_gn_silu_add(xs_, A, B, wk, bias, sk)
+
+    def plain(xs_):
+        return conv_spmd.conv3x3_shards_plain(xs_, wk, bias, A, B, sk)
+
+    results = []
+    for fn in (kernel, plain):
+        k3.reset_launch_counts()
+        xs_ = [x.clone().requires_grad_(True) for x in xs]
+        outs = fn(xs_)
+        grads = torch.autograd.grad(outs, xs_, gs)
+        results.append((torch.cat(outs, 1).detach(), torch.cat(grads, 1)))
+        if fn is kernel:  # three shards forward, three for the input gradient
+            assert k3.LAUNCHES["conv3x3_fwd_halo_f32"] == 6
+            assert sum(k3.LAUNCHES.values()) == 6
+    for got, want in zip(*results):
+        _close32(got, want)
+
+
+def test_split_f32_unet_matches_unsplit_and_runs_on_khalo_f32(dev, full_f32):
+    """A small f32 UNet split cut=2 on one card against the same UNet
+    unsplit on the f32 kernels (relative L2 <= 1e-4, chip_smoke.py's
+    F32_UNET_TOL); the split run launches K-halo f32 and no other conv
+    kernel."""
+    from cgd_tpu_torch.models.unet import UNet, UNetConfig
+    from cgd_tpu_torch.parallel.mesh import make_mesh, split_activation
+
+    cfg = UNetConfig(image_size=64, model_channels=64, num_res_blocks=1, attention_ds=(2,),
+                     channel_mult=(1, 2), num_head_channels=64, num_classes=10)
+    gen = torch.Generator(dev).manual_seed(0)
+    unet = UNet(cfg, device=dev).init_weights(gen)
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen, device=dev))
+    x = torch.randn(1, 64, 64, 3, generator=gen, device=dev)
+    t, y = torch.tensor([300.0], device=dev), torch.tensor([2], device=dev)
+    mesh = make_mesh([dev, dev])
+
+    def run(split):
+        x_ = x.clone().requires_grad_(True)
+        out = unet(split_activation(x_, mesh) if split else x_, t, y, compute_dtype=torch.float32)
+        out = out.gather() if split else out
+        return out.detach(), torch.autograd.grad(out.square().sum(), x_)[0]
+
+    ref = run(False)
+    k3.reset_launch_counts()
+    got = run(True)
+    assert k3.LAUNCHES["conv3x3_fwd_halo_f32"] > 0
+    assert sum(k3.LAUNCHES.values()) == k3.LAUNCHES["conv3x3_fwd_halo_f32"]
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32
+        assert ((a - b).norm() / b.norm()).item() <= 1e-4
+
+
+def test_the_f32_halo_kernel_sizes_shared_memory_as_the_plan_and_checks_its_rows(dev):
+    """K-halo f32 takes the shared memory f32_plan(halo=True) gives; the C
+    entry point refuses one halo row without the other, and a halo with up."""
+    from cgd_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    assert lib.cgd_conv3x3_f32_smem_bytes() == k3.f32_plan(1, 4, 16, 64, 64, halo=True)[
+        "smem_bytes"]
+    x, w, bias = _f32_inputs(dev, 1, 4, 16, 64, 64)
+    A = torch.ones(1, 64, device=dev)
+    rows = torch.zeros(1, 1, 16, 64, device=dev)
+    out = torch.empty(1, 8, 32, 64, device=dev)
+    p = [t.data_ptr() for t in (x, w, bias, A, rows, out)]
+    stream = _build.stream(dev)
+    for pro, etop, ebot, up in ((None, p[4], None, 0), (None, None, p[4], 0),
+                                (p[3], p[4], p[4], 1)):
+        assert lib.cgd_conv3x3_f32(p[0], p[1], p[2], pro, pro, None, etop, ebot, p[5], 1, 4, 16,
+                                   64, 64, up, stream) != 0
 
 
 def test_the_f32_kernel_sizes_shared_memory_as_the_plan(dev):
@@ -282,7 +400,8 @@ def test_kdx_wtiled_matches_plain_and_is_deterministic(dev, shape):
     got = k3.conv3x3_dx(g, wt, x, A, B, wtiled=True)
     again = k3.conv3x3_dx(g, wt, x, A, B, wtiled=True)
     assert k3.LAUNCHES == {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0,
-                           "conv3x3_dx_wtiled": 2, "conv3x3_fwd_f32": 0, "conv3x3_dx_f32": 0}
+                           "conv3x3_dx_wtiled": 2, "conv3x3_fwd_f32": 0,
+                           "conv3x3_fwd_halo_f32": 0, "conv3x3_dx_f32": 0}
     for a, ref, c in zip(got, k3.conv3x3_dx_plain(g, wt, x, A, B), again):
         _close(a, ref)
         assert torch.equal(a, c)

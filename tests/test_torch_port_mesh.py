@@ -7,6 +7,10 @@ one after the other). Inputs are drawn with numpy and handed to both.
 - the ``--mesh`` grammar: the same mesh shapes and the same ``ValueError``s;
 - K-halo's plain version against ``_conv3x3_pallas(..., etop=, ebot=)`` in
   Pallas interpret mode (atol 2e-4, tests/test_pallas_conv.py's bound);
+- K-halo at f32 on the shard shapes the f32 kernel must handle (shorter
+  than its 8-row patch, ragged heights and widths, Cin 3) against what the
+  JAX mesh path runs there, ``conv_spmd._xla_reference`` (the Pallas kernel
+  has no VMEM plan for such shards; atol 2e-5, f32 sums in another order);
 - the split conv family against ``cgd_tpu.kernels.conv_spmd`` on height- and
   batch+height-sharded meshes, forward, input and weight gradients (atol
   1e-5, and 1e-4 of the largest value for the gradients: f32, the halo and
@@ -123,6 +127,43 @@ def test_khalo_plain_matches_pallas_explicit_halo(variant, cin):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="etop and ebot"):
         k3.conv3x3_fwd(t["x"], t["w"], t["b"], etop=t["et"])
+
+
+# K-halo f32 shards (batch, shard H, W, Cin, Cout): a 4-row shard (the 8^2
+# level at cut=2), a 12-row shard 24 wide, a 2-row shard (8^2 at cut=4),
+# and conv_in's Cin 3
+F32_HALO = [(1, 4, 16, 64, 64), (2, 12, 24, 64, 96), (1, 2, 8, 128, 64), (1, 8, 16, 3, 32)]
+
+
+@pytest.mark.parametrize("shape", F32_HALO, ids=["4row", "12x24", "2row", "cin3"])
+@pytest.mark.parametrize("variant", ["plain", "prologue", "prologue_skip"])
+def test_khalo_f32_plain_matches_the_jax_mesh_reference(shape, variant):
+    """The port's f32 K-halo (its plain version on the CPU) against
+    ``_xla_reference``, the conv the JAX mesh path runs on a shard the Pallas
+    kernel cannot plan: the same x, weights, A / B, skip and neighbour rows
+    (post-activation for the prologue variants)."""
+    b, h, w, ci, co = shape
+    seed = 60 + 10 * F32_HALO.index(shape)
+    x, wk, bias = _rand((b, h, w, ci), seed), _rand((3, 3, ci, co), seed + 1, 0.1), \
+        _rand((co,), seed + 2)
+    rows = _rand((b, 2, w, ci), seed + 3)
+    A = B = skip = None
+    if variant != "plain":
+        A, B = 1.0 + 0.1 * _rand((b, ci), seed + 4), 0.1 * _rand((b, ci), seed + 5)
+        pre = rows * A[:, None, None, :] + B[:, None, None, :]
+        rows = (pre / (1.0 + np.exp(-pre))).astype(np.float32)
+    if variant == "prologue_skip":
+        skip = _rand((b, h, w, co), seed + 6)
+    etop, ebot = rows[:, :1], rows[:, 1:]
+    args = dict(x=x, w=wk, bias=bias, A=A, B=B, skip=skip, etop=etop, ebot=ebot)
+    ref = jspmd._xla_reference(*(None if v is None else jnp.asarray(v) for v in args.values()))
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in args.items()}
+    k3.reset_launch_counts()
+    out = k3.conv3x3_fwd(t["x"], t["w"], t["bias"], t["A"], t["B"], t["skip"], etop=t["etop"],
+                         ebot=t["ebot"])
+    assert not any(k3.LAUNCHES.values())  # the CPU takes the plain version
+    assert out.dtype == torch.float32 and out.shape == (b, h, w, co)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
 
 
 @pytest.fixture(scope="module")
