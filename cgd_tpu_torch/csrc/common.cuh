@@ -1,5 +1,6 @@
-// Small device helpers shared by the port's kernels: bf16 packing and
-// cp.async copies.
+// Small device helpers shared by the port's kernels: bf16 packing,
+// cp.async copies, and the 3xTF32 pieces of the f32 kernels (the operand
+// split and mma.sync at TF32).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,6 +46,43 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// --- 3xTF32 ----------------------------------------------------------------
+// An f32 operand x is split into a TF32 high part hi and a residual lo, and
+// a product is lo*hi + hi*lo + hi*hi on the TF32 tensor cores (the lo*lo
+// term left out): f32's precision at three MMAs.
+
+__device__ __forceinline__ uint32_t to_tf32(float f) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(f));
+  return u;
+}
+
+// f = hi + lo + O(2^-22 |f|): hi its TF32 rounding (an f32 bit pattern with
+// the low 13 mantissa bits zero), lo the TF32 rounding of what is left
+__device__ __forceinline__ void split_tf32(float f, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(f);
+  lo = to_tf32(f - __uint_as_float(hi));
+}
+
+// The same split in two instructions, no conversion: hi is x with its 13 low
+// mantissa bits cleared (TF32 by truncation), lo = x - hi exactly in f32,
+// |lo| < 2^-10 |x|, passed with its low bits set: the tensor cores read a
+// TF32 operand's top 19 bits and drop the rest, so lo loses less than 2^-10
+// of itself, 2^-20 |x|.
+__device__ __forceinline__ void split_tf32_trunc(float f, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(f) & 0xffffe000u;
+  lo = __float_as_uint(f - __uint_as_float(hi));
+}
+
+// c += a.b on one m16n8k8 TF32 tile (row-major A fragment, column-major B)
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace cgd

@@ -128,27 +128,6 @@ struct Params {
   int cin, cout;
 };
 
-__device__ __forceinline__ uint32_t to_tf32(float f) {
-  uint32_t u;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(f));
-  return u;
-}
-
-// f = hi + lo + O(2^-22 |f|): hi its TF32 rounding (an f32 bit pattern with
-// the low 13 mantissa bits zero), lo the TF32 rounding of what is left
-__device__ __forceinline__ void split_tf32(float f, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(f);
-  lo = to_tf32(f - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // sigmoid in full f32 (expf and a true division, no fast intrinsics), as
 // the plain version's torch.sigmoid
 __device__ __forceinline__ float sigmoid_f32(float v) { return 1.f / (1.f + expf(-v)); }

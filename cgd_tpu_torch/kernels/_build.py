@@ -82,9 +82,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_attn_bwd.restype = i
     lib.cgd_attn_smem_bytes.argtypes = [i, i]
     lib.cgd_attn_smem_bytes.restype = i
-    lib.cgd_attn_fwd_f32.argtypes = [p] * 3 + [i] * 5 + [p]
+    lib.cgd_attn_fwd_f32.argtypes = [p] * 3 + [i] * 7 + [p]
     lib.cgd_attn_fwd_f32.restype = i
-    lib.cgd_attn_bwd_f32.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.cgd_attn_bwd_f32.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.cgd_attn_bwd_f32.restype = i
     lib.cgd_attn_f32_smem_bytes.argtypes = [i, i]
     lib.cgd_attn_f32_smem_bytes.restype = i

@@ -21,9 +21,11 @@ and the kernels agree on.
   ``flash_mha``'s ``custom_vjp``.
 
 At f32 operands (the UNet at ``compute_dtype="float32"``) the same entry
-points launch K-attn-f f32 and K-attn-b f32 (``csrc/attn_f32.cu``: exact f32
-FMA on the CUDA cores, the same fused qkv, log-sum-exp and two-launch
-backward; ``f32_attn_plan`` is their geometry).
+points launch K-attn-f f32 and K-attn-b f32 (``csrc/attn_f32.cu``: the TF32
+tensor cores through ``mma.sync`` with the 3xTF32 split, a TMA ring fed by a
+producer warp, S and P in registers, one block per 64-column share of the
+output; the same fused qkv, log-sum-exp and two-launch backward;
+``f32_attn_plan`` is their geometry).
 
 Dispatch: a tensor on the CPU takes the plain versions; a CUDA tensor
 launches the kernels or raises (a head dim outside 64/128/192/256, a dtype
@@ -160,33 +162,74 @@ def attn_plan(batch: int, heads: int, t: int, d: int) -> dict:
 
 
 # the f32 kernels' geometry (csrc/attn_f32.cu)
-F32_THREADS = 256  # 4 per row of the block's 64-row tile
-F32_ROW_PAD = 4    # floats after each shared row of d
+F32_BODY = "mma.sync-3xtf32"
+F32_WARPS = 4                       # consumer warps of a half, 16 of the block's 64 rows each
+F32_COLS = 64                       # output columns of one block: the column split
+F32_BOX = 32                        # floats of a TMA box row (128 bytes, one swizzle row)
+# rows of the streamed tile and stages of the ring, forward and backward
+# (both kernels alike), by head dim: the most stages that fit one block, at
+# least three
+F32_TILE = {"fwd": dict.fromkeys(HEAD_DIMS, 32), "bwd": {64: 32, 128: 32, 192: 16, 256: 16}}
+F32_STAGES = {"fwd": dict.fromkeys(HEAD_DIMS, 4), "bwd": {64: 4, 128: 4, 192: 4, 256: 3}}
+# every product: (instruction, A operand, B operand); an operand read from
+# shared memory is "k-major" (the reduction runs along its rows' channels)
+# or "mn-major" (down its rows, the tokens); "registers" is the accumulator
+# of the product before. TF32 wgmma would take only k-major shared operands.
+_MMA = "mma.sync.m16n8k8.tf32"
+F32_PRODUCTS = {
+    "fwd": {"S=Q.K^T": (_MMA, "k-major", "k-major"), "O+=P.V": (_MMA, "registers", "mn-major")},
+    "bwd_dq": {"S=Q.K^T": (_MMA, "k-major", "k-major"), "dP=dO.V^T": (_MMA, "k-major", "k-major"),
+               "dQ+=dS.K": (_MMA, "registers", "mn-major")},
+    "bwd_dkdv": {"S^T=K.Q^T": (_MMA, "k-major", "k-major"),
+                 "dP^T=V.dO^T": (_MMA, "k-major", "k-major"),
+                 "dV+=P^T.dO": (_MMA, "registers", "mn-major"),
+                 "dK+=dS^T.Q": (_MMA, "registers", "mn-major")},
+}
 
 
 def f32_attn_plan(batch: int, heads: int, t: int, d: int) -> dict:
     """The launch plan of K-attn-f f32 / K-attn-b f32 for ``[batch, t,
-    3*heads*d]`` f32 (the C entry points check the tiles; a card test holds
-    the shared memory to the kernels').
+    3*heads*d]`` f32 (the C entry points check the tiles, stages and column
+    share; a card test holds the shared memory to the kernels').
 
-    One block of 256 threads per (64-row tile, batch*head), as ``attn_plan``:
-    the forward and the dQ kernel own q rows and stream K/V tiles of
-    ``stream["fwd"]`` / ``stream["bwd_dq"]`` rows, the dK/dV kernel owns kv
-    rows and streams Q/dO tiles of ``stream["bwd_dkdv"]`` rows, each through
-    two cp.async stages. Shared rows are d + 4 floats; the scores of a
-    streamed tile are staged as [64][tile + 4] (two such arrays in the dK/dV
-    kernel, P^T and dS^T). The backward is two launches."""
+    Every kernel runs one block of ``threads[kernel]`` per (64-row tile,
+    batch*head, 64-column share of the output): ``grid[kernel]`` = (tiles,
+    batch*heads, d / 64), and ``shares`` the column ranges, each owned by one
+    block of a row tile. The forward and the dQ kernel own q rows and stream
+    K/V tiles, the dK/dV kernel owns kv rows and streams Q/dO tiles (and
+    their lse and D), of ``stream[kernel]`` rows through a ring of
+    ``stages[kernel]`` stages, by TMA in boxes of ``box[kernel]`` (32
+    channels x the streamed rows x 1). A block is a producer and
+    ``halves[kernel]`` halves of four consumer warps (16 rows each): with
+    two, streamed tile i goes to half i % 2 (an even ring: stage s always
+    serves half s % 2), half 1's sums merge into half 0's at the end, and
+    the producer is a warpgroup (setmaxnreg moves its registers to the
+    consumers); with one, it is a warp.
+    Every product is an ``mma.sync`` at TF32 with the 3xTF32 split
+    (``products``). Shared memory: the block's own tiles, the ring, the dK/dV
+    kernel's lse and D per stage, and 1 KB of alignment slack. The backward
+    is two launches."""
     if d not in HEAD_DIMS:
         raise ValueError(f"attention: head dim {d} has no kernel (supported: {HEAD_DIMS})")
-    row = d + F32_ROW_PAD
-    kv, bt = 32, 16 if d >= 256 else 32
-    smem = {"fwd": 4 * (ROWS * row + 2 * 2 * kv * row + ROWS * (kv + 4)),
-            "bwd_dq": 4 * (2 * ROWS * row + 2 * 2 * bt * row + ROWS * (bt + 4)),
-            "bwd_dkdv": 4 * (2 * ROWS * row + 2 * 2 * bt * row + 2 * ROWS * (bt + 4))}
-    grid = (-(-t // ROWS), batch * heads)
-    return dict(body="f32-fma", d=d, q_tile=ROWS, tiles=grid[0], threads=F32_THREADS,
-                stream={"fwd": kv, "bwd_dq": bt, "bwd_dkdv": bt}, stages=2,
-                grid={k: grid for k in smem}, smem=smem, bwd_launches=2)
+    tf, tb = F32_TILE["fwd"][d], F32_TILE["bwd"][d]
+    sf, sb = F32_STAGES["fwd"][d], F32_STAGES["bwd"][d]
+    stream = {"fwd": tf, "bwd_dq": tb, "bwd_dkdv": tb}
+    stages = {"fwd": sf, "bwd_dq": sb, "bwd_dkdv": sb}
+    smem = {"fwd": 4 * (ROWS * d + sf * tf * (d + F32_COLS)) + _ALIGN,
+            "bwd_dq": 4 * (2 * ROWS * d + sb * 2 * tb * d) + _ALIGN,
+            "bwd_dkdv": 4 * (2 * ROWS * d + sb * 2 * tb * d + sb * 2 * tb) + _ALIGN}
+    tiles = -(-t // ROWS)
+    grid = (tiles, batch * heads, d // F32_COLS)
+    halves = {k: 2 if v % 2 == 0 else 1 for k, v in stages.items()}
+    producer = {1: 32, 2: 128}  # a warp, or a warpgroup beside two halves
+    return dict(body=F32_BODY, d=d, q_tile=ROWS, tiles=tiles, halves=halves,
+                threads={k: producer[h] + 32 * F32_WARPS * h for k, h in halves.items()},
+                warps=F32_WARPS, stream=stream, stages=stages,
+                streamed_tiles={k: -(-t // v) for k, v in stream.items()},
+                cols=F32_COLS, shares=tuple((c, c + F32_COLS) for c in range(0, d, F32_COLS)),
+                grid={k: grid for k in smem}, smem=smem,
+                box={k: (F32_BOX, v, 1) for k, v in stream.items()},
+                products=F32_PRODUCTS, mmas_per_product=3, bwd_launches=2)
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +289,8 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torc
     lib = _build.library()
     if qkv.dtype == torch.float32:
         status = _launch(qkv.device, lib.cgd_attn_fwd_f32, qkv.data_ptr(), out.data_ptr(),
-                         lse.data_ptr(), b, t, num_heads, d, plan["stream"]["fwd"])
+                         lse.data_ptr(), b, t, num_heads, d, plan["stream"]["fwd"],
+                         plan["stages"]["fwd"], plan["cols"])
         _build.check(status, "attention_fwd (f32)")
         _count("attn_fwd_f32", d)
         return out, lse
@@ -296,7 +340,7 @@ def _attention_bwd_f32(qkv, out, lse, g, num_heads: int, plan: dict) -> torch.Te
     status = _launch(qkv.device, _build.library().cgd_attn_bwd_f32, qkv.data_ptr(),
                      out.data_ptr(), g.data_ptr(), lse.data_ptr(), buf.data_ptr() + 4 * n,
                      buf.data_ptr(), b, t, num_heads, d, plan["stream"]["bwd_dq"],
-                     plan["stream"]["bwd_dkdv"])
+                     plan["stages"]["bwd_dq"], plan["cols"])
     _build.check(status, "attention_bwd (f32)")
     _count("attn_bwd_f32", d)
     return dqkv

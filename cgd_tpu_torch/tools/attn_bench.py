@@ -1,7 +1,7 @@
 """The attention kernels on the card against ``F.scaled_dot_product_attention``
 (SDPA): device time, host time and eager time per call.
 
-    python cgd_tpu_torch/tools/attn_bench.py [--root DIR]
+    python cgd_tpu_torch/tools/attn_bench.py [--root DIR] [--dtype float32]
 
 At the shapes ``chip_smoke.py`` phase 3 holds the kernels to ((N heads, T,
 d) of batch 1: the UNets' d = 64 levels, then the 128px model's head dims),
@@ -15,7 +15,9 @@ it prints for K-attn-f, K-attn-b, SDPA's forward and SDPA's backward:
   larger of the two.
 
 ``--root DIR`` imports ``cgd_tpu_torch`` from DIR, a checkout of another
-commit, so that two commits compare in one call on one card. Needs a card.
+commit, so that two commits compare in one call on one card. ``--dtype
+float32`` runs the f32 kernels (K-attn-f f32, K-attn-b f32) and SDPA at f32
+(cuBLAS's TF32 off) instead of bf16. Needs a card.
 """
 
 from __future__ import annotations
@@ -102,16 +104,16 @@ def measure(fn) -> dict:
     return {"device_ms": dms, "kernels": kernels, "host_us": host_us(fn), "eager_ms": eager_ms(fn)}
 
 
-def calls(kattn, n: int, t: int, d: int, dev):
-    """The four calls at (n, t, d): K-attn-f, K-attn-b, SDPA forward, SDPA
-    backward (its kernels alone: ``autograd.grad`` of a kept graph), on the
-    same q, k, v and cotangent."""
+def calls(kattn, n: int, t: int, d: int, dev, dtype):
+    """The four calls at (n, t, d) in ``dtype``: K-attn-f, K-attn-b, SDPA
+    forward, SDPA backward (its kernels alone: ``autograd.grad`` of a kept
+    graph), on the same q, k, v and cotangent."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(dev).manual_seed(4321)
-    qkv = torch.randn(1, t, 3 * n * d, generator=gen, device=dev).to(torch.bfloat16)
-    g = torch.randn(1, t, n * d, generator=gen, device=dev).to(torch.bfloat16)
+    qkv = torch.randn(1, t, 3 * n * d, generator=gen, device=dev).to(dtype)
+    g = torch.randn(1, t, n * d, generator=gen, device=dev).to(dtype)
     out, lse = kattn.attention_fwd(qkv, n)
     q4, k4, v4, g4 = (z[None].contiguous() for z in (*kattn.split_heads(qkv, n),
                                                      kattn.to_heads(g, n)))
@@ -129,6 +131,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=None,
                    help="import cgd_tpu_torch from this checkout (default: this one)")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                   help="the kernels' operand type (float32: K-attn-f / K-attn-b f32)")
     args = p.parse_args(argv)
     sys.path.insert(0, args.root or str(Path(__file__).resolve().parents[2]))
     import subprocess
@@ -143,11 +147,11 @@ def main(argv=None) -> None:
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    print(f"cgd_tpu_torch from {kattn.__file__}")
+    print(f"cgd_tpu_torch from {kattn.__file__}, {args.dtype}")
     for n, t, d in SHAPES:
-        for name, fn in calls(kattn, n, t, d, dev).items():
+        for name, fn in calls(kattn, n, t, d, dev, getattr(torch, args.dtype)).items():
             m = measure(fn)
-            print(f"({n}, {t}, {d}) {name}: device {m['device_ms']:.4f} ms in {m['kernels']:.0f} "
+            print(f"({n}, {t}, {d}) {name}: device {m['device_ms']:.4f} ms in {m['kernels']:g} "
                   f"kernels, host {m['host_us']:.1f} us, eager {m['eager_ms']:.4f} ms")
 
 

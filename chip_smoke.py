@@ -54,7 +54,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    ``kernels.conv_spmd``, forward and input gradient, against its plain
    version at the shard shapes of the 256px and 512px UNets (bound 1% of the
    reference's max), timed (CUDA events and device time) beside K-fwd on
-   the same shard, the plain version and cuDNN on the concatenated input; (b) the full-width 512px UNet split
+   the same shard, the plain version and cuDNN on the concatenated input
+   (eager and device); (b) the full-width 512px UNet split
    in two against the unsplit kernel UNet, forward and input gradient
    (relative L2 <= 5e-2); (c) the 256px ViT-B/32 ddim25 guided run through
    ``api.clip_guided_diffusion(mesh=...)``, counters reset just before it
@@ -75,7 +76,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 9. ``compute_dtype="float32"`` on the card, every line with the card's name
    and power limit: (a) K-fwd f32 in its prologue, residual and up modes at
    phase 3's UNet shapes, K-dx f32 at 256^2, 16^2 and the W >= 512 class
-   at 512^2, K-attn-f / K-attn-b f32 at d = 64-256 and a ragged T, each
+   at 512^2, K-attn-f / K-attn-b f32 at the six shapes the main paths
+   launch (timed beside SDPA f32, its backend named) and ragged T, each
    against its plain version in f32 (bound 1e-5 of the reference's max) and
    against f64 beside the plain version's own error, K-dx f32's dA/dB and
    K-attn-b f32 bit-identical over two runs, timed beside cuDNN f32 (TF32
@@ -185,23 +187,29 @@ def _device_ms(fn) -> float:
 
 
 def _attn_ptxas(log: str) -> list:
-    """Per attention kernel of the build (nvcc -Xptxas -v): its registers,
-    spill bytes, and any wgmma serialization warning (C7512 / C7513)."""
+    """Per attention kernel of the build (nvcc -Xptxas -v), bf16 (namespace
+    ``cgd::attn``) and f32 (``cgd::attn32``): its registers, spill bytes,
+    and any wgmma serialization warning (C7512 / C7513). The mangled name
+    ``_ZN3cgd<n><namespace><m><function>...`` is read by its lengths."""
     import re
 
     out, lines = [], log.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '(_ZN3cgd(\d+)(attn\w*?)(\d+)(\w+)')", line)
-        if not m or not m.group(3).startswith("attn") or len(m.group(3)) != int(m.group(2)):
+        m = re.search(r"Compiling entry function '(_ZN3cgd(\d+)(\w+))'", line)
+        if not m:
             continue
-        mangled, ns, rest = m.group(1)[:-1], m.group(3), m.group(5)
-        fn = rest[:int(m.group(4))]
-        tmpl = re.match(r"ILi(\d+)E", rest[len(fn):])
+        mangled, rest = m.group(1), m.group(3)
+        ns, rest = rest[:int(m.group(2))], rest[int(m.group(2)):]
+        fn = re.match(r"(\d+)", rest)
+        if not ns.startswith("attn") or not fn:
+            continue
+        name = rest[len(fn.group(1)):][:int(fn.group(1))]
+        tmpl = re.match(r"ILi(\d+)E", rest[len(fn.group(1)) + len(name):])
         info = " ".join(x.strip() for x in lines[i + 1:i + 4])
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
         regs = re.search(r"Used (\d+) registers", info)
         warn = sorted({w for w in re.findall(r"\((C751\d)\)[^']*'" + mangled, log)})
-        out.append(f"{ns}::{fn}{f'<{tmpl.group(1)}>' if tmpl else ''}: "
+        out.append(f"{ns}::{name}{f'<{tmpl.group(1)}>' if tmpl else ''}: "
                    f"{regs.group(1) if regs else '?'} registers, spill stores / loads "
                    f"{spill.group(1) if spill else '?'} / {spill.group(2) if spill else '?'} bytes"
                    f"{', ' + ', '.join(warn) if warn else ''}")
@@ -939,6 +947,7 @@ def phase_halo(k3, dev):
         stacked = torch.cat([etop, act, ebot], dim=1).permute(0, 3, 1, 2)
         w_oihw = w.permute(3, 2, 0, 1)
         cms = _time_ms(lambda: F.conv2d(stacked, w_oihw, padding=(0, 1)))
+        cdms = _device_ms(lambda: F.conv2d(stacked, w_oihw, padding=(0, 1)))
         out = k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot)
         dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot))
         flops = 2 * hs * wd * 9 * ci * co
@@ -953,7 +962,8 @@ def phase_halo(k3, dev):
         print(f"[7a] K-halo {name:20s} shard {hs}x{wd} {ci}->{co}: {', '.join(line)}; kernel "
               f"{ms:.4f} ms, device {dms:.4f} ms ({_tflops(flops, dms)}; K-fwd on the shard "
               f"{fwd_ms:.4f} ms){padded} plain {pms:.4f} ms, cuDNN on the stacked rows "
-              f"{cms:.4f} ms ({ms / cms:.2f}x){_fmt(bound, dms)}")
+              f"{cms:.4f} ms ({ms / cms:.2f}x), device {cdms:.4f} ms ({dms / cdms:.2f}x)"
+              f"{_fmt(bound, dms)}")
         if (hs, ci, co, sk) == (128, 256, 256, True):
             res.update(ms=ms, plain_ms=pms, library_ms=cms, **bound, device_ms=dms)
     torch.cuda.synchronize()
@@ -1381,9 +1391,11 @@ def phase_f32_kernels(k3, kattn, dev) -> dict:
             _row(res, "conv3x3_dx_f32", 0.0, ms=ms, device_ms=dms, plain_ms=pms, library_ms=cms,
                  **bd)
 
-    # attention: (batch, N heads, T, d); the last one ragged, batch 2, untimed
-    for bt, n, t, d in ((1, 8, 1024, 64), (1, 4, 1024, 128), (1, 4, 256, 192), (1, 4, 64, 256),
-                        (2, 2, 300, 192)):
+    # attention: (batch, N heads, T, d): the six shapes the main paths launch
+    # (the 64-512px UNets' d = 64 levels at 32^2, 16^2 and 8^2, the 128px
+    # model's d = 128, 192 and 256), timed; then ragged T and batch 2, untimed
+    for bt, n, t, d in ((1, 8, 1024, 64), (1, 16, 256, 64), (1, 16, 64, 64), (1, 4, 1024, 128),
+                        (1, 4, 256, 192), (1, 4, 64, 256), (2, 2, 300, 192), (2, 3, 77, 64)):
         qkv, g = rn(bt, t, 3 * n * d), rn(bt, t, n * d)
         q, k, v = kattn.split_heads(qkv, n)
         gh = kattn.to_heads(g, n)
@@ -1428,7 +1440,10 @@ def phase_f32_kernels(k3, kattn, dev) -> dict:
         eager = {key: _time_ms(fn) for key, fn in fns.items()}
         counted = {key: device_ms(fns[key]) for key in ("fwd", "bwd", "sdpa_fwd", "sdpa_bwd")}
         dev_ms = {key: ms for key, (ms, _) in counted.items()}
-        _say9(f"{head}; SDPA backend {_sdpa_backend(q4, k4, v4)}")
+        plan = kattn.f32_attn_plan(bt, n, t, d)
+        _say9(f"{head}; {plan['body']} body, grid {plan['grid']['fwd']}, streamed tiles "
+              f"{tuple(plan['stream'].values())}, stages {tuple(plan['stages'].values())}; "
+              f"SDPA f32 backend {_sdpa_backend(q4, k4, v4)}")
         flops = {"fwd": 4 * n * t * t * d, "bwd": 10 * n * t * t * d}
         for key in ("fwd", "bwd"):
             tensors = (qkv, out, lse) if key == "fwd" else (qkv, out, lse, g, dqkv)

@@ -175,43 +175,54 @@ def test_an_unsupported_head_dim_raises():
 # K-attn-f / K-attn-b f32 (csrc/attn_f32.cu): the plan at every head dim, at
 # T = 64, 256, 1024 and ragged T, and at every attention of the UNets
 F32_TS = (64, 256, 1024, 77, 300)
+F32_KERNELS = ("fwd", "bwd_dq", "bwd_dkdv")
 
 
-def _f32_smem(d, own, streamed, tile, scores):
-    """Bytes: ``own`` tiles of the block's 64 rows, two stages of
-    ``streamed`` tiles of ``tile`` rows, ``scores`` [64][tile + 4] arrays;
-    every row d + 4 floats."""
-    row = d + 4
-    return 4 * (own * 64 * row + 2 * streamed * tile * row + scores * 64 * (tile + 4))
+def _f32_smem(d, own, stage_floats, stages, vec_floats=0):
+    """Bytes: ``own`` 64-row tiles of d floats, ``stages`` ring stages of
+    ``stage_floats`` floats, ``vec_floats`` more, and 1 KB of slack to align
+    the 128B-swizzled TMA boxes."""
+    return 4 * (own * 64 * d + stages * stage_floats + vec_floats) + 1024
 
 
 @pytest.mark.parametrize("d", kattn.HEAD_DIMS)
 @pytest.mark.parametrize("t", F32_TS)
 def test_the_f32_plan_fits_one_block(d, t):
     plan = kattn.f32_attn_plan(2, 4, t, d)
-    stream = plan["stream"]
+    st, sg = plan["stream"], plan["stages"]
     assert plan["smem"] == {
-        "fwd": _f32_smem(d, 1, 2, stream["fwd"], 1),
-        "bwd_dq": _f32_smem(d, 2, 2, stream["bwd_dq"], 1),
-        "bwd_dkdv": _f32_smem(d, 2, 2, stream["bwd_dkdv"], 2)}
+        "fwd": _f32_smem(d, 1, st["fwd"] * (d + 64), sg["fwd"]),  # K and V's 64 columns
+        "bwd_dq": _f32_smem(d, 2, 2 * st["bwd_dq"] * d, sg["bwd_dq"]),
+        "bwd_dkdv": _f32_smem(d, 2, 2 * st["bwd_dkdv"] * d, sg["bwd_dkdv"],
+                              2 * st["bwd_dkdv"] * sg["bwd_dkdv"])}  # + each stage's lse, D
     for kernel, smem in plan["smem"].items():
-        assert 0 < smem <= kattn.SMEM_MAX, (d, t, kernel)
-    assert plan["body"] == "f32-fma" and plan["bwd_launches"] == 2 and plan["stages"] == 2
+        # the mbarriers (one per stage and direction, one for the own tiles)
+        # are static shared memory beside the dynamic part
+        assert 0 < smem + 8 * (2 * sg[kernel] + 1) <= kattn.SMEM_MAX, (d, t, kernel)
+    assert plan["body"] == kattn.F32_BODY == "mma.sync-3xtf32"
+    assert plan["bwd_launches"] == 2 and plan["mmas_per_product"] == 3
+    assert all(3 <= s <= 4 for s in sg.values())  # a ring of more than two stages
 
 
 @pytest.mark.parametrize("d", kattn.HEAD_DIMS)
 @pytest.mark.parametrize("t", F32_TS)
 def test_the_f32_tiles_cover_t_and_split_over_the_threads(d, t):
-    """64-row blocks cover T; each streamed tile splits evenly over a row's
-    threads (256 threads, 4 a row, each every fourth key); a thread's column
-    share is whole 16-byte vectors."""
+    """64-row blocks cover T, and each kernel's streamed tiles cover T; a
+    tile is whole mma.sync k8 / n8 steps and whole 8-row swizzle periods; the
+    threads are a producer (a warpgroup with two halves, else a warp) and
+    four 16-row consumer warps a half."""
     plan = kattn.f32_attn_plan(2, 4, t, d)
     assert (plan["tiles"] - 1) * plan["q_tile"] < t <= plan["tiles"] * plan["q_tile"]
-    assert plan["threads"] == 4 * plan["q_tile"] == 256
-    for kernel, tile in plan["stream"].items():
-        assert tile % 4 == 0 and 0 < tile <= plan["q_tile"], kernel
-        assert plan["grid"][kernel] == (plan["tiles"], 8), kernel
-    assert d % (4 * 4) == 0
+    assert plan["q_tile"] == 16 * plan["warps"] == 64
+    for kernel in F32_KERNELS:
+        tile, n = plan["stream"][kernel], plan["streamed_tiles"][kernel]
+        assert tile % 8 == 0 and 0 < tile <= plan["q_tile"] and 64 % tile == 0, kernel
+        assert (n - 1) * tile < t <= n * tile, kernel
+        halves = plan["halves"][kernel]
+        producer = 128 if halves == 2 else 32
+        assert plan["threads"][kernel] == producer + 128 * halves, kernel
+        assert plan["box"][kernel] == (kattn.F32_BOX, tile, 1)
+    assert d % kattn.F32_COLS == 0 and kattn.F32_BOX * 4 == 128
 
 
 @pytest.mark.parametrize("group", GROUPS)
@@ -219,14 +230,89 @@ def test_the_f32_plan_covers_the_unet_attentions(shapes, group):
     for b, h, t, d in shapes[group]:
         plan = kattn.f32_attn_plan(b, h, t, d)
         assert max(plan["smem"].values()) <= kattn.SMEM_MAX, (b, h, t, d)
-        assert plan["grid"]["fwd"] == (-(-t // 64), b * h)
+        assert plan["grid"]["fwd"] == (-(-t // 64), b * h, d // 64)
 
 
 def test_the_f32_plan_streams_16_rows_in_the_backward_at_d_256():
-    """At d = 256 two stages of 32-row K/V tiles beside Q and dO (or K and
-    V) take more than a block may: the backward streams 16-row tiles."""
-    assert kattn.f32_attn_plan(1, 4, 64, 256)["stream"] == {"fwd": 32, "bwd_dq": 16,
-                                                            "bwd_dkdv": 16}
-    assert _f32_smem(256, 2, 2, 32, 1) > kattn.SMEM_MAX
+    """At d = 256 the dQ kernel's Q and dO (128 KB) leave room for three
+    stages of 16-row K/V tiles, not of 32-row ones (nor for four stages); the
+    dK/dV kernel streams the same tiles."""
+    plan = kattn.f32_attn_plan(1, 4, 64, 256)
+    assert plan["stream"] == {"fwd": 32, "bwd_dq": 16, "bwd_dkdv": 16}
+    assert plan["stages"] == {"fwd": 4, "bwd_dq": 3, "bwd_dkdv": 3}
+    assert _f32_smem(256, 2, 2 * 32 * 256, 3) > kattn.SMEM_MAX
+    assert _f32_smem(256, 2, 2 * 16 * 256, 4) > kattn.SMEM_MAX
     with pytest.raises(ValueError, match="head dim 32"):
         kattn.f32_attn_plan(1, 2, 16, 32)
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_every_f32_output_column_has_one_owner(shapes, group):
+    """The column split: for each (row tile, batch*head) the blocks along
+    grid z own 64-column shares that cover the head's d columns exactly once
+    (no two blocks write one element, so no atomics are needed)."""
+    for b, h, t, d in shapes[group]:
+        plan = kattn.f32_attn_plan(b, h, t, d)
+        owners = [0] * d
+        for lo, hi in plan["shares"]:
+            assert hi - lo == plan["cols"] == kattn.F32_COLS
+            for c in range(lo, hi):
+                owners[c] += 1
+        assert owners == [1] * d, (b, h, t, d)
+        for kernel in F32_KERNELS:
+            assert plan["grid"][kernel][2] == len(plan["shares"]), kernel
+
+
+@pytest.mark.parametrize("d", kattn.HEAD_DIMS)
+@pytest.mark.parametrize("t", F32_TS)
+def test_the_f32_halves_see_their_own_stages(d, t):
+    """With two halves of consumers, streamed tile i goes to half i % 2 and
+    sits in stage i % stages: each stage serves one half only (an even ring),
+    and every tile has one consumer half."""
+    plan = kattn.f32_attn_plan(1, 4, t, d)
+    for kernel in F32_KERNELS:
+        halves, stages = plan["halves"][kernel], plan["stages"][kernel]
+        assert halves == (2 if stages % 2 == 0 else 1), kernel
+        served = {}
+        for i in range(plan["streamed_tiles"][kernel]):
+            served.setdefault(i % stages, set()).add(i % halves)
+        assert all(len(v) == 1 for v in served.values()), kernel
+
+
+@pytest.mark.parametrize("kernel", F32_KERNELS)
+def test_the_f32_products_run_on_the_tensor_cores(kernel):
+    """Every product is a TF32 tensor-core MMA (three of them in the 3xTF32
+    split); a wgmma operand staged in shared memory would have to be K-major
+    (TF32 has no transpose), and mma.sync takes either layout. The products
+    over tokens take A from the registers of the product before."""
+    products = kattn.f32_attn_plan(1, 4, 256, 128)["products"][kernel]
+    assert products
+    for name, (instr, a, b) in products.items():
+        assert instr.startswith(("mma.sync.m16n8k8.tf32", "wgmma.m64")), name
+        assert a in ("k-major", "mn-major", "registers") and b in ("k-major", "mn-major"), name
+        if instr.startswith("wgmma"):
+            assert a in ("k-major", "registers") and b == "k-major", name
+        over_tokens = "+=" in name
+        assert (a == "registers") == over_tokens and (b == "mn-major") == over_tokens, name
+
+
+def test_chip_smoke_reads_ptxas_for_both_attention_namespaces():
+    """chip_smoke.py phase 2 prints registers and spills of every attention
+    kernel, bf16 (``cgd::attn``) and f32 (``cgd::attn32``), read from the
+    mangled names by their lengths; other kernels are left out."""
+    import chip_smoke
+
+    def entry(mangled, regs, spill):
+        return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+                f"ptxas info    : Function properties for {mangled}\n"
+                f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+                f"ptxas info    : Used {regs} registers, used 1 barriers, 80 bytes smem\n")
+
+    log = (entry("_ZN3cgd6attn3224attn_bwd_dkdv_f32_kernelILi128EEEv14CUtensorMap_stS2_PKfS4_Pfii",
+                 168, 492)
+           + entry("_ZN3cgd4attn15attn_fwd_kernelILi64EEEv14CUtensorMap_stP13__nv_bfloat16Pfiiif",
+                   168, 0)
+           + entry("_ZN3cgd7f32conv18conv3x3_f32_kernelILb0ELb0ELb0ELi0EEEvNS0_6ParamsE", 128, 0))
+    assert chip_smoke._attn_ptxas(log) == [
+        "attn32::attn_bwd_dkdv_f32_kernel<128>: 168 registers, spill stores / loads 492 / 492 bytes",
+        "attn::attn_fwd_kernel<64>: 168 registers, spill stores / loads 0 / 0 bytes"]

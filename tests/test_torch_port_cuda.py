@@ -535,9 +535,13 @@ def test_attention_unsupported_head_dim_or_dtype_raises(dev):
 
 
 # K-attn-f / K-attn-b f32 (csrc/attn_f32.cu) against their plain versions in
-# f32 at 1e-5 of the reference's max (exact f32 FMA on both sides, summed in
-# other orders)
-@pytest.mark.parametrize("b,h,t,d", ATTN)
+# f32 at 1e-5 of the reference's max (3xTF32 on the tensor cores against
+# cuBLAS's f32, summed in other orders), at the bf16 cases and the 256px
+# UNet's 16^2 level
+ATTN32 = ATTN + [(1, 16, 256, 64)]
+
+
+@pytest.mark.parametrize("b,h,t,d", ATTN32)
 def test_f32_attention_kernels_match_plain_and_backward_is_deterministic(dev, b, h, t, d):
     gen = torch.Generator(dev).manual_seed(13)
     qkv = torch.randn(b, t, 3 * h * d, generator=gen, device=dev)
@@ -568,21 +572,28 @@ def test_the_f32_attention_kernels_size_shared_memory_as_the_plan(dev):
 
 
 def test_the_f32_attention_entry_points_check_the_plan(dev):
+    """Each C entry point launches the plan's geometry (streamed tiles,
+    stages, 64-column shares) and refuses any other."""
     from cgd_tpu_torch.kernels import _build
 
     qkv = torch.randn(1, 128, 3 * 256, device=dev)
     out = torch.empty(1, 128, 256, device=dev)
     lse = torch.empty(1, 128, device=dev)
     lib, s = _build.library(), _build.stream(dev)
+    plan = kattn.f32_attn_plan(1, 1, 128, 256)
+    st, sg, cols = plan["stream"], plan["stages"], plan["cols"]
     p = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 128, 1, 256)
-    assert lib.cgd_attn_fwd_f32(*p, kattn.f32_attn_plan(1, 1, 128, 256)["stream"]["fwd"], s) == 0
-    assert lib.cgd_attn_fwd_f32(*p, 16, s) != 0
+    assert lib.cgd_attn_fwd_f32(*p, st["fwd"], sg["fwd"], cols, s) == 0
+    for bad in ((16, sg["fwd"], cols), (st["fwd"], 2, cols), (st["fwd"], sg["fwd"], 128)):
+        assert lib.cgd_attn_fwd_f32(*p, *bad, s) != 0, bad
     dqkv = torch.empty_like(qkv)
     dvec = torch.empty(1, 128, device=dev)
     pb = (qkv.data_ptr(), out.data_ptr(), out.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
           dqkv.data_ptr(), 1, 128, 1, 256)
-    assert lib.cgd_attn_bwd_f32(*pb, 16, 16, s) == 0
-    assert lib.cgd_attn_bwd_f32(*pb, 32, 32, s) != 0  # d = 256 streams 16-row tiles
+    assert st["bwd_dq"] == st["bwd_dkdv"] and sg["bwd_dq"] == sg["bwd_dkdv"]
+    assert lib.cgd_attn_bwd_f32(*pb, st["bwd_dq"], sg["bwd_dq"], cols, s) == 0
+    for bad in ((32, 3, 64), (16, 4, 64), (16, 3, 256)):  # d = 256: 16 rows, three stages
+        assert lib.cgd_attn_bwd_f32(*pb, *bad, s) != 0, bad
     torch.cuda.synchronize()
 
 
