@@ -58,7 +58,7 @@ from cgd_tpu_torch.models.clip.model import CLIP, encode_image, encode_text
 from cgd_tpu_torch.ops.nn import cast_conv_params
 from cgd_tpu_torch.ops.resample import resize
 from cgd_tpu_torch.parallel.mesh import shard_params_replicated, split_activation
-from cgd_tpu_torch.validate import check_parameters
+from cgd_tpu_torch.validate import OOM_ADVICE, check_parameters
 from cgd_tpu_torch.weights import CACHE_PATH, resolve_clip, resolve_lpips, resolve_unet
 
 
@@ -368,13 +368,31 @@ def clip_guided_diffusion(
     shape = (batch_size, image_size, image_size, 3)
     say(f"Sampling {diffusion.num_timesteps - skip_timesteps} steps at {image_size}px on {dev}")
     t0 = time.perf_counter()
-    for step_k, pred_x0, _x_t in sample_loop(
-        diffusion, model_fn, builder, shape, gen, sampler_cfg,
-        skip_timesteps=skip_timesteps, init_image=init_tensor,
-        num_cutouts=num_cutouts, save_frequency=save_frequency, y_init=y_init,
-        final_frame_parity=strict_parity,
-    ):
-        frames = pred_x0.float().cpu().numpy()
-        for batch_idx in range(batch_size):
-            yield batch_idx, log_image(frames[batch_idx], prefix_path, prompts, step_k, batch_idx)
+    try:
+        for step_k, pred_x0, _x_t in sample_loop(
+            diffusion, model_fn, builder, shape, gen, sampler_cfg,
+            skip_timesteps=skip_timesteps, init_image=init_tensor,
+            num_cutouts=num_cutouts, save_frequency=save_frequency, y_init=y_init,
+            final_frame_parity=strict_parity,
+        ):
+            frames = pred_x0.float().cpu().numpy()
+            for batch_idx in range(batch_size):
+                yield batch_idx, log_image(frames[batch_idx], prefix_path, prompts, step_k,
+                                           batch_idx)
+    except KeyboardInterrupt:
+        # the frames written so far stay; the caller goes on with them
+        # (cgd_tpu/api.py:890-891, the reference's cgd/cgd.py:274-276)
+        say("Interrupted — partial frames kept.")
+        return
+    except RuntimeError as e:
+        if _out_of_memory(e):  # the reference's CUDA-OOM advice (cgd/cgd.py:277-283)
+            print(OOM_ADVICE)
+            print(f"(CLIP model currently: {clip_model_name})")
+        raise
     say(f"Sampled in {time.perf_counter() - t0:.1f} s")
+
+
+def _out_of_memory(e: BaseException) -> bool:
+    """A device allocation failed: torch.cuda.OutOfMemoryError, or a
+    RuntimeError whose text says so (cuDNN's and cuBLAS's own)."""
+    return isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e).lower()

@@ -68,14 +68,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_conv3x3_smem_bytes.restype = i
     lib.cgd_conv3x3_encode_seconds.argtypes = [p, i]
     lib.cgd_conv3x3_encode_seconds.restype = ctypes.c_double
-    lib.cgd_conv3x3_f32.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.cgd_conv3x3_f32.argtypes = [p] * 11 + [i] * 9 + [p]
     lib.cgd_conv3x3_f32.restype = i
-    lib.cgd_conv3x3_dx_f32.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.cgd_conv3x3_dx_f32.argtypes = [p] * 11 + [i] * 8 + [p]
     lib.cgd_conv3x3_dx_f32.restype = i
-    lib.cgd_conv3x3_dx_f32_chunks.argtypes = [i, i]
-    lib.cgd_conv3x3_dx_f32_chunks.restype = i
-    lib.cgd_conv3x3_f32_smem_bytes.argtypes = []
-    lib.cgd_conv3x3_f32_smem_bytes.restype = i
+    lib.cgd_conv3x3_f32_split.argtypes = [p, p, i, i, p]
+    lib.cgd_conv3x3_f32_split.restype = i
+    lib.cgd_conv3x3_f32_plan.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    lib.cgd_conv3x3_f32_plan.restype = i
     lib.cgd_attn_fwd.argtypes = [p] * 3 + [i] * 7 + [p]
     lib.cgd_attn_fwd.restype = i
     lib.cgd_attn_bwd.argtypes = [p] * 6 + [i] * 7 + [p]

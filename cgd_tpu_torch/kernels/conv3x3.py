@@ -23,13 +23,15 @@ Both kernels share one Hopper main loop (TMA-staged input patches, wgmma,
 a producer warpgroup); ``conv_plan`` is the launch geometry the wrapper and
 the kernel agree on.
 
-At f32 operands both wrappers run ``csrc/conv3x3_f32.cu`` (3xTF32
-``mma.sync``; ``f32_plan`` is its geometry): ``conv3x3_fwd`` as K-fwd f32 in
-the plain, prologue, residual and up modes (the LPIPS VGG16's convs, and
-the UNet at ``compute_dtype="float32"``) and, given ``etop``/``ebot``, as
-K-halo f32 in the plain, prologue and residual modes (the height-split UNet
-at ``compute_dtype="float32"``); ``conv3x3_dx`` as K-dx f32 (one launch
-shape for both of K-dx's classes, then a fixed-order dA/dB sum).
+At f32 operands both wrappers run ``csrc/conv3x3_f32.cu`` (3xTF32 on
+``wgmma`` fed by a TMA ring, the weights split once per call into K-major
+hi / lo, persistent blocks; ``f32_plan`` is its geometry): ``conv3x3_fwd``
+as K-fwd f32 in the plain, prologue, residual and up modes (the LPIPS VGG16's convs, and the UNet at
+``compute_dtype="float32"``) and, given ``etop``/``ebot``, as K-halo f32 in
+the plain, prologue and residual modes (the height-split UNet at
+``compute_dtype="float32"``); ``conv3x3_dx`` as K-dx f32 (one geometry for
+both of K-dx's classes, then a fixed-order dA/dB sum). Split K where the
+tiles do not fill the card, summed in a fixed order.
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor launches
 the kernel or raises. Nothing falls back from a failed build or launch.
@@ -44,6 +46,7 @@ weight and bias gradients are plain PyTorch, computed only when asked for
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -220,38 +223,156 @@ def conv_plan(b: int, h: int, w: int, cin: int, cout: int, up: bool = False,
     )
 
 
-# the launch geometry of csrc/conv3x3_f32.cu (f32_plan mirrors it)
-F32_PATCH = (8, 16)   # output patch of one block: 128 pixels
-F32_BK, F32_BN = 32, 64  # input channels per chunk, output channels per block
-F32_ALIGN = 4         # Cin and Cout padded to a multiple of 4 (16-byte copies)
+# the launch geometry of csrc/conv3x3_f32.cu (f32_plan mirrors its make_plan)
+F32_BM = 128          # output pixels of one block
+F32_BK = 32           # input channels per chunk (one 128-byte swizzle row)
+F32_ALIGN = 4         # Cin and Cout padded to a multiple of 4 (16-byte TMA strides)
+F32_MAX_SPLIT = 16    # K ranges at most
+F32_MAX_WS, F32_MAX_SS = 4, 36  # window and weight-slab stages at most
+F32_STATIC = 5120     # static shared memory reserved (mbarriers, K-dx's column sums)
+F32_SMS = 132         # the H100 SXM's SMs: the default of f32_plan's ``sms``
 
 
+F32_THREADS = 384  # a block: the producer warp, 3 activation warps, 2 consumer warpgroups
+
+
+def f32_tile_n(cout: int) -> int:
+    """K-fwd f32's N tile (wgmma's N) for ``cout`` (padded) output channels:
+    8 for the eps/sigma conv and the 3-channel input gradient, else 64 (a
+    128-wide tile's accumulators spill at the 168 registers a thread has)."""
+    return 8 if cout <= 8 else 64
+
+
+def f32_split_ranges(chunks: int, ksplit: int) -> list:
+    """The chunk range [k0, k1) of each of the ``ksplit`` K ranges, as the
+    kernel cuts them (split * chunks // ksplit)."""
+    return [(s * chunks // ksplit, (s + 1) * chunks // ksplit) for s in range(ksplit)]
+
+
+@functools.lru_cache(maxsize=1024)
 def f32_plan(b: int, h: int, w: int, cin: int, cout: int, up: bool = False,
-             dx: bool = False, halo: bool = False) -> dict:
+             dx: bool = False, halo: bool = False, sms: int = F32_SMS) -> dict:
     """The launch plan of one K-fwd f32 call (``dx``: K-dx f32, ``cin`` /
-    ``cout`` = Cg / Cx; ``halo``: K-halo f32 on an ``h``-row shard): 8 x 16
-    output patches by 64 output channels per block, one block per (patch, N
-    tile, image); Cin in chunks of 32, two cp.async stages of the input
-    window ([pixel][32 + 4] floats) and of the chunk's weights
-    ([tap][32][64 + 8]). The window is the patch's pad-1 halo, 10 x 18
-    pixels; with ``up`` (output 2h x 2w) it is staged at source resolution,
-    output rows / cols -1 .. 8 / 16 halved: 6 x 10. Every mode takes the same
-    shared memory. K-dx f32 writes one dA/dB partial row per patch
-    (``partial_rows``) and sums them in a second launch. K-halo f32 stages
-    window rows -1 and h from ``etop`` / ``ebot`` (``halo_rows``, each
-    ``[b, 1, w, cin]`` padded as x), their pad columns 0; every other row
-    outside [0, h) is 0."""
+    ``cout`` = Cg / Cx; ``halo``: K-halo f32 on an ``h``-row shard), the
+    geometry ``csrc/conv3x3_f32.cu`` computes for itself and checks the
+    caller's against (a card test holds the two equal).
+
+    A block computes an output patch of 128 pixels (8 x 16; 4 x 32 on
+    outputs of 4-7 rows, 2 x 64 below: the short-patch class; two consumer
+    warpgroups of 64) by ``bn`` output channels (``f32_tile_n``: 8 is the
+    narrow-N class), over Cin in chunks of 32 channels, ``k8_steps`` wgmma
+    k8 steps each (1 where Cin <= 8, 2 where Cin <= 16: the narrow-K class). Where the tiles alone do not fill the ``sms`` SMs, the
+    chunks are cut into ``ksplit`` ranges over blocks (split K; the ranges'
+    raw sums are added in order by a second pass, ``ws_floats`` of
+    workspace). A tile is (patch, K range, image, N tile), numbered patch
+    first (``tile_grid``); ``blocks`` = min(tiles, sms) persistent blocks each
+    take a contiguous run of tiles (block i: tiles i * tiles // blocks up to
+    (i + 1) * tiles // blocks), so that one tile's
+    epilogue runs under the next one's loads; with one chunk (Cin <= 32,
+    ``resident``) a run's nine weight slabs are loaded once per N tile.
+    Per chunk the producer stages the patch's pad-1 window
+    (``window`` rows x cols of source pixels; with ``up`` the output is 2h x
+    2w and the window is at source resolution), one TMA box a row in a
+    ``slot``-byte, 1 KB-aligned slot, and one tap at a time the weight slab
+    (``bn`` rows x 32 channels, hi and lo) of the weights split once per call
+    into ``wsplit`` = [2, 9, cout8, cink] (K-major: ``split_weights_plain``).
+    ``win_stages`` windows and
+    ``slab_stages`` slabs in flight, within one block's shared memory.
+    K-dx f32 writes one dA/dB partial row per patch (``partial_rows``);
+    K-halo f32 stages window rows -1 and h from ``etop`` / ``ebot``. Plans
+    are cached by their arguments (the wrappers ask for one per launch):
+    the dict is shared, read it only."""
     cin_p, cout_p = _round_up(cin, F32_ALIGN), _round_up(cout, F32_ALIGN)
-    ph, pw = F32_PATCH
+    cout8 = _round_up(cout_p, 8)
     ho, wo = (2 * h, 2 * w) if up else (h, w)
+    ks = f32_k8_steps(cin_p)
+    chunks = -(-cin_p // F32_BK)
+    bn = f32_tile_n(cout_p)
+    ph = 8 if (up or ho >= 8) else 4 if ho >= 4 else 2
+    pw = F32_BM // ph
+    tiles_x = -(-wo // pw)
+    patches = -(-ho // ph) * tiles_x
+    ntiles = -(-cout_p // bn)
+    tiles = patches * ntiles * b
+    ksplit = 1
+    if tiles < sms:
+        ksplit = max(1, min(sms // tiles, chunks, F32_MAX_SPLIT))
     window = (ph // 2 + 2, pw // 2 + 2) if up else (ph + 2, pw + 2)
-    stage = (ph + 2) * (pw + 2) * (F32_BK + 4) + 9 * F32_BK * (F32_BN + 8)
-    patches = -(-ho // ph) * -(-wo // pw)
-    return dict(cin=cin_p, cout=cout_p, ho=ho, wo=wo, patch=F32_PATCH, bk=F32_BK, bn=F32_BN,
-                window=window,
-                chunks=-(-cin_p // F32_BK), grid=(patches, -(-cout_p // F32_BN), b),
-                smem_bytes=2 * stage * 4, partial_rows=patches if dx else None,
-                halo_rows={-1: "etop", h: "ebot"} if halo else None)
+    slot = _round_up(window[1] * 128, _SMEM_ALIGN)
+    win_bytes, slab_bytes = window[0] * slot, 2 * bn * 128
+    win_stages = 4 if bn == 8 else 2
+    slab_stages = min(F32_MAX_SS,
+                      (SMEM_MAX - F32_STATIC - _SMEM_ALIGN - win_stages * win_bytes) // slab_bytes)
+    classes = {name for name, on in (
+        ("narrow_k", ks < 4), ("narrow_n", bn == 8), ("split_k", ksplit > 1),
+        ("short_patch", ph < 8), ("up", up), ("halo", halo)) if on}
+    tiles = patches * ntiles * b * ksplit
+    blocks = min(tiles, sms)
+    return dict(cin=cin_p, cout=cout_p, cout8=cout8, ho=ho, wo=wo, patch=(ph, pw), bk=F32_BK,
+                bn=bn, k8_steps=ks, chunks=chunks, ksplit=ksplit,
+                split_ranges=f32_split_ranges(chunks, ksplit),
+                tile_grid=(patches, ntiles, b * ksplit), tiles=tiles, blocks=blocks,
+                resident=chunks == 1, grid=(blocks,), threads=F32_THREADS,
+                window=window, slot=slot, win_stages=win_stages, slab_stages=slab_stages,
+                smem_bytes=win_stages * win_bytes + slab_stages * slab_bytes + _SMEM_ALIGN,
+                wsplit=(2, 9, cout8, _cin_k(cin_p)),
+                ws_floats=ksplit * b * ho * wo * cout_p if ksplit > 1 else 0,
+                partial_rows=patches if dx else None,
+                halo_rows={-1: "etop", h: "ebot"} if halo else None, classes=classes)
+
+
+_TF32_ROUND, _TF32_MASK = 0x1000, -0x2000  # round half away from zero at bit 13; low 13 bits off
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """The TF32 rounding of f32 ``v`` (round to nearest, ties away from zero:
+    cvt.rna.tf32.f32), as an f32 tensor with the 13 low mantissa bits 0."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + _TF32_ROUND) & _TF32_MASK).view(torch.float32)
+
+
+def f32_k8_steps(cin: int) -> int:
+    """wgmma k8 steps of one 32-channel chunk for ``cin`` (padded) input
+    channels: 1 up to 8, 2 up to 16, else 4."""
+    return 1 if cin <= 8 else 2 if cin <= 16 else 4
+
+
+def _cin_k(cin: int) -> int:
+    """Length of a split weight row: 8 with one k8 step, else cin rounded
+    up to 16."""
+    return 8 if f32_k8_steps(cin) == 1 else _round_up(cin, 16)
+
+
+def _channel_at(pos: int, cin: int) -> int:
+    """The input channel the split weights keep at K position ``pos`` of an
+    output channel's row (csrc/conv3x3_f32.cu channel_at): with one k8 step
+    the natural order; else, within each group of 16, position 8s + t + 4h
+    holds channel 4t + 2s + h, the order in which the kernel's 16-byte A
+    fragment loads meet wgmma's k8 steps."""
+    if f32_k8_steps(cin) == 1:
+        return pos
+    return (pos & ~15) + 4 * (pos & 3) + 2 * ((pos >> 3) & 1) + ((pos >> 2) & 1)
+
+
+def split_weights_plain(w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the weight split of K-fwd f32 / K-dx f32: w [3, 3,
+    cin, cout] f32 (cin, cout multiples of 4) -> [2, 9, cout8, cink] (cout
+    rounded up to 8, ``_cin_k``): K-major, a row per output channel, its
+    channels placed by ``_channel_at``; [0] the TF32 rounding hi of w, [1]
+    the TF32 rounding of w - hi; rows past cout and channels past cin 0."""
+    _, _, cin, cout = w.shape
+    cout8, cink = _round_up(cout, 8), _cin_k(cin)
+    wk = F.pad(w.reshape(9, cin, cout).transpose(1, 2), (0, cink - cin, 0, cout8 - cout))
+    wk = wk[:, :, torch.tensor([_channel_at(p, cin) for p in range(cink)])].contiguous().float()
+    hi = _tf32_rna(wk)
+    return torch.stack([hi, _tf32_rna(wk - hi)])
+
+
+def _f32_scratch(plan: dict, dev: torch.device):
+    wsplit = torch.empty(plan["wsplit"], dtype=torch.float32, device=dev)
+    ws = (torch.empty(plan["ws_floats"], dtype=torch.float32, device=dev)
+          if plan["ksplit"] > 1 else None)
+    return wsplit, ws
 
 
 def _conv3x3_fwd_f32(x, w, bias, A, B, skip, up, etop=None, ebot=None) -> torch.Tensor:
@@ -267,7 +388,7 @@ def _conv3x3_fwd_f32(x, w, bias, A, B, skip, up, etop=None, ebot=None) -> torch.
     if w.shape != (3, 3, cin, cout) or bias.shape != (cout,):
         raise ValueError(f"conv3x3_fwd: w {tuple(w.shape)} / bias {tuple(bias.shape)} "
                          f"do not fit x {tuple(x.shape)}")
-    plan = f32_plan(b, h, wd, cin, cout, up, halo=halo)
+    plan = f32_plan(b, h, wd, cin, cout, up, halo=halo, sms=_sms(x.device))
     ho, wo = plan["ho"], plan["wo"]
     if A is not None and (A.shape != (b, cin) or B.shape != (b, cin)):
         raise ValueError(f"conv3x3_fwd: A {tuple(A.shape)} / B {tuple(B.shape)} != {(b, cin)}")
@@ -279,6 +400,7 @@ def _conv3x3_fwd_f32(x, w, bias, A, B, skip, up, etop=None, ebot=None) -> torch.
     etop, ebot = _pad_to(etop, 3, cin_p), _pad_to(ebot, 3, cin_p)
     bias, skip = _pad_to(bias, 0, cout_p), _pad_to(skip, 3, cout_p)
     out = torch.empty((b, ho, wo, cout_p), dtype=torch.float32, device=x.device)
+    wsplit, ws = _f32_scratch(plan, x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         status = lib.cgd_conv3x3_f32(
@@ -286,7 +408,9 @@ def _conv3x3_fwd_f32(x, w, bias, A, B, skip, up, etop=None, ebot=None) -> torch.
             None if A is None else A.data_ptr(), None if B is None else B.data_ptr(),
             None if skip is None else skip.data_ptr(),
             None if etop is None else etop.data_ptr(), None if ebot is None else ebot.data_ptr(),
-            out.data_ptr(), b, h, wd, cin_p, cout_p, int(up), _build.stream(x.device))
+            out.data_ptr(), wsplit.data_ptr(), None if ws is None else ws.data_ptr(),
+            b, h, wd, cin_p, cout_p, int(up), plan["bn"], plan["patch"][0], plan["ksplit"],
+            _build.stream(x.device))
     _build.check(status, "conv3x3_fwd (f32)")
     LAUNCHES["conv3x3_fwd_halo_f32" if halo else "conv3x3_fwd_f32"] += 1
     return out[..., :cout].contiguous() if cout_p != cout else out
@@ -301,21 +425,24 @@ def _conv3x3_dx_f32(g, wt, x, A, B):
             or B.shape != (b, cx):
         raise ValueError("conv3x3_dx: shapes do not fit "
                          f"g {tuple(g.shape)}, wt {tuple(wt.shape)}, x {tuple(x.shape)}")
-    plan = f32_plan(b, h, w_, cg, cx, dx=True)
+    dev = g.device
+    plan = f32_plan(b, h, w_, cg, cx, dx=True, sms=_sms(dev))
     cg_p, cx_p = plan["cin"], plan["cout"]
     g, wt = _pad_to(g, 3, cg_p), _pad_to(_pad_to(wt, 2, cg_p), 3, cx_p)
     x, A, B = _pad_to(x, 3, cx_p), _pad_to(A, 1, cx_p), _pad_to(B, 1, cx_p)
-    dev = g.device
     dx = torch.empty((b, h, w_, cx_p), dtype=torch.float32, device=dev)
     partial = torch.empty((b, plan["partial_rows"], 2, cx_p), dtype=torch.float32, device=dev)
     dA = torch.empty((b, cx_p), dtype=torch.float32, device=dev)
     dB = torch.empty((b, cx_p), dtype=torch.float32, device=dev)
+    wsplit, ws = _f32_scratch(plan, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         status = lib.cgd_conv3x3_dx_f32(
             g.data_ptr(), wt.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(),
-            dx.data_ptr(), partial.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-            b, h, w_, cg_p, cx_p, _build.stream(dev))
+            dx.data_ptr(), wsplit.data_ptr(), None if ws is None else ws.data_ptr(),
+            partial.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            b, h, w_, cg_p, cx_p, plan["bn"], plan["patch"][0], plan["ksplit"],
+            _build.stream(dev))
     _build.check(status, "conv3x3_dx (f32)")
     LAUNCHES["conv3x3_dx_f32"] += 1
     if cx_p != cx:
@@ -324,7 +451,12 @@ def _conv3x3_dx_f32(g, wt, x, A, B):
 
 
 def _sms(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_count(torch.device(dev).index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _workspace(ksplit: int, n: int, dev: torch.device) -> Optional[torch.Tensor]:
@@ -409,7 +541,7 @@ def conv3x3_dx(g, wt, x, A, B, wtiled: Optional[bool] = None
     ``wtiled`` forces the launch class (None: ``dx_wtiled``'s rule; True
     also forbids split K); K-dx-w launches count under
     ``LAUNCHES["conv3x3_dx_wtiled"]``. f32 operands run K-dx f32, which has
-    one launch shape for both classes (no split K), counted under
+    one geometry for both classes (``f32_plan``), counted under
     ``LAUNCHES["conv3x3_dx_f32"]``; ``wtiled`` changes nothing there."""
     if g.device.type == "cpu":
         return conv3x3_dx_plain(g, wt, x, A, B)

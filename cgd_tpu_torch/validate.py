@@ -74,3 +74,13 @@ def check_parameters(
             f"--clip model name should be one of: {CLIP_MODEL_NAMES} "
             "unless you are trying to use your own checkpoint."
         )
+
+
+# printed with the CLIP model's name when the card runs out of memory
+# during sampling, then the error is raised again (cgd_tpu/validate.py's
+# advice, worded for the card's memory)
+OOM_ADVICE = """GPU out of memory (torch.cuda.OutOfMemoryError).
+Try lowering --image_size/-size, --batch_size/-bs, --num_cutouts/-cutn.
+--clip_model/-clip can have a large impact on memory usage:
+'RN50' uses the least, 'ViT-B/32' the second least and is good for its
+memory/runtime tradeoff. Larger models (RN50x16, ViT-L/14) need more GPU memory."""

@@ -7,8 +7,13 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 1. require a CUDA card; print ``nvidia-smi --query-gpu=name,power.limit``;
 2. build the hand-written kernels from ``cgd_tpu_torch/csrc`` (nvcc, one
    process per source, in parallel), print what ptxas said of each
-   attention kernel (registers, spill bytes, wgmma serialization), and time
-   the host's TMA tensor-map encode that every conv launch makes;
+   attention kernel and of the f32 conv body (registers, spill bytes, wgmma
+   serialization), and time the host's TMA tensor-map encode that every
+   conv launch makes. Every device time below is held against the same
+   call's CUDA-event time (``_checked``): one that falls far under it is
+   measured again in a fresh process (``tools/conv_bench.py`` /
+   ``tools/attn_bench.py``) and marked ``*`` if it still does, and the
+   marked readings are listed at the end;
 3. hold each kernel against its plain PyTorch version in bf16 at the shape
    classes of the 256px and 512px UNets (the conv family, including the
    512px UNet's own 512^2 128->128 prologue+residual class, K-dx-w at
@@ -39,16 +44,20 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    convs and the taps' unit normalisation, which amplify the convs'
    rounding);
 5. the 256px slice through ``cgd_tpu_torch.api.clip_guided_diffusion``: 16
-   cutouts, ViT-B/32, ddim25, random weights, the launch counters reset just
-   before it and read just after, between two short runs under the plain
-   routing for its step time; checks finite frames, written PNGs and that
-   every kernel of the path launched; then the same at the API's default
+   cutouts, ViT-B/32, ddim25, random weights with the UNet's zero-init
+   layers re-drawn (else its output is exactly 0), the launch counters reset
+   just before it and read just after, between two short runs under the
+   plain routing for its step time; checks the first guided step's x
+   against the plain routing's from the same seed (relative L2 <=
+   BF16_STEP_TOL), finite frames, written PNGs and that every kernel of the
+   path launched; then the same at the API's default
    size, the 128px model (attention at d = 128, 192 and 256), checking that
    the attention launched at each of the three head dims;
 6. the 512px path through the CLI, ``cgd_tpu_torch.cli.main``: 512px
    class-conditional ADM guided by CLIP RN50x16, 16 cutouts, ddim25, random
-   weights, with the same checks, the step time of the plain routing before
-   and after it, and the run's peak device memory;
+   weights, with the same checks (the first step's x against the CLI's
+   under the plain routing, interrupted after that step), the step time of
+   the plain routing before and after it, and the run's peak device memory;
 7. the height-split mesh path on the one card, ``make_mesh([dev, dev])``
    (cut=2, shards run one after the other): (a) K-halo through
    ``kernels.conv_spmd``, forward and input gradient, against its plain
@@ -59,8 +68,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    in two against the unsplit kernel UNet, forward and input gradient
    (relative L2 <= 5e-2); (c) the 256px ViT-B/32 ddim25 guided run through
    ``api.clip_guided_diffusion(mesh=...)``, counters reset just before it
-   and read just after: finite frames, PNGs, K-halo and attention launched,
-   K-fwd and K-dx not;
+   and read just after: the first step's x against the plain routing's on
+   the same mesh, finite frames, PNGs, K-halo and attention launched, K-fwd
+   and K-dx not;
 8. the 256px init-image path from checkpoints in the reference layout: the
    port's random 256px UNet, CLIP ViT-B/32 and LPIPS VGG16 written as the
    published ``.pt`` / ``.pth`` files (the converters' name maps inverted
@@ -79,9 +89,10 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    at 512^2, K-attn-f / K-attn-b f32 at the six shapes the main paths
    launch (timed beside SDPA f32, its backend named) and ragged T, each
    against its plain version in f32 (bound 1e-5 of the reference's max) and
-   against f64 beside the plain version's own error, K-dx f32's dA/dB and
-   K-attn-b f32 bit-identical over two runs, timed beside cuDNN f32 (TF32
-   off) or SDPA at f32; (b) the full 256px, 128px and 512px UNets at f32,
+   against f64 beside the plain version's own error, K-fwd f32 (split K
+   included), K-dx f32 and K-attn-b f32 bit-identical over two runs, timed
+   beside cuDNN f32 (TF32 off) or SDPA at f32, each conv with its
+   ``f32_plan`` (tile, patch, split K, shape class); (b) the full 256px, 128px and 512px UNets at f32,
    kernels vs ``kernel_routing("plain")`` (relative L2 <= 1e-4), the 128px
    one with the f32 attention at d = 128, 192 and 256, the 512px one with
    K-dx f32's W >= 512 class; (c) the 256px ViT-B/32 ddim25
@@ -95,8 +106,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    ``kernels.conv_spmd`` on two shards, forward and input gradient, against
    its plain version with autograd (bound 1e-5 of the reference's max) and
    against f64, at phase 7a's shard shapes and the 8^2 level's 4- and 2-row
-   shards, timed beside cuDNN f32 on the stacked rows, K-fwd f32 on the
-   shard and the plain version; (b) the full 256px UNet at f32 split cut=2
+   shards, bit-identical over two runs, timed beside cuDNN f32 on the
+   stacked rows, K-fwd f32 on the shard and the plain version; (b) the full 256px UNet at f32 split cut=2
    against the unsplit f32 kernel UNet (relative L2 <= 1e-4), launching
    K-halo f32 and no other conv kernel; (c) phase 9c's run through
    ``api.clip_guided_diffusion(mesh=make_mesh([dev, dev]),
@@ -131,6 +142,11 @@ LPIPS_TOL = 1e-2                               # relative L2 error, full VGG16 L
 F32_TOL = 1e-5        # max |err| / max |ref|, the f32 kernels against their plain versions
 F32_UNET_TOL = 1e-4   # relative L2 error, the full UNets at compute_dtype float32
 F32_STEP_TOL = 1e-3   # relative L2 error, the first f32 guided step's x
+# relative L2 error, the first bf16 guided step's x (phases 5, 6, 7c), kernels
+# against the plain routing from the same seed: at the first ddim25 step x is
+# almost all the UNet's eps (pred_x0 is clipped, sqrt(1 - alpha_bar) ~ 1), and
+# the bf16 UNet's output is held to UNET_TOL in phase 4
+BF16_STEP_TOL = UNET_TOL
 CARD = "card not read yet"  # nvidia-smi's name and power limit, set by main()
 PROMPTS = ["a watercolor painting of a lighthouse:1", "fog:0.5"]
 # the least time of a kernel: NVIDIA's H100 SXM data sheet, dense bf16 and
@@ -178,19 +194,57 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn) -> float:
-    """Device ms per call: the durations of the kernels ``fn`` launches,
-    summed under torch.profiler over 20 calls (cgd_tpu_torch/tools/attn_bench.py)."""
-    from cgd_tpu_torch.tools.attn_bench import device_ms
-
-    return device_ms(fn)[0]
+MARKED = []  # device readings that fell far under their CUDA-event time, fresh process too
 
 
-def _attn_ptxas(log: str) -> list:
-    """Per attention kernel of the build (nvcc -Xptxas -v), bf16 (namespace
-    ``cgd::attn``) and f32 (``cgd::attn32``): its registers, spill bytes,
-    and any wgmma serialization warning (C7512 / C7513). The mangled name
-    ``_ZN3cgd<n><namespace><m><function>...`` is read by its lengths."""
+def _checked(fn, fresh=None, label: str = ""):
+    """(device ms, kernels per call, mark) of ``fn``: the durations of the
+    kernels it launches, summed under torch.profiler over 20 calls, held
+    against the same call's CUDA-event time with the calls queued back to
+    back (attn_bench.checked_device_ms).
+    A reading that falls far under it is measured again in a fresh process
+    by ``fresh`` (tools/conv_bench.py or tools/attn_bench.py on the same
+    shape), and marked "*" (printed, and listed at the end) if it still
+    does."""
+    from cgd_tpu_torch.tools.attn_bench import checked_device_ms
+
+    dms, kernels, mark, queued, host = checked_device_ms(fn, fresh)
+    if mark:
+        print(f"[device time] {label}: {dms:.4f} ms against {queued:.4f} ms by events (calls "
+              f"queued), host {host:.1f} us per call: "
+              f"{'a fresh process reads it' if mark == 'fresh' else 'marked *'}")
+    if mark == "*":
+        MARKED.append(f"{label} {dms:.4f} ms (events {queued:.4f} ms)")
+    return dms, kernels, mark
+
+
+def _device_ms(fn, fresh=None, label: str = "") -> float:
+    """Device ms per call of ``fn`` (``_checked``)."""
+    return _checked(fn, fresh, label)[0]
+
+
+def _conv_fresh(key: str, call: str = "kernel"):
+    """A fresh process's device time of conv_bench's row ``key``."""
+    from cgd_tpu_torch.tools import conv_bench
+
+    return lambda: conv_bench.fresh(str(ROOT), key, call)
+
+
+def _attn_fresh(n: int, t: int, d: int, name: str, dtype: str):
+    """A fresh process's device time of attn_bench's call at (n, t, d)."""
+    from cgd_tpu_torch.tools import attn_bench
+
+    return lambda: attn_bench.fresh_ms(attn_bench.__file__, str(ROOT), f"{n},{t},{d},{name}",
+                                       "--dtype", dtype)
+
+
+def _attn_ptxas(log: str, namespaces=("attn", "attn32")) -> list:
+    """Per kernel of the build (nvcc -Xptxas -v) in ``namespaces`` (by
+    default the attention's, bf16 ``cgd::attn`` and f32 ``cgd::attn32``;
+    phase 2 also asks for the f32 conv body's ``cgd::f32conv``): its
+    registers, spill bytes, and any wgmma serialization warning (C7512 /
+    C7513). The mangled name ``_ZN3cgd<n><namespace><m><function>...`` is
+    read by its lengths."""
     import re
 
     out, lines = [], log.splitlines()
@@ -201,15 +255,16 @@ def _attn_ptxas(log: str) -> list:
         mangled, rest = m.group(1), m.group(3)
         ns, rest = rest[:int(m.group(2))], rest[int(m.group(2)):]
         fn = re.match(r"(\d+)", rest)
-        if not ns.startswith("attn") or not fn:
+        if ns not in namespaces or not fn:
             continue
         name = rest[len(fn.group(1)):][:int(fn.group(1))]
-        tmpl = re.match(r"ILi(\d+)E", rest[len(fn.group(1)) + len(name):])
+        tmpl = re.match(r"I((?:L[ib]\d+E)+)E", rest[len(fn.group(1)) + len(name):])
         info = " ".join(x.strip() for x in lines[i + 1:i + 4])
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
         regs = re.search(r"Used (\d+) registers", info)
         warn = sorted({w for w in re.findall(r"\((C751\d)\)[^']*'" + mangled, log)})
-        out.append(f"{ns}::{name}{f'<{tmpl.group(1)}>' if tmpl else ''}: "
+        args = ", ".join(re.findall(r"L[ib](\d+)E", tmpl.group(1))) if tmpl else ""
+        out.append(f"{ns}::{name}{f'<{args}>' if tmpl else ''}: "
                    f"{regs.group(1) if regs else '?'} registers, spill stores / loads "
                    f"{spill.group(1) if spill else '?'} / {spill.group(2) if spill else '?'} bytes"
                    f"{', ' + ', '.join(warn) if warn else ''}")
@@ -280,8 +335,9 @@ def phase_kernels(k3, dev):
         h = x if A is None else k3._silu_chain(x, A, B)[2].to(x.dtype)
         h = k3._up2(h) if up else h
         cms = _time_ms(lambda: k3._conv_nhwc(h, w))
-        dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, up))
-        cdms = _device_ms(lambda: k3._conv_nhwc(h, w))
+        dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, up),
+                         label=f"K-fwd {name} {ho}^2 {ci}->{co}")
+        cdms = _device_ms(lambda: k3._conv_nhwc(h, w), label=f"cuDNN {ho}^2 {ci}->{co}")
         flops = 2 * ho * ho * 9 * ci * co
         bd = _bound(flops, _nbytes(x, w, bias, A, B, skip, out))
         print(f"[3] K-fwd {name:20s} {ho}^2 {ci}->{co}: max|err| {err:.3e} "
@@ -304,8 +360,8 @@ def phase_kernels(k3, dev):
             ms = _time_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B))
             pms = _time_ms(lambda: k3.conv3x3_dx_plain(g, wt, x, A, B))
             cms = _time_ms(lambda: k3._conv_nhwc(g, wt))
-            dms = _device_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B))
-            cdms = _device_ms(lambda: k3._conv_nhwc(g, wt))
+            dms = _device_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B), label=f"K-dx {name}")
+            cdms = _device_ms(lambda: k3._conv_nhwc(g, wt), label=f"cuDNN dx {name}")
             line = []
             for part, a, b in zip(("dx", "dA", "dB"), got, want):
                 err, rel = _rel_max(a, b)
@@ -345,8 +401,9 @@ def phase_kernels(k3, dev):
         ms = _time_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=True))
         pms = _time_ms(lambda: k3.conv3x3_dx_plain(g, wt, x, A, B))
         cms = _time_ms(lambda: k3._conv_nhwc(g, wt))
-        dms = _device_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=True))
-        cdms = _device_ms(lambda: k3._conv_nhwc(g, wt))
+        dms = _device_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=True),
+                         label=f"K-dx-w 512^2 {ci}->{co}")
+        cdms = _device_ms(lambda: k3._conv_nhwc(g, wt), label=f"cuDNN dx 512^2 {ci}->{co}")
         flops = 2 * 512 * 512 * 9 * ci * co
         bd = _bound(flops, _nbytes(g, wt, x, A, B, *got))
         print(f"[3] K-dx-w 512^2 {ci}->{co}: {', '.join(line)} kernel {ms:.4f} ms, device "
@@ -393,12 +450,13 @@ def phase_kernels_f32(k3, dev) -> dict:
                 return F.conv2d(xn, wn, bias, padding=1)
 
             ms = _time_ms(lambda: k3.conv3x3_fwd(x, w, bias))
-            dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias))
+            tag = f"{h}^2 {cin}->{cout}{' dx' if grad else ''}"
+            dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias), label=f"K-fwd f32 VGG {tag}")
             pms = _time_ms(lambda: k3.conv3x3_fwd_plain(x, w, bias))
-            cms, cdms = _time_ms(cudnn), _device_ms(cudnn)
+            cms, cdms = _time_ms(cudnn), _device_ms(cudnn, label=f"cuDNN f32 {tag}")
             torch.backends.cudnn.allow_tf32 = True
             try:
-                tms, tdms = _time_ms(cudnn), _device_ms(cudnn)
+                tms, tdms = _time_ms(cudnn), _device_ms(cudnn, label=f"cuDNN TF32 {tag}")
             finally:
                 torch.backends.cudnn.allow_tf32 = False
             flops = 2 * h * h * 9 * cin * cout
@@ -458,7 +516,7 @@ def phase_attention(kattn, dev):
     import torch
     import torch.nn.functional as F
 
-    from cgd_tpu_torch.tools.attn_bench import device_ms, host_us
+    from cgd_tpu_torch.tools.attn_bench import host_us
 
     gen = torch.Generator(dev).manual_seed(4321)
     # (batch, N, T, d): the 64-512px UNets' d = 64 levels, then the 128px
@@ -511,7 +569,11 @@ def phase_attention(kattn, dev):
             "sdpa_bwd": lambda: torch.autograd.grad(so, (sq, sk, sv), g4, retain_graph=True),
         }
         eager = {key: _time_ms(fn) for key, fn in fns.items()}
-        dev_ms = {key: device_ms(fn)[0] for key, fn in fns.items()}
+        bench = {"fwd": "K-attn-f", "bwd": "K-attn-b", "sdpa_fwd": "SDPA fwd",
+                 "sdpa_bwd": "SDPA bwd"}
+        dev_ms = {key: _device_ms(fn, _attn_fresh(n, t, d, bench[key], "bfloat16")
+                                  if bt == 1 else None, f"{bench[key]} {name}")
+                  for key, fn in fns.items()}
         host = {key: host_us(fn) for key, fn in fns.items()}
         fpms = _time_ms(lambda: kattn.attention_fwd_plain(q, k, v))
         bpms = _time_ms(lambda: kattn.attention_bwd_plain(q, k, v, gh))
@@ -550,6 +612,51 @@ def _redraw_zero_init(unet, gen) -> None:
             if isinstance(m, (Conv, Dense)) and m.zero:
                 bound = 1.0 / float(torch.tensor(m.kernel.shape[:-1]).prod()) ** 0.5
                 m.kernel.uniform_(-bound, bound, generator=gen)
+
+
+class _FirstStep:
+    """Patches the API for a guided run whose first step can be held to the
+    plain routing's: the random UNet's zero-init layers re-drawn from a
+    fixed seed (as phases 4 and 9c; else its output and gradient are 0 and
+    no kernel reaches the sample), and ``x`` records each run's x after its
+    first yielded step. With ``stop``, the run is interrupted after that step
+    (the generator keeps its frame and ends)."""
+
+    def __init__(self, api, dev, stop: bool = False):
+        import torch
+
+        self.api, self.x, self.stop = api, [], stop
+        self.real = api.resolve_unet, api.sample_loop
+
+        def resolve_redrawn(*a, **kw):
+            unet, *rest = self.real[0](*a, **kw)
+            _redraw_zero_init(unet, torch.Generator(dev).manual_seed(9))
+            return (unet, *rest)
+
+        def spy(*a, **kw):
+            first = True
+            for item in self.real[1](*a, **kw):
+                if first:
+                    self.x.append(item[2].detach().float().clone())
+                yield item
+                if first and self.stop:
+                    raise KeyboardInterrupt
+                first = False
+
+        api.resolve_unet, api.sample_loop = resolve_redrawn, spy
+
+    def close(self):
+        self.api.resolve_unet, self.api.sample_loop = self.real
+
+    def rel(self, phase: str) -> float:
+        """The kernels' first x (the last run) against the plain routing's
+        (the one before), relative L2, held to BF16_STEP_TOL."""
+        plain, kern = self.x[-2], self.x[-1]
+        rel = ((kern - plain).norm() / plain.norm()).item()
+        if not rel <= BF16_STEP_TOL:
+            raise AssertionError(f"{phase}: first bf16 step x, kernels vs plain: rel L2 "
+                                 f"{rel:.3e} > {BF16_STEP_TOL}")
+        return rel
 
 
 def _full_unet(dev, size: int, dtype=None):
@@ -753,11 +860,15 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None, siz
             if n_frames is not None and len(paths) == n_frames:
                 break
         steps = save_frequency * (len(stamps) - 1) if n_frames else 24
-        return (stamps[-1] - stamps[0]) / steps, stamps[-1] - t0, paths
+        return (stamps[-1] - stamps[0]) / max(steps, 1), stamps[-1] - t0, paths
 
     api.log_image = capture
+    first = _FirstStep(api, dev)
     try:
         if mesh is not None:
+            with kernel_routing("plain"):  # the first step on the same mesh
+                timed(12, out_dir / "plain", n_frames=1)
+            frames.clear()
             _reset_launches(k3, kattn)
             step_s, total_s, paths = timed(12, out_dir)
             launches = _launches(k3, kattn)
@@ -773,9 +884,12 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None, siz
             by_d = {d: dict(n) for d, n in kattn.LAUNCHES_BY_D.items()}
             with kernel_routing("plain"):
                 plain_after, _, _ = timed(12, out_dir / "plain", n_frames=2)
+            first.x.pop()  # plain_after's
         final = frames[len(paths) - 1]
     finally:
         api.log_image = real_log_image
+        first.close()
+    rel = first.rel("phase 7c" if mesh is not None else f"phase 5 {size}px")
 
     if len(paths) != 3:
         raise AssertionError(f"expected frames at steps 0, 12, 24; got {paths}")
@@ -787,7 +901,9 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None, siz
         unsplit = {k: launches[k] for k in ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dx_wtiled")}
         if any(unsplit.values()):
             raise AssertionError(f"phase 7c: the split UNet launched unsplit convs {unsplit}")
-        print(f"[7c] 256px ddim25 guided sampling on {mesh}: {step_s * 1e3:.1f} ms per guided "
+        print(f"[7c] 256px ddim25 guided sampling on {mesh} (zero-init layers re-drawn): "
+              f"first step's x vs the plain routing rel L2 {rel:.3e} (bound {BF16_STEP_TOL}); "
+              f"{step_s * 1e3:.1f} ms per guided "
               f"step (phase 5, unsplit: {unsplit_step_s * 1e3:.1f} ms), {total_s:.2f} s per "
               f"image incl. model setup; launches {launches}; final frame |x|max "
               f"{np.abs(final).max():.3f}")
@@ -799,7 +915,9 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None, siz
         if kattn.attn_plan(1, 4, 64, d)["body"] != "wgmma":
             raise AssertionError(f"phase 5 {size}px: attention at d = {d} is not on the Hopper body")
         _check_launched(by_d[d], ("attn_fwd", "attn_bwd"), f"phase 5 {size}px, d = {d}")
-    print(f"[5] {size}px ddim25 guided sampling: {step_s * 1e3:.1f} ms per guided step "
+    print(f"[5] {size}px ddim25 guided sampling (zero-init layers re-drawn): first step's x "
+          f"vs the plain routing rel L2 {rel:.3e} (bound {BF16_STEP_TOL}); "
+          f"{step_s * 1e3:.1f} ms per guided step "
           f"(plain routing {plain_before * 1e3:.1f} ms before, {plain_after * 1e3:.1f} ms "
           f"after), {total_s:.2f} s per image incl. model setup; launches {launches}, "
           f"attention by head dim {({d: n for d, n in by_d.items() if any(n.values())})}; "
@@ -843,9 +961,15 @@ def phase_cli(k3, kattn, dev, out_dir: Path) -> dict:
         frames.append(np.asarray(image))
         return real_log_image(image, *a, **kw)
 
-    plain_before = plain_step_s()
-    api.log_image = capture
+    first = _FirstStep(api, dev)
     try:
+        plain_before = plain_step_s()
+        first.x.clear()
+        first.stop = True
+        with kernel_routing("plain"):  # the CLI's first step, interrupted after it
+            cli.main([*argv[:-2], str(out_dir / "plain_cli"), "-q"])
+        first.stop = False
+        api.log_image = capture
         torch.cuda.reset_peak_memory_stats(dev)
         _reset_launches(k3, kattn)
         t0 = time.perf_counter()
@@ -855,6 +979,8 @@ def phase_cli(k3, kattn, dev, out_dir: Path) -> dict:
         peak = torch.cuda.max_memory_allocated(dev)
     finally:
         api.log_image = real_log_image
+        first.close()
+    rel = first.rel("phase 6")
     plain_after = plain_step_s()
 
     pngs = sorted((out_dir / "cli").rglob("*.png"))
@@ -868,7 +994,9 @@ def phase_cli(k3, kattn, dev, out_dir: Path) -> dict:
     _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dx_wtiled", "attn_fwd",
                                "attn_bwd"), "phase 6")
     step_s = (stamps[-1] - stamps[0]) / 24
-    print(f"[6] CLI 512px RN50x16 ddim25 guided sampling: {step_s * 1e3:.1f} ms per guided step "
+    print(f"[6] CLI 512px RN50x16 ddim25 guided sampling (zero-init layers re-drawn): first "
+          f"step's x vs the plain routing's CLI rel L2 {rel:.3e} (bound {BF16_STEP_TOL}); "
+          f"{step_s * 1e3:.1f} ms per guided step "
           f"(plain routing {plain_before * 1e3:.1f} ms before, {plain_after * 1e3:.1f} ms after), "
           f"{total_s:.2f} s per image incl. model setup; peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {launches} ({sum(launches.values()) / 25:.1f} per "
@@ -947,9 +1075,11 @@ def phase_halo(k3, dev):
         stacked = torch.cat([etop, act, ebot], dim=1).permute(0, 3, 1, 2)
         w_oihw = w.permute(3, 2, 0, 1)
         cms = _time_ms(lambda: F.conv2d(stacked, w_oihw, padding=(0, 1)))
-        cdms = _device_ms(lambda: F.conv2d(stacked, w_oihw, padding=(0, 1)))
+        cdms = _device_ms(lambda: F.conv2d(stacked, w_oihw, padding=(0, 1)),
+                          label=f"cuDNN halo {name}")
         out = k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot)
-        dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot))
+        dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, etop=etop, ebot=ebot),
+                         label=f"K-halo {name}")
         flops = 2 * hs * wd * 9 * ci * co
         bound = _bound(flops, _nbytes(x, w, bias, A, B, skip, etop, ebot, out))
         padded = ""
@@ -1300,6 +1430,15 @@ def _row(res: dict, name: str, err: float, **numbers) -> None:
     entry.update(numbers)
 
 
+def _plan_str(plan: dict) -> str:
+    """The f32 conv plan's geometry, for a phase 9 / 10 line."""
+    return (f"plan bn {plan['bn']} patch {plan['patch'][0]}x{plan['patch'][1]} k8 steps "
+            f"{plan['k8_steps']} chunks {plan['chunks']} ksplit {plan['ksplit']} tiles "
+            f"{plan['tiles']} on {plan['blocks']} blocks stages {plan['win_stages']}/"
+            f"{plan['slab_stages']} smem {plan['smem_bytes']}"
+            f"{' ' + '+'.join(sorted(plan['classes'])) if plan['classes'] else ''}")
+
+
 def phase_f32_kernels(k3, kattn, dev) -> dict:
     """Phase 9a: K-fwd f32 in its prologue, residual and up modes, K-dx f32
     (both classes) and K-attn-f / K-attn-b f32 against their plain versions
@@ -1313,27 +1452,25 @@ def phase_f32_kernels(k3, kattn, dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from cgd_tpu_torch.tools.attn_bench import device_ms
-
     gen = torch.Generator(dev).manual_seed(909)
 
-    def kernel_ms(fn):
-        """CUDA-event ms, device ms and the kernels per call the profiler
-        counted (a fractional count: records dropped, attn_bench.device_ms)."""
-        dms, per_call = device_ms(fn)
-        return _time_ms(fn), dms, f"{per_call:g} kernels/call"
+    def kernel_ms(fn, key, label):
+        """CUDA-event ms, device ms (checked, ``_checked``; fresh: conv_bench's
+        row ``key``) and the kernels per call the profiler counted."""
+        dms, per_call, mark = _checked(fn, _conv_fresh(key), label)
+        return _time_ms(fn), dms, f"{per_call:g} kernels/call{', ' + mark if mark else ''}"
 
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     res = {}
     # (name, out H = W, cin, cout, prologue, skip, up); for up, H is the output
-    convs = [("conv3x3", 256, 3, 256, False, False, False),
-             ("conv3x3_gn_silu_add", 256, 256, 256, True, True, False),
-             ("conv3x3_gn_silu_up", 128, 512, 512, True, False, True),
-             ("conv3x3_gn_silu", 16, 2048, 1024, True, False, False),
-             ("conv3x3_gn_silu", 256, 256, 6, True, False, False)]
-    for name, ho, ci, co, pro, sk, up in convs:
+    convs = [("conv3x3", 256, 3, 256, False, False, False, "fwd-256-3-256"),
+             ("conv3x3_gn_silu_add", 256, 256, 256, True, True, False, "fwd-256-256-256-pro-res"),
+             ("conv3x3_gn_silu_up", 128, 512, 512, True, False, True, "fwd-128-512-512-pro-up"),
+             ("conv3x3_gn_silu", 16, 2048, 1024, True, False, False, "fwd-16-2048-1024-pro"),
+             ("conv3x3_gn_silu", 256, 256, 6, True, False, False, "fwd-256-256-6-pro")]
+    for name, ho, ci, co, pro, sk, up, key in convs:
         hs = ho // 2 if up else ho
         x, w, bias = rn(1, hs, hs, ci), rn(3, 3, ci, co, scale=(9 * ci) ** -0.5), rn(co, scale=0.1)
         A = 1.0 + 0.2 * rn(1, ci) if pro else None
@@ -1341,6 +1478,8 @@ def phase_f32_kernels(k3, kattn, dev) -> dict:
         skip = rn(1, ho, ho, co) if sk else None
         args = (x, w, bias, A, B, skip, up)
         out, ref = k3.conv3x3_fwd(*args), k3.conv3x3_fwd_plain(*args)
+        if not torch.equal(out, k3.conv3x3_fwd(*args)):
+            raise AssertionError(f"K-fwd f32 {name} {ho}^2 {ci}->{co}: repeated runs differ")
         err, rel = _rel_max(out, ref)
         exact = _fwd_f64(k3, *args)
         f64 = (_rel_max(out.double(), exact)[1], _rel_max(ref.double(), exact)[1])
@@ -1348,18 +1487,22 @@ def phase_f32_kernels(k3, kattn, dev) -> dict:
             raise AssertionError(f"K-fwd f32 {name} {ho}^2 {ci}->{co}: {rel:.3e} > {F32_TOL}")
         h = x if A is None else k3._silu_chain(x, A, B)[2]
         h = k3._up2(h) if up else h
-        ms, dms, kpc = kernel_ms(lambda: k3.conv3x3_fwd(*args))
+        plan = k3.f32_plan(1, hs, hs, ci, co, up=up, sms=k3._sms(dev))
+        ms, dms, kpc = kernel_ms(lambda: k3.conv3x3_fwd(*args), key, f"K-fwd f32 {key}")
         pms = _time_ms(lambda: k3.conv3x3_fwd_plain(*args))
-        cms, cdms = _time_ms(lambda: k3._conv_nhwc(h, w)), _device_ms(lambda: k3._conv_nhwc(h, w))
+        cms = _time_ms(lambda: k3._conv_nhwc(h, w))
+        cdms = _device_ms(lambda: k3._conv_nhwc(h, w), _conv_fresh(key, "cudnn"), f"cuDNN {key}")
         flops = 2 * ho * ho * 9 * ci * co
         bd = _bound(flops, _nbytes(x, w, bias, A, B, skip, out), PEAK_TF32_FLOPS)
         _say9(f"K-fwd f32 {name:20s} {ho}^2 {ci}->{co}: max|err| {err:.3e} ({rel:.2e} of scale; "
               f"against f64 kernel {f64[0]:.2e}, plain f32 {f64[1]:.2e}) kernel {ms:.4f} ms, "
               f"device {dms:.4f} ms ({kpc}, {_tflops(flops, dms)}) plain {pms:.4f} ms; cuDNN f32 "
-              f"{cms:.4f} ms, device {cdms:.4f} ms ({dms / cdms:.2f}x){_fmt(bd, dms)}")
+              f"{cms:.4f} ms, device {cdms:.4f} ms ({dms / cdms:.2f}x){_fmt(bd, dms)}; "
+              f"{_plan_str(plan)}; bit-identical reruns")
         _row(res, "conv3x3_fwd_f32", err)
     # K-dx f32: (H = W, forward Cin -> Cout); 512^2 is the W >= 512 class
     for ho, ci, co in ((256, 256, 256), (16, 2048, 1024), (256, 256, 6), (512, 256, 128)):
+        key = f"dx-{ho}-{ci}-{co}"
         x, g = rn(1, ho, ho, ci), rn(1, ho, ho, co)
         wt = k3._flip_t(rn(3, 3, ci, co, scale=(9 * ci) ** -0.5))
         A, B = 1.0 + 0.2 * rn(1, ci), 0.2 * rn(1, ci)
@@ -1377,16 +1520,18 @@ def phase_f32_kernels(k3, kattn, dev) -> dict:
             if rel > F32_TOL:
                 raise AssertionError(f"K-dx f32 {ho}^2 {ci}->{co} {part}: {rel:.3e} > {F32_TOL}")
             _row(res, "conv3x3_dx_f32", err)
-        ms, dms, kpc = kernel_ms(lambda: k3.conv3x3_dx(*args))
+        ms, dms, kpc = kernel_ms(lambda: k3.conv3x3_dx(*args), key, f"K-dx f32 {key}")
         pms = _time_ms(lambda: k3.conv3x3_dx_plain(*args))
-        cms, cdms = _time_ms(lambda: k3._conv_nhwc(g, wt)), _device_ms(lambda: k3._conv_nhwc(g, wt))
+        cms = _time_ms(lambda: k3._conv_nhwc(g, wt))
+        cdms = _device_ms(lambda: k3._conv_nhwc(g, wt), _conv_fresh(key, "cudnn"), f"cuDNN {key}")
+        plan = k3.f32_plan(1, ho, ho, co, ci, dx=True, sms=k3._sms(dev))
         flops = 2 * ho * ho * 9 * ci * co
         bd = _bound(flops, _nbytes(g, wt, x, A, B, *got), PEAK_TF32_FLOPS)
         _say9(f"K-dx f32 {ho}^2 {ci}->{co}{' (W >= 512 class)' if ho >= 512 else ''}: "
               f"{', '.join(line)} kernel {ms:.4f} ms, device {dms:.4f} ms ({kpc}, "
               f"{_tflops(flops, dms)}) "
               f"plain {pms:.4f} ms; cuDNN f32 conv alone {cms:.4f} ms, device {cdms:.4f} ms "
-              f"({dms / cdms:.2f}x); bit-identical reruns{_fmt(bd, dms)}")
+              f"({dms / cdms:.2f}x); bit-identical reruns{_fmt(bd, dms)}; {_plan_str(plan)}")
         if (ho, ci, co) == (256, 256, 256):
             _row(res, "conv3x3_dx_f32", 0.0, ms=ms, device_ms=dms, plain_ms=pms, library_ms=cms,
                  **bd)
@@ -1438,7 +1583,10 @@ def phase_f32_kernels(k3, kattn, dev) -> dict:
                "plain_fwd": lambda: kattn.attention_fwd_plain(q, k, v),
                "plain_bwd": lambda: kattn.attention_bwd_plain(q, k, v, gh)}
         eager = {key: _time_ms(fn) for key, fn in fns.items()}
-        counted = {key: device_ms(fns[key]) for key in ("fwd", "bwd", "sdpa_fwd", "sdpa_bwd")}
+        bench = {"fwd": "K-attn-f", "bwd": "K-attn-b", "sdpa_fwd": "SDPA fwd",
+                 "sdpa_bwd": "SDPA bwd"}
+        counted = {key: _checked(fns[key], _attn_fresh(n, t, d, call, "float32"),
+                                 f"{call} f32 {label}")[:2] for key, call in bench.items()}
         dev_ms = {key: ms for key, (ms, _) in counted.items()}
         plan = kattn.f32_attn_plan(bt, n, t, d)
         _say9(f"{head}; {plan['body']} body, grid {plan['grid']['fwd']}, streamed tiles "
@@ -1637,7 +1785,6 @@ def phase_halo_f32(k3, dev) -> dict:
     import torch.nn.functional as F
 
     from cgd_tpu_torch.kernels import conv_spmd
-    from cgd_tpu_torch.tools.attn_bench import device_ms
 
     gen = torch.Generator(dev).manual_seed(1010)
 
@@ -1701,17 +1848,25 @@ def phase_halo_f32(k3, dev) -> dict:
         def cudnn():
             return F.conv2d(stacked, w_oihw, padding=(0, 1))
 
-        ms, (dms, per_call) = _time_ms(halo), device_ms(halo)
+        got1 = halo()
+        if not torch.equal(got1, halo()):
+            raise AssertionError(f"K-halo f32 {name} shard {hs}x{wd}: repeated runs differ")
+        key = (f"halo-{hs}x{wd}-{ci}-{co}" + ("-gn" if pro else "") + ("-res" if sk else ""))
+        ms = _time_ms(halo)
+        dms, per_call, mark = _checked(halo, _conv_fresh(key), f"K-halo f32 {key}")
         fwd_ms = _time_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip))
         pms = _time_ms(lambda: k3.conv3x3_fwd_halo_plain(x, w, bias, A, B, skip, etop, ebot))
-        cms, cdms = _time_ms(cudnn), _device_ms(cudnn)
+        cms = _time_ms(cudnn)
+        cdms = _device_ms(cudnn, _conv_fresh(key, "cudnn"), f"cuDNN {key}")
+        plan = k3.f32_plan(1, hs, wd, ci, co, halo=True, sms=k3._sms(dev))
         flops = 2 * hs * wd * 9 * ci * co
         bound = _bound(flops, _nbytes(x, w, bias, A, B, skip, etop, ebot, halo()), PEAK_TF32_FLOPS)
         _say10(f"K-halo f32 {name:20s} shard {hs}x{wd} {ci}->{co}: {', '.join(line)}; kernel "
-               f"{ms:.4f} ms, device {dms:.4f} ms ({per_call:g} kernels/call, "
+               f"{ms:.4f} ms, device {dms:.4f} ms ({per_call:g} kernels/call"
+               f"{', ' + mark if mark else ''}, "
                f"{_tflops(flops, dms)}; K-fwd f32 on the shard {fwd_ms:.4f} ms) plain "
                f"{pms:.4f} ms; cuDNN f32 on the stacked rows {cms:.4f} ms, device {cdms:.4f} ms "
-               f"({dms / cdms:.2f}x){_fmt(bound, dms)}")
+               f"({dms / cdms:.2f}x){_fmt(bound, dms)}; {_plan_str(plan)}; bit-identical reruns")
         if (hs, ci, co, sk) == (128, 256, 256, True):
             res.update(ms=ms, plain_ms=pms, library_ms=cms, **bound, device_ms=dms)
     torch.cuda.synchronize()
@@ -1836,8 +1991,9 @@ def main() -> None:
     lib = _build.library()
     print(f"[2] kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
-    # what ptxas said of the attention kernels (their consumers must not spill)
-    for line in _attn_ptxas(_build.ptxas_log()):
+    # what ptxas said of the attention kernels (their consumers must not
+    # spill) and of the f32 conv body (f32conv::conv3x3_f32_kernel<BN, UP, EPI>)
+    for line in _attn_ptxas(_build.ptxas_log(), ("attn", "attn32", "f32conv")):
         print(f"[2] ptxas {line}")
     # the conv launches encode their TMA tensor maps on the host, per call
     buf = torch.empty(256 * 256 * 256, dtype=torch.bfloat16, device=dev)
@@ -1915,6 +2071,8 @@ def main() -> None:
          **{k: res[name][k] for k in keys}}
         for name, (src, rep) in meta.items()
     ]
+    print(f"[11] device readings still far under their CUDA-event time in a fresh process "
+          f"(marked *): {MARKED or 'none'}")
     print(f"[11] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s, the kernels' "
           "build included")
     print(json.dumps({"kernels": kernels}))

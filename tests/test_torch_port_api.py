@@ -354,3 +354,84 @@ def test_check_parameters_copy_matches_original(capsys, over):
             err = (type(e), str(e))
         outcomes.append((err, capsys.readouterr().out))
     assert outcomes[0] == outcomes[1]
+
+
+def _loop_raising_after_one_frame(real_loop, exc):
+    """A sample_loop that yields the real loop's first frame, then raises."""
+    def loop(*a, **kw):
+        inner = real_loop(*a, **kw)
+        yield next(inner)
+        raise exc
+    return loop
+
+
+def test_an_interrupt_keeps_the_first_frame_and_ends_like_cgd_tpu(tiny, monkeypatch, capsys):
+    """Ctrl-C during sampling: the port's generator yields the frame it has,
+    says so and ends without raising, as the JAX package's does under the
+    same patch; the caller's TF32 flags are back after an f32 run."""
+    monkeypatch.setattr(api, "sample_loop",
+                        _loop_raising_after_one_frame(api.sample_loop, KeyboardInterrupt()))
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        try:
+            frames = list(api.clip_guided_diffusion(prefix_path=tiny / "t",
+                                                    **{**KW, "progress": True}))
+        except KeyboardInterrupt:
+            pytest.fail("the interrupt escaped the port's generator")
+        flags = cudnn.allow_tf32, matmul.allow_tf32
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = prev
+    said = capsys.readouterr().out
+    monkeypatch.setattr(japi, "sample_loop",
+                        _loop_raising_after_one_frame(japi.sample_loop, KeyboardInterrupt()))
+    jframes = list(japi.clip_guided_diffusion(
+        prompts=KW["prompts"], image_size=64, num_cutouts=2, timestep_respacing="ddim5",
+        weights_mode="random", prefix_path=tiny / "j", progress=True))
+    jsaid = capsys.readouterr().out
+    assert [b for b, _ in frames] == [b for b, _ in jframes] == [0]
+    assert frames[0][1].endswith("/00/0000.png") and jframes[0][1].endswith("/00/0000.png")
+    assert _read_png(frames[0][1]).shape == (64, 64, 3)
+    assert "Interrupted — partial frames kept." in said
+    assert "Interrupted — partial frames kept." in jsaid
+    assert flags == (True, True)
+
+
+@pytest.mark.parametrize("exc", [
+    torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB"),
+    RuntimeError("cuDNN error: CUDNN_STATUS_INTERNAL_ERROR: out of memory"),
+    RuntimeError("an unrelated failure"),
+], ids=["OutOfMemoryError", "out-of-memory-text", "other"])
+def test_out_of_memory_prints_the_advice_and_raises(tiny, monkeypatch, capsys, exc):
+    """An out-of-memory error during sampling prints OOM_ADVICE and the CLIP
+    model's name, then raises it again (cgd_tpu/api.py:892-899); another
+    error raises with no advice. The caller's TF32 flags are restored."""
+    monkeypatch.setattr(api, "sample_loop", _loop_raising_after_one_frame(api.sample_loop, exc))
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    frames = []
+    try:
+        with pytest.raises(type(exc)) as raised:
+            for item in api.clip_guided_diffusion(prefix_path=tiny / "o", **KW):
+                frames.append(item)
+        flags = cudnn.allow_tf32, matmul.allow_tf32
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = prev
+    assert raised.value is exc and len(frames) == 1 and flags == (True, True)
+    said = capsys.readouterr().out
+    oom = "out of memory" in str(exc).lower()
+    assert (tvalidate.OOM_ADVICE in said) == oom
+    assert ("(CLIP model currently: ViT-B/32)" in said) == oom
+
+
+def test_the_oom_advice_names_the_jax_packages_flags_for_the_card():
+    """The port's advice names the flags cgd_tpu's does and speaks of the
+    card's memory, not the TPU's HBM."""
+    import re
+
+    flags = set(re.findall(r"--?[a-z_]+", jvalidate.OOM_ADVICE))
+    assert flags and flags == set(re.findall(r"--?[a-z_]+", tvalidate.OOM_ADVICE))
+    assert "GPU" in tvalidate.OOM_ADVICE and "HBM" not in tvalidate.OOM_ADVICE
+    assert "TPU" not in tvalidate.OOM_ADVICE

@@ -229,22 +229,32 @@ VGG16_256 = [(256, 3, 64), (256, 64, 64), (128, 64, 128), (128, 128, 128), (64, 
              (16, 512, 512), (16, 512, 512), (16, 512, 512), (256, 64, 3)]
 
 
+def _f32_smem(plan):
+    """What the plan's rings take: window stages of ``window`` rows in
+    1 KB-aligned slots, slab stages of bn rows x 32 channels, hi and lo, and
+    1 KB of alignment slack."""
+    rows, cols = plan["window"]
+    assert plan["slot"] % 1024 == 0 and cols * 128 <= plan["slot"] < cols * 128 + 1024
+    return (plan["win_stages"] * rows * plan["slot"]
+            + plan["slab_stages"] * 2 * plan["bn"] * 128 + 1024)
+
+
 @pytest.mark.parametrize("h,cin,cout", VGG16_256)
 def test_the_f32_plan_covers_the_vgg16_convs(h, cin, cout):
-    """K-fwd f32: Cin / Cout padded to multiples of 4 (16-byte copies), the
-    grid covering every output pixel and channel once, Cin in 32-channel
-    chunks, two stages of the staged window and weights within a block's
-    shared memory."""
+    """K-fwd f32: Cin / Cout padded to multiples of 4 (16-byte TMA strides),
+    the grid covering every output pixel and channel once, Cin in
+    32-channel chunks, the rings within a block's shared memory."""
     for b in (1, 2):
         plan = k3.f32_plan(b, h, h, cin, cout)
         assert plan["cin"] % 4 == 0 and plan["cin"] - cin < 4
         assert plan["cout"] % 4 == 0 and plan["cout"] - cout < 4
-        patches, ntiles, nb = plan["grid"]
+        patches, ntiles, nb = plan["tile_grid"]
         ph, pw = plan["patch"]
-        assert patches == -(-h // ph) * -(-h // pw)
-        assert ntiles * plan["bn"] >= plan["cout"] > (ntiles - 1) * plan["bn"] and nb == b
+        assert ph * pw == k3.F32_BM and patches == -(-h // ph) * -(-h // pw)
+        assert ntiles * plan["bn"] >= plan["cout"] > (ntiles - 1) * plan["bn"]
+        assert nb == b * plan["ksplit"]
         assert plan["chunks"] * plan["bk"] >= plan["cin"] > (plan["chunks"] - 1) * plan["bk"]
-        assert plan["smem_bytes"] == 217728 <= k3.SMEM_MAX
+        assert plan["smem_bytes"] == _f32_smem(plan) <= k3.SMEM_MAX - k3.F32_STATIC
 
 
 # K-fwd f32 in every mode and K-dx f32: what compute_dtype="float32" runs for
@@ -258,9 +268,25 @@ def f32_launches():
 
 
 def _f32_plans(launches):
-    for kind, b, h, w, ci, co, up, pro, _ in launches:
-        yield (kind, b, h, w, ci, co, up, pro), k3.f32_plan(b, h, w, ci, co, up=up,
-                                                             dx=kind == "dx")
+    for kind, b, h, w, ci, co, up, pro, halo in launches:
+        for sms in SMS:
+            yield (kind, b, h, w, ci, co, up, pro, halo, sms), k3.f32_plan(
+                b, h, w, ci, co, up=up, dx=kind == "dx", halo=halo, sms=sms)
+
+
+# K-halo f32: every conv of the 256px and 512px trees split by height, as
+# the split UNet runs them at compute_dtype="float32" (forward, and the
+# backward's flipped-weight conv)
+HALO_SPLITS = [(size, cut) for size in (256, 512) for cut in (2, 4)]
+F32_GROUPS = [f"tree{size}" for size in F32_TREES] + [f"split{size}-cut{cut}"
+                                                      for size, cut in HALO_SPLITS]
+
+
+def _f32_group(f32_launches, group):
+    if group.startswith("tree"):
+        return f32_launches[int(group[4:])]
+    size, cut = group[5:].split("-cut")
+    return _split(_with_backward(_unet_convs(int(size))), int(cut))
 
 
 def test_the_f32_trees_hold_every_mode(f32_launches):
@@ -272,25 +298,97 @@ def test_the_f32_trees_hold_every_mode(f32_launches):
 
 @pytest.mark.parametrize("size", F32_TREES)
 def test_the_f32_plan_covers_every_output_once(f32_launches, size):
-    """The grid's 8 x 16 patches tile the output (2h x 2w with up) once, its
-    N tiles cover Cout, its chunks Cin (both padded to multiples of 4)."""
-    for key, plan in _f32_plans(f32_launches[size]):
-        kind, b, h, w, ci, co, up, _ = key
+    """The tiles' patches cover the output (2h x 2w with up) once per N tile,
+    image and K range, the N tiles Cout, the chunks Cin (both padded to
+    multiples of 4); the persistent blocks' runs partition the tiles."""
+    _covers_every_output_once(f32_launches[size])
+
+
+def _covers_every_output_once(launches):
+    for key, plan in _f32_plans(launches):
+        kind, b, h, w, ci, co, up = key[:7]
         assert (plan["ho"], plan["wo"]) == ((2 * h, 2 * w) if up else (h, w)), key
         ph, pw = plan["patch"]
         tiles_x = -(-plan["wo"] // pw)
-        count = np.zeros((plan["ho"], plan["wo"]), np.int32)
-        for t in range(plan["grid"][0]):
-            y0, x0 = (t // tiles_x) * ph, (t % tiles_x) * pw
+        patches, ntiles, nsplit = plan["tile_grid"]
+        assert nsplit == b * plan["ksplit"], key
+        assert plan["tiles"] == patches * ntiles * nsplit, key
+        # the blocks' runs of tiles partition the tiles, in order
+        nb = plan["blocks"]
+        runs = [(i * plan["tiles"] // nb, (i + 1) * plan["tiles"] // nb) for i in range(nb)]
+        assert nb == plan["grid"][0] == min(plan["tiles"], key[-1]), key
+        assert runs[0][0] == 0 and runs[-1][1] == plan["tiles"], key
+        assert all(r1[0] == r0[1] and r0[1] > r0[0] for r0, r1 in zip(runs, runs[1:])), key
+        # every (output pixel, channel, image) in one tile of each K range
+        count = np.zeros((b, plan["ksplit"], ntiles, plan["ho"], plan["wo"]), np.int32)
+        for t in range(plan["tiles"]):
+            patch, r = t % patches, t // patches
+            split, r = r % plan["ksplit"], r // plan["ksplit"]
+            img, nt = r % b, r // b
+            y0, x0 = (patch // tiles_x) * ph, (patch % tiles_x) * pw
             assert y0 < plan["ho"] and x0 < plan["wo"], key
-            count[y0:y0 + ph, x0:x0 + pw] += 1
+            count[img, split, nt, y0:y0 + ph, x0:x0 + pw] += 1
         assert (count == 1).all(), key
         assert plan["cin"] % 4 == 0 and 0 <= plan["cin"] - ci < 4, key
         assert plan["cout"] % 4 == 0 and 0 <= plan["cout"] - co < 4, key
-        ntiles = plan["grid"][1]
         assert (ntiles - 1) * plan["bn"] < plan["cout"] <= ntiles * plan["bn"], key
         assert (plan["chunks"] - 1) * plan["bk"] < plan["cin"] <= plan["chunks"] * plan["bk"], key
-        assert plan["grid"][2] == b, key
+        assert plan["resident"] == (plan["chunks"] == 1), key
+
+
+@pytest.mark.parametrize("size,cut", HALO_SPLITS)
+def test_the_f32_halo_plan_covers_every_output_once(size, cut):
+    _covers_every_output_once(_split(_with_backward(_unet_convs(size)), cut))
+
+
+@pytest.mark.parametrize("group", F32_GROUPS)
+def test_every_k_chunk_lands_in_exactly_one_split_share(f32_launches, group):
+    """The split ranges partition the chunks in order, none empty, and
+    split K fills no more than the SMs."""
+    for key, plan in _f32_plans(_f32_group(f32_launches, group)):
+        ranges, chunks, ks = plan["split_ranges"], plan["chunks"], plan["ksplit"]
+        assert len(ranges) == ks and 1 <= ks <= min(chunks, k3.F32_MAX_SPLIT), key
+        owner = np.zeros(chunks, np.int32)
+        for k0, k1 in ranges:
+            assert k1 > k0, key
+            owner[k0:k1] += 1
+        assert (owner == 1).all() and [r[0] for r in ranges] == sorted(r[0] for r in ranges), key
+        assert ranges[0][0] == 0 and ranges[-1][1] == chunks, key
+        sms = key[-1]
+        if ks > 1:
+            assert plan["tiles"] <= sms, key
+            assert "split_k" in plan["classes"] and plan["ws_floats"] == ks * key[1] * plan[
+                "ho"] * plan["wo"] * plan["cout"], key
+        else:
+            assert plan["ws_floats"] == 0, key
+
+
+def test_the_split_partials_are_summed_in_a_fixed_order():
+    """The finish pass's order (range 0 first, each range's chunks in order)
+    on the plan's ranges: bit-identical on every rerun, within f32 rounding
+    of the unsplit sum, and the one order the kernel uses (summing the
+    ranges in another order is not bit-identical on these inputs)."""
+    rng = np.random.RandomState(0)
+    plan = k3.f32_plan(1, 16, 16, 2048, 1024)
+    assert plan["ksplit"] > 1
+    chunk_sums = (rng.randn(plan["chunks"], 256) * 10 ** rng.uniform(-3, 3, (plan["chunks"], 1))
+                  ).astype(np.float32)
+
+    def finish(order):
+        total = np.zeros(256, np.float32)
+        for s in order:
+            k0, k1 = plan["split_ranges"][s]
+            part = np.zeros(256, np.float32)
+            for c in range(k0, k1):
+                part += chunk_sums[c]
+            total += part
+        return total
+
+    fixed = range(plan["ksplit"])
+    a, b = finish(fixed), finish(fixed)
+    assert np.array_equal(a, b)
+    np.testing.assert_allclose(a, chunk_sums.astype(np.float64).sum(0), rtol=1e-5, atol=1e-3)
+    assert not np.array_equal(a, finish(reversed(fixed)))
 
 
 @pytest.mark.parametrize("size", F32_TREES)
@@ -302,8 +400,8 @@ def test_the_f32_window_holds_every_tap(f32_launches, size):
     for key, plan in _f32_plans(f32_launches[size]):
         up = key[6]
         rh, rw = plan["window"]
-        assert (rh, rw) == ((6, 10) if up else (10, 18)), key
         ph, pw = plan["patch"]
+        assert (rh, rw) == ((ph // 2 + 2, pw // 2 + 2) if up else (ph + 2, pw + 2)), key
         for y0 in (0, ph, plan["ho"] - ph):
             ys = y0 // 2 - 1 if up else y0 - 1
             needed = set()
@@ -325,23 +423,45 @@ def test_the_f32_window_holds_every_tap(f32_launches, size):
 
 @pytest.mark.parametrize("size", F32_TREES)
 def test_the_f32_plan_fits_one_block_and_sizes_kdx(f32_launches, size):
-    """Every mode takes the plain window's shared memory (two stages of the
-    10 x 18 window and the weights), within a block's 227 KB; K-dx f32 writes
-    one dA/dB partial row per output patch."""
+    """The rings (at least two windows, at least three weight slabs) fit a
+    block's 227 KB beside the static reserve; K-dx f32 writes one dA/dB
+    partial row per output patch."""
     for key, plan in _f32_plans(f32_launches[size]):
-        assert plan["smem_bytes"] == 217728 <= k3.SMEM_MAX, key
-        rh, rw = plan["window"]
-        assert rh * rw <= 10 * 18, key
+        assert plan["smem_bytes"] == _f32_smem(plan) <= k3.SMEM_MAX - k3.F32_STATIC, key
+        assert plan["win_stages"] >= 2 and 3 <= plan["slab_stages"] <= k3.F32_MAX_SS, key
+        assert plan["threads"] == k3.F32_THREADS == 32 * 12, key
         if key[0] == "dx":
-            assert plan["partial_rows"] == plan["grid"][0], key
+            assert plan["partial_rows"] == plan["tile_grid"][0], key
         else:
             assert plan["partial_rows"] is None, key
 
 
-# K-halo f32: every conv of the 256px and 512px trees split by height, as
-# the split UNet runs them at compute_dtype="float32" (forward, and the
-# backward's flipped-weight conv)
-HALO_SPLITS = [(size, cut) for size in (256, 512) for cut in (2, 4)]
+@pytest.mark.parametrize("group", F32_GROUPS)
+def test_each_f32_shape_class_is_chosen_where_the_rule_says(f32_launches, group):
+    """narrow K where Cin <= 16 (one k8 step a chunk up to 8 channels, two up
+    to 16), narrow N where
+    Cout <= 8 (bn 8; else 64), split K where the tiles do not fill the SMs, a short
+    patch (4 x 32, 2 x 64) on outputs under 8 rows, up and halo by mode."""
+    seen = set()
+    for key, plan in _f32_plans(_f32_group(f32_launches, group)):
+        kind, b, h, w, ci, co, up, pro, halo, sms = key
+        ho = 2 * h if up else h
+        tiles = plan["tile_grid"][0] * plan["tile_grid"][1] * b
+        want = {name for name, on in (
+            ("narrow_k", plan["cin"] <= 16), ("narrow_n", plan["cout"] <= 8),
+            ("split_k", tiles < sms and min(sms // tiles, plan["chunks"]) > 1),
+            ("short_patch", ho < 8), ("up", up), ("halo", halo)) if on}
+        assert plan["classes"] == want, key
+        assert plan["k8_steps"] == (1 if plan["cin"] <= 8 else 2 if plan["cin"] <= 16 else 4), key
+        assert plan["bn"] == (8 if "narrow_n" in want else 64), key
+        if plan["resident"]:  # the one chunk's nine weight slabs stay in shared memory
+            assert plan["slab_stages"] >= 9, key
+        assert plan["patch"] == ((8, 16) if ho >= 8 else (4, 32) if ho >= 4 else (2, 64)), key
+        seen |= want
+    expect = {"tree128": {"narrow_k", "narrow_n", "split_k", "up"},
+              "tree256": {"narrow_k", "narrow_n", "split_k", "up"},
+              "tree512": {"narrow_k", "narrow_n", "split_k", "up"}}
+    assert seen >= expect.get(group, {"halo", "split_k", "short_patch", "narrow_k"}), group
 
 
 @pytest.mark.parametrize("size,cut", HALO_SPLITS)
@@ -349,18 +469,17 @@ def test_the_f32_halo_plan_takes_rows_minus_1_and_h_from_the_neighbours(f32_laun
                                                                         cut):
     """f32_plan(halo=True) on every K-halo launch of the split tree: window
     rows -1 and h come from etop / ebot, rows inside the shard from x, and
-    every tap of a written output (patch rows past a short shard's h are
-    never written) lands on one of those, inside the 10 x 18 window; K-halo
-    takes the same shared memory as every other f32 mode."""
+    every tap of a written output lands on one of those, inside the window;
+    the 8^2 level's 4- and 2-row shards take a patch as short as they are."""
     halo = _split(f32_launches[size], cut)
-    assert min(key[2] for key in halo) == 8 // cut < k3.F32_PATCH[0]  # the 8^2 level's shards
+    assert min(key[2] for key in halo) == 8 // cut < 8  # the 8^2 level's shards
     for key in halo:
         _, b, h, w, ci, co, up, _, is_halo = key
         assert is_halo and not up, key
         plan = k3.f32_plan(b, h, w, ci, co, halo=True)
         assert plan["halo_rows"] == {-1: "etop", h: "ebot"}, key
-        assert plan["window"] == (10, 18) and plan["smem_bytes"] == 217728, key
-        ph, _ = plan["patch"]
+        ph, pw = plan["patch"]
+        assert plan["window"] == (ph + 2, pw + 2) and ph <= max(h, 2), key
         sources = set()
         for y0 in range(0, plan["ho"], ph):
             window = range(y0 - 1, y0 - 1 + plan["window"][0])
@@ -373,3 +492,37 @@ def test_the_f32_halo_plan_takes_rows_minus_1_and_h_from_the_neighbours(f32_laun
                     sources.add(src)
         assert sources == {"x", "etop", "ebot"}, key
 
+
+def _tf32_rna_numpy(v):
+    """numpy's TF32 rounding (to nearest, ties away from zero) of f32 ``v``."""
+    bits = v.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return (((bits + 0x1000) & 0xFFFFE000) & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 8), (8, 256), (12, 20), (64, 100), (256, 4), (36, 20)])
+def test_the_weight_split_plain_version_matches_numpy_tf32_rounding(cin, cout):
+    """split_weights_plain against numpy: hi the TF32 rounding of w, lo that
+    of w - hi, K-major rows (one per output channel, zero rows past cout);
+    up to 8 input channels a row of 8 in natural order, else position
+    8s + t + 4h of each 16-channel group holding channel 4t + 2s + h (zero
+    past cin); hi + lo within 2^-21 of w."""
+    import torch
+
+    rng = np.random.RandomState(cin + cout)
+    w = (rng.randn(3, 3, cin, cout) * 10.0 ** rng.uniform(-4, 2, (3, 3, cin, cout))).astype(
+        np.float32)
+    got = k3.split_weights_plain(torch.from_numpy(w)).numpy()
+    cout8, cink = -(-cout // 8) * 8, 8 if cin <= 8 else -(-cin // 16) * 16
+    assert got.shape == (2, 9, cout8, cink)
+    wk = np.zeros((9, cout8, cink), np.float32)
+    for pos in range(cink):
+        g, r = divmod(pos, 16)
+        s, t, h = r // 8, r % 4, (r // 4) % 2
+        c = pos if cin <= 8 else 16 * g + 4 * t + 2 * s + h
+        if c < cin:
+            wk[:, :cout, pos] = w.reshape(9, cin, cout)[:, c, :]
+    hi = _tf32_rna_numpy(wk)
+    lo = _tf32_rna_numpy(wk - hi)
+    assert np.array_equal(got[0], hi) and np.array_equal(got[1], lo)
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_allclose(hi.astype(np.float64) + lo, wk, rtol=2.0 ** -21, atol=0)

@@ -326,34 +326,152 @@ def test_split_f32_unet_matches_unsplit_and_runs_on_khalo_f32(dev, full_f32):
         assert ((a - b).norm() / b.norm()).item() <= 1e-4
 
 
+def _c_plan(lib, b, h, w, ci, co, up):
+    import ctypes
+
+    out = (ctypes.c_int * 18)()
+    assert lib.cgd_conv3x3_f32_plan(b, h, w, ci, co, int(up), out) == 0
+    keys = ("bn", "ph", "pw", "k8_steps", "chunks", "ksplit", "win_stages", "slab_stages",
+            "smem_bytes", "patches", "threads", "wr", "wc", "slot", "smem_cap", "sms", "tiles",
+            "blocks")
+    return dict(zip(keys, out))
+
+
 def test_the_f32_halo_kernel_sizes_shared_memory_as_the_plan_and_checks_its_rows(dev):
-    """K-halo f32 takes the shared memory f32_plan(halo=True) gives; the C
-    entry point refuses one halo row without the other, and a halo with up."""
+    """K-halo f32 takes the geometry and shared memory f32_plan(halo=True)
+    gives; the C entry point refuses one halo row without the other, a halo
+    with up, and any geometry but the plan's."""
     from cgd_tpu_torch.kernels import _build
 
     lib = _build.library()
-    assert lib.cgd_conv3x3_f32_smem_bytes() == k3.f32_plan(1, 4, 16, 64, 64, halo=True)[
-        "smem_bytes"]
+    plan = k3.f32_plan(1, 4, 16, 64, 64, halo=True, sms=k3._sms(dev))
+    got = _c_plan(lib, 1, 4, 16, 64, 64, False)
+    assert (got["bn"], (got["ph"], got["pw"]), got["smem_bytes"]) == (
+        plan["bn"], plan["patch"], plan["smem_bytes"])
     x, w, bias = _f32_inputs(dev, 1, 4, 16, 64, 64)
     A = torch.ones(1, 64, device=dev)
     rows = torch.zeros(1, 1, 16, 64, device=dev)
     out = torch.empty(1, 8, 32, 64, device=dev)
-    p = [t.data_ptr() for t in (x, w, bias, A, rows, out)]
+    wsplit = torch.empty(plan["wsplit"], device=dev)
+    ws = torch.empty(plan["ws_floats"], device=dev)
+    p = [t.data_ptr() for t in (x, w, bias, A, rows, out, wsplit, ws)]
     stream = _build.stream(dev)
-    for pro, etop, ebot, up in ((None, p[4], None, 0), (None, None, p[4], 0),
-                                (p[3], p[4], p[4], 1)):
-        assert lib.cgd_conv3x3_f32(p[0], p[1], p[2], pro, pro, None, etop, ebot, p[5], 1, 4, 16,
-                                   64, 64, up, stream) != 0
+    bn, ph, ks = plan["bn"], plan["patch"][0], plan["ksplit"]
+    for pro, etop, ebot, up, geom in ((None, p[4], None, 0, (bn, ph, ks)),
+                                      (None, None, p[4], 0, (bn, ph, ks)),
+                                      (p[3], p[4], p[4], 1, (bn, ph, ks)),
+                                      (None, p[4], p[4], 0, (64 if bn != 64 else 128, ph, ks)),
+                                      (None, p[4], p[4], 0, (bn, 8, ks)),
+                                      (None, p[4], p[4], 0, (bn, ph, ks + 1))):
+        assert lib.cgd_conv3x3_f32(p[0], p[1], p[2], pro, pro, None, etop, ebot, p[5], p[6],
+                                   p[7] if geom[2] > 1 else None, 1, 4, 16, 64, 64, up,
+                                   *geom, stream) != 0
 
 
-def test_the_f32_kernel_sizes_shared_memory_as_the_plan(dev):
+# shapes of every f32 plan class: the UNets' large, split-K (16^2 and 8^2
+# levels, the VGG's 16^2), narrow-K (Cin 3, K-dx's 6-channel cotangent),
+# narrow-N (Cout 6 and 3), up, and the short shards of the 8^2 level
+F32_PLAN_SHAPES = [(1, 256, 256, 256, 256, False), (1, 16, 16, 2048, 1024, False),
+                   (1, 8, 8, 1024, 1024, False), (1, 16, 16, 512, 512, False),
+                   (1, 256, 256, 4, 256, False), (1, 256, 256, 8, 256, False),
+                   (1, 256, 256, 256, 8, False), (1, 256, 256, 64, 4, False),
+                   (1, 64, 64, 512, 512, True), (1, 8, 8, 1024, 512, True),
+                   (1, 4, 8, 1024, 1024, False), (1, 2, 8, 1024, 1024, False),
+                   (1, 512, 512, 256, 128, False), (2, 9, 17, 8, 100, False)]
+
+
+@pytest.mark.parametrize("shape", F32_PLAN_SHAPES)
+def test_the_f32_kernel_sizes_shared_memory_as_the_plan(dev, shape):
+    """The C side's plan (cgd_conv3x3_f32_plan, what the entry points check
+    their callers against) equals f32_plan at this card's SM count."""
     from cgd_tpu_torch.kernels import _build
 
-    assert _build.library().cgd_conv3x3_f32_smem_bytes() == k3.f32_plan(1, 16, 16, 64, 64)[
-        "smem_bytes"]
-    for h, w in ((16, 16), (9, 17), (256, 256), (16, 520)):  # K-dx f32's dA/dB partial rows
-        assert _build.library().cgd_conv3x3_dx_f32_chunks(h, w) == k3.f32_plan(
-            1, h, w, 64, 64, dx=True)["partial_rows"]
+    b, h, w, ci, co, up = shape
+    got = _c_plan(_build.library(), *shape)
+    plan = k3.f32_plan(b, h, w, ci, co, up=up, sms=k3._sms(dev))
+    assert got["sms"] == k3._sms(dev)
+    assert (got["bn"], (got["ph"], got["pw"]), got["k8_steps"], got["chunks"],
+            got["ksplit"]) == (plan["bn"], plan["patch"], plan["k8_steps"], plan["chunks"],
+                               plan["ksplit"])
+    assert (got["win_stages"], got["slab_stages"], got["smem_bytes"], got["threads"]) == (
+        plan["win_stages"], plan["slab_stages"], plan["smem_bytes"], plan["threads"])
+    assert (got["wr"], got["wc"], got["slot"], got["patches"]) == (
+        *plan["window"], plan["slot"], plan["tile_grid"][0])
+    assert (got["tiles"], got["blocks"]) == (plan["tiles"], plan["blocks"])
+    assert plan["smem_bytes"] <= got["smem_cap"] == k3.SMEM_MAX - k3.F32_STATIC
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 8), (8, 256), (12, 20), (64, 100), (2048, 1024),
+                                      (256, 4)])
+def test_the_f32_weight_split_matches_its_plain_version(dev, cin, cout):
+    """The weight split kernel against split_weights_plain, bit for bit."""
+    from cgd_tpu_torch.kernels import _build
+
+    w = torch.randn(3, 3, cin, cout, generator=torch.Generator(dev).manual_seed(8),
+                    device=dev)
+    want = k3.split_weights_plain(w)
+    got = torch.empty_like(want)
+    assert _build.library().cgd_conv3x3_f32_split(w.data_ptr(), got.data_ptr(), cin, cout,
+                                                  _build.stream(dev)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("variant", ["plain", "prologue", "skip", "prologue_skip", "up", "halo",
+                                     "halo_prologue_skip", "dx"])
+@pytest.mark.parametrize("cin,cout", [(3, 64), (256, 6), (6, 256), (64, 3)])
+def test_the_narrow_channels_match_plain_in_every_mode(dev, full_f32, variant, cin, cout):
+    """Cin = 3 (conv_in), Cout = 6 (eps/sigma), K-dx into 6 channels and the
+    3-channel input gradient, each in every mode, at 1e-5 of the max."""
+    b, h, w = 1, 24, 40
+    d = _f32_mode_inputs(dev, b, h, w, cin, cout, seed=11)
+    if variant == "dx":
+        wt = k3._flip_t(d["w"])
+        for a, c in zip(k3.conv3x3_dx(d["g"], wt, d["x"], d["A"], d["B"]),
+                        k3.conv3x3_dx_plain(d["g"], wt, d["x"], d["A"], d["B"])):
+            _close32(a, c)
+        return
+    pro = "prologue" in variant or variant == "up"
+    A, B = (d["A"], d["B"]) if pro else (None, None)
+    skip = d["skip"] if "skip" in variant else None
+    if variant.startswith("halo"):
+        gen = torch.Generator(dev).manual_seed(12)
+        etop, ebot = (torch.randn(b, 1, w, cin, generator=gen, device=dev) for _ in range(2))
+        _close32(k3.conv3x3_fwd(d["x"], d["w"], d["bias"], A, B, skip, etop=etop, ebot=ebot),
+                 k3.conv3x3_fwd_halo_plain(d["x"], d["w"], d["bias"], A, B, skip, etop, ebot))
+        return
+    up = variant == "up"
+    _close32(k3.conv3x3_fwd(d["x"], d["w"], d["bias"], A, B, skip, up),
+             k3.conv3x3_fwd_plain(d["x"], d["w"], d["bias"], A, B, skip, up))
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 512, 512), (1, 8, 8, 1024, 256), (1, 4, 8, 256, 128),
+                                   (1, 2, 8, 256, 128)])
+def test_split_k_is_bit_identical_over_two_runs(dev, full_f32, shape):
+    """Shapes planned with split K: K-fwd f32 (prologue + residual), K-halo
+    f32 on the short shards and K-dx f32, rerun bit-identical, within 1e-5."""
+    b, h, w, ci, co = shape
+    assert "split_k" in k3.f32_plan(b, h, w, ci, co, sms=k3._sms(dev))["classes"]
+    d = _f32_mode_inputs(dev, *shape, seed=13)
+    etop, ebot = d["x"][:, :1] * 0.5, d["x"][:, -1:] * 0.5
+    runs = {
+        "fwd": lambda: k3.conv3x3_fwd(d["x"], d["w"], d["bias"], d["A"], d["B"], d["skip"]),
+        "halo": lambda: k3.conv3x3_fwd(d["x"], d["w"], d["bias"], d["A"], d["B"], d["skip"],
+                                       etop=etop, ebot=ebot),
+        "dx": lambda: k3.conv3x3_dx(d["g"], k3._flip_t(d["w"]), d["x"], d["A"], d["B"]),
+    }
+    plain = {
+        "fwd": lambda: k3.conv3x3_fwd_plain(d["x"], d["w"], d["bias"], d["A"], d["B"], d["skip"]),
+        "halo": lambda: k3.conv3x3_fwd_halo_plain(d["x"], d["w"], d["bias"], d["A"], d["B"],
+                                                  d["skip"], etop, ebot),
+        "dx": lambda: k3.conv3x3_dx_plain(d["g"], k3._flip_t(d["w"]), d["x"], d["A"], d["B"]),
+    }
+    for name, fn in runs.items():
+        got, again, want = fn(), fn(), plain[name]()
+        got, again, want = ((z,) if torch.is_tensor(z) else z for z in (got, again, want))
+        for a, c, e in zip(got, again, want):
+            assert torch.equal(a, c), name
+            _close32(a, e)
 
 
 def test_lpips_on_the_card_matches_the_plain_routing(dev, full_f32):
