@@ -8,14 +8,19 @@ the published checkpoints (``weights_mode="auto"``: the reference's
 ``.pt`` files in ``checkpoints_dir``, converted once to the JAX package's
 ``.npz.cgd`` cache) or random weights, any CLIP tower (ViT or
 ModifiedResNet, or a local ``.pt``), the CLIP BPE tokenizer, DDIM
-(``timestep_respacing="ddimN"``) or ancestral sampling, an init image with
+(``timestep_respacing="ddimN"``), ancestral or DPM-Solver++(2M)
+(``dpm_solver``) sampling, ``fast_guidance``, an init image with
 ``skip_timesteps`` and the LPIPS VGG loss (``init_scale``), cutouts (fresh
-or cached), the spherical / TV / range / saturation losses, the magnitude
-clamp, ``strict_parity`` either way, and ``mesh=``
+or cached, ``progressive_cutout``) and their augmentations (``use_augs``),
+``reduce_clip``, the spherical / TV / range / saturation losses, the
+magnitude clamp, non-square samples (``height_offset`` / ``width_offset``),
+recorded noise (``noise_file``: an npz of ``init`` [b, h, w, 3] and
+``steps`` [n, b, h, w, 3]), ``strict_parity`` either way, and ``mesh=``
 (``cgd_tpu_torch.parallel.mesh``): batch split over 'data', the UNet's
 activations split by height over 'cut' (every 3x3 conv on K-halo), the
-cutouts split over every mesh device. Every other option raises rather
-than being ignored.
+cutouts split over every mesh device. Every other option (resume, W&B,
+loss logging, async frames, the serving hooks) raises rather than being
+ignored.
 
 ``compute_dtype="float32"`` runs the UNet, CLIP and the glue in f32 (the
 conv family and the attention on their f32 kernels on a card; with
@@ -233,13 +238,8 @@ def clip_guided_diffusion(
         raise ValueError(f"device={device!r} but the mesh's devices are {list(mesh.devices.flat)}")
     dev = resolve_device(device)
     _refuse(
-        use_augs=(use_augs, False),
-        dpm_solver=(dpm_solver, False), fast_guidance=(fast_guidance, False),
         checkpoint_path=(checkpoint_path, None), resume_from=(resume_from, None),
-        reduce_clip=(reduce_clip, False), progressive_cutout=(progressive_cutout, False),
-        height_offset=(height_offset, 0), width_offset=(width_offset, 0),
         wandb_project=(wandb_project, None), wandb_entity=(wandb_entity, None),
-        noise_file=(noise_file, None),
         async_frames=(async_frames, False), log_losses=(log_losses, False),
         stall_pet=(stall_pet, None), device_lock=(device_lock, None),
     )
@@ -319,11 +319,25 @@ def clip_guided_diffusion(
         weights += [weight / num_cutouts] * num_cutouts
     target_embeds = torch.cat(embeds)
     weights = torch.as_tensor(normalize_weights(weights), device=dev)
+    if use_augs:
+        say("Augmentations enabled.")
 
     # ---- init image ---------------------------------------------------
     init_tensor = lpips = None
+    side_y, side_x = image_size + height_offset, image_size + width_offset
     if init_image:
-        arr = load_image_rgb(init_image, image_size)
+        if (height_offset or width_offset) and strict_parity:
+            # the reference resizes the init square (cgd/cgd.py:118) while the
+            # sample shape carries the offsets (cgd/cgd.py:252), and q_sample
+            # then fails on the shapes: fail loudly, as the JAX package does
+            raise ValueError(
+                "init_image with height/width offsets is broken in the "
+                "reference (init resized to "
+                f"({image_size},{image_size}) but sample shape is "
+                f"({side_y},{side_x})); "
+                "pass strict_parity=False to resize the init to the offset shape"
+            )
+        arr = load_image_rgb(init_image, (side_x, side_y))
         init_tensor = torch.from_numpy(arr)[None].repeat(batch_size, 1, 1, 1).to(dev)
         if init_scale != 0:
             lpips = resolve_lpips(weights_mode, dev, checkpoints_dir)
@@ -336,14 +350,20 @@ def clip_guided_diffusion(
         rescale_timesteps=flags.get("rescale_timesteps", False),
         learn_sigma=flags.get("learn_sigma", True),
     )
+    if reduce_clip and skip_timesteps == 0:
+        skip_timesteps = int(diffusion.num_timesteps * 0.2)
+        say(f"Skipping first {skip_timesteps} timesteps (--reduce-clip optimization)")
     cached_coords = None
     if cached_cutouts:
+        # progressive_cutout floors a step's count at 4 / 8 cutouts, so the
+        # cache holds as many as the largest step takes
+        cache_n = max(num_cutouts, 8) if progressive_cutout else num_cutouts
         cached_coords = sample_cutout_coords(
-            gen, num_cutouts, image_size, image_size, clip_cfg.input_resolution, cutout_power)
+            gen, cache_n, side_x, side_y, clip_cfg.input_resolution, cutout_power)
     settings = GuidanceSettings(
         clip_guidance_scale=clip_guidance_scale, tv_scale=tv_scale,
         range_scale=range_scale, sat_scale=sat_scale, init_scale=init_scale,
-        use_magnitude=use_magnitude, cutout_power=cutout_power,
+        use_magnitude=use_magnitude, use_augs=use_augs, cutout_power=cutout_power,
         clip_compute_dtype=compute_dtype,
     )
     builder = make_guidance_builder(
@@ -354,6 +374,8 @@ def clip_guided_diffusion(
         use_ddim=timestep_respacing.startswith("ddim"),
         randomize_class=(randomize_class and class_cond),
         num_classes=1000,
+        fast_guidance=fast_guidance,
+        dpm_solver=dpm_solver,
     )
 
     def model_fn(x, t_model, y):
@@ -365,14 +387,22 @@ def clip_guided_diffusion(
         return unet(split_activation(x, mesh), t_model, y, compute_dtype=cdtype).gather()
 
     y_init = torch.zeros((batch_size,), dtype=torch.long, device=dev) if class_cond else None
-    shape = (batch_size, image_size, image_size, 3)
-    say(f"Sampling {diffusion.num_timesteps - skip_timesteps} steps at {image_size}px on {dev}")
+    shape = (batch_size, side_y, side_x, 3)
+    init_noise = noise_steps = None
+    if noise_file:  # recorded noise: {"init": [*shape], "steps": [n_steps, *shape]}
+        rec = np.load(noise_file)
+        init_noise = rec["init"] if "init" in rec.files else None
+        noise_steps = rec["steps"] if "steps" in rec.files else None
+    say(f"Sampling {diffusion.num_timesteps - skip_timesteps} steps at {side_y}x{side_x}px "
+        f"on {dev}")
     t0 = time.perf_counter()
     try:
         for step_k, pred_x0, _x_t in sample_loop(
             diffusion, model_fn, builder, shape, gen, sampler_cfg,
             skip_timesteps=skip_timesteps, init_image=init_tensor,
+            reduce_clip=reduce_clip, progressive_cutout=progressive_cutout,
             num_cutouts=num_cutouts, save_frequency=save_frequency, y_init=y_init,
+            noise_override=noise_steps, init_noise=init_noise,
             final_frame_parity=strict_parity,
         ):
             frames = pred_x0.float().cpu().numpy()

@@ -10,9 +10,10 @@
 the one CPU device for ``--device cpu``). ``--weights-mode auto`` (the
 default) loads the published checkpoints from ``-ckpts``; the repository
 holds no weights and no BPE merge table. Flags the port cannot honour yet
-raise ``NotImplementedError`` naming the flag; the API refuses the options
-it does not take (``-reduce``, offsets, W&B). ``--dropout`` is accepted and,
-as in the JAX package's sampling, never applied.
+(``-gif`` / ``-mp4``, ``--profile``, ``--log-losses``, ``--checkpoint`` /
+``--resume``, ``--stall-timeout``) raise ``NotImplementedError`` naming the
+flag; the API refuses W&B by name. ``--dropout`` is accepted and, as in the
+JAX package's sampling, never applied.
 """
 
 from __future__ import annotations
@@ -25,13 +26,10 @@ from cgd_tpu_torch.weights import CACHE_PATH
 
 # flags the port cannot honour yet: argparse dest -> spelling
 REFUSED = {
-    "use_augs": "-augs/--use_augs",
     "save_as_gif": "-gif/--save-as-gif",
     "save_as_video": "-mp4/--save-as-video",
     "profile": "--profile",
     "log_losses": "--log-losses",
-    "fast_guidance": "--fast-guidance",
-    "dpm_solver": "--dpm-solver",
     "checkpoint": "--checkpoint",
     "resume": "--resume",
     "stall_timeout": "--stall-timeout",
@@ -88,10 +86,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="log the run to this Weights & Biases project (not ported: raises)")
     p.add_argument("--wandb_entity", "-ent", default=None,
                    help="W&B team/entity owning the project")
-    p.add_argument("--height_offset", "-ht", default=0, type=int, help="extra output height (not ported: nonzero raises)")
-    p.add_argument("--width_offset", "-wd", default=0, type=int, help="extra output width (not ported: nonzero raises)")
+    p.add_argument("--height_offset", "-ht", default=0, type=int, help="extra output height (multiple of the UNet downsample factor)")
+    p.add_argument("--width_offset", "-wd", default=0, type=int, help="extra output width (multiple of the UNet downsample factor)")
     p.add_argument("--use_augs", "-augs", action="store_true",
-                   help="augment the guidance cutouts (not ported: raises)")
+                   help="apply flip/affine/perspective/grayscale augs to guidance cutouts")
     p.add_argument("--use_magnitude", "-mag", action="store_true",
                    help="RMS-clamp the guidance gradient (auto-enabled at 64px)")
     p.add_argument("--quiet", "-q", action="store_true", help="suppress progress output")
@@ -100,9 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-as-video", "-mp4", action="store_true",
                    help="mux saved frames into an MP4 (not ported: raises)")
     p.add_argument("--reduce-clip", "-reduce", action="store_true",
-                   help="stage CLIP guidance (not ported: raises)")
+                   help="stage CLIP guidance (skip 20%%, every 4th step to 70%%) to generate faster")
     p.add_argument("--progressive-cutout", "-cutn_skip", action="store_true",
-                   help="ramp the cutout count (not ported: raises)")
+                   help="ramp the cutout count (cutn/4 -> cutn/2 -> cutn) across the schedule")
     p.add_argument("--cached-cutouts", "-cached_cutn", action="store_true",
                    help="sample cutout coordinates once and reuse them every step")
     p.add_argument("--weights-mode", default="auto", choices=["auto", "random"],
@@ -121,9 +119,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-losses", action="store_true",
                    help="print per-step guidance loss lines (not ported: raises)")
     p.add_argument("--fast-guidance", action="store_true",
-                   help="guide on a detached denoised prediction (not ported: raises)")
+                   help="guide on a detached denoised prediction (classic pre-fork CLIP "
+                        "guidance; skips the UNet backward). NOT reference semantics")
     p.add_argument("--dpm-solver", dest="dpm_solver", action="store_true",
-                   help="DPM-Solver++(2M) update (not ported: raises)")
+                   help="use the DPM-Solver++(2M) second-order multistep update instead of "
+                        "DDIM/ancestral (try ddim50 budgets). Deterministic. NOT reference "
+                        "semantics")
     p.add_argument("--checkpoint", default=None, type=str, metavar="PATH",
                    help="save resumable sampling state (not ported: raises)")
     p.add_argument("--resume", default=None, type=str, metavar="PATH",
@@ -186,6 +187,7 @@ def main(argv=None):
         prefix_path=prefix_path,
         wandb_project=args.wandb_project,
         wandb_entity=args.wandb_entity,
+        use_augs=args.use_augs,
         use_magnitude=args.use_magnitude,
         height_offset=args.height_offset,
         width_offset=args.width_offset,
@@ -197,6 +199,8 @@ def main(argv=None):
         compute_dtype=args.compute_dtype,
         mesh=mesh,
         strict_parity=args.strict_parity,
+        fast_guidance=args.fast_guidance,
+        dpm_solver=args.dpm_solver,
     )
     list(enumerate(cgd_generator))  # drain the generator
 

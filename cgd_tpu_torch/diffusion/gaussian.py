@@ -1,7 +1,7 @@
 """Gaussian diffusion process in PyTorch, counterpart of
 ``cgd_tpu/diffusion/gaussian.py``: the (respaced) schedule, ``q_sample``, ``p_mean_variance``
-with the learned-sigma split, and the DDIM and ancestral steps with the
-fork's gradient conditioning. Images are NHWC float32.
+with the learned-sigma split, and the DDIM, ancestral and DPM-Solver++(2M)
+steps with the fork's gradient conditioning. Images are NHWC float32.
 """
 
 from __future__ import annotations
@@ -132,6 +132,50 @@ class GaussianDiffusion:
             mean = mean + out.variance * cond_grad.float()
         nonzero = (t != 0).float().reshape((-1,) + (1,) * (x.dim() - 1))
         return mean + nonzero * torch.exp(0.5 * out.log_variance) * noise
+
+    def dpm_solver2m_step(self, out: PMeanVariance, x, t, t_prev, first: bool, x0_prev,
+                          cond_grad=None):
+        """DPM-Solver++(2M) multistep update (data prediction, deterministic;
+        Lu et al. 2022, the multistep form of eq. (4.2) / (4.3)). Guidance
+        enters as in ``ddim_sample_step`` (eps' = eps - sqrt(1-abar) grad,
+        x0 re-predicted from eps'); then, with lam = log(alpha / sigma),
+        h = lam_s - lam_t toward the level s below t and
+        r = (lam_t - lam_prev) / h:
+
+            D   = (1 + c) x0_t - c x0_prev,   c = min(1 / (2r), 0.5)
+            x_s = (sigma_s / sigma_t) x_t - alpha_s (e^{-h} - 1) D
+
+        The 0.5 clamp keeps the extrapolation from overshooting where the
+        respaced grid's log-SNR gaps grow toward t = 0. ``first`` (the run's
+        first step) and the final step (t == 0) take the first-order update
+        D = x0_t, which equals a DDIM eta = 0 step. Returns (x_next,
+        x0_guided); the caller carries x0_guided as the next step's
+        ``x0_prev``."""
+        c = self.coeffs
+        nd = x.dim()
+        pred_xstart = out.pred_xstart
+        abar_t = self._bcast(c.alphas_cumprod, t, nd)
+        if cond_grad is not None:
+            eps = self.predict_eps_from_xstart(x, t, pred_xstart)
+            eps = eps - torch.sqrt(1.0 - abar_t) * cond_grad.float()
+            pred_xstart = self.predict_xstart_from_eps(x, t, eps)
+        x0 = pred_xstart.float()
+
+        def lam(abar):  # half-log-SNR; the clamp engages only at abar = 1 (t = 0's target)
+            return 0.5 * (torch.log(abar) - torch.log((1.0 - abar).clamp_min(1e-20)))
+
+        abar_s = self._bcast(c.alphas_cumprod_prev, t, nd)
+        abar_p = self._bcast(c.alphas_cumprod, t_prev, nd)
+        lam_t, lam_s, lam_p = lam(abar_t), lam(abar_s), lam(abar_p)
+        h = lam_s - lam_t
+        fo = ((t == 0) | bool(first)).reshape((-1,) + (1,) * (nd - 1))
+        r = torch.where(fo, torch.ones_like(h), (lam_t - lam_p) / h)
+        coef = (1.0 / (2.0 * r)).clamp(max=0.5)
+        d = torch.where(fo, x0, (1.0 + coef) * x0 - coef * x0_prev.float())
+        sigma_t = torch.sqrt(1.0 - abar_t)
+        sigma_s = torch.sqrt((1.0 - abar_s).clamp_min(0.0))
+        alpha_s = torch.sqrt(abar_s)
+        return (sigma_s / sigma_t) * x - alpha_s * torch.expm1(-h) * d, x0
 
     def ddim_sample_step(self, out: PMeanVariance, x, t, noise, cond_grad=None,
                          eta: float = 0.0):

@@ -3,11 +3,13 @@
 
 One guided step = UNet forward + ``p_mean_variance`` + the gradient of the
 guidance loss with respect to x, taken THROUGH the UNet (the fork's
-``cond_fn_with_grad``: pred_xstart is on the tape) + a DDIM or ancestral
-update. The loop is a plain Python loop over the static step plan that emits
-(step, pred_xstart, x_t) at the save points of ``segment_plan``, starting
-from an init image noised to the first step when the leading steps are
-skipped; it has no checkpoint/resume yet.
+``cond_fn_with_grad``: pred_xstart is on the tape) + a DDIM, ancestral or
+DPM-Solver++(2M) update. ``fast_guidance`` takes the gradient through the
+blend with x only (no UNet backward). The loop is a plain Python loop over
+the static step plan (with the ``reduce_clip`` and ``progressive_cutout``
+gating) that emits (step, pred_xstart, x_t) at the save points of
+``segment_plan``, starting from an init image noised to the first step when
+the leading steps are skipped; it has no checkpoint/resume yet.
 
 ``build_step_plan`` and ``segment_plan`` are copies of the JAX package's
 pure-Python plan helpers, pinned to the originals by
@@ -131,6 +133,15 @@ class SamplerConfig:
     clip_denoised: bool = False
     randomize_class: bool = False
     num_classes: int = 1000
+    # not the reference's semantics: the guidance loss sees a detached
+    # p_mean_variance output, so its gradient reaches x through the blend
+    # x_in = pred_xstart*fac + x*(1-fac) only, and the UNet runs no backward
+    # (the classic pre-fork CLIP guidance)
+    fast_guidance: bool = False
+    # beyond the reference: the DPM-Solver++(2M) update
+    # (GaussianDiffusion.dpm_solver2m_step) in place of DDIM / ancestral;
+    # deterministic, so eta and use_ddim are ignored
+    dpm_solver: bool = False
 
 
 def make_guided_step(
@@ -139,13 +150,26 @@ def make_guided_step(
     guidance: Optional[GuidanceFns],
     cfg: SamplerConfig,
 ):
-    """Returns step(x, t, ref_t, y, gen, noise_override=None)
-    -> (x_next, pred_xstart, y_next, log). ``t`` is the spaced timestep and
-    ``ref_t`` the reference-bookkeeping timestep the guidance blend's `fac`
-    lookup uses (cgd/cgd.py:177 quirk). Random draws come from ``gen``, in
-    the order: class labels, guidance (cutout coords), step noise."""
+    """Returns step(x, t, ref_t, y, gen, noise_override=None, dpm_state=None)
+    -> (x_next, pred_xstart, y_next, log), and with ``cfg.dpm_solver``
+    (x_next, pred_xstart, y_next, log, x0_guided). ``t`` is the spaced
+    timestep and ``ref_t`` the reference-bookkeeping timestep the guidance
+    blend's `fac` lookup uses (cgd/cgd.py:177 quirk). ``dpm_state`` =
+    (x0_prev, t_prev, first): the previous step's x0_guided, its timestep
+    and whether this is the run's first step.
 
-    def step(x, t: int, ref_t: int, y, gen: torch.Generator, noise_override=None):
+    Random draws come from ``gen``, in this order: the class labels
+    (``randomize_class``), the guidance's cutout coordinates, its
+    augmentations (``use_augs``), then the step noise (none under
+    ``dpm_solver``). ``noise_override`` replaces the step noise after it is
+    drawn, so recorded noise leaves every other draw as it was.
+
+    With ``cfg.fast_guidance`` the UNet forward and ``p_mean_variance`` run
+    under ``torch.no_grad()`` and the loss is differentiated with respect to
+    x through the blend alone: no UNet graph is built or kept."""
+
+    def step(x, t: int, ref_t: int, y, gen: torch.Generator, noise_override=None,
+             dpm_state=None):
         if cfg.randomize_class and y is not None:
             y = torch.randint(0, cfg.num_classes, y.shape, generator=gen, device=y.device)
         t_batch = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
@@ -158,9 +182,13 @@ def make_guided_step(
         log = {}
         grad = None
         if guidance is not None:
+            if cfg.fast_guidance:
+                with torch.no_grad():
+                    out = forward(x)
             with torch.enable_grad():
                 x_ = x.detach().requires_grad_(True)
-                out = forward(x_)
+                if not cfg.fast_guidance:
+                    out = forward(x_)
                 loss, log = guidance.loss_fn(x_, out, ref_t, gen)
                 (grads,) = torch.autograd.grad(loss, x_)
             out = PMeanVariance(*(o.detach() for o in out))
@@ -170,10 +198,16 @@ def make_guided_step(
             with torch.no_grad():
                 out = forward(x)
 
+        if cfg.dpm_solver:
+            x0_prev, t_prev, first = dpm_state
+            tp_batch = torch.full_like(t_batch, t_prev)
+            with torch.no_grad():
+                x_next, x0g = diffusion.dpm_solver2m_step(
+                    out, x, t_batch, tp_batch, first, x0_prev, grad)
+            return x_next, out.pred_xstart, y, log, x0g
+        noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=torch.float32)
         if noise_override is not None:
             noise = noise_override
-        else:
-            noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=torch.float32)
         with torch.no_grad():
             if cfg.use_ddim:
                 x_next = diffusion.ddim_sample_step(out, x, t_batch, noise, grad, eta=cfg.eta)
@@ -194,6 +228,8 @@ def sample_loop(
     *,
     skip_timesteps: int = 0,
     init_image: Optional[torch.Tensor] = None,  # [*shape] in [-1, 1]
+    reduce_clip: bool = False,
+    progressive_cutout: bool = False,
     num_cutouts: int = 16,
     save_frequency: int = 1,
     y_init: Optional[torch.Tensor] = None,
@@ -207,29 +243,41 @@ def sample_loop(
     step is not saved, the reference's quirk). The first
     ``skip_timesteps`` steps are skipped: the loop starts from
     ``q_sample(init_image or zeros, t0, noise)`` at the plan's first step
-    t0; an ``init_image`` without a skip is noised to the last step."""
-    plan = build_step_plan(diffusion.num_timesteps, skip_timesteps, num_cutouts=num_cutouts)
+    t0; an ``init_image`` without a skip is noised to the last step.
+    ``reduce_clip`` and ``progressive_cutout`` gate the guidance and the
+    cutout count per step (``build_step_plan``); one step function is built
+    per distinct (guided, cutn). With ``cfg.dpm_solver`` the loop carries
+    the previous step's guided x0 (zeros before the first step, which is
+    first-order). ``init_noise`` / ``noise_override`` replace the starting
+    and per-step noise after it is drawn from ``gen``, so a replay draws
+    everything else as the recorded run did."""
+    plan = build_step_plan(diffusion.num_timesteps, skip_timesteps, reduce_clip,
+                           progressive_cutout, num_cutouts)
     _, save_at = segment_plan(plan, save_frequency, final_frame_parity, skip_timesteps)
     device = gen.device
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     if init_noise is not None:
         x = torch.as_tensor(init_noise, dtype=torch.float32, device=device)
-    else:
-        x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     if skip_timesteps > 0 or init_image is not None:
         base = torch.zeros(shape, device=device) if init_image is None else init_image
         t0 = torch.full((shape[0],), plan[0].t, dtype=torch.long, device=device)
         x = diffusion.q_sample(base.to(device, torch.float32), t0, x)
     y = y_init
+    x0p = torch.zeros(shape, device=device) if cfg.dpm_solver else None
     steps = {}  # one step function per distinct (guided, cutn)
     for k, meta in enumerate(plan):
         key = (meta.guided, meta.cutn)
         if key not in steps:
             guidance = guidance_builder(meta) if meta.guided else None
             steps[key] = make_guided_step(diffusion, model_fn, guidance, cfg)
-        nz = None
-        if noise_override is not None:
-            nz = torch.as_tensor(noise_override[k], dtype=torch.float32, device=device)
         ref_t = diffusion.num_timesteps - 1 - k
-        x, pred_x0, y, _ = steps[key](x, meta.t, ref_t, y, gen, noise_override=nz)
+        if cfg.dpm_solver:  # deterministic: no step noise
+            x, pred_x0, y, _, x0p = steps[key](
+                x, meta.t, ref_t, y, gen, dpm_state=(x0p, plan[max(k - 1, 0)].t, k == 0))
+        else:
+            nz = None
+            if noise_override is not None:
+                nz = torch.as_tensor(noise_override[k], dtype=torch.float32, device=device)
+            x, pred_x0, y, _ = steps[key](x, meta.t, ref_t, y, gen, noise_override=nz)
         if k in save_at:
             yield k, pred_x0, x

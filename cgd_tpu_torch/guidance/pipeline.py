@@ -2,7 +2,8 @@
 blend x̂₀ with x by fac = sqrt(1-ᾱ[ref_t]), cut out `cutn` crops, CLIP-encode
 them, weighted spherical distances against the prompt embeddings, plus the
 range / TV / saturation losses and, with an init image, the LPIPS VGG
-distance of the blend to it times ``init_scale``. The sampler
+distance of the blend to it times ``init_scale``. ``use_augs`` augments the
+cutouts before CLIP (``cutouts.draw_augs`` then ``apply_augs``). The sampler
 differentiates the returned scalar with respect to x through UNet, cutouts,
 CLIP and the VGG.
 
@@ -21,6 +22,7 @@ import torch
 
 from cgd_tpu_torch.diffusion.gaussian import GaussianDiffusion, PMeanVariance
 from cgd_tpu_torch.diffusion.sampler import GuidanceFns, StepMeta
+from cgd_tpu_torch.guidance import cutouts as _cutouts
 from cgd_tpu_torch.guidance.cutouts import CutoutSpec, make_cutouts, sample_cutout_coords
 from cgd_tpu_torch.guidance.losses import (
     range_loss,
@@ -42,6 +44,7 @@ class GuidanceSettings:
     sat_scale: float = 0.0
     init_scale: float = 0.0
     use_magnitude: bool = False
+    use_augs: bool = False
     cutout_power: float = 1.0
     clip_compute_dtype: str = "bfloat16"
 
@@ -100,6 +103,8 @@ def make_guidance_builder(
                     gen, cutn, side_x, side_y, clip_size, settings.cutout_power,
                     device=x.device)
             cuts = make_cutouts((x_in + 1.0) / 2.0, spec, clip_size)  # [K*B,c,c,3]
+            if settings.use_augs:  # drawn after the coordinates, from the same generator
+                cuts = _cutouts.apply_augs(cuts, _cutouts.draw_augs(gen, *cuts.shape))
             cuts = (cuts - mean) / std
             embeds = encode(cuts).reshape(cutn, b, -1)
             # [K,B,P] distances; weighted sum over prompts, mean over cutouts

@@ -4,6 +4,9 @@ window of guided steps of the API's sampling loop.
     python -m cgd_tpu_torch.tools.profile_step                 # 256px, ViT-B/32
     python -m cgd_tpu_torch.tools.profile_step --mesh-cut 2    # split cut=2 on one card
     python -m cgd_tpu_torch.tools.profile_step --size 128      # the 128px model (d = 128-256)
+    python -m cgd_tpu_torch.tools.profile_step --size 64 --augs  # the 64px model, augmented cutouts
+    python -m cgd_tpu_torch.tools.profile_step --fast-guidance # no UNet backward
+    python -m cgd_tpu_torch.tools.profile_step --dpm-solver    # the DPM-Solver++(2M) update
     python -m cgd_tpu_torch.tools.profile_step --init          # init image + LPIPS + image prompt
     python -m cgd_tpu_torch.tools.profile_step --compute-dtype float32  # UNet, CLIP, glue in f32
 
@@ -18,7 +21,9 @@ hand-written kernels (``cgd::``), the kernels that take the most device
 time, every hand-written kernel template with its device time and
 launches, and the attention's device time by head dim. ``--init`` adds the
 init-image path (random weights): an init image with skip 5, init_scale
-1000 (the LPIPS VGG16 on K-fwd f32) and an image prompt. Needs a CUDA card.
+1000 (the LPIPS VGG16 on K-fwd f32) and an image prompt; ``--augs``,
+``--fast-guidance`` and ``--dpm-solver`` turn on the API's options of those
+names. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -55,6 +60,10 @@ def main(argv=None) -> None:
     p.add_argument("--init", action="store_true",
                    help="init image (skip 5, init_scale 1000) and an image prompt")
     p.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--augs", action="store_true", help="augment the guidance cutouts")
+    p.add_argument("--fast-guidance", action="store_true",
+                   help="guide on a detached denoised prediction (no UNet backward)")
+    p.add_argument("--dpm-solver", action="store_true", help="the DPM-Solver++(2M) update")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
@@ -75,7 +84,8 @@ def main(argv=None) -> None:
         prompts=["a watercolor painting of a lighthouse:1", "fog:0.5"], image_size=args.size,
         num_cutouts=16, clip_model_name=args.clip, timestep_respacing="ddim25",
         weights_mode="random", save_frequency=STEPS, progress=False, mesh=mesh,
-        compute_dtype=args.compute_dtype, prefix_path="outputs/profile_step", **init)
+        compute_dtype=args.compute_dtype, prefix_path="outputs/profile_step",
+        use_augs=args.augs, fast_guidance=args.fast_guidance, dpm_solver=args.dpm_solver, **init)
     next(gen)  # step 0: setup and the first frame
     next(gen)  # step 5: warm
     torch.cuda.synchronize()
@@ -95,9 +105,10 @@ def main(argv=None) -> None:
         by_name[e.name][1] += 1
     busy = sum(t for t, _ in by_name.values())
     mine = sum(t for n, (t, _) in by_name.items() if "cgd::" in n)
+    options = "".join(f", {n}" for n in ("augs", "fast_guidance", "dpm_solver") if getattr(args, n))
     label = f"{args.size}px {args.clip}" + (f", mesh cut={args.mesh_cut} on one card"
                                             if args.mesh_cut else "") + (
-        ", init image + LPIPS + image prompt" if args.init else "") + f", {args.compute_dtype}"
+        ", init image + LPIPS + image prompt" if args.init else "") + f", {args.compute_dtype}" + options
     print(f"{label}: wall {wall * 1e3:.1f} ms per guided step; device busy {busy:.1f} ms "
           f"(idle {1 - busy / (wall * 1e3):.0%}); {len(kernels) / STEPS:.0f} device ops "
           f"(kernels, copies, memsets) per step; hand-written kernels {mine:.1f} ms")

@@ -115,7 +115,28 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    after: first step's x vs the plain routing on the same mesh, frames,
    PNGs, K-halo f32 and the f32 attention launched, no bf16 kernel and no
    unsplit f32 conv, ms per step beside phases 9c and 7c; (d) the CLI with
-   ``--mesh cut=2 --compute-dtype float32`` over two copies of the card.
+   ``--mesh cut=2 --compute-dtype float32`` over two copies of the card;
+12. the 64px model and the sampler's options, every line with the card's
+   name and power limit: (a) the bf16 K-fwd (plain, prologue, prologue +
+   residual, up) and K-dx at the 64px model's shapes, where Cout / Cx 192,
+   384 and 576 fill their 256-wide N tiles partly (each row with its dead
+   columns), and the attention at its 6 / 9 / 12 heads of d = 64, against
+   their plain versions as in phase 3, timed beside cuDNN / SDPA; the full
+   64px UNet, forward and input gradient, bf16 against the plain routing
+   (UNET_TOL) and f32 (F32_UNET_TOL); (b) a 64px ddim25 run through the API
+   with ``use_augs`` (numpy-drawn augmentations, the same in both runs) and
+   the zero-init layers re-drawn: the 64px magnitude line, the first step's
+   x against the plain routing's (BF16_STEP_TOL), the step time, s per
+   image and launches (the attention's by head dim); (c) phase 5's 256px
+   run with ``fast_guidance``: no K-dx, K-dx-w or K-attn-b launch (bf16 or
+   f32), the first step's x against the plain routing's fast step, its step
+   time and peak memory beside phase 5's; (d) the 256px run with
+   ``dpm_solver``: finite frames, its first step equal to a DDIM eta = 0
+   step from the same state (relative L2 <= 1e-5); (e) the CLI at 128px with
+   ``-reduce -cutn_skip -cached_cutn -ht 0 -wd 64`` (128 x 192): the frames'
+   shape and the guided steps against the step plan; (f) a 64px ddim5 run's
+   noise recorded and replayed through ``noise_file``: equal frames
+   (within 1e-6 relative).
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
 from phase 7c, K-fwd f32's from phase 8, K-dx f32's and the f32
@@ -202,10 +223,10 @@ def _checked(fn, fresh=None, label: str = ""):
     kernels it launches, summed under torch.profiler over 20 calls, held
     against the same call's CUDA-event time with the calls queued back to
     back (attn_bench.checked_device_ms).
-    A reading that falls far under it is measured again in a fresh process
-    by ``fresh`` (tools/conv_bench.py or tools/attn_bench.py on the same
-    shape), and marked "*" (printed, and listed at the end) if it still
-    does."""
+    A reading that falls far under it, or that the profiler did not record
+    at all (nan), is measured again in a fresh process by ``fresh``
+    (tools/conv_bench.py or tools/attn_bench.py on the same shape), and
+    marked "*" (printed, and listed at the end) if it still does."""
     from cgd_tpu_torch.tools.attn_bench import checked_device_ms
 
     dms, kernels, mark, queued, host = checked_device_ms(fn, fresh)
@@ -299,33 +320,71 @@ def _tflops(flops: float, ms: float) -> str:
     return f"{flops / ms / 1e9:.1f} TFLOP/s"
 
 
-def phase_kernels(k3, dev):
-    """Phase 3: each kernel against its plain version at the path's shapes."""
-    import torch
+# phase 3's bf16 conv shapes (name, out H = W, cin, cout, prologue, skip,
+# up; for up, H is the output): the 256px and 512px UNets' classes
+CONV_CASES = [
+    ("conv3x3", 256, 3, 256, False, False, False),
+    ("conv3x3_gn_silu_add", 256, 256, 256, True, True, False),
+    ("conv3x3_gn_silu_add", 512, 128, 128, True, True, False),
+    ("conv3x3_gn_silu_up", 128, 512, 512, True, False, True),
+    ("conv3x3_gn_silu", 16, 2048, 1024, True, False, False),
+    ("conv3x3_gn_silu", 256, 256, 6, True, False, False),
+]
+# phase 12a's: the 64px model's, where Cout 192 / 384 / 576 fill their N
+# tiles of 256 partly (K-dx at Cx = 192 / 384 / 576 too); then the 128px
+# model's at phase 12e's 128 x 192 sample, whose maps are not square (out
+# (H, W) for those)
+CONV_CASES_64 = [
+    ("conv3x3", 64, 3, 192, False, False, False),
+    ("conv3x3_gn_silu_add", 64, 192, 192, True, True, False),
+    ("conv3x3_gn_silu", 32, 192, 384, True, False, False),
+    ("conv3x3_gn_silu_add", 32, 384, 384, True, True, False),
+    ("conv3x3_gn_silu_add", 16, 576, 576, True, True, False),
+    ("conv3x3_gn_silu_add", 8, 768, 768, True, True, False),
+    ("conv3x3_gn_silu_up", 16, 768, 768, True, False, True),
+    ("conv3x3_gn_silu_up", 32, 576, 576, True, False, True),
+    ("conv3x3_gn_silu", 64, 192, 6, True, False, False),
+    ("conv3x3_gn_silu_add", (128, 192), 256, 256, True, True, False),
+    ("conv3x3_gn_silu_up", (64, 96), 512, 512, True, False, True),
+    ("conv3x3_gn_silu_add", (8, 12), 1024, 1024, True, True, False),
+]
 
-    gen = torch.Generator(dev).manual_seed(1234)
+
+def _dead_columns(k3, oh, ow, ci, co, up) -> str:
+    """The share of the N tiles' columns past Cout (work the conv does and
+    throws away), from conv_plan."""
+    plan = k3.conv_plan(1, oh // 2 if up else oh, ow // 2 if up else ow, ci, co, up=up)
+    cols = plan["grid"][1] * plan["bn"]
+    return f"N tiles {plan['grid'][1]} x {plan['bn']}, {(cols - co) / cols:.0%} dead columns"
+
+
+def _rn(gen, dev):
+    """rn(*shape, scale=1.0, dtype=bf16): normal draws from ``gen`` on ``dev``."""
+    import torch
 
     def rn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    # (name, out H=W, cin, cout, prologue, skip, up); for up, H is the output
-    cases = [
-        ("conv3x3", 256, 3, 256, False, False, False),
-        ("conv3x3_gn_silu_add", 256, 256, 256, True, True, False),
-        ("conv3x3_gn_silu_add", 512, 128, 128, True, True, False),
-        ("conv3x3_gn_silu_up", 128, 512, 512, True, False, True),
-        ("conv3x3_gn_silu", 16, 2048, 1024, True, False, False),
-        ("conv3x3_gn_silu", 256, 256, 6, True, False, False),
-    ]
+    return rn
+
+
+def phase_kernels(k3, dev, cases=CONV_CASES, tag="3"):
+    """Phase 3 (12a with the 64px ``cases``): K-fwd and K-dx against their
+    plain versions at the path's shapes (out H = W, or out (H, W))."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(1234)
+    rn = _rn(gen, dev)
     res = {"conv3x3_fwd": {"err": 0.0}, "conv3x3_dx": {"err": 0.0}}
     for name, ho, ci, co, pro, sk, up in cases:
-        hs = ho // 2 if up else ho
-        x = rn(1, hs, hs, ci)
+        oh, ow = ho if isinstance(ho, tuple) else (ho, ho)
+        side = f"{oh}^2" if oh == ow else f"{oh}x{ow}"
+        x = rn(1, oh // 2, ow // 2, ci) if up else rn(1, oh, ow, ci)
         w = rn(3, 3, ci, co, scale=(9 * ci) ** -0.5)
         bias = rn(co, scale=0.1)
         A = (1.0 + 0.2 * torch.randn(1, ci, generator=gen, device=dev)) if pro else None
         B = (0.2 * torch.randn(1, ci, generator=gen, device=dev)) if pro else None
-        skip = rn(1, ho, ho, co) if sk else None
+        skip = rn(1, oh, ow, co) if sk else None
         out = k3.conv3x3_fwd(x, w, bias, A, B, skip, up)
         ref = k3.conv3x3_fwd_plain(x, w, bias, A, B, skip, up)
         err, rel = _rel_max(out, ref)
@@ -336,50 +395,61 @@ def phase_kernels(k3, dev):
         h = k3._up2(h) if up else h
         cms = _time_ms(lambda: k3._conv_nhwc(h, w))
         dms = _device_ms(lambda: k3.conv3x3_fwd(x, w, bias, A, B, skip, up),
-                         label=f"K-fwd {name} {ho}^2 {ci}->{co}")
-        cdms = _device_ms(lambda: k3._conv_nhwc(h, w), label=f"cuDNN {ho}^2 {ci}->{co}")
-        flops = 2 * ho * ho * 9 * ci * co
+                         label=f"K-fwd {name} {side} {ci}->{co}")
+        cdms = _device_ms(lambda: k3._conv_nhwc(h, w), label=f"cuDNN {side} {ci}->{co}")
+        flops = 2 * oh * ow * 9 * ci * co
         bd = _bound(flops, _nbytes(x, w, bias, A, B, skip, out))
-        print(f"[3] K-fwd {name:20s} {ho}^2 {ci}->{co}: max|err| {err:.3e} "
+        print(f"[{tag}] K-fwd {name:20s} {side} {ci}->{co}: max|err| {err:.3e} "
               f"({rel:.2e} of scale) kernel {ms:.4f} ms, device {dms:.4f} ms "
               f"({_tflops(flops, dms)}) plain {pms:.4f} ms (its cuDNN conv alone {cms:.4f} ms, "
-              f"device {cdms:.4f} ms: {dms / cdms:.2f}x){_fmt(bd, dms)}")
+              f"device {cdms:.4f} ms: {dms / cdms:.2f}x){_fmt(bd, dms)}; "
+              f"{_dead_columns(k3, oh, ow, ci, co, up)}")
         if rel > FWD_TOL:
-            raise AssertionError(f"K-fwd {name} {ho}^2 {ci}->{co}: {rel:.3e} > {FWD_TOL}")
+            raise AssertionError(f"K-fwd {name} {side} {ci}->{co}: {rel:.3e} > {FWD_TOL}")
         res["conv3x3_fwd"]["err"] = max(res["conv3x3_fwd"]["err"], err)
         if (ho, ci, co, sk) == (256, 256, 256, True):
             res["conv3x3_fwd"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd, device_ms=dms)
         if pro and not up:
-            g = rn(1, ho, ho, co)
+            g = rn(1, oh, ow, co)
             wt = k3._flip_t(w)
             got = k3.conv3x3_dx(g, wt, x, A, B)
             want = k3.conv3x3_dx_plain(g, wt, x, A, B)
             again = k3.conv3x3_dx(g, wt, x, A, B)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"K-dx {name}: repeated runs differ (not deterministic)")
+                raise AssertionError(f"K-dx {name} {side}: repeated runs differ")
             ms = _time_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B))
             pms = _time_ms(lambda: k3.conv3x3_dx_plain(g, wt, x, A, B))
             cms = _time_ms(lambda: k3._conv_nhwc(g, wt))
-            dms = _device_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B), label=f"K-dx {name}")
-            cdms = _device_ms(lambda: k3._conv_nhwc(g, wt), label=f"cuDNN dx {name}")
+            dms = _device_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B), label=f"K-dx {name} {side}")
+            cdms = _device_ms(lambda: k3._conv_nhwc(g, wt), label=f"cuDNN dx {name} {side}")
             line = []
             for part, a, b in zip(("dx", "dA", "dB"), got, want):
                 err, rel = _rel_max(a, b)
                 line.append(f"{part} {err:.3e} ({rel:.2e})")
                 if rel > DX_TOL:
-                    raise AssertionError(f"K-dx {name} {ho}^2 {part}: {rel:.3e} > {DX_TOL}")
+                    raise AssertionError(f"K-dx {name} {side} {part}: {rel:.3e} > {DX_TOL}")
                 res["conv3x3_dx"]["err"] = max(res["conv3x3_dx"]["err"], err)
-            flops = 2 * ho * ho * 9 * ci * co
+            flops = 2 * oh * ow * 9 * ci * co
             bd = _bound(flops, _nbytes(g, wt, x, A, B, *got))
-            print(f"[3] K-dx  {name:20s} {ho}^2 {ci}->{co}: {', '.join(line)} "
+            print(f"[{tag}] K-dx  {name:20s} {side} {ci}->{co}: {', '.join(line)} "
                   f"kernel {ms:.4f} ms, device {dms:.4f} ms ({_tflops(flops, dms)}) plain "
                   f"{pms:.4f} ms (its cuDNN conv alone {cms:.4f} ms, device {cdms:.4f} ms: "
-                  f"{dms / cdms:.2f}x; bit-identical reruns){_fmt(bd, dms)}")
+                  f"{dms / cdms:.2f}x; bit-identical reruns){_fmt(bd, dms)}; "
+                  f"Cx {ci}: {_dead_columns(k3, oh, ow, co, ci, False)}")
             if (ho, ci, co) == (256, 256, 256):
                 res["conv3x3_dx"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd, device_ms=dms)
+    torch.cuda.synchronize()
+    return res
 
-    # K-dx-w at the 512px UNet's full-resolution classes (forward Cin -> Cout)
-    res["conv3x3_dx_wtiled"] = {"err": 0.0}
+
+def phase_dx_wtiled(k3, dev) -> dict:
+    """Phase 3: K-dx-w against its plain version at the 512px UNet's
+    full-resolution classes (forward Cin -> Cout)."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(1235)
+    rn = _rn(gen, dev)
+    res = {"err": 0.0}
     for ci, co in ((128, 128), (256, 128), (128, 6)):
         x = rn(1, 512, 512, ci)
         wt = k3._flip_t(rn(3, 3, ci, co, scale=(9 * ci) ** -0.5))
@@ -397,7 +467,7 @@ def phase_kernels(k3, dev):
             line.append(f"{part} {err:.3e} ({rel:.2e})")
             if rel > DX_TOL:
                 raise AssertionError(f"K-dx-w 512^2 {ci}->{co} {part}: {rel:.3e} > {DX_TOL}")
-            res["conv3x3_dx_wtiled"]["err"] = max(res["conv3x3_dx_wtiled"]["err"], err)
+            res["err"] = max(res["err"], err)
         ms = _time_ms(lambda: k3.conv3x3_dx(g, wt, x, A, B, wtiled=True))
         pms = _time_ms(lambda: k3.conv3x3_dx_plain(g, wt, x, A, B))
         cms = _time_ms(lambda: k3._conv_nhwc(g, wt))
@@ -411,8 +481,7 @@ def phase_kernels(k3, dev):
               f"{cdms:.4f} ms: {dms / cdms:.2f}x) plain {pms:.4f} ms (bit-identical reruns)"
               f"{_fmt(bd, dms)}")
         if (ci, co) == (128, 128):
-            res["conv3x3_dx_wtiled"].update(ms=ms, plain_ms=pms, library_ms=cms, **bd,
-                                            device_ms=dms)
+            res.update(ms=ms, plain_ms=pms, library_ms=cms, **bd, device_ms=dms)
     torch.cuda.synchronize()
     return res
 
@@ -506,11 +575,28 @@ def _sdpa_backend(q, k, v) -> str:
     return "none"
 
 
-def phase_attention(kattn, dev):
-    """Phase 3: K-attn-f and K-attn-b against their plain versions, on the
-    fused qkv [1, T, 3*N*d] the UNet gives them (N heads of batch 1), timed
-    beside F.scaled_dot_product_attention (SDPA) on the same q, k, v (forward,
-    and its backward alone): eager ms (CUDA events around 20 calls: the larger
+# phase 3's attention shapes (batch, N, T, d): the 64-512px UNets' d = 64
+# levels, then the 128px model's d = 128 / 192 / 256 (4 heads at 512 / 768 /
+# 1024 channels), each timed; then ragged T and batches at d = 192 / 256
+# (held to the plain version only)
+ATTN_CASES = [(1, 8, 1024, 64), (1, 16, 256, 64), (1, 16, 64, 64), (1, 4, 1024, 128),
+              (1, 4, 256, 192), (1, 4, 64, 256), (1, 2, 77, 192), (2, 2, 45, 256),
+              (2, 2, 300, 192), (1, 2, 200, 256)]
+# phase 12a's: the 64px model's 6 / 9 / 12 heads of d = 64 at 32^2 / 16^2 / 8^2;
+# then the 128px model's at phase 12e's 128 x 192 sample (T = 32 x 48, 16 x
+# 24, 8 x 12)
+ATTN_CASES_64 = [(1, 6, 1024, 64), (1, 9, 256, 64), (1, 12, 64, 64), (1, 4, 1536, 128),
+                 (1, 4, 384, 192), (1, 4, 96, 256)]
+# (N, T, d) held to the plain version only, not timed
+ATTN_UNTIMED = {(2, 77, 192), (2, 200, 256), (4, 1536, 128), (4, 384, 192), (4, 96, 256)}
+
+
+def phase_attention(kattn, dev, cases=ATTN_CASES, tag="3"):
+    """Phase 3 (12a with the 64px ``cases``): K-attn-f and K-attn-b against
+    their plain versions, on the fused qkv [1, T, 3*N*d] the UNet gives them
+    (N heads of batch 1), timed (but for ATTN_UNTIMED) beside
+    F.scaled_dot_product_attention (SDPA) on the same q, k, v (forward, and
+    its backward alone): eager ms (CUDA events around 20 calls: the larger
     of host and device time), device ms (the kernels' own durations under
     torch.profiler) and host us per call (tools/attn_bench.py)."""
     import torch
@@ -519,13 +605,6 @@ def phase_attention(kattn, dev):
     from cgd_tpu_torch.tools.attn_bench import host_us
 
     gen = torch.Generator(dev).manual_seed(4321)
-    # (batch, N, T, d): the 64-512px UNets' d = 64 levels, then the 128px
-    # model's d = 128 / 192 / 256 (4 heads at 512 / 768 / 1024 channels),
-    # each timed; then ragged T and batches at d = 192 / 256 (held to the
-    # plain version only)
-    cases = [(1, 8, 1024, 64), (1, 16, 256, 64), (1, 16, 64, 64), (1, 4, 1024, 128),
-             (1, 4, 256, 192), (1, 4, 64, 256), (1, 2, 77, 192), (2, 2, 45, 256),
-             (2, 2, 300, 192), (1, 2, 200, 256)]
     res = {"attn_fwd": {"err": 0.0}, "attn_bwd": {"err": 0.0}}
     for bt, n, t, d in cases:
         qkv = torch.randn(bt, t, 3 * n * d, generator=gen, device=dev).to(torch.bfloat16)
@@ -554,8 +633,8 @@ def phase_attention(kattn, dev):
                  if plan["cols"] else f"tile split {plan['split']}")
         label = (f"{plan['body']} body, stages {tuple(plan['stages'].values())}, {split}, "
                  f"{plan['bwd_launches']} bwd launches")
-        if bt > 1 or (n, t, d) in ((2, 77, 192), (2, 200, 256)):
-            print(f"[3] K-attn {name} ({label}): fwd max|err| {err:.3e} ({rel:.2e}), "
+        if bt > 1 or (n, t, d) in ATTN_UNTIMED:
+            print(f"[{tag}] K-attn {name} ({label}): fwd max|err| {err:.3e} ({rel:.2e}), "
                   f"{', '.join(line)} (bit-identical reruns)")
             continue
         # SDPA takes [batch, heads, T, d]; 3-D inputs send it to its math path
@@ -581,10 +660,11 @@ def phase_attention(kattn, dev):
         flops_f, flops_b = 4 * n * t * t * d, 10 * n * t * t * d  # bwd: S recomputed, dV, dP, dQ, dK
         bdf = _bound(flops_f, _nbytes(qkv, out, lse))
         bdb = _bound(flops_b, _nbytes(qkv, out, lse, g, dqkv))
-        print(f"[3] K-attn {name} ({label}): fwd max|err| {err:.3e} ({rel:.2e}), "
+        print(f"[{tag}] K-attn {name} ({label}): fwd max|err| {err:.3e} ({rel:.2e}), "
               f"{', '.join(line)} (bit-identical reruns; SDPA backend {backend})")
         for key, flops, bd, pms in (("fwd", flops_f, bdf, fpms), ("bwd", flops_b, bdb, bpms)):
-            print(f"[3]   {key}: kernel device {dev_ms[key]:.4f} ms ({_tflops(flops, dev_ms[key])}, "
+            print(f"[{tag}]   {key}: kernel device {dev_ms[key]:.4f} ms "
+                  f"({_tflops(flops, dev_ms[key])}, "
                   f"{bd['bound_ms'] / dev_ms[key]:.1%} of the bound), eager {eager[key]:.4f} ms, "
                   f"host {host[key]:.1f} us/call; SDPA {key} device {dev_ms['sdpa_' + key]:.4f} ms "
                   f"({dev_ms[key] / dev_ms['sdpa_' + key]:.2f}x), eager "
@@ -695,8 +775,8 @@ def _full_unet(dev, size: int, dtype=None):
     return unet, n_params, run
 
 
-def phase_unet(dev, size: int):
-    """Phase 4: full-width UNet at ``size`` px, kernels vs plain routing."""
+def phase_unet(dev, size: int, tag: str = "4"):
+    """Phase 4 (12a at 64px): full-width UNet at ``size`` px, kernels vs plain routing."""
     import torch
 
     from cgd_tpu_torch.ops.nn import kernel_routing
@@ -716,11 +796,11 @@ def phase_unet(dev, size: int):
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError(f"UNet {name}: non-finite values")
         rel = ((a - b).norm() / b.norm()).item()
-        print(f"[4] UNet {size}px ({n_params / 1e6:.1f}M params) {name}: rel L2 err {rel:.3e} "
+        print(f"[{tag}] UNet {size}px ({n_params / 1e6:.1f}M params) {name}: rel L2 err {rel:.3e} "
               f"(max|ref| {b.abs().max().item():.3e})")
         if rel > UNET_TOL:
             raise AssertionError(f"UNet {size}px {name}: rel L2 {rel:.3e} > {UNET_TOL}")
-    print(f"[4] UNet {size}px fwd + input grad: kernels {ms_k:.2f} ms, plain routing "
+    print(f"[{tag}] UNet {size}px fwd + input grad: kernels {ms_k:.2f} ms, plain routing "
           f"{ms_p:.2f} ms; peak memory kernels {peak_k / 2**30:.2f} GiB, plain "
           f"{peak_p / 2**30:.2f} GiB")
     del unet
@@ -826,7 +906,7 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None, siz
     """Phase 5: the 256px slice through the public generator, and the
     128px model at the API's defaults (``size=128``: head dims 128, 192 and
     256); phase 7c with ``mesh`` (no plain-routing runs). Returns (launches,
-    s per step)."""
+    s per step, peak device memory of the kernels' run)."""
     import numpy as np
     import torch
 
@@ -870,8 +950,10 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None, siz
                 timed(12, out_dir / "plain", n_frames=1)
             frames.clear()
             _reset_launches(k3, kattn)
+            torch.cuda.reset_peak_memory_stats(dev)
             step_s, total_s, paths = timed(12, out_dir)
             launches = _launches(k3, kattn)
+            peak = torch.cuda.max_memory_allocated(dev)
         else:
             # the host-bound step varies from run to run: time the plain
             # routing before and after the kernels' run, in one process
@@ -879,8 +961,10 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None, siz
                 plain_before, _, _ = timed(12, out_dir / "plain", n_frames=2)
             frames.clear()
             _reset_launches(k3, kattn)
+            torch.cuda.reset_peak_memory_stats(dev)
             step_s, total_s, paths = timed(12, out_dir)  # frames at steps 0, 12, 24
             launches = _launches(k3, kattn)
+            peak = torch.cuda.max_memory_allocated(dev)
             by_d = {d: dict(n) for d, n in kattn.LAUNCHES_BY_D.items()}
             with kernel_routing("plain"):
                 plain_after, _, _ = timed(12, out_dir / "plain", n_frames=2)
@@ -907,7 +991,7 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None, siz
               f"step (phase 5, unsplit: {unsplit_step_s * 1e3:.1f} ms), {total_s:.2f} s per "
               f"image incl. model setup; launches {launches}; final frame |x|max "
               f"{np.abs(final).max():.3f}")
-        return launches, step_s
+        return launches, step_s, peak
     _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"), "phase 5")
     # every head dim of the model on the Hopper bodies: d = 64 at 256px;
     # 128 / 192 / 256 at 128px (the 32^2 / 16^2 / 8^2 levels)
@@ -919,10 +1003,11 @@ def phase_e2e(k3, kattn, dev, out_dir: Path, mesh=None, unsplit_step_s=None, siz
           f"vs the plain routing rel L2 {rel:.3e} (bound {BF16_STEP_TOL}); "
           f"{step_s * 1e3:.1f} ms per guided step "
           f"(plain routing {plain_before * 1e3:.1f} ms before, {plain_after * 1e3:.1f} ms "
-          f"after), {total_s:.2f} s per image incl. model setup; launches {launches}, "
+          f"after), {total_s:.2f} s per image incl. model setup; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}, "
           f"attention by head dim {({d: n for d, n in by_d.items() if any(n.values())})}; "
           f"final frame |x|max {np.abs(final).max():.3f}")
-    return launches, step_s
+    return launches, step_s, peak
 
 
 def phase_cli(k3, kattn, dev, out_dir: Path) -> dict:
@@ -1608,17 +1693,19 @@ def phase_f32_kernels(k3, kattn, dev) -> dict:
     return res
 
 
-def phase_f32_unets(k3, kattn, dev) -> dict:
+def phase_f32_unets(k3, kattn, dev, sizes=(256, 128, 512), say=None) -> dict:
     """Phase 9b: the full 256px, 128px and 512px UNets at compute_dtype
     float32 (every zero-init conv re-drawn), kernels against
     kernel_routing("plain"), forward and input gradient (relative L2 <=
     F32_UNET_TOL); the 128px one must run the f32 attention at d = 128, 192
     and 256, the 512px one K-dx f32's W >= 512 class. Returns that class's
-    launches in the 512px UNet's forward and input gradient."""
+    launches in the 512px UNet's forward and input gradient. Phase 12a runs
+    it at ``sizes`` (64,) with its own ``say``."""
     import torch
 
     from cgd_tpu_torch.ops.nn import kernel_routing
 
+    say = say or _say9
     wide = {"launches": 0}
     real_dx = k3._conv3x3_dx_f32
 
@@ -1626,7 +1713,7 @@ def phase_f32_unets(k3, kattn, dev) -> dict:
         wide["launches"] += g.shape[2] >= 512
         return real_dx(g, *a)
 
-    for size in (256, 128, 512):
+    for size in sizes:
         unet, n_params, run = _full_unet(dev, size, torch.float32)
         kattn.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1646,7 +1733,7 @@ def phase_f32_unets(k3, kattn, dev) -> dict:
             if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
                 raise AssertionError(f"f32 UNet {size}px {name}: non-finite values")
             rel = ((a - b).norm() / b.norm()).item()
-            _say9(f"UNet {size}px f32 ({n_params / 1e6:.1f}M params) {name}: rel L2 err "
+            say(f"UNet {size}px f32 ({n_params / 1e6:.1f}M params) {name}: rel L2 err "
                   f"{rel:.3e} (max|ref| {b.abs().max().item():.3e})")
             if rel > F32_UNET_TOL:
                 raise AssertionError(f"f32 UNet {size}px {name}: rel L2 {rel:.3e} > {F32_UNET_TOL}")
@@ -1656,7 +1743,7 @@ def phase_f32_unets(k3, kattn, dev) -> dict:
         if size == 512 and wide["launches"] == 0:
             raise AssertionError("f32 UNet 512px: K-dx f32's W >= 512 class was not launched")
         wide_line = f"; K-dx f32 at W >= 512: {wide['launches']} launches" if size == 512 else ""
-        _say9(f"UNet {size}px f32 fwd + input grad: kernels {ms_k:.2f} ms, plain routing "
+        say(f"UNet {size}px f32 fwd + input grad: kernels {ms_k:.2f} ms, plain routing "
               f"{ms_p:.2f} ms; peak memory {peak / 2**30:.2f} GiB; f32 attention launches by "
               f"head dim {({d: c for d, c in by_d.items() if c})}{wide_line}")
         del unet
@@ -1961,6 +2048,396 @@ def phase_f32_mesh_cli(k3, kattn, dev, out_dir: Path) -> None:
            f"card): {total_s:.2f} s per image incl. model setup; launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the 64px model and the sampler's options (augs, fast guidance,
+# DPM-Solver++(2M), reduce_clip, progressive cutouts, offsets, noise_file)
+# ---------------------------------------------------------------------------
+
+def _say12(sub: str, msg: str) -> None:
+    """A phase-12 line, with the card and its power limit."""
+    print(f"[12{sub}] {msg} ({CARD})")
+
+
+def _numpy_aug_draws(dev, calls: int = 25, n: int = 16, size: int = 224):
+    """A draw_augs stand-in whose draws come from numpy, made up front (one
+    set per call of a 25-step run, for n cutouts of size^2 x 3) and handed
+    out in call order; ``reset`` starts a run again, so two runs see the
+    same augmentations at the same steps."""
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch.guidance.cutouts import AugDraws
+
+    rs = np.random.RandomState(1000)
+    lim = 0.4 / size
+    sets = []
+    for _ in range(calls):
+        arrays = (rs.rand(n) < 0.5, rs.uniform(-15, 15, n), rs.uniform(-0.1, 0.1, n),
+                  rs.uniform(-0.1, 0.1, n), rs.rand(n) < 0.7, rs.uniform(-lim, lim, (n, 2)),
+                  rs.rand(n) < 0.15, rs.randn(n, size, size, 3))
+        sets.append(AugDraws(*(torch.as_tensor(a if a.dtype == bool else a.astype(np.float32),
+                                               device=dev) for a in arrays)))
+    taken = [0]
+
+    def draw(gen, n_, h, w, c):
+        if (n_, h, w, c) != (n, size, size, 3):
+            raise AssertionError(f"phase 12b: augmentations asked for {(n_, h, w, c)}")
+        taken[0] += 1
+        return sets[taken[0] - 1]
+
+    draw.taken = taken
+    draw.reset = lambda: taken.__setitem__(0, 0)
+    return draw
+
+
+def phase_64px_api(k3, kattn, dev, out_dir: Path) -> None:
+    """Phase 12b: the 64px model through ``api.clip_guided_diffusion``, ViT-B/32,
+    16 cutouts, ddim25, ``use_augs`` with numpy-drawn augmentations (the same
+    in both runs), the zero-init layers re-drawn: the first guided step's x
+    against the plain routing's (relative L2 <= BF16_STEP_TOL), the 64px
+    magnitude line, finite 64 x 64 frames, PNGs, every kernel of the path
+    launched (the attention at d = 64); the step time, s per image and the
+    launches, the attention's by head dim."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch import api
+    from cgd_tpu_torch.guidance import cutouts
+    from cgd_tpu_torch.ops.nn import kernel_routing
+
+    kwargs = dict(prompts=PROMPTS, image_size=64, num_cutouts=16, clip_model_name="ViT-B/32",
+                  timestep_respacing="ddim25", weights_mode="random", seed=0, device=str(dev),
+                  use_augs=True, save_frequency=12)
+    draw = _numpy_aug_draws(dev)
+    real_draw, real_log_image = cutouts.draw_augs, api.log_image
+    frames, stamps, paths = [], [], []
+
+    def capture(image, *a, **kw):
+        frames.append(np.asarray(image))
+        return real_log_image(image, *a, **kw)
+
+    cutouts.draw_augs = draw
+    first = _FirstStep(api, dev)
+    said = io.StringIO()
+    try:
+        with kernel_routing("plain"):
+            for _ in api.clip_guided_diffusion(prefix_path=out_dir / "plain", progress=False,
+                                               **kwargs):
+                break
+        draw.reset()
+        api.log_image = capture
+        _reset_launches(k3, kattn)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            for _, path in api.clip_guided_diffusion(prefix_path=out_dir, **kwargs):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                paths.append(path)
+        total_s = time.perf_counter() - t0
+        launches = _launches(k3, kattn)
+        peak = torch.cuda.max_memory_allocated(dev)
+        by_d = {d: dict(n) for d, n in kattn.LAUNCHES_BY_D.items() if any(n.values())}
+    finally:
+        cutouts.draw_augs, api.log_image = real_draw, real_log_image
+        first.close()
+    print(said.getvalue(), end="")
+    rel = first.rel("phase 12b")
+    if "Enabling magnitude for 64x64 checkpoints." not in said.getvalue():
+        raise AssertionError("phase 12b: the 64px run did not turn the magnitude clamp on")
+    if "Augmentations enabled." not in said.getvalue() or draw.taken[0] != 25:
+        raise AssertionError(f"phase 12b: augmentations drawn {draw.taken[0]} times, not 25")
+    if len(paths) != 3 or any(f.shape != (64, 64, 3) or not np.isfinite(f).all() for f in frames):
+        raise AssertionError(f"phase 12b: frames {[f.shape for f in frames]}, paths {paths}")
+    _check_pngs(paths)
+    _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"), "phase 12b")
+    _check_launched(by_d.get(64, {"attn_fwd": 0}), ("attn_fwd", "attn_bwd"), "phase 12b, d = 64")
+    step_s = (stamps[-1] - stamps[0]) / 24
+    _say12("b", f"64px ViT-B/32 ddim25 guided sampling with augs (zero-init layers re-drawn): "
+                f"first step's x vs the plain routing rel L2 {rel:.3e} (bound {BF16_STEP_TOL}); "
+                f"{step_s * 1e3:.1f} ms per guided step, {total_s:.2f} s per image incl. model "
+                f"setup; peak device memory {peak / 2**30:.2f} GiB; launches {launches} "
+                f"({sum(launches.values()) / 25:.1f} per step), attention by head dim {by_d}")
+
+
+def phase_fast_guidance(k3, kattn, dev, out_dir: Path, step_s: float, peak: float) -> None:
+    """Phase 12c: the 256px ddim25 run of phase 5 with ``fast_guidance``:
+    K-dx, K-dx-w and K-attn-b (bf16 and f32) launched no time, K-fwd and
+    K-attn-f launched; the first step's x against the plain routing's fast
+    step (relative L2 <= BF16_STEP_TOL); the step time and peak memory
+    beside phase 5's guided step."""
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch import api
+    from cgd_tpu_torch.ops.nn import kernel_routing
+
+    kwargs = dict(prompts=PROMPTS, image_size=256, num_cutouts=16, clip_model_name="ViT-B/32",
+                  timestep_respacing="ddim25", weights_mode="random", seed=0, device=str(dev),
+                  progress=False, fast_guidance=True, save_frequency=12)
+    frames, stamps = [], []
+    real_log_image = api.log_image
+
+    def capture(image, *a, **kw):
+        frames.append(np.asarray(image))
+        return real_log_image(image, *a, **kw)
+
+    first = _FirstStep(api, dev)
+    try:
+        with kernel_routing("plain"):
+            for _ in api.clip_guided_diffusion(prefix_path=out_dir / "plain", **kwargs):
+                break
+        api.log_image = capture
+        _reset_launches(k3, kattn)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for _ in api.clip_guided_diffusion(prefix_path=out_dir, **kwargs):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        total_s = time.perf_counter() - t0
+        launches = _launches(k3, kattn)
+        fast_peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        api.log_image = real_log_image
+        first.close()
+    rel = first.rel("phase 12c")
+    backward = {k: launches[k] for k in ("conv3x3_dx", "conv3x3_dx_wtiled", "attn_bwd",
+                                         "conv3x3_dx_f32", "attn_bwd_f32")}
+    if any(backward.values()):
+        raise AssertionError(f"phase 12c: fast guidance launched backward kernels {backward}")
+    _check_launched(launches, ("conv3x3_fwd", "attn_fwd"), "phase 12c")
+    if len(frames) != 3 or not all(np.isfinite(f).all() for f in frames):
+        raise AssertionError("phase 12c: non-finite frames or a wrong count")
+    fast_s = (stamps[-1] - stamps[0]) / 24
+    _say12("c", f"256px ViT-B/32 ddim25 with fast guidance: first step's x vs the plain "
+                f"routing's fast step rel L2 {rel:.3e} (bound {BF16_STEP_TOL}); "
+                f"{fast_s * 1e3:.1f} ms per guided step (phase 5, full guidance: "
+                f"{step_s * 1e3:.1f} ms), {total_s:.2f} s per image incl. model setup; peak "
+                f"device memory {fast_peak / 2**30:.2f} GiB (phase 5: {peak / 2**30:.2f} GiB); "
+                f"backward launches {backward}; launches {launches}")
+
+
+def phase_dpm(k3, kattn, dev, out_dir: Path) -> None:
+    """Phase 12d: the 256px ddim25 run with ``dpm_solver``: finite frames,
+    and its first (first-order) step equal to a DDIM eta = 0 step from the
+    same x, model output and guidance gradient (relative L2 <= 1e-5)."""
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch import api
+    from cgd_tpu_torch.diffusion.gaussian import GaussianDiffusion
+
+    real = GaussianDiffusion.dpm_solver2m_step
+    steps = []
+
+    def spy(self, out, x, t, t_prev, first, x0_prev, cond_grad=None):
+        x_next, x0 = real(self, out, x, t, t_prev, first, x0_prev, cond_grad)
+        if not steps:
+            ddim = self.ddim_sample_step(out, x, t, torch.zeros_like(x), cond_grad, eta=0.0)
+            steps.append(((x_next - ddim).norm() / ddim.norm()).item())
+        steps.append(bool(first))
+        return x_next, x0
+
+    frames = []
+    real_log_image = api.log_image
+
+    def capture(image, *a, **kw):
+        frames.append(np.asarray(image))
+        return real_log_image(image, *a, **kw)
+
+    GaussianDiffusion.dpm_solver2m_step, api.log_image = spy, capture
+    try:
+        _reset_launches(k3, kattn)
+        t0 = time.perf_counter()
+        for _ in api.clip_guided_diffusion(
+                prompts=PROMPTS, image_size=256, num_cutouts=16, timestep_respacing="ddim25",
+                weights_mode="random", seed=0, device=str(dev), progress=False,
+                dpm_solver=True, save_frequency=12, prefix_path=out_dir):
+            pass
+        total_s = time.perf_counter() - t0
+        launches = _launches(k3, kattn)
+    finally:
+        GaussianDiffusion.dpm_solver2m_step, api.log_image = real, real_log_image
+    rel, firsts = steps[0], steps[1:]
+    if firsts != [True] + [False] * 24:
+        raise AssertionError(f"phase 12d: first-order flags {firsts}")
+    if not rel <= 1e-5:
+        raise AssertionError(f"phase 12d: the first DPM step vs DDIM eta = 0: rel L2 {rel:.3e}")
+    if len(frames) != 3 or not all(np.isfinite(f).all() for f in frames):
+        raise AssertionError("phase 12d: non-finite frames or a wrong count")
+    _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"), "phase 12d")
+    _say12("d", f"256px ddim25 with DPM-Solver++(2M): the first step vs a DDIM eta = 0 step "
+                f"from the same state rel L2 {rel:.3e} (bound 1e-5); {total_s:.2f} s per image "
+                f"incl. model setup; final frame |x|max {np.abs(frames[-1]).max():.3f}")
+
+
+def phase_reduce_cli(k3, kattn, dev, out_dir: Path) -> None:
+    """Phase 12e: the CLI at 128px with ``-reduce -cutn_skip -cached_cutn -ht
+    0 -wd 64`` (a 128 x 192 sample), ddim25, the zero-init layers re-drawn:
+    the first step's x against the plain routing's CLI run, interrupted
+    after that step (relative L2 <= BF16_STEP_TOL); the frames' shape, the
+    steps that ran guided (and their cutout counts) against the step plan,
+    and a run that ends with every step done."""
+    import numpy as np
+
+    from cgd_tpu_torch import api, cli
+    from cgd_tpu_torch.diffusion.sampler import build_step_plan
+    from cgd_tpu_torch.ops.nn import kernel_routing
+
+    guided, frames = [], []
+    real_builder, real_log_image = api.make_guidance_builder, api.log_image
+
+    def builder(*a, **kw):
+        inner = real_builder(*a, **kw)
+
+        def build(meta):
+            fns = inner(meta)
+
+            def loss_fn(x, out, ref_t, gen):
+                guided.append((ref_t, meta.cutn, tuple(x.shape)))
+                return fns.loss_fn(x, out, ref_t, gen)
+
+            return fns._replace(loss_fn=loss_fn)
+
+        return build
+
+    def capture(image, *a, **kw):
+        frames.append(np.asarray(image))
+        return real_log_image(image, *a, **kw)
+
+    argv = ["--prompts", "|".join(PROMPTS), "-size", "128", "-cutn", "16", "-respace", "ddim25",
+            "--weights-mode", "random", "-reduce", "-cutn_skip", "-cached_cutn", "-ht", "0",
+            "-wd", "64", "-freq", "5", "-dir", str(out_dir), "-q"]
+    out_dir.mkdir(parents=True, exist_ok=True)  # the CLI makes only its last level
+    first = _FirstStep(api, dev, stop=True)
+    try:
+        with kernel_routing("plain"):  # the first step, interrupted after it
+            cli.main([*argv[:-2], str(out_dir / "plain"), "-q"])
+        first.stop = False
+        api.make_guidance_builder, api.log_image = builder, capture
+        _reset_launches(k3, kattn)
+        t0 = time.perf_counter()
+        cli.main(argv)
+        total_s = time.perf_counter() - t0
+        launches = _launches(k3, kattn)
+    finally:
+        api.make_guidance_builder, api.log_image = real_builder, real_log_image
+        first.close()
+    rel = first.rel("phase 12e")
+    if first.x[-1].shape != (1, 128, 192, 3):
+        raise AssertionError(f"phase 12e: the first step's x is {tuple(first.x[-1].shape)}")
+    plan = build_step_plan(25, 5, True, True, 16)
+    want = [(24 - k, m.cutn) for k, m in enumerate(plan) if m.guided]
+    if [(t, n) for t, n, _ in guided] != want:
+        raise AssertionError(f"phase 12e: guided steps {guided} against the plan's {want}")
+    if any(shape != (1, 128, 192, 3) for *_, shape in guided):
+        raise AssertionError("phase 12e: a guided step's x is not 128 x 192")
+    if len(frames) != 4 or any(f.shape != (128, 192, 3) or not np.isfinite(f).all()
+                               for f in frames):
+        raise AssertionError(f"phase 12e: frames {[f.shape for f in frames]}")
+    _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"), "phase 12e")
+    _say12("e", f"CLI 128px -reduce -cutn_skip -cached_cutn -ht 0 -wd 64 ddim25 (128 x 192, "
+                f"zero-init layers re-drawn): first step's x vs the plain routing's CLI rel L2 "
+                f"{rel:.3e} (bound {BF16_STEP_TOL}); {len(plan)} steps after the 5 skipped, "
+                f"{len(guided)} guided as the plan says (cutouts {[n for _, n in want]}); "
+                f"{total_s:.2f} s per image incl. model setup; launches {launches}")
+
+
+def phase_noise_file(dev, out_dir: Path) -> None:
+    """Phase 12f: a 64px run's noise, sampled ancestrally over 5 steps so
+    that the step noise reaches the frames (its starting noise and each
+    step's, the draws of the sample's shape from the run's generator),
+    recorded to an npz of the JAX package's layout, then replayed through
+    ``noise_file``: the frames equal within 1e-6 relative. Two replays of
+    altered noise (the steps reversed; the starting noise halved) must
+    differ from the recorded frames by more than that: the replay's own
+    generator draws the recorded noise anyway, so only they show that
+    both parts of the file are read."""
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch import api
+
+    kwargs = dict(prompts=PROMPTS, image_size=64, num_cutouts=16, timestep_respacing="5",
+                  weights_mode="random", seed=3, device=str(dev), progress=False,
+                  save_frequency=1)
+    frames = []
+    real_log_image, real_randn = api.log_image, torch.randn
+    drawn = []
+
+    def capture(image, *a, **kw):
+        frames.append(np.asarray(image, np.float64))
+        return real_log_image(image, *a, **kw)
+
+    def recording(*a, **kw):
+        out = real_randn(*a, **kw)
+        if tuple(out.shape) == (1, 64, 64, 3) and kw.get("generator") is not None:
+            drawn.append(out.cpu().numpy())
+        return out
+
+    def replay(tag, init, steps):
+        np.savez(out_dir / f"{tag}.npz", init=init, steps=steps)
+        frames.clear()
+        list(api.clip_guided_diffusion(prefix_path=out_dir / tag,
+                                       noise_file=str(out_dir / f"{tag}.npz"), **kwargs))
+        return list(frames)
+
+    def rel(a_frames, b_frames):
+        return max(np.abs(a - b).max() / np.abs(a).max() for a, b in zip(a_frames, b_frames))
+
+    api.log_image = capture
+    try:
+        torch.randn = recording
+        try:
+            list(api.clip_guided_diffusion(prefix_path=out_dir / "recorded", **kwargs))
+        finally:
+            torch.randn = real_randn
+        recorded = list(frames)
+        if len(drawn) != 6:
+            raise AssertionError(f"phase 12f: {len(drawn)} noise draws, not 6")
+        steps = np.stack(drawn[1:])
+        replayed = replay("replayed", drawn[0], steps)
+        reversed_steps = replay("steps_reversed", drawn[0], steps[::-1])
+        halved_init = replay("init_halved", 0.5 * drawn[0], steps)
+    finally:
+        api.log_image = real_log_image
+    if any(len(f) != 5 for f in (recorded, replayed, reversed_steps, halved_init)):
+        raise AssertionError("phase 12f: a run did not write 5 frames")
+    same = rel(recorded, replayed)
+    if not same <= 1e-6:
+        raise AssertionError(f"phase 12f: replayed frames differ: {same:.3e} relative")
+    controls = {"steps reversed": rel(recorded, reversed_steps),
+                "init halved": rel(recorded, halved_init)}
+    if not all(c > 1e-6 for c in controls.values()):
+        raise AssertionError(f"phase 12f: a replay of altered noise gave the recorded frames "
+                             f"{controls}")
+    _say12("f", f"64px 5-step ancestral noise recorded ({len(drawn)} draws) and replayed "
+                f"through noise_file: frames equal within {same:.3e} relative (bound 1e-6); "
+                f"altered replays differ by "
+                f"{', '.join(f'{k} {v:.3e}' for k, v in controls.items())}")
+
+
+def phase_12(k3, kattn, dev, step_s: float, peak: float) -> None:
+    """Phase 12, in order: (a) the 64px kernels and UNets, (b) the 64px API
+    run with augs, (c) fast guidance, (d) DPM-Solver++(2M), (e) the CLI with
+    -reduce -cutn_skip and a width offset, (f) noise_file."""
+    t0 = time.perf_counter()
+    phase_kernels(k3, dev, CONV_CASES_64, tag="12a")
+    phase_attention(kattn, dev, ATTN_CASES_64, tag="12a")
+    phase_unet(dev, 64, tag="12a")
+    phase_f32_unets(k3, kattn, dev, sizes=(64,), say=lambda msg: _say12("a", msg))
+    out = ROOT / "outputs" / "chip_smoke_12"
+    phase_64px_api(k3, kattn, dev, out / "64px")
+    phase_fast_guidance(k3, kattn, dev, out / "fast", step_s, peak)
+    phase_dpm(k3, kattn, dev, out / "dpm")
+    phase_reduce_cli(k3, kattn, dev, out / "cli")
+    phase_noise_file(dev, out / "noise")
+    _say12("", f"phase 12 wall time {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "cgd_tpu_torch").is_dir():
@@ -2007,6 +2484,7 @@ def main() -> None:
     from cgd_tpu_torch.parallel.mesh import make_mesh
 
     res = phase_kernels(k3, dev)
+    res["conv3x3_dx_wtiled"] = phase_dx_wtiled(k3, dev)
     res["conv3x3_fwd_f32"] = phase_kernels_f32(k3, dev)
     res.update(phase_attention(kattn, dev))
     res["conv3x3_fwd_halo"] = phase_halo(k3, dev)
@@ -2015,10 +2493,10 @@ def main() -> None:
     phase_unet(dev, 128)
     phase_lpips(k3, dev)
     phase_split_unet(dev)
-    _, step_s = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke")
+    _, step_s, peak_256 = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke")
     phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_128", size=128)
     launches = phase_cli(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_512")
-    mesh_launches, mesh_step_s = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_mesh",
+    mesh_launches, mesh_step_s, _ = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_mesh",
                                            mesh=make_mesh([dev, dev]), unsplit_step_s=step_s)
     launches["conv3x3_fwd_halo"] = mesh_launches["conv3x3_fwd_halo"]
     ckpt_launches = phase_checkpoints(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_ckpts",
@@ -2040,6 +2518,7 @@ def main() -> None:
         mesh=make_mesh([dev, dev]), f32_step_s=f32_step_s, say=_say10)
     launches["conv3x3_fwd_halo_f32"] = mesh_f32_launches["conv3x3_fwd_halo_f32"]
     phase_f32_mesh_cli(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32_mesh_cli")
+    phase_12(k3, kattn, dev, step_s, peak_256)
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),
@@ -2068,7 +2547,8 @@ def main() -> None:
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": res[name]["err"],
-         **{k: res[name][k] for k in keys}}
+         # a device time the profiler did not record (nan) is null: not measured
+         **{k: None if res[name][k] != res[name][k] else res[name][k] for k in keys}}
         for name, (src, rep) in meta.items()
     ]
     print(f"[11] device readings still far under their CUDA-event time in a fresh process "

@@ -159,13 +159,13 @@ def test_a_mesh_at_float32_on_cuda_gets_past_the_argument_checks(tiny):
         next(api.clip_guided_diffusion(**{**KW, "device": "cuda", "mesh": mesh}))
 
 
-@pytest.mark.parametrize("option", [
-    {"reduce_clip": True}, {"progressive_cutout": True}, {"use_augs": True},
-    {"dpm_solver": True}, {"fast_guidance": True}, {"checkpoint_path": "ck.npz"},
-    {"height_offset": 8}, {"resume_from": "ck.npz"},
-])
+@pytest.mark.parametrize("option", [{"checkpoint_path": "ck.npz"}, {"resume_from": "ck.npz"}])
 def test_options_outside_the_slice_raise(tiny, option):
-    with pytest.raises(NotImplementedError):
+    """Resume (checkpoint_path, resume_from) is outside the slices ported so
+    far and raises by name. (The sampler's options this list once refused
+    run: tests/test_torch_port_api_options.py.)"""
+    (name,) = option
+    with pytest.raises(NotImplementedError, match=name):
         next(api.clip_guided_diffusion(**{**KW, **option}))
 
 
@@ -259,11 +259,14 @@ def test_signature_matches_the_jax_api():
 
 
 @pytest.mark.parametrize("option", [
-    {"wandb_project": "proj"}, {"wandb_entity": "team"}, {"noise_file": "noise.npz"},
-    {"async_frames": True}, {"log_losses": True}, {"width_offset": 8},
-    {"stall_pet": lambda phase: None}, {"device_lock": threading.Lock()},
+    {"wandb_project": "proj"}, {"wandb_entity": "team"}, {"async_frames": True},
+    {"log_losses": True}, {"stall_pet": lambda phase: None},
+    {"device_lock": threading.Lock()},
 ], ids=lambda o: next(iter(o)))
 def test_jax_keywords_the_port_cannot_honour_raise_by_name(tiny, option):
+    """Every keyword the port cannot honour yet raises by name (noise_file
+    and width_offset, once on this list, run:
+    tests/test_torch_port_api_options.py)."""
     (name,) = option
     with pytest.raises(NotImplementedError, match=name):
         next(api.clip_guided_diffusion(**{**KW, **option}))
@@ -435,3 +438,4 @@ def test_the_oom_advice_names_the_jax_packages_flags_for_the_card():
     assert flags and flags == set(re.findall(r"--?[a-z_]+", tvalidate.OOM_ADVICE))
     assert "GPU" in tvalidate.OOM_ADVICE and "HBM" not in tvalidate.OOM_ADVICE
     assert "TPU" not in tvalidate.OOM_ADVICE
+

@@ -85,9 +85,59 @@ def test_uncond_turns_off_class_conditioning_and_class_randomizing(recorded):
     (["--resume", "c.npz"], "--resume"), (["--stall-timeout", "5"], "--stall-timeout"),
 ])
 def test_flags_the_port_cannot_honour_raise_by_name(recorded, argv, flag):
+    """Every flag the port cannot honour yet raises by name before the API
+    is called; -augs, --fast-guidance and --dpm-solver, once on this list,
+    reach the API as use_augs, fast_guidance and dpm_solver."""
+    honoured = {"--use_augs": "use_augs", "--fast-guidance": "fast_guidance",
+                "--dpm-solver": "dpm_solver"}
+    if flag in honoured:
+        tcli.main(["--prompts", "x", *argv])
+        (kw,) = recorded
+        assert kw[honoured[flag]] is True
+        assert not any(kw[k] for k in honoured.values() if k != honoured[flag])
+        return
     with pytest.raises(NotImplementedError, match=flag):
         tcli.main(["--prompts", "x", *argv])
     assert recorded == []
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["-reduce", "-cutn_skip"], {"reduce_clip": True, "progressive_cutout": True}),
+    (["-ht", "8", "-wd", "64"], {"height_offset": 8, "width_offset": 64}),
+    (["-augs", "--dpm-solver", "--fast-guidance"],
+     {"use_augs": True, "dpm_solver": True, "fast_guidance": True}),
+], ids=["reduce-cutn_skip", "offsets", "augs-dpm-fast"])
+def test_the_sampler_flags_reach_the_api(recorded, argv, want):
+    """As the JAX CLI maps them; every other of these keywords keeps its
+    default."""
+    tcli.main(["--prompts", "x", *argv])
+    (kw,) = recorded
+    assert {k: kw[k] for k in want} == want
+    defaults = dict(reduce_clip=False, progressive_cutout=False, height_offset=0,
+                    width_offset=0, use_augs=False, dpm_solver=False, fast_guidance=False)
+    assert {k: kw[k] for k in defaults if k not in want} == {
+        k: v for k, v in defaults.items() if k not in want}
+
+
+def test_a_non_square_reduce_cutn_skip_run_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """The card's -reduce -cutn_skip -cached_cutn -wd run at toy size:
+    ddim10 skips 2 steps, so 8 run and, with the skip, strict parity saves
+    no final frame (-freq 4: steps 0 and 4); the frames are 64 x 80, and the
+    64px model's magnitude clamp is announced."""
+    monkeypatch.setenv("CGD_TPU_DEBUG_TINY", "1")
+    monkeypatch.chdir(tmp_path)
+    tcli.main(["--prompts", "a red cube", "-size", "64", "-cutn", "2", "-respace", "ddim10",
+               "-reduce", "-cutn_skip", "-cached_cutn", "-ht", "0", "-wd", "16", "-augs",
+               "--weights-mode", "random", "--device", "cpu", "--compute-dtype", "float32",
+               "-freq", "4"])
+    said = capsys.readouterr().out
+    assert "Enabling magnitude for 64x64 checkpoints." in said
+    assert "Skipping first 2 timesteps (--reduce-clip optimization)" in said
+    pngs = sorted((tmp_path / "outputs").rglob("*.png"))
+    assert [p.name for p in pngs] == ["0000.png", "0004.png"]
+    with open(pngs[-1], "rb") as f:
+        head = f.read(24)
+    assert head[16:24] == (80).to_bytes(4, "big") + (64).to_bytes(4, "big")
 
 
 @pytest.mark.parametrize("argv,want", [
@@ -109,9 +159,11 @@ def test_init_image_flags_reach_the_api(recorded, argv, want):
 
 
 def test_options_the_api_refuses_raise_through_the_cli(monkeypatch, tmp_path):
+    """W&B (-proj) the CLI passes on and the API refuses by name (-reduce,
+    which this test once used, now runs)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="reduce_clip"):
-        tcli.main(["--prompts", "x", "-reduce", "--device", "cpu", "--weights-mode", "random"])
+    with pytest.raises(NotImplementedError, match="wandb_project"):
+        tcli.main(["--prompts", "x", "-proj", "p", "--device", "cpu", "--weights-mode", "random"])
 
 
 @pytest.mark.parametrize("argv,keyword", [(["-ckpts", "ckpts"], "checkpoints_dir"),

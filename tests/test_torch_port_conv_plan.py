@@ -2,9 +2,9 @@
 
 The plan is the geometry that the wrapper and the CUDA kernel must agree on
 (8 x 16 output patches, the N tile, the Cin chunks, split K, the TMA boxes
-and the shared memory). These tests hold it, for every 3x3 conv of the 256px
-and 512px UNets (forward and backward), of the same UNets split in two by
-height (K-halo), and of the ragged shapes of the card tests, to what the
+and the shared memory). These tests hold it, for every 3x3 conv of the 64px,
+256px and 512px UNets (forward and backward), of the same UNets split in two
+by height (K-halo), and of the ragged shapes of the card tests, to what the
 kernel needs: every output pixel covered once, every tap inside the staged
 window, shared memory within a block's 227 KB, TMA boxes and strides the
 hardware takes, and no empty split. The shapes come from the full-size
@@ -94,11 +94,13 @@ _RAGGED = (
 def groups():
     u256 = _with_backward(_unet_convs(256))
     u512 = _with_backward(_unet_convs(512))
+    u64 = _with_backward(_unet_convs(64))
     return {"unet256": u256, "unet512": u512, "split256": _split(u256),
-            "split512": _split(u512), "ragged": _RAGGED}
+            "split512": _split(u512), "ragged": _RAGGED, "unet64": u64,
+            "split64": _split(u64)}
 
 
-GROUPS = ["unet256", "unet512", "split256", "split512", "ragged"]
+GROUPS = ["unet256", "unet512", "split256", "split512", "ragged", "unet64", "split64"]
 
 
 def _plans(launches):
@@ -217,6 +219,65 @@ def test_the_n_tile_follows_cout(cout, bn):
     assert plan["swizzle_w"] == (32 if bn == 16 else 128)
 
 
+def _epilogue_columns(plan, tile):
+    """The output channels the bf16 epilogues write for N tile ``tile``
+    (csrc/conv3x3_fwd.cu:58-61, conv3x3_dx.cu's dx stream and its dA / dB
+    partial row, conv3x3_common.cuh's store_partial): thread group ``grp``
+    owns the 8 channels from n0 + 8 grp, n0 = tile * bn, and writes them
+    only if that start is below Cout (padded to 8); a dA / dB column ct of
+    the block is written only if n0 + ct is below Cx."""
+    n0, bn, cout = tile * plan["bn"], plan["bn"], plan["cout"]
+    groups = [c for g in range(bn // 8) if n0 + 8 * g < cout for c in range(n0 + 8 * g,
+                                                                          n0 + 8 * g + 8)]
+    partial = [n0 + ct for ct in range(bn) if n0 + ct < cout]
+    return groups, partial
+
+
+def test_the_64px_shapes_are_found(groups):
+    """The 64px model's convs (192 / 384 / 576 / 768 channels, the 6-channel
+    output conv) reach the plan, forward and backward."""
+    u64 = groups["unet64"]
+    assert ("fwd", 1, 64, 64, 3, 192, False, False, False) in u64
+    assert ("fwd", 1, 64, 64, 192, 192, False, True, False) in u64
+    assert ("fwd", 1, 16, 16, 576, 576, False, True, False) in u64
+    assert ("fwd", 1, 8, 8, 768, 768, False, True, False) in u64
+    assert ("fwd", 1, 64, 64, 192, 6, False, True, False) in u64
+    assert {("dx", 192), ("dx", 384), ("dx", 576)} <= {(e[0], e[5]) for e in u64}
+    assert any(e[6] for e in u64)
+
+
+@pytest.mark.parametrize("cout,ntiles,dead", [(192, 1, 64), (384, 2, 128), (576, 3, 192),
+                                              (768, 3, 0), (6, 1, 8)])
+def test_partly_filled_n_tiles_write_every_channel_once_and_none_past_cout(groups, cout,
+                                                                          ntiles, dead):
+    """The 64px model's output widths fill their 256-wide N tiles partly:
+    192 runs one tile with 64 dead columns, 384 its second tile half empty,
+    576 a third tile with 64 live columns (the 6-channel output conv pads to
+    8 in a 16-wide tile). Over every such launch of the 64px tree (K-fwd in
+    each mode, K-dx at Cx = 192 / 384 / 576, split K or not) the epilogues
+    write each output channel exactly once and none at or past Cout, and
+    the dead share of the tiles' columns is what PERF.md states."""
+    seen = 0
+    for key, plan in _plans(groups["unet64"]):
+        if plan["cout"] != _round8(cout):
+            continue
+        seen += 1
+        assert plan["grid"][1] == ntiles, key
+        assert ntiles * plan["bn"] - plan["cout"] == dead, key
+        written, partial = np.zeros(plan["cout"] + plan["bn"], np.int32), []
+        for tile in range(plan["grid"][1]):
+            cols, part = _epilogue_columns(plan, tile)
+            np.add.at(written, cols, 1)
+            partial += part
+        assert (written[:plan["cout"]] == 1).all() and not written[plan["cout"]:].any(), key
+        assert sorted(partial) == list(range(plan["cout"])), key
+    assert seen
+
+
+def _round8(n):
+    return -(-n // 8) * 8
+
+
 def test_skinny_cin_pads_to_one_chunk():
     plan = k3.conv_plan(1, 256, 256, 3, 256)
     assert plan["cin"] == 64 and plan["chunks"] == 1 and plan["ksplit"] == 1
@@ -258,8 +319,8 @@ def test_the_f32_plan_covers_the_vgg16_convs(h, cin, cout):
 
 
 # K-fwd f32 in every mode and K-dx f32: what compute_dtype="float32" runs for
-# every 3x3 conv of the 128, 256 and 512px trees, forward and backward
-F32_TREES = (128, 256, 512)
+# every 3x3 conv of the 64, 128, 256 and 512px trees, forward and backward
+F32_TREES = (64, 128, 256, 512)
 
 
 @pytest.fixture(scope="module")
@@ -458,7 +519,8 @@ def test_each_f32_shape_class_is_chosen_where_the_rule_says(f32_launches, group)
             assert plan["slab_stages"] >= 9, key
         assert plan["patch"] == ((8, 16) if ho >= 8 else (4, 32) if ho >= 4 else (2, 64)), key
         seen |= want
-    expect = {"tree128": {"narrow_k", "narrow_n", "split_k", "up"},
+    expect = {"tree64": {"narrow_k", "narrow_n", "split_k", "up"},
+              "tree128": {"narrow_k", "narrow_n", "split_k", "up"},
               "tree256": {"narrow_k", "narrow_n", "split_k", "up"},
               "tree512": {"narrow_k", "narrow_n", "split_k", "up"}}
     assert seen >= expect.get(group, {"halo", "split_k", "short_patch", "narrow_k"}), group

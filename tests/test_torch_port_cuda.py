@@ -885,3 +885,91 @@ def test_the_kernel_sizes_shared_memory_as_the_plan(dev):
             assert lib.cgd_conv3x3_smem_bytes(bn, int(up)) == k3.smem_bytes(bn, up)[0]
     buf = torch.empty(256 ** 3, dtype=torch.bfloat16, device=dev)
     assert lib.cgd_conv3x3_encode_seconds(buf.data_ptr(), 10) > 0
+
+
+# the 64px model's shapes (batch, H, Cin, Cout): Cout 192 / 384 / 576 fill
+# their 256-wide N tiles partly (one tile with 64 dead columns, a second tile
+# half empty, a third with 64 live columns), 768 fills three; K-dx at
+# Cx = 192 / 384 / 576 / 768; the 6-channel output conv
+SHAPES_64 = [(1, 64, 192, 192), (1, 32, 192, 384), (1, 32, 384, 384), (1, 16, 576, 576),
+             (1, 8, 768, 768), (1, 64, 192, 6), (2, 16, 576, 384)]
+
+
+@pytest.mark.parametrize("shape", SHAPES_64)
+@pytest.mark.parametrize("variant", ["plain", "prologue", "skip", "up"])
+def test_kfwd_matches_plain_at_the_64px_shapes(dev, shape, variant):
+    test_kfwd_matches_plain(dev, shape, variant)
+
+
+@pytest.mark.parametrize("shape", SHAPES_64)
+def test_kdx_matches_plain_at_the_64px_shapes(dev, shape):
+    test_kdx_matches_plain_and_is_deterministic(dev, shape)
+
+
+@pytest.mark.parametrize("h,w,ci,co,prologue", [(72, 64, 192, 192, True),
+                                                (16, 24, 576, 576, True),
+                                                (128, 192, 3, 256, False),
+                                                (9, 12, 768, 768, True)])
+def test_non_square_images_match_plain(dev, h, w, ci, co, prologue):
+    """The offsets' non-square samples: K-fwd (with its prologue and the
+    residual, or plain as conv_in runs it) and K-dx on an h x w image,
+    against their plain versions."""
+    gen = torch.Generator(dev).manual_seed(3)
+
+    def rn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    x, w_, bias = rn(1, h, w, ci), rn(3, 3, ci, co, scale=(9 * ci) ** -0.5), rn(co, scale=0.1)
+    A = 1.0 + 0.2 * torch.randn(1, ci, generator=gen, device=dev) if prologue else None
+    B = 0.2 * torch.randn(1, ci, generator=gen, device=dev) if prologue else None
+    skip, g = rn(1, h, w, co) if prologue else None, rn(1, h, w, co)
+    _close(k3.conv3x3_fwd(x, w_, bias, A, B, skip), k3.conv3x3_fwd_plain(x, w_, bias, A, B, skip))
+    if prologue:
+        wt = k3._flip_t(w_)
+        for a, b in zip(k3.conv3x3_dx(g, wt, x, A, B), k3.conv3x3_dx_plain(g, wt, x, A, B)):
+            _close(a, b)
+
+
+@pytest.mark.parametrize("b,h,t,d", [(1, 6, 1024, 64), (1, 9, 256, 64), (1, 12, 64, 64),
+                                     (2, 9, 256, 64), (1, 9, 384, 64)])
+def test_attention_at_the_64px_head_counts(dev, b, h, t, d):
+    """The 64px model's 6 / 9 / 12 heads (odd grids), and T = 384 of the
+    128 x 192 sample's 16 x 24 level."""
+    test_attention_kernels_match_plain_and_backward_is_deterministic(dev, b, h, t, d)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_fast_guidance_launches_no_backward_kernel(dev, fast):
+    """One guided bf16 step of a small UNet (64 / 128 channels, two heads of
+    d = 64 at 16^2) with a loss on the blend: with fast_guidance no K-dx,
+    K-dx-w or K-attn-b launches (the UNet runs no backward); without it
+    they do."""
+    from cgd_tpu_torch.diffusion.gaussian import make_diffusion
+    from cgd_tpu_torch.diffusion.sampler import GuidanceFns, SamplerConfig, make_guided_step
+    from cgd_tpu_torch.models.unet import UNet, UNetConfig
+    from cgd_tpu_torch.ops.nn import cast_conv_params
+
+    cfg = UNetConfig(image_size=32, model_channels=64, num_res_blocks=1, attention_ds=(2,),
+                     channel_mult=(1, 2), num_head_channels=64, num_classes=10)
+    gen = torch.Generator(dev).manual_seed(0)
+    unet = UNet(cfg, device=dev).init_weights(gen)
+    cast_conv_params(unet, torch.bfloat16)
+
+    def loss_fn(x, out, ref_t, g):
+        return (out.pred_xstart * 0.5 + x * 0.5).square().sum(), {}
+
+    step = make_guided_step(
+        make_diffusion(timestep_respacing="ddim10"),
+        lambda x, t, y: unet(x, t, y, compute_dtype=torch.bfloat16),
+        GuidanceFns(loss_fn, lambda grad: (grad, {})),
+        SamplerConfig(use_ddim=True, fast_guidance=fast))
+    k3.reset_launch_counts()
+    kattn.reset_launch_counts()
+    x_next = step(torch.randn(1, 32, 32, 3, generator=gen, device=dev), 5, 5,
+                  torch.tensor([1], device=dev), gen)[0]
+    torch.cuda.synchronize()
+    backward = k3.LAUNCHES["conv3x3_dx"] + k3.LAUNCHES["conv3x3_dx_wtiled"] + \
+        kattn.LAUNCHES["attn_bwd"]
+    assert torch.isfinite(x_next).all()
+    assert k3.LAUNCHES["conv3x3_fwd"] > 0 and kattn.LAUNCHES["attn_fwd"] > 0
+    assert (backward == 0) == fast

@@ -96,14 +96,18 @@ def _draws(n_steps, seed=0):
     )
 
 
-def _pair(models, d, respacing, use_ddim, use_magnitude=False, rescale=False, steps=1000):
+def _pair(models, d, respacing, use_ddim, use_magnitude=False, rescale=False, steps=1000,
+          sampler_kw=(), **settings_kw):
     """JAX and port (diffusion, builder, sampler cfg, model_fn) on the same
-    weights, targets and cutout coordinates."""
+    weights, targets and cutout coordinates; ``sampler_kw`` (fast_guidance,
+    dpm_solver) go to both SamplerConfigs, ``settings_kw`` (use_augs) to
+    both GuidanceSettings."""
     kw = dict(steps=steps, timestep_respacing=respacing, rescale_timesteps=rescale)
     jdiff = jgauss.make_diffusion(**kw)
     tdiff = tgauss.make_diffusion(**kw)
     settings = dict(clip_guidance_scale=1000.0, tv_scale=150.0, range_scale=50.0,
-                    sat_scale=10.0, use_magnitude=use_magnitude, clip_compute_dtype="float32")
+                    sat_scale=10.0, use_magnitude=use_magnitude, clip_compute_dtype="float32",
+                    **settings_kw)
     jbuilder = jpipe.make_guidance_builder(
         models["jccfg"], d["targets"], d["weights"], jdiff, jpipe.GuidanceSettings(**settings),
         cached_coords=JSpec(*d["coords"]))
@@ -119,8 +123,9 @@ def _pair(models, d, respacing, use_ddim, use_magnitude=False, rescale=False, st
     def tmodel(x, t, y):
         return models["unet"](x, t, y)
 
-    return (jdiff, jbuilder, jsampler.SamplerConfig(use_ddim=use_ddim), jmodel,
-            tdiff, tbuilder, tsampler.SamplerConfig(use_ddim=use_ddim), tmodel)
+    sampler_kw = dict(sampler_kw)
+    return (jdiff, jbuilder, jsampler.SamplerConfig(use_ddim=use_ddim, **sampler_kw), jmodel,
+            tdiff, tbuilder, tsampler.SamplerConfig(use_ddim=use_ddim, **sampler_kw), tmodel)
 
 
 def _close(ours, ref, what):
