@@ -9,32 +9,28 @@
 ``--mesh`` builds its mesh over the visible devices of that kind (every card;
 the one CPU device for ``--device cpu``). ``--weights-mode auto`` (the
 default) loads the published checkpoints from ``-ckpts``; the repository
-holds no weights and no BPE merge table. Flags the port cannot honour yet
-(``-gif`` / ``-mp4``, ``--profile``, ``--log-losses``, ``--checkpoint`` /
-``--resume``, ``--stall-timeout``) raise ``NotImplementedError`` naming the
-flag; the API refuses W&B by name. ``--dropout`` is accepted and, as in the
-JAX package's sampling, never applied.
+holds no weights and no BPE merge table. Every flag of the JAX CLI is
+honoured: ``-gif`` / ``-mp4`` mux the frames (ffmpeg, else Pillow / OpenCV
+where importable; the frames are deleted only when every requested mux
+wrote a file), ``--profile DIR`` writes a ``torch.profiler`` Chrome trace
+(CPU and CUDA activities) to DIR, ``--log-losses`` prints a line of loss
+scalars per guided step, ``--checkpoint`` / ``--resume`` save the sampling
+state after every segment and continue from it, and ``--stall-timeout``
+exits with code 117 (``utils.watchdog.STALL_EXIT_CODE``, after writing
+``<prefix>/stall_report.json``) when no progress is made for that many
+seconds, so that a supervisor can restart the run with ``--resume``.
+Frames are written on a background thread. ``--dropout`` is accepted and,
+as in the JAX package's sampling, never applied.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 from pathlib import Path
 
 from cgd_tpu_torch.registry import CLIP_MODEL_NAMES
 from cgd_tpu_torch.weights import CACHE_PATH
-
-# flags the port cannot honour yet: argparse dest -> spelling
-REFUSED = {
-    "save_as_gif": "-gif/--save-as-gif",
-    "save_as_video": "-mp4/--save-as-video",
-    "profile": "--profile",
-    "log_losses": "--log-losses",
-    "checkpoint": "--checkpoint",
-    "resume": "--resume",
-    "stall_timeout": "--stall-timeout",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -83,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", "-dev", default="cuda", type=str,
                    help="'cuda' (raises without a card) or 'cpu' (the kernels' plain PyTorch versions)")
     p.add_argument("--wandb_project", "-proj", default=None,
-                   help="log the run to this Weights & Biases project (not ported: raises)")
+                   help="log the run to this Weights & Biases project")
     p.add_argument("--wandb_entity", "-ent", default=None,
                    help="W&B team/entity owning the project")
     p.add_argument("--height_offset", "-ht", default=0, type=int, help="extra output height (multiple of the UNet downsample factor)")
@@ -94,9 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="RMS-clamp the guidance gradient (auto-enabled at 64px)")
     p.add_argument("--quiet", "-q", action="store_true", help="suppress progress output")
     p.add_argument("--save-as-gif", "-gif", action="store_true",
-                   help="mux saved frames into a GIF (not ported: raises)")
+                   help="mux saved frames into a GIF (ffmpeg, else Pillow), then delete the frames")
     p.add_argument("--save-as-video", "-mp4", action="store_true",
-                   help="mux saved frames into an MP4 (not ported: raises)")
+                   help="mux saved frames into an MP4 (ffmpeg, else OpenCV), then delete the frames")
     p.add_argument("--reduce-clip", "-reduce", action="store_true",
                    help="stage CLIP guidance (skip 20%%, every 4th step to 70%%) to generate faster")
     p.add_argument("--progressive-cutout", "-cutn_skip", action="store_true",
@@ -115,9 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="activation dtype: bfloat16, or float32 (the f32 kernels, TF32 off; "
                         "with --mesh the split convs on K-halo f32)")
     p.add_argument("--profile", default=None, type=str,
-                   help="write a profiler trace to this directory (not ported: raises)")
+                   help="write a torch.profiler Chrome trace (CPU and CUDA) to this directory")
     p.add_argument("--log-losses", action="store_true",
-                   help="print per-step guidance loss lines (not ported: raises)")
+                   help="print per-step guidance loss lines (costs a device sync per step)")
     p.add_argument("--fast-guidance", action="store_true",
                    help="guide on a detached denoised prediction (classic pre-fork CLIP "
                         "guidance; skips the UNet backward). NOT reference semantics")
@@ -126,23 +122,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "DDIM/ancestral (try ddim50 budgets). Deterministic. NOT reference "
                         "semantics")
     p.add_argument("--checkpoint", default=None, type=str, metavar="PATH",
-                   help="save resumable sampling state (not ported: raises)")
+                   help="save resumable sampling state (atomic npz, the generator's state with it) after "
+                        "every segment; continue an interrupted run with --resume")
     p.add_argument("--resume", default=None, type=str, metavar="PATH",
-                   help="resume sampling from a --checkpoint file (not ported: raises)")
+                   help="resume sampling from a --checkpoint file (the run flags must match the "
+                        "original; the frames equal the uninterrupted run's)")
     p.add_argument("--stall-timeout", default=0.0, type=float, metavar="SECONDS",
-                   help="fail instead of hanging on a stalled device (not ported: nonzero raises)")
+                   help="fail instead of hanging forever if the card stops responding: exit with "
+                        "code 117 (and write <prefix>/stall_report.json) when no progress happens "
+                        "for SECONDS. Set it above the kernels' first build (nvcc, tens of "
+                        "seconds). 0 disables. Pairs with --checkpoint/--resume")
     p.add_argument("--no-strict-parity", dest="strict_parity", action="store_false",
                    help="fix reference quirks instead of replicating them")
     return p
 
 
 def main(argv=None):
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    defaults = parser.parse_args([])
-    for dest, flag in REFUSED.items():
-        if getattr(args, dest) != getattr(defaults, dest):
-            raise NotImplementedError(f"{flag} is not ported to cgd_tpu_torch yet")
+    args = build_parser().parse_args(argv)
     class_cond = not args.uncond
     prefix_path = args.prefix
     Path(prefix_path).mkdir(exist_ok=True)
@@ -150,6 +146,7 @@ def main(argv=None):
     image_prompts = args.image_prompts.split("|") if len(args.image_prompts) > 0 else []
 
     from cgd_tpu_torch.api import clip_guided_diffusion
+    from cgd_tpu_torch.utils.watchdog import StallDetector
 
     mesh = None
     if args.mesh:
@@ -158,6 +155,23 @@ def main(argv=None):
         mesh = mesh_from_spec(args.mesh, visible_devices(args.device))
         if mesh is None and not args.quiet:
             print("--mesh auto: one device visible; running single-chip")
+
+    profiler = None
+    if args.profile:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.__enter__()
+
+    stall_dog = StallDetector(
+        args.stall_timeout,
+        exit_on_stall=True,
+        report_path=str(Path(prefix_path) / "stall_report.json"),
+    )
 
     cgd_generator = clip_guided_diffusion(
         prompts=prompts,
@@ -198,11 +212,46 @@ def main(argv=None):
         weights_mode=args.weights_mode,
         compute_dtype=args.compute_dtype,
         mesh=mesh,
+        async_frames=True,  # the CLI reads frames only after the loop (the muxes)
+        log_losses=args.log_losses,
         strict_parity=args.strict_parity,
         fast_guidance=args.fast_guidance,
         dpm_solver=args.dpm_solver,
+        checkpoint_path=args.checkpoint,
+        resume_from=args.resume,
+        stall_pet=stall_dog.pet,
     )
-    list(enumerate(cgd_generator))  # drain the generator
+    try:
+        with stall_dog:
+            list(enumerate(cgd_generator))  # drain the generator
+    finally:
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            Path(args.profile).mkdir(parents=True, exist_ok=True)
+            profiler.export_chrome_trace(str(Path(args.profile) / "trace.json"))
+            print(f"Profile trace written to {args.profile}")
+
+    from cgd_tpu_torch.io_utils.images import clean_and_combine_prompts
+    from cgd_tpu_torch.io_utils.video import create_gif_ffmpeg, create_video_ffmpeg
+
+    # The reference deletes the frames even when the mux fails (cgd/cgd.py:415-430);
+    # that loses every output on a machine without ffmpeg, so, as the JAX
+    # CLI does, they are deleted only when every requested mux wrote a file.
+    delete_frames = args.save_as_gif or args.save_as_video
+    for batch_idx in range(args.batch_size):
+        muxed = []
+        if args.save_as_gif:
+            muxed.append(create_gif_ffmpeg(prefix_path, prompts, batch_idx, delete_frames=False))
+        if args.save_as_video:
+            muxed.append(create_video_ffmpeg(prefix_path, prompts, batch_idx, delete_frames=False))
+        if delete_frames and all(m is not None for m in muxed):
+            io_safe_prompts = clean_and_combine_prompts(prefix_path, prompts, batch_idx)
+            image_files = sorted(glob.glob(f"{io_safe_prompts}/*.png"))
+            for f in image_files:
+                Path(f).unlink()
+            if Path(io_safe_prompts).is_dir() and not list(Path(io_safe_prompts).iterdir()):
+                Path(io_safe_prompts).rmdir()
+            print(f"Deleted {len(image_files)} frame(s)")
 
 
 if __name__ == "__main__":

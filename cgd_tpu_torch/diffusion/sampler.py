@@ -7,9 +7,11 @@ guidance loss with respect to x, taken THROUGH the UNet (the fork's
 DPM-Solver++(2M) update. ``fast_guidance`` takes the gradient through the
 blend with x only (no UNet backward). The loop is a plain Python loop over
 the static step plan (with the ``reduce_clip`` and ``progressive_cutout``
-gating) that emits (step, pred_xstart, x_t) at the save points of
-``segment_plan``, starting from an init image noised to the first step when
-the leading steps are skipped; it has no checkpoint/resume yet.
+gating) over the segments of ``segment_plan``, emitting (step,
+pred_xstart, x_t) at their save points, starting from an init image noised
+to the first step when the leading steps are skipped. After every segment
+it can hand its state to a ``state_sink``, and ``resume`` continues a run
+from such a state bit for bit (the generator's state travels with x).
 
 ``build_step_plan`` and ``segment_plan`` are copies of the JAX package's
 pure-Python plan helpers, pinned to the originals by
@@ -19,8 +21,10 @@ tests/test_torch_port_step.py.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Iterator, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from cgd_tpu_torch.diffusion.gaussian import GaussianDiffusion, PMeanVariance
@@ -236,6 +240,11 @@ def sample_loop(
     noise_override=None,  # [n_steps, *shape]: recorded per-step noise
     init_noise=None,  # [*shape]: recorded starting noise
     final_frame_parity: bool = False,
+    progress_cb: Optional[Callable[[int], None]] = None,
+    loss_sink=None,
+    image_sink=None,
+    state_sink=None,
+    resume: Optional[dict] = None,
 ) -> Iterator[Tuple[int, torch.Tensor, torch.Tensor]]:
     """Run the guided schedule, yielding (step_index, pred_xstart, x_t) at
     the save points: every ``save_frequency`` steps plus the final step
@@ -250,10 +259,29 @@ def sample_loop(
     the previous step's guided x0 (zeros before the first step, which is
     first-order). ``init_noise`` / ``noise_override`` replace the starting
     and per-step noise after it is drawn from ``gen``, so a replay draws
-    everything else as the recorded run did."""
+    everything else as the recorded run did; both are indexed by the
+    run's global step.
+
+    The steps run in the segments of ``segment_plan``; after each segment:
+    ``loss_sink(seg_start, {name: np.ndarray[n]})`` gets the log scalars of
+    its guided steps, ``image_sink(step_ks, noisy, preds)`` each guided
+    step's incoming x_t and pred_xstart (numpy, [n, *shape]),
+    ``state_sink(next_seg, {"x", "y", "x0p", "generator"})`` the state to
+    continue from (numpy; ``generator`` is ``gen.get_state()``, y and x0p
+    None where the run has none), called BEFORE the segment's frame is
+    yielded so that a consumer killed mid-save still resumes, then
+    ``progress_cb(n_steps)``.
+
+    ``resume`` (such a state plus ``"next_seg"``) continues from that
+    segment boundary: the loop draws its starting noise as an uninterrupted
+    run does, then sets ``gen`` back to the saved state, so the remaining
+    segments see the draws the uninterrupted run saw (class labels, cutout
+    coordinates, augmentations, step noise, in that order per step) and
+    give its frames bit for bit. The JAX package derives each segment's key
+    from the seed instead, so its checkpoints carry no generator state."""
     plan = build_step_plan(diffusion.num_timesteps, skip_timesteps, reduce_clip,
                            progressive_cutout, num_cutouts)
-    _, save_at = segment_plan(plan, save_frequency, final_frame_parity, skip_timesteps)
+    segments, save_at = segment_plan(plan, save_frequency, final_frame_parity, skip_timesteps)
     device = gen.device
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     if init_noise is not None:
@@ -264,20 +292,74 @@ def sample_loop(
         x = diffusion.q_sample(base.to(device, torch.float32), t0, x)
     y = y_init
     x0p = torch.zeros(shape, device=device) if cfg.dpm_solver else None
+    start_seg = 0
+    if resume is not None:
+        start_seg = int(resume["next_seg"])
+        if not 0 <= start_seg <= len(segments):
+            raise ValueError(
+                f"resume next_seg={start_seg} outside this plan's "
+                f"{len(segments)} segments — different run configuration?")
+        if start_seg == len(segments):
+            warnings.warn(
+                "resume checkpoint marks the run complete (next_seg == "
+                f"{len(segments)}); nothing to resume — no frames will be "
+                "written. The finished frames are in the original run's "
+                "output directory.", stacklevel=2)
+        if cfg.dpm_solver and resume.get("x0p") is None:
+            raise ValueError("resume checkpoint lacks the dpm_solver x0_prev state — "
+                             "was it written by a non-dpm run?")
+        if not cfg.dpm_solver and resume.get("x0p") is not None:
+            raise ValueError(
+                "resume checkpoint carries dpm_solver x0_prev state but "
+                "cfg.dpm_solver is False — resuming would silently change "
+                "the sampling dynamics")
+        x = torch.as_tensor(resume["x"], dtype=torch.float32).to(device)
+        if resume.get("y") is not None:
+            y = torch.as_tensor(resume["y"], dtype=torch.long).to(device)
+        if cfg.dpm_solver:
+            x0p = torch.as_tensor(resume["x0p"], dtype=torch.float32).to(device)
+        gen.set_state(torch.as_tensor(resume["generator"], dtype=torch.uint8).cpu())
     steps = {}  # one step function per distinct (guided, cutn)
-    for k, meta in enumerate(plan):
-        key = (meta.guided, meta.cutn)
-        if key not in steps:
-            guidance = guidance_builder(meta) if meta.guided else None
-            steps[key] = make_guided_step(diffusion, model_fn, guidance, cfg)
-        ref_t = diffusion.num_timesteps - 1 - k
-        if cfg.dpm_solver:  # deterministic: no step noise
-            x, pred_x0, y, _, x0p = steps[key](
-                x, meta.t, ref_t, y, gen, dpm_state=(x0p, plan[max(k - 1, 0)].t, k == 0))
-        else:
-            nz = None
-            if noise_override is not None:
-                nz = torch.as_tensor(noise_override[k], dtype=torch.float32, device=device)
-            x, pred_x0, y, _ = steps[key](x, meta.t, ref_t, y, gen, noise_override=nz)
-        if k in save_at:
-            yield k, pred_x0, x
+    for si, (k0, seg) in enumerate(segments):
+        if si < start_seg:
+            continue  # done by the checkpointed run
+        logs, noisy, preds = [], [], []
+        for k, meta in enumerate(seg, start=k0):
+            key = (meta.guided, meta.cutn)
+            if key not in steps:
+                guidance = guidance_builder(meta) if meta.guided else None
+                steps[key] = make_guided_step(diffusion, model_fn, guidance, cfg)
+            ref_t = diffusion.num_timesteps - 1 - k
+            x_in = x
+            if cfg.dpm_solver:  # deterministic: no step noise
+                x, pred_x0, y, log, x0p = steps[key](
+                    x, meta.t, ref_t, y, gen,
+                    dpm_state=(x0p, plan[max(k - 1, 0)].t, k == 0))
+            else:
+                nz = None
+                if noise_override is not None:
+                    nz = torch.as_tensor(noise_override[k], dtype=torch.float32, device=device)
+                x, pred_x0, y, log = steps[key](x, meta.t, ref_t, y, gen, noise_override=nz)
+            if meta.guided:
+                if loss_sink is not None:
+                    logs.append(log)
+                if image_sink is not None:
+                    noisy.append(x_in.float().cpu().numpy())
+                    preds.append(pred_x0.float().cpu().numpy())
+        if loss_sink is not None and logs:
+            loss_sink(k0, {name: torch.stack([lg[name] for lg in logs]).float().cpu().numpy()
+                           for name in logs[0]})
+        if image_sink is not None and noisy:
+            image_sink(list(range(k0, k0 + len(noisy))), np.stack(noisy), np.stack(preds))
+        if state_sink is not None:
+            state_sink(si + 1, {
+                "x": x.cpu().numpy(),
+                "y": None if y is None else y.cpu().numpy(),
+                "x0p": None if x0p is None else x0p.cpu().numpy(),
+                "generator": gen.get_state().numpy(),
+            })
+        last_k = k0 + len(seg) - 1
+        if last_k in save_at:
+            yield last_k, pred_x0, x
+        if progress_cb is not None:
+            progress_cb(len(seg))

@@ -61,6 +61,7 @@ def make_guidance_builder(
     mesh: Optional[Mesh] = None,
     lpips: Optional[VGGLPIPS] = None,
     init_image: Optional[torch.Tensor] = None,  # [B,H,W,3] in [-1, 1]
+    loss_callback=None,  # fn({name: float}), called per guided step
 ):
     """Returns builder(meta: StepMeta) -> GuidanceFns for the sampler. With
     ``cached_coords`` every step reuses the first ``cutn`` of those cutout
@@ -69,7 +70,10 @@ def make_guidance_builder(
     (CLIP's image tower replicated on each distinct one). With ``lpips``
     and ``init_image`` the loss adds ``lpips_distance(lpips, x_in,
     init_image).sum() * init_scale`` ("Init VGG Loss"); the init image's VGG
-    taps are computed anew every step, as in the JAX package."""
+    taps are computed anew every step, as in the JAX package. A
+    ``loss_callback`` gets each guided step's loss scalars, then its
+    gradient scalars, as floats (a device sync per step), as the JAX
+    package's host callback does."""
     use_init_loss = lpips is not None and init_image is not None
     clip_size = clip_cfg.input_resolution
     device = target_embeds.device
@@ -125,7 +129,10 @@ def make_guidance_builder(
                 log["Init VGG Loss"] = init_total
                 loss = loss + init_total
             log["Total Loss"] = loss
-            return loss, {k: v.detach() for k, v in log.items()}
+            log = {k: v.detach() for k, v in log.items()}
+            if loss_callback is not None:
+                loss_callback({k: float(v) for k, v in log.items()})
+            return loss, log
 
         def grad_transform(grad):
             log = {}
@@ -134,6 +141,8 @@ def make_guidance_builder(
                 log["Magnitude"] = rms
                 grad = grad * rms.clamp(max=0.05) / rms.clamp_min(1e-12)
             log["Grad"] = grad.mean()
+            if loss_callback is not None:
+                loss_callback({k: float(v) for k, v in log.items()})
             return grad, log
 
         return GuidanceFns(loss_fn, grad_transform)

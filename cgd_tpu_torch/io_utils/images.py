@@ -19,8 +19,10 @@ from __future__ import annotations
 
 import io
 import os
+import queue
 import re
 import struct
+import threading
 import zlib
 from functools import lru_cache
 from typing import List, Tuple
@@ -68,16 +70,76 @@ def _write(path: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
+def _write_frame(data: bytes, paths) -> None:
+    for path in paths:
+        _write(path, data)
+
+
+class _FrameWriter:
+    """One background thread that encodes and writes frames in the order
+    they were submitted (``current.png`` ends as the last frame, as with
+    synchronous writes); ``zlib.compress`` releases the GIL, so the
+    sampling thread goes on meanwhile. The counterpart of the JAX package's
+    native writer (``cgd_tpu/io_utils/native_frameio.py``): a write that
+    fails is counted, not raised."""
+
+    def __init__(self):
+        self._queue: "queue.Queue" = queue.Queue()
+        self._thread = None
+        self._lock = threading.Lock()
+        self._errors = 0
+
+    def submit(self, rgb: np.ndarray, paths) -> None:
+        with self._lock:
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._run, name="cgd-frame-writer",
+                                                daemon=True)
+                self._thread.start()
+        self._queue.put((rgb, tuple(paths)))
+
+    def _run(self) -> None:
+        while True:
+            rgb, paths = self._queue.get()
+            try:
+                _write_frame(encode_png(rgb), paths)
+            except Exception:
+                with self._lock:
+                    self._errors += 1
+            finally:
+                self._queue.task_done()
+
+    def flush(self) -> int:
+        """Wait for every submitted frame; returns the writes that failed
+        since the last flush."""
+        self._queue.join()
+        with self._lock:
+            errors, self._errors = self._errors, 0
+        return errors
+
+
+_WRITER = _FrameWriter()
+
+
 def log_image(image_hwc: np.ndarray, base_path, txts: List[str], current_step: int,
-              batch_idx: int) -> str:
-    """Save a frame and current.png; returns the frame's path."""
+              batch_idx: int, use_async: bool = False) -> str:
+    """Save a frame and current.png; returns the frame's path. With
+    ``use_async`` the PNG is encoded and written on a background thread:
+    call ``flush_frames()`` before reading the files."""
     dirname = clean_and_combine_prompts(base_path, txts, batch_idx)
     os.makedirs(dirname, exist_ok=True)
     filename = os.path.join(dirname, f"{current_step:04}.png")
-    data = encode_png(to_uint8(image_hwc))
-    _write(os.path.join(os.getcwd(), "current.png"), data)
-    _write(filename, data)
+    paths = (os.path.join(os.getcwd(), "current.png"), filename)
+    if use_async:
+        _WRITER.submit(to_uint8(image_hwc), paths)
+    else:
+        _write_frame(encode_png(to_uint8(image_hwc)), paths)
     return str(filename)
+
+
+def flush_frames() -> int:
+    """Block until every asynchronous frame write has ended; returns how
+    many failed since the last flush."""
+    return _WRITER.flush()
 
 
 # ---------------------------------------------------------------------------

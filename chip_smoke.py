@@ -136,7 +136,30 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    ``-reduce -cutn_skip -cached_cutn -ht 0 -wd 64`` (128 x 192): the frames'
    shape and the guided steps against the step plan; (f) a 64px ddim5 run's
    noise recorded and replayed through ``noise_file``: equal frames
-   (within 1e-6 relative).
+   (within 1e-6 relative);
+13. resume, the serving daemon and the rest of the CLI, every line with the
+   card's name and power limit, the zero-init layers re-drawn: (a) resume
+   at 256px bf16, ddim10, save_frequency 3, through the API: runs A and C
+   uninterrupted, run B closed after its second frame and resumed from its
+   checkpoint, and a control resumed with its generator state overwritten
+   by a fresh ``manual_seed``; max |A - C| and max |A - resumed B| over the
+   final frame and x (bit-equal where A and C are, else within |A - C|; the
+   control must differ by more), the checkpoint's bytes and the host ms a
+   segment its write takes; (b) the same at 128px with DPM-Solver++(2M)
+   (x0p across the checkpoint), whose checkpoint a run without
+   ``dpm_solver`` refuses; (c) ``cgd_tpu_torch.serve`` in a thread on a
+   free port (``--warmup 128:ddim10:16 --stall-timeout 600``): healthz,
+   two lone then two overlapping 128px ddim10 requests (plain, and a
+   stream at save_frequency 5) each held to a direct API run, an f32
+   request overlapping a bf16 one (within rel L2 1e-3 of a lone f32 run,
+   no bf16 kernel among its launches, with PyTorch's default TF32 flags in
+   the process), 400 without a prompt on both paths, and a request on a
+   second daemon with ``--mesh cut=2`` over the card twice launching
+   K-halo; (d) ``cli.main`` at 128px ddim10 with ``-gif -mp4 --log-losses
+   --profile DIR --checkpoint P`` (a mux each, frames deleted only if both
+   wrote, a trace naming a ``cgd::`` kernel, one loss line per guided
+   step), then interrupted after its fourth frame and ``--resume``d: the
+   last frame held to the uninterrupted run's.
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
 from phase 7c, K-fwd f32's from phase 8, K-dx f32's and the f32
@@ -151,6 +174,7 @@ Needs one card; builds everything it runs.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -2438,6 +2462,473 @@ def phase_12(k3, kattn, dev, step_s: float, peak: float) -> None:
     _say12("", f"phase 12 wall time {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: resume, the serving daemon, the rest of the CLI
+# ---------------------------------------------------------------------------
+
+def _say13(sub: str, msg: str) -> None:
+    """A phase-13 line, with the card and its power limit."""
+    print(f"[13{sub}] {msg} ({CARD})")
+
+
+class _Frames:
+    """Patches ``api.log_image`` to keep every frame by output directory:
+    ``by_dir[str(prefix_path)]`` lists the frames in the order written."""
+
+    def __init__(self, api):
+        import numpy as np
+
+        self.api, self.real, self.by_dir = api, api.log_image, {}
+
+        def capture(image, base_path, *a, **kw):
+            self.by_dir.setdefault(str(base_path), []).append(np.asarray(image, np.float32))
+            return self.real(image, base_path, *a, **kw)
+
+        api.log_image = capture
+
+    def close(self):
+        self.api.log_image = self.real
+
+
+def _diff(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def _hold_resumed(phase: str, ab: float, ares: float, actrl: float) -> str:
+    """The determinism rule: the resumed run equals the uninterrupted one
+    bit for bit where two uninterrupted runs are bit-equal, and stays within
+    their difference where they are not; the control (the generator state
+    overwritten by a fresh ``manual_seed``) differs by more than that."""
+    if ab == 0.0 and ares != 0.0:
+        raise AssertionError(f"{phase}: two runs are bit-equal but the resumed run differs by "
+                             f"{ares:.3e}")
+    if ares > ab:
+        raise AssertionError(f"{phase}: the resumed run differs by {ares:.3e}, more than two "
+                             f"uninterrupted runs do ({ab:.3e})")
+    if not actrl > ab:
+        raise AssertionError(f"{phase}: the resume with a fresh generator state differs by "
+                             f"{actrl:.3e}, not more than two runs do ({ab:.3e})")
+    return "bit-equal" if ab == 0.0 else "within the runs' own difference"
+
+
+def phase_resume(dev, out_dir: Path, size: int, sub: str, **options) -> bool:
+    """Phases 13a (256px, bf16) and 13b (128px DPM-Solver++(2M)): ddim10,
+    save_frequency 3, the zero-init layers re-drawn, through the API. Run A
+    uninterrupted with ``checkpoint_path``; run B the same, closed after its
+    second frame, then resumed from B's checkpoint to the end; run C a
+    second uninterrupted run; and the control, B's checkpoint with its
+    generator state overwritten by a fresh ``manual_seed(0)``. max |A - C|
+    and max |A - resumed B| over the final frame and x are held to the
+    determinism rule (``_hold_resumed``). Prints the checkpoint's size and
+    the host ms per segment its write takes. Returns whether A and C were
+    bit-equal."""
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch import api
+
+    kwargs = dict(prompts=PROMPTS, image_size=size, num_cutouts=16, timestep_respacing="ddim10",
+                  weights_mode="random", seed=0, device=str(dev), progress=False,
+                  save_frequency=3, **options)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    writes = []
+    real_write = api._write_checkpoint
+
+    def timed_write(path, data):
+        t0 = time.perf_counter()
+        real_write(path, data)
+        writes.append(time.perf_counter() - t0)
+
+    def run(tag, **kw):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in api.clip_guided_diffusion(prefix_path=out_dir / tag, **kwargs, **kw))
+        return n, time.perf_counter() - t0
+
+    def final(tag):
+        """The run's last frame and its x (the checkpoint written after its
+        last segment)."""
+        return frames.by_dir[str(out_dir / tag)][-1], np.load(out_dir / f"{tag}.npz")["x"]
+
+    first = _FirstStep(api, dev)
+    frames = _Frames(api)
+    api._write_checkpoint = timed_write
+    try:
+        n_a, s_a = run("A", checkpoint_path=str(out_dir / "A.npz"))
+        gen = api.clip_guided_diffusion(prefix_path=out_dir / "B", **kwargs,
+                                        checkpoint_path=str(out_dir / "B_part.npz"))
+        next(gen), next(gen)
+        gen.close()
+        part = dict(np.load(out_dir / "B_part.npz"))
+        n_b, _ = run("B", resume_from=str(out_dir / "B_part.npz"),
+                     checkpoint_path=str(out_dir / "B.npz"))
+        run("C", checkpoint_path=str(out_dir / "C.npz"))
+        ctrl = dict(part, generator=torch.Generator(dev).manual_seed(0).get_state().numpy())
+        np.savez(out_dir / "ctrl_part.npz", **ctrl)
+        run("ctrl", resume_from=str(out_dir / "ctrl_part.npz"),
+            checkpoint_path=str(out_dir / "ctrl.npz"))
+        refused = None
+        if options.get("dpm_solver"):  # the DPM state must not cross into a DDIM run
+            try:
+                list(api.clip_guided_diffusion(
+                    prefix_path=out_dir / "no_dpm", **{**kwargs, "dpm_solver": False},
+                    resume_from=str(out_dir / "B_part.npz")))
+            except ValueError as e:
+                refused = str(e).splitlines()[0]
+            if refused is None:
+                raise AssertionError(f"phase 13{sub}: a DPM checkpoint resumed without dpm_solver")
+    finally:
+        api._write_checkpoint = real_write
+        frames.close()
+        first.close()
+    (fa, xa), (fb, xb), (fc, xc), (fk, xk) = (final(t) for t in ("A", "B", "C", "ctrl"))
+    if not all(np.isfinite(v).all() for v in (fa, xa, fb, xb)):
+        raise AssertionError(f"phase 13{sub}: non-finite frames or x")
+    if int(part["next_seg"]) != 2 or n_b != n_a - 2:
+        raise AssertionError(f"phase 13{sub}: B's checkpoint at segment {int(part['next_seg'])}, "
+                             f"the resumed run wrote {n_b} of {n_a} frames")
+    ab = max(_diff(fa, fc), _diff(xa, xc))
+    ares = max(_diff(fa, fb), _diff(xa, xb))
+    actrl = max(_diff(fa, fk), _diff(xa, xk))
+    verdict = _hold_resumed(f"phase 13{sub}", ab, ares, actrl)
+    size_b = (out_dir / "A.npz").stat().st_size
+    what = "DPM-Solver++(2M), x0p across the checkpoint" if options.get("dpm_solver") else "bf16"
+    _say13(sub, f"resume at {size}px {what}, ddim10, save_frequency 3 (4 segments): max |A - C| "
+                f"{ab:.3e}, max |A - resumed B| {ares:.3e} ({verdict}), the fresh-state control "
+                f"{actrl:.3e}; checkpoint {size_b} bytes (the generator's state "
+                f"{part['generator'].size} of them), written in "
+                f"{1e3 * float(np.mean(writes)):.2f} ms of host time per segment "
+                f"({len(writes)} writes); run A {s_a:.2f} s"
+                + (f"; without dpm_solver: ValueError '{refused}'" if refused else ""))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return ab == 0.0
+
+
+class _HolderLock:
+    """The daemon's device lock, remembering which thread holds it."""
+
+    def __init__(self):
+        import threading
+
+        self.lock, self.holder = threading.Lock(), None
+
+    def acquire(self, *a, **kw):
+        import threading
+
+        if self.lock.acquire(*a, **kw):
+            self.holder = threading.get_ident()
+            return True
+        return False
+
+    def release(self):
+        self.holder = None
+        self.lock.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+
+class _RequestLaunches(dict):
+    """A launch counter that also counts by request: installed over
+    ``LAUNCHES`` of the kernel modules while requests overlap. A launch
+    from a Python thread counts for that thread (a request's handler);
+    one from a thread PyTorch made (the autograd engine's worker, where
+    every backward runs) for the holder of the device lock, the request
+    whose sampling runs. ``by_request[ident][name]``."""
+
+    def __init__(self, base: dict, by_request: dict, lock: _HolderLock):
+        super().__init__(base)
+        self.by_request, self.lock = by_request, lock
+
+    def __setitem__(self, name, value):
+        import threading
+
+        delta = value - self.get(name, 0)
+        if delta > 0:
+            if isinstance(threading.current_thread(), threading._DummyThread):
+                who = self.lock.holder
+            else:
+                who = threading.get_ident()
+            per = self.by_request.setdefault(who, {})
+            per[name] = per.get(name, 0) + delta
+        super().__setitem__(name, value)
+
+
+def phase_serve(k3, kattn, dev, out_dir: Path, deterministic: bool) -> None:
+    """Phase 13c: ``cgd_tpu_torch.serve`` on the card, in a thread on a free
+    port, ``--weights-mode random --warmup 128:ddim10:16 --stall-timeout
+    600`` (the zero-init layers re-drawn): healthz; two lone then two
+    overlapping 128px ddim10 requests (one plain, one ``stream`` with
+    save_frequency 5), each final frame held to a direct API call with the
+    same seed and keywords (bit-equal where phase 13a found the card
+    deterministic, else relative L2 <= F32_STEP_TOL), the wall times;
+    an f32 request overlapping a bf16 one: its final frame within relative
+    L2 F32_STEP_TOL of a lone f32 API run (with PyTorch's default TF32
+    flags in the process, which the f32 request must turn off and the
+    other must not turn back on), and no bf16 kernel among its launches
+    (``_RequestLaunches``); 400 for a request without a prompt on both paths; one
+    request on a second daemon with ``--mesh cut=2`` over the card given
+    twice, launching K-halo. Every server is shut down on every exit."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch import api, serve
+    from cgd_tpu_torch.io_utils.images import decode_png
+    from cgd_tpu_torch.parallel import mesh as pmesh
+    from cgd_tpu_torch.validate import FINAL_FRAME_ONLY
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    base = dict(image_size=128, timestep_respacing="ddim10", num_cutouts=16)
+    servers = []
+
+    def start(argv):
+        t0 = time.perf_counter()
+        srv = serve.make_server(["--port", "0", "--weights-mode", "random",
+                                 "--stall-timeout", "600", *argv])
+        servers.append(srv)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return f"http://127.0.0.1:{srv.server_address[1]}", time.perf_counter() - t0
+
+    def post(url, payload, results=None, key=None):
+        req = urllib.request.Request(f"{url}/generate", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                body, ctype = r.read(), r.headers["Content-Type"]
+            out = (r.status, ctype, body, time.perf_counter() - t0)
+        except urllib.error.HTTPError as e:
+            out = (e.code, e.headers["Content-Type"], e.read(), time.perf_counter() - t0)
+        if results is not None:
+            results[key] = out
+        return out
+
+    def last_png(status, ctype, body, _s):
+        if status != 200:
+            raise AssertionError(f"phase 13c: status {status}: {body[:300]!r}")
+        if ctype.startswith("multipart/"):
+            parts = [p for p in body.split(b"--cgdframe") if b"Content-Type: image/png" in p]
+            if b"application/json" in body or not body.rstrip().endswith(b"--cgdframe--"):
+                raise AssertionError("phase 13c: the stream ended with an error part")
+            return decode_png(parts[-1].split(b"\r\n\r\n", 1)[1][:-2]), len(parts)
+        return decode_png(body), 1
+
+    def direct(seed, save_frequency, **kw):
+        paths = [p for _, p in api.clip_guided_diffusion(
+            prompts=[f"served {seed}"], **base, seed=seed, weights_mode="random",
+            device=str(dev), progress=False, save_frequency=save_frequency,
+            prefix_path=out_dir / f"direct_{seed}", **kw)]
+        with open(paths[-1], "rb") as f:
+            return decode_png(f.read())
+
+    def hold(name, served, ref, f32=False):
+        d = _diff(served, ref)
+        rel = float(np.linalg.norm(served.astype(np.float64) - ref) / np.linalg.norm(ref))
+        if (deterministic and not f32 and d != 0.0) or rel > F32_STEP_TOL:
+            raise AssertionError(f"phase 13c: {name} vs its direct API run: max |diff| {d} "
+                                 f"(of 255), rel L2 {rel:.3e}")
+        return f"{name} max |diff| {d:.0f} / 255, rel L2 {rel:.3e}"
+
+    plain = dict(base, prompt="served 1", seed=1)
+    stream = dict(base, prompt="served 2", seed=2, stream=True, save_frequency=5)
+    f32 = dict(base, prompt="served 3", seed=3, compute_dtype="float32")
+    first = _FirstStep(api, dev)
+    real_visible = pmesh.visible_devices
+    real_counts, real_lock = (k3.LAUNCHES, kattn.LAUNCHES), serve._DEVICE_LOCK
+    # PyTorch's defaults (cuDNN at TF32): what an f32 request must turn off,
+    # and another request must not turn back on under it
+    real_tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        url, warm_s = start(["--warmup", "128:ddim10:16"])
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health.get("backend") != "cuda" or health.get("devices", 0) < 1:
+            raise AssertionError(f"phase 13c: healthz {health}")
+        lone = {k: post(url, p) for k, p in (("plain", plain), ("stream", stream))}
+        both = {}
+        threads = [threading.Thread(target=post, args=(url, p, both, k))
+                   for k, p in (("plain", plain), ("stream", stream))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        both_s = time.perf_counter() - t0
+        ref_plain = direct(1, FINAL_FRAME_ONLY)
+        ref_stream = direct(2, 5)
+        lines = []
+        for tag, results in (("lone", lone), ("overlapped", both)):
+            img_p, _ = last_png(*results["plain"])
+            img_s, n_parts = last_png(*results["stream"])
+            if n_parts != 3:
+                raise AssertionError(f"phase 13c: the stream sent {n_parts} frames, not 3")
+            lines.append(f"{tag}: {hold('plain', img_p, ref_plain)}, "
+                         f"{hold('stream', img_s, ref_stream)}")
+
+        # an f32 request overlapping a bf16 one, launches counted by request
+        by_thread, lock = {}, _HolderLock()
+        serve._DEVICE_LOCK = lock
+        k3.LAUNCHES = _RequestLaunches(real_counts[0], by_thread, lock)
+        kattn.LAUNCHES = _RequestLaunches(real_counts[1], by_thread, lock)
+        mixed = {}
+        threads = [threading.Thread(target=post, args=(url, p, mixed, k))
+                   for k, p in (("f32", f32), ("bf16", dict(plain, seed=4)))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        k3.LAUNCHES, kattn.LAUNCHES = real_counts
+        serve._DEVICE_LOCK = real_lock
+        img_f32, _ = last_png(*mixed["f32"])
+        last_png(*mixed["bf16"])
+        ref_f32 = direct(3, FINAL_FRAME_ONLY, compute_dtype="float32")
+        f32_line = hold("f32", img_f32, ref_f32, f32=True)
+        f32_threads = [c for c in by_thread.values() if any(k.endswith("_f32") for k in c)]
+        if len(f32_threads) != 1:
+            raise AssertionError(f"phase 13c: f32 launches by {len(f32_threads)} requests: "
+                                 f"{by_thread}")
+        bf16_in_f32 = {k: v for k, v in f32_threads[0].items() if not k.endswith("_f32")}
+        if bf16_in_f32 or not all(f32_threads[0].get(k) for k in (
+                "conv3x3_fwd_f32", "conv3x3_dx_f32", "attn_fwd_f32", "attn_bwd_f32")):
+            raise AssertionError(f"phase 13c: the f32 request's launches {f32_threads[0]}")
+
+        bad = [post(url, {"image_size": 128}), post(url, {"stream": True})]
+        if [b[0] for b in bad] != [400, 400] or any(b"prompt" not in b[2] for b in bad):
+            raise AssertionError(f"phase 13c: no-prompt requests gave {[b[:3] for b in bad]}")
+
+        pmesh.visible_devices = lambda kind="cuda": [dev, dev]
+        mesh_url, _ = start(["--mesh", "cut=2"])
+        _reset_launches(k3, kattn)
+        img_m, _ = last_png(*post(mesh_url, dict(plain, seed=5)))
+        mesh_launches = _launches(k3, kattn)
+        _check_launched(mesh_launches, ("conv3x3_fwd_halo", "attn_fwd", "attn_bwd"), "phase 13c")
+        if not np.isfinite(img_m).all() or img_m.shape != (128, 128, 3):
+            raise AssertionError("phase 13c: the mesh request's frame")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = real_tf32
+        k3.LAUNCHES, kattn.LAUNCHES = real_counts
+        serve._DEVICE_LOCK = real_lock
+        pmesh.visible_devices = real_visible
+        first.close()
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+    lone_sum = lone["plain"][3] + lone["stream"][3]
+    _say13("c", f"serve --warmup 128:ddim10:16 --stall-timeout 600: started in {warm_s:.2f} s "
+                f"(the warmup's run, the kernels already built by phase 2); healthz {health}; "
+                f"128px ddim10 requests: lone plain {lone['plain'][3]:.2f} s, lone stream "
+                f"{lone['stream'][3]:.2f} s (sum {lone_sum:.2f} s), overlapped plain "
+                f"{both['plain'][3]:.2f} s and stream {both['stream'][3]:.2f} s, "
+                f"{both_s:.2f} s for both ({both_s / lone_sum:.2f} of the lone sum); "
+                f"{'; '.join(lines)}; f32 overlapping bf16: {f32_line}, its launches "
+                f"{f32_threads[0]}; no prompt: 400 on both paths; --mesh cut=2 (the card "
+                f"twice): launches {mesh_launches}; the stall detector never fired")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_cli_options(k3, kattn, dev, out_dir: Path, deterministic: bool) -> None:
+    """Phase 13d: ``cgd_tpu_torch.cli.main`` at 128px ddim10 (the zero-init
+    layers re-drawn) with ``-gif -mp4 --log-losses --profile DIR
+    --checkpoint P``: whether each mux wrote a file, the frames deleted only
+    if both did, the trace naming a ``cgd::`` kernel, one loss line per
+    guided step; then the same CLI with ``--checkpoint Q`` interrupted
+    after its fourth frame and ``--resume Q``: its last frame held to the
+    uninterrupted run's under the determinism rule."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from cgd_tpu_torch import api, cli
+    from cgd_tpu_torch.io_utils.images import clean_and_combine_prompts
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    argv = ["--prompts", "|".join(PROMPTS), "-size", "128", "-cutn", "16", "-respace", "ddim10",
+            "--weights-mode", "random"]
+    frames = _Frames(api)
+    first = _FirstStep(api, dev)
+    real_loop = api.sample_loop
+
+    def stop_after_four(*a, **kw):
+        for i, item in enumerate(real_loop(*a, **kw)):
+            yield item
+            if i == 3:
+                raise KeyboardInterrupt
+
+    buf = io.StringIO()
+    try:
+        _reset_launches(k3, kattn)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main([*argv, "-gif", "-mp4", "--log-losses", "--profile", str(out_dir / "prof"),
+                      "--checkpoint", str(out_dir / "full.npz"), "-dir", str(out_dir / "full")])
+        full_s = time.perf_counter() - t0
+        launches = _launches(k3, kattn)
+        api.sample_loop = stop_after_four
+        cli.main([*argv, "-q", "--checkpoint", str(out_dir / "part.npz"),
+                  "-dir", str(out_dir / "part")])
+        api.sample_loop = real_loop
+        cli.main([*argv, "-q", "--resume", str(out_dir / "part.npz"),
+                  "-dir", str(out_dir / "resumed")])
+    finally:
+        api.sample_loop = real_loop
+        frames.close()
+        first.close()
+    out = buf.getvalue()
+    print(out, end="")
+    frame_dir = clean_and_combine_prompts(out_dir / "full", PROMPTS, 0)
+    gif, mp4 = Path(f"{frame_dir}_00.gif"), Path(f"{frame_dir}_00.mp4")
+    pngs = sorted((out_dir / "full").rglob("*.png"))
+    both = gif.is_file() and mp4.is_file()
+    if both != (not pngs) or (not both and len(pngs) != 10):
+        raise AssertionError(f"phase 13d: gif {gif.is_file()}, mp4 {mp4.is_file()}, "
+                             f"{len(pngs)} frames left")
+    trace = out_dir / "prof" / "trace.json"
+    text = trace.read_text() if trace.is_file() else ""
+    if "cgd::" not in text or f"Profile trace written to {out_dir / 'prof'}" not in out:
+        raise AssertionError(f"phase 13d: the profile trace {trace} names no cgd:: kernel")
+    loss_lines = [ln for ln in out.splitlines() if ln.startswith("CLIP Loss: ")]
+    if len(loss_lines) != 10 or not all("Total Loss: " in ln for ln in loss_lines):
+        raise AssertionError(f"phase 13d: {len(loss_lines)} loss lines, not 10")
+    full_last = frames.by_dir[str(out_dir / "full")][-1]
+    res = frames.by_dir[str(out_dir / "resumed")]
+    if len(frames.by_dir[str(out_dir / "part")]) != 4 or len(res) != 6:
+        raise AssertionError("phase 13d: the interrupted / resumed runs' frame counts")
+    d = _diff(full_last, res[-1])
+    if (deterministic and d != 0.0) or not np.isfinite(res[-1]).all():
+        raise AssertionError(f"phase 13d: the resumed CLI run's last frame differs by {d:.3e}")
+    _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"), "phase 13d")
+    _say13("d", f"CLI 128px ddim10 -gif -mp4 --log-losses --profile --checkpoint: "
+                f"{full_s:.2f} s per image incl. model setup and the trace's export "
+                f"({trace.stat().st_size} bytes); gif written {gif.is_file()}, mp4 written "
+                f"{mp4.is_file()}, {len(pngs)} frames kept; {len(loss_lines)} loss lines "
+                f"({loss_lines[0][:60]}...); --resume from the fourth frame: last frame max "
+                f"|diff| {d:.3e} to the uninterrupted run's; launches {launches}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_13(k3, kattn, dev) -> None:
+    """Phase 13, in order: (a) resume at 256px bf16, (b) resume of a 128px
+    DPM-Solver++(2M) run, (c) the daemon, (d) the CLI's options."""
+    t0 = time.perf_counter()
+    out = ROOT / "outputs" / "chip_smoke_13"
+    deterministic = phase_resume(dev, out / "resume256", 256, "a")
+    phase_resume(dev, out / "resume_dpm", 128, "b", dpm_solver=True)
+    phase_serve(k3, kattn, dev, out / "serve", deterministic)
+    phase_cli_options(k3, kattn, dev, out / "cli", deterministic)
+    _say13("", f"phase 13 wall time {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "cgd_tpu_torch").is_dir():
@@ -2519,6 +3010,7 @@ def main() -> None:
     launches["conv3x3_fwd_halo_f32"] = mesh_f32_launches["conv3x3_fwd_halo_f32"]
     phase_f32_mesh_cli(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32_mesh_cli")
     phase_12(k3, kattn, dev, step_s, peak_256)
+    phase_13(k3, kattn, dev)
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),

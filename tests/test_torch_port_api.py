@@ -1,7 +1,7 @@
 """cgd_tpu_torch.api.clip_guided_diffusion on the CPU at toy size
 (CGD_TPU_DEBUG_TINY=1, random weights, 64px): the JAX package's output tree,
 valid PNG files, the device rule (no silent CPU run when CUDA is asked for),
-options outside the ported slice raising, the init-image path (init image,
+the keywords once refused now honoured, the init-image path (init image,
 skip, LPIPS init loss, image prompts, both parity modes), checkpoint loading
 from a temporary ``checkpoints_dir`` (tests/torch_port_toy_checkpoints.py),
 and the copied prompt parser, tokenizer, registry and parameter validation
@@ -161,11 +161,16 @@ def test_a_mesh_at_float32_on_cuda_gets_past_the_argument_checks(tiny):
 
 @pytest.mark.parametrize("option", [{"checkpoint_path": "ck.npz"}, {"resume_from": "ck.npz"}])
 def test_options_outside_the_slice_raise(tiny, option):
-    """Resume (checkpoint_path, resume_from) is outside the slices ported so
-    far and raises by name. (The sampler's options this list once refused
-    run: tests/test_torch_port_api_options.py.)"""
+    """Resume, once outside the slice and refused, runs: checkpoint_path
+    writes the sampling state after every segment, and resume_from raises
+    by name only for a file that is not a readable checkpoint (here: none
+    exists). The rest: tests/test_torch_port_resume.py."""
     (name,) = option
-    with pytest.raises(NotImplementedError, match=name):
+    if name == "checkpoint_path":
+        frames = list(api.clip_guided_diffusion(**{**KW, **option}, prefix_path=tiny / "o"))
+        assert len(frames) == 2 and int(np.load(tiny / "ck.npz")["next_seg"]) == 2
+        return
+    with pytest.raises(ValueError, match="resume_from 'ck.npz' is not a readable checkpoint"):
         next(api.clip_guided_diffusion(**{**KW, **option}))
 
 
@@ -263,13 +268,30 @@ def test_signature_matches_the_jax_api():
     {"log_losses": True}, {"stall_pet": lambda phase: None},
     {"device_lock": threading.Lock()},
 ], ids=lambda o: next(iter(o)))
-def test_jax_keywords_the_port_cannot_honour_raise_by_name(tiny, option):
-    """Every keyword the port cannot honour yet raises by name (noise_file
-    and width_offset, once on this list, run:
-    tests/test_torch_port_api_options.py)."""
+def test_jax_keywords_the_port_cannot_honour_raise_by_name(tiny, monkeypatch, capsys, option):
+    """Every keyword once refused by name is honoured now: W&B goes on
+    without ``wandb`` (as the JAX package does), asynchronous frames are on
+    disk when the run ends, loss lines are printed, the stall pets arrive,
+    the device lock is taken and released. (Each in depth:
+    tests/test_torch_port_cli_options.py, test_torch_port_serve.py,
+    test_torch_port_tf32.py.)"""
     (name,) = option
-    with pytest.raises(NotImplementedError, match=name):
-        next(api.clip_guided_diffusion(**{**KW, **option}))
+    monkeypatch.setitem(__import__("sys").modules, "wandb", None)
+    pets = []
+    if name == "stall_pet":
+        option = {"stall_pet": pets.append}
+    paths = [p for _, p in api.clip_guided_diffusion(**{**KW, **option}, save_frequency=2,
+                                                     prefix_path=tiny / "o")]
+    assert len(paths) == 3 and all(os.path.isfile(p) for p in paths)
+    out = capsys.readouterr().out
+    if name == "wandb_project":
+        assert "continuing without logging" not in out  # progress=False says nothing
+    if name == "log_losses":
+        assert len([ln for ln in out.splitlines() if ln.startswith("CLIP Loss: ")]) == 5
+    if name == "stall_pet":
+        assert pets[0] == "resolve model checkpoints" and pets[-1] == "sampling (5 steps done)"
+    if name == "device_lock":
+        assert not option["device_lock"].locked()
 
 
 @pytest.mark.parametrize("name", ["checkpoints_dir", "strict_parity"])

@@ -26,6 +26,7 @@ def test_every_port_module_is_listed():
     assert "cgd_tpu_torch.kernels.attention" in MODULES
     assert "cgd_tpu_torch.api" in MODULES
     assert "cgd_tpu_torch.cli" in MODULES
+    assert "cgd_tpu_torch.serve" in MODULES and "cgd_tpu_torch.cog_predict" in MODULES
     assert len(MODULES) >= 20
 
 
