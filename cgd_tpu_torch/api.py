@@ -37,6 +37,11 @@ whenever it yields or ends. The flags are process-global, so with a
 lock before its prompt encoding (a bfloat16 run's prep stays outside it):
 two generators interleaved through one lock each see their own flags.
 
+The UNet forward is rematerialized under the guidance gradient where
+``_resolve_remat`` says its saved activations would not fit the card
+(``CGD_TPU_REMAT=0/1`` forces either way); the decision is part of the run
+meta, and a resume adopts the checkpoint's.
+
 The signature is ``cgd_tpu.api.clip_guided_diffusion``'s, keyword for keyword
 and default for default (tests/test_torch_port_api.py pins it), except
 ``device``: it defaults to ``"cuda"``, and with no card that is an error. The
@@ -74,6 +79,7 @@ from cgd_tpu_torch.io_utils.images import (
 )
 from cgd_tpu_torch.models.clip.configs import CLIP_MEAN, CLIP_STD, CLIPConfig
 from cgd_tpu_torch.models.clip.model import CLIP, encode_image, encode_text
+from cgd_tpu_torch.models.unet import rematerialized
 from cgd_tpu_torch.ops.nn import cast_conv_params
 from cgd_tpu_torch.ops.resample import resize
 from cgd_tpu_torch.parallel.mesh import shard_params_replicated, split_activation
@@ -165,6 +171,54 @@ class _TF32Off:
             self.saved = None
 
 
+# the no-remat 512px guided step's peak device memory in GiB at batch b and
+# c cutouts, bf16, fit to chip_smoke.py phase 14c's grid (512px RN50x16,
+# NVIDIA H100 80GB HBM3, 700 W; within 0.6 GiB of the largest peak each
+# point read over three runs):
+# (_REMAT_FIXED + _REMAT_FIXED_PER_CUTOUT * c)
+#     + b * (_REMAT_PER_IMAGE + _REMAT_PER_IMAGE_CUTOUT * c)
+_REMAT_FIXED, _REMAT_FIXED_PER_CUTOUT = -1.688, 0.253
+_REMAT_PER_IMAGE, _REMAT_PER_IMAGE_CUTOUT = 2.774, 0.157
+_REMAT_LIMIT_GIB = 0.9 * 79.2  # 90% of what torch reports for the 80 GB card
+
+
+def _resolve_remat(image_size: int, batch_size: int, num_cutouts: int) -> bool:
+    """Should the UNet forward rematerialize under the guidance gradient?
+    The signature and the ``CGD_TPU_REMAT=0/1`` override of
+    ``cgd_tpu.api._resolve_remat``; the thresholds are the H100's, not the
+    TPU v5e's of the JAX package.
+
+    Only where the no-remat step does not fit with headroom: its peak
+    device memory, reckoned from the 512px grid (chip_smoke.py phase 14c;
+    bf16, NVIDIA H100 80GB HBM3, 700 W), over 90% of the card's 79.2 GiB.
+    Peak GiB with no remat / full remat / ``remat_min_dim=128``, the
+    largest of three runs (the smaller 32-cutout points moved by up to 3.8
+    GiB from run to run):
+
+        b=1 cutn16   7.65 /  5.29 /  6.63
+        b=8 cutn16  44.68 / 26.55 / 37.76
+        b=1 cutn32  14.44 /  8.32 /  9.66
+        b=8 cutn32  68.75 / 50.60 / 64.33
+
+    Whole-UNet remat costs 11-34% a step and saves 26-42% of the peak (the
+    CLIP tower's activations over b * cutn cutouts stay); the gate engages
+    from b = 14 at 16 cutouts, b = 9 at 32, b = 5 at 64. Smaller images
+    never remat (the JAX package's rule too): the 256px step peaks at 3.4
+    GiB at b = 1 and 7.2 at b = 4 (phase 14b).
+
+    ``CGD_TPU_REMAT`` is read on every call. The decision is part of the
+    run meta, and a resume adopts the checkpoint's recorded decision, so a
+    change of these numbers cannot make an old checkpoint unresumable."""
+    env = os.environ.get("CGD_TPU_REMAT", "").strip()
+    if env in ("0", "1"):
+        return env == "1"
+    if image_size < 512:
+        return False
+    peak = (_REMAT_FIXED + _REMAT_FIXED_PER_CUTOUT * num_cutouts
+            + batch_size * (_REMAT_PER_IMAGE + _REMAT_PER_IMAGE_CUTOUT * num_cutouts))
+    return peak > _REMAT_LIMIT_GIB
+
+
 def _write_checkpoint(path: str, data: dict) -> None:
     """The sampling state as an npz, atomically (``.tmp`` + ``os.replace``):
     a reader never sees half a file."""
@@ -174,13 +228,17 @@ def _write_checkpoint(path: str, data: dict) -> None:
     os.replace(tmp, path)
 
 
-def _read_checkpoint(path: str, run_meta: str, device_type: str) -> dict:
+def _read_checkpoint(path: str, run_meta: dict, device_type: str) -> dict:
     """The resume state of checkpoint ``path`` for a run of meta
-    ``run_meta`` drawing on ``device_type``; raises ValueError for a file
-    that is unreadable or whose meta does not parse, one the JAX package
-    wrote (no generator state, another random stream), one drawn on another
-    device type, and one of another run configuration, each in its own
-    words."""
+    ``run_meta`` drawing on ``device_type``, with the UNet remat decision
+    it was written under (``unet_remat``), which the resumed run adopts in
+    place of its own: the meta is compared with that value in. A
+    checkpoint without the key was written before the decision joined the
+    meta, when no run of this package rematerialized: it reads as False.
+    Raises ValueError for a file that is unreadable or whose meta does not
+    parse, one the JAX package wrote (no generator state, another random
+    stream), one drawn on another device type, and one of another run
+    configuration, each in its own words."""
     try:
         rec = np.load(path)
         meta = str(rec["meta"])
@@ -203,12 +261,15 @@ def _read_checkpoint(path: str, run_meta: str, device_type: str) -> dict:
             f"resume_from {path!r} was written on device type {saved.get('generator')!r}, "
             f"this run draws on {device_type!r}: the two generators' streams differ, so "
             "continuing it here would give a different image")
+    saved.setdefault("unet_remat", False)
     saved_meta = json.dumps(saved, sort_keys=True)
-    if saved_meta != run_meta:
+    this_meta = json.dumps(dict(run_meta, unet_remat=saved["unet_remat"]), sort_keys=True)
+    if saved_meta != this_meta:
         raise ValueError(
             "resume_from checkpoint was written by a different run "
-            f"configuration:\n  saved: {saved_meta}\n  this:  {run_meta}")
+            f"configuration:\n  saved: {saved_meta}\n  this:  {this_meta}")
     return {
+        "unet_remat": bool(saved["unet_remat"]),
         "next_seg": int(rec["next_seg"]),
         "x": rec["x"],
         "y": rec["y"] if "y" in rec.files else None,
@@ -476,14 +537,6 @@ def clip_guided_diffusion(
             dpm_solver=dpm_solver,
         )
 
-        def model_fn(x, t_model, y):
-            # an image height the 'cut' axis does not divide runs whole, as
-            # its levels below one that it does not divide (parallel/mesh.py)
-            if mesh is None or x.shape[1] % mesh.shape["cut"]:
-                return unet(x, t_model, y, compute_dtype=cdtype)
-            # split x over the mesh, run the split UNet, gather the output whole
-            return unet(split_activation(x, mesh), t_model, y, compute_dtype=cdtype).gather()
-
         y_init = torch.zeros((batch_size,), dtype=torch.long, device=dev) if class_cond else None
         shape = (batch_size, side_y, side_x, 3)
         init_noise = noise_steps = None
@@ -494,11 +547,11 @@ def clip_guided_diffusion(
 
         # ---- checkpoint / resume --------------------------------------
         # everything that shapes the remaining segments or their guidance:
-        # the JAX package's run meta (cgd_tpu/api.py:755-785) without its
-        # remat decision, plus this package's name and the device type the
-        # generator draws on (its stream, saved with the state, differs
-        # between devices)
-        run_meta = json.dumps({
+        # the JAX package's run meta (cgd_tpu/api.py:755-785), plus this
+        # package's name and the device type the generator draws on (its
+        # stream, saved with the state, differs between devices)
+        use_remat = _resolve_remat(image_size, batch_size, num_cutouts)
+        run_meta = {
             "seed": seed, "shape": list(shape),
             "timestep_respacing": timestep_respacing,
             "diffusion_steps": diffusion_steps, "noise_schedule": noise_schedule,
@@ -519,11 +572,28 @@ def clip_guided_diffusion(
             "use_augs": use_augs, "use_magnitude": use_magnitude,
             "cached_cutouts": cached_cutouts, "compute_dtype": compute_dtype,
             "package": "cgd_tpu_torch", "generator": dev.type,
-        }, sort_keys=True)
+            # the remat decision: a resume replays the graph its checkpoint
+            # was written under
+            "unet_remat": use_remat,
+        }
         resume_state = state_sink = None
         if resume_from:
             resume_state = _read_checkpoint(resume_from, run_meta, dev.type)
+            use_remat = run_meta["unet_remat"] = resume_state["unet_remat"]
             say(f"Resuming from {resume_from} at segment {resume_state['next_seg']}.")
+        run_meta = json.dumps(run_meta, sort_keys=True)
+
+        def unet_fn(x, t_model, y):
+            # an image height the 'cut' axis does not divide runs whole, as
+            # its levels below one that it does not divide (parallel/mesh.py)
+            if mesh is None or x.shape[1] % mesh.shape["cut"]:
+                return unet(x, t_model, y, compute_dtype=cdtype)
+            # split x over the mesh, run the split UNet, gather the output whole
+            return unet(split_activation(x, mesh), t_model, y, compute_dtype=cdtype).gather()
+
+        # the guidance gradient backprops through the UNet: recompute its
+        # forward in the backward (time for memory) where _resolve_remat says
+        model_fn = rematerialized(unet_fn) if use_remat else unet_fn
         if checkpoint_path:
             os.makedirs(os.path.dirname(os.path.abspath(checkpoint_path)), exist_ok=True)
 

@@ -363,12 +363,15 @@ class _QKVAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.saved_tensors[0].device.type == "cpu":
-            (qkv,) = ctx.saved_tensors
+        # saved_tensors read once: under a non-reentrant checkpoint
+        # (models/unet.py rematerialized) each read unpacks again
+        saved = ctx.saved_tensors
+        if len(saved) == 1:  # the CPU's plain version
+            (qkv,) = saved
             b, h = qkv.shape[0], ctx.num_heads
             grads = attention_bwd_plain(*split_heads(qkv, h), to_heads(g, h))
             return torch.cat([merge_heads(z, b) for z in grads], dim=-1), None
-        qkv, out, lse = ctx.saved_tensors
+        qkv, out, lse = saved
         return attention_bwd(qkv, out, lse, g.contiguous(), ctx.num_heads), None
 
 

@@ -17,6 +17,13 @@ The same forward runs on a height-split activation
 gather each data group whole and split it back, a level whose height the
 'cut' axis does not divide runs whole (``parallel/mesh.py``), and the
 embedding path stays unsplit.
+
+Under the guidance gradient the forward can be rematerialized, as the JAX
+package's ``apply_unet(remat_min_dim=...)`` and ``jax.checkpoint`` do:
+``UNet.forward(remat_min_dim=N)`` runs every layer whose input is at least
+N rows high under ``torch.utils.checkpoint`` (its internals recomputed in
+the backward), and ``rematerialized(fn)`` wraps a whole forward
+(``api._resolve_remat`` decides when).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from cgd_tpu_torch.ops import nn as cnn
 from cgd_tpu_torch.parallel.mesh import Split
@@ -288,6 +296,24 @@ class _ConvLayer(nn.Module):
         return cnn.conv2d(self.conv, cnn.upsample_nearest_2x(x))
 
 
+def rematerialized(fn):
+    """``fn`` under non-reentrant ``torch.utils.checkpoint``: the forward
+    keeps none of ``fn``'s saved tensors (the custom Functions of
+    ``kernels/`` save theirs through ``ctx.save_for_backward``, so the
+    checkpoint's hooks catch every one) and the backward runs ``fn`` again
+    to rebuild them, launching the same kernels. Non-reentrant, because the
+    guided step differentiates with ``torch.autograd.grad``, and because it
+    passes non-tensor arguments such as a ``Split`` through. No random state
+    is saved or restored: nothing in a UNet forward draws from a generator
+    (dropout is never applied in sampling; the step's ``torch.Generator`` is
+    drawn outside the model)."""
+
+    def run(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+
+    return run
+
+
 def _make_layer(cfg: UNetConfig, spec: tuple, device) -> nn.Module:
     kind = spec[0]
     if kind == "res":
@@ -333,10 +359,18 @@ class UNet(nn.Module):
         init_leaves(self, gen)
         return self
 
-    def forward(self, x, timesteps, y=None, *, compute_dtype=torch.float32):
+    def forward(self, x, timesteps, y=None, *, compute_dtype=torch.float32,
+                remat_min_dim: Optional[int] = None):
         """x: [B,H,W,in_channels]; timesteps: [B] (float ok); y: [B] int class
         labels when class-conditional. Returns [B,H,W,out_channels] f32, split
-        as x when x is a ``Split``."""
+        as x when x is a ``Split``.
+
+        ``remat_min_dim``: partial rematerialization under a gradient, the
+        JAX package's argument of that name. Each input / middle / output
+        layer whose input is at least this many rows high (the whole
+        activation's height, for a ``Split`` too) runs under
+        ``rematerialized``: only its input is kept for the backward. None
+        keeps everything."""
         cfg = self.cfg
         emb = cnn.timestep_embedding(timesteps, cfg.model_channels)
         emb = cnn.dense(self.time_embed[0], emb)
@@ -347,17 +381,22 @@ class UNet(nn.Module):
             emb = emb + self.label_emb.table[y]
         emb = emb.to(compute_dtype)
 
+        def run(layer, h):
+            if remat_min_dim is not None and h.shape[1] >= remat_min_dim:
+                return rematerialized(layer)(h, emb)
+            return layer(h, emb)
+
         h = cnn.conv2d(self.conv_in, x.to(compute_dtype))
         hs = [h]
         for blk in self.input:
             for layer in blk:
-                h = layer(h, emb)
+                h = run(layer, h)
             hs.append(h)
         for layer in self.middle:
-            h = layer(h, emb)
+            h = run(layer, h)
         for blk in self.output:
             h = cnn.cat_channels(h, hs.pop())
             for layer in blk:
-                h = layer(h, emb)
+                h = run(layer, h)
         h = cnn.fused_gn_silu_conv(self.out_norm, self.out_conv, h)
         return h.float()

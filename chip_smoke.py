@@ -159,7 +159,30 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    --profile DIR --checkpoint P`` (a mux each, frames deleted only if both
    wrote, a trace naming a ``cgd::`` kernel, one loss line per guided
    step), then interrupted after its fourth frame and ``--resume``d: the
-   last frame held to the uninterrupted run's.
+   last frame held to the uninterrupted run's;
+14. batch > 1 and the memory policy, every line with the card's name and
+   power limit: (a) every launch class at b = 2, 4 and 8 (and where the
+   bf16 plan still splits K at 8, the first b where it does not), bf16
+   and f32: K-fwd in phase 3's modes and the 8^2 level, K-dx (K-dx-w at
+   512^2) with its per-image dA / dB, K-halo on two-image shards, the
+   attention at N = B * heads; each against its plain version, each image
+   against the kernel on that image alone (bit-equal where the plan's
+   split K is the same), with its plan and ms per image beside b = 1; (b)
+   the 256px ViT-B/32 ddim25 run at ``batch_size=4``, bf16 and f32: the
+   first step against the plain routing, a frame directory per image, ms
+   per step, device busy and idle share and peak memory beside b = 1, then
+   the ``data=2`` mesh at batch 2 and ``data=2, cut=2`` at batch 4 on the
+   one card against the unsplit runs; (c) the memory grid through
+   ``tools/profile_step.measure``: 512px RN50x16 at b 1-8 x 16 / 32
+   cutouts, remat off / full / hires128, peak memory and ms per step (a
+   point reckoned past 90% of the card's memory is not run), the smallest
+   point where the port's gate engages, and remat full against off at
+   256px b = 2 (the same x after three steps; the recompute's launches one
+   forward's); (d) resume under ``CGD_TPU_REMAT=1``: the recorded
+   ``unet_remat`` adopted with the variable unset, bit-equal, and a
+   checkpoint without the key resumed as false; (e) BASELINE.md's
+   acceptance configs 2-5 through ``tools/run_acceptance.run_config`` (a
+   fresh CLI process each) at 10-25 steps.
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
 from phase 7c, K-fwd f32's from phase 8, K-dx f32's and the f32
@@ -724,12 +747,13 @@ class _FirstStep:
     fixed seed (as phases 4 and 9c; else its output and gradient are 0 and
     no kernel reaches the sample), and ``x`` records each run's x after its
     first yielded step. With ``stop``, the run is interrupted after that step
-    (the generator keeps its frame and ends)."""
+    (the generator keeps its frame and ends). ``last`` records each run's x
+    after its last yielded step, when the run ends."""
 
     def __init__(self, api, dev, stop: bool = False):
         import torch
 
-        self.api, self.x, self.stop = api, [], stop
+        self.api, self.x, self.last, self.stop = api, [], [], stop
         self.real = api.resolve_unet, api.sample_loop
 
         def resolve_redrawn(*a, **kw):
@@ -738,14 +762,18 @@ class _FirstStep:
             return (unet, *rest)
 
         def spy(*a, **kw):
-            first = True
-            for item in self.real[1](*a, **kw):
-                if first:
-                    self.x.append(item[2].detach().float().clone())
-                yield item
-                if first and self.stop:
-                    raise KeyboardInterrupt
-                first = False
+            first, x = True, None
+            try:
+                for item in self.real[1](*a, **kw):
+                    x = item[2]
+                    if first:
+                        self.x.append(x.detach().float().clone())
+                    yield item
+                    if first and self.stop:
+                        raise KeyboardInterrupt
+                    first = False
+            finally:
+                self.last.append(None if x is None else x.detach().float().clone())
 
         api.resolve_unet, api.sample_loop = resolve_redrawn, spy
 
@@ -2929,6 +2957,640 @@ def phase_13(k3, kattn, dev) -> None:
     _say13("", f"phase 13 wall time {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: batch > 1 on the card and the memory policy it calls for
+# ---------------------------------------------------------------------------
+
+BATCHES = (2, 4, 8)
+# phase 14a's conv rows: phase 3's and the 256px model's 8^2 level
+BATCH_CONV_CASES = CONV_CASES + [("conv3x3_gn_silu_add", 8, 1024, 1024, True, True, False)]
+# phase 14a's attention: (heads, T, d) of the 256px and 128px models
+BATCH_ATTN = [(8, 1024, 64), (4, 1024, 128), (4, 256, 192), (4, 64, 256)]
+# phase 14a's K-halo shards at two images a shard (name, shard H, W, cin,
+# cout, prologue, skip): phase 7a's, then phase 10a's 8^2-level shards
+BATCH_HALO = [
+    ("conv3x3", 128, 256, 3, 256, False, False),
+    ("conv3x3_gn_silu_add", 128, 256, 256, 256, True, True),
+    ("conv3x3_gn_silu", 8, 16, 2048, 1024, True, False),
+    ("conv3x3_gn_silu", 256, 512, 128, 128, True, False),
+    ("conv3x3_gn_silu_add", 4, 8, 1024, 1024, True, True),
+]
+
+
+def _say14(sub: str, msg: str) -> None:
+    """A phase-14 line, with the card and its power limit."""
+    print(f"[14{sub}] {msg} ({CARD})")
+
+
+def _hold_per_image(what: str, batched, alone, same_plan: bool, tol: float) -> str:
+    """Each image of a batched call against the same call on that image
+    alone (``alone[i]``, outputs in the order of ``batched``, each with a
+    leading batch dim): bit-equal where the plans agree (no atomics: an
+    image's tiles run the same code whatever the batch), else within ``tol``
+    of the lone call's max (split K cut otherwise)."""
+    import torch
+
+    worst = 0.0
+    for i, outs in enumerate(alone):
+        for a, b in zip(batched, outs):
+            if same_plan and not torch.equal(a[i:i + 1], b):
+                raise AssertionError(f"{what}: image {i} differs from its lone call with the "
+                                     f"same plan (max err {_rel_max(a[i:i + 1], b)[0]:.3e})")
+            worst = max(worst, _rel_max(a[i:i + 1], b)[1])
+    if worst > tol:
+        raise AssertionError(f"{what}: an image differs from its lone call by {worst:.3e} of "
+                             f"its max > {tol}")
+    return "each image bit-equal to its lone call" if same_plan else (
+        f"each image within {worst:.2e} of its lone call's max")
+
+
+def _conv_plan_str(plan: dict, f32: bool) -> str:
+    if f32:
+        return (f"ksplit {plan['ksplit']}, tiles {plan['tile_grid']} on {plan['blocks']} "
+                f"persistent blocks")
+    return f"ksplit {plan['ksplit']}, grid {plan['grid']}"
+
+
+def phase_batch_kernels(k3, kattn, dev) -> list:
+    """Phase 14a: every launch class at b = 2, 4 and 8 images (and, where
+    the bf16 plan still splits K at 8, at the first b where it no longer
+    does), bf16 and f32: K-fwd in each of phase 3's modes and the 8^2
+    level, K-dx (K-dx-w at 512^2) with its per-image dA / dB, K-halo and
+    K-halo f32 through ``conv_spmd`` on two-image shards, and the attention
+    at N = B * heads. Each against its plain version (bf16: 1% of the
+    reference's max; f32: F32_TOL), and each image of the batch against the
+    kernel on that image alone (``_hold_per_image``). Prints each plan
+    (split K, grid) and the ms per image at b beside b = 1 (CUDA events).
+    Returns the rows (for PERF.md) as dicts."""
+    import torch
+
+    from cgd_tpu_torch.kernels import conv_spmd
+
+    gen = torch.Generator(dev).manual_seed(1414)
+    sms = k3._sms(dev)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        tol, tag = (F32_TOL, "f32") if f32 else (FWD_TOL, "bf16")
+
+        def rn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+        def f32n(*shape, base=0.0):
+            return base + 0.2 * torch.randn(*shape, generator=gen, device=dev)
+
+        for name, ho, ci, co, pro, sk, up in BATCH_CONV_CASES:
+            hs = ho // 2 if up else ho
+
+            def plan(b, dx=False):
+                if f32:
+                    return (k3.f32_plan(b, ho, ho, co, ci, dx=True, sms=sms) if dx else
+                            k3.f32_plan(b, hs, hs, ci, co, up=up, sms=sms))
+                return (k3.conv_plan(b, ho, ho, co, ci, sms=sms) if dx else
+                        k3.conv_plan(b, hs, hs, ci, co, up, sms=sms))
+
+            bs = BATCHES
+            if plan(BATCHES[-1])["ksplit"] > 1:  # and the first batch without split K
+                bs = BATCHES + (next(b for b in range(BATCHES[-1] + 1, 1024)
+                                     if plan(b)["ksplit"] == 1),)
+            n = max(bs)
+            x, w, bias = rn(n, hs, hs, ci), rn(3, 3, ci, co, scale=(9 * ci) ** -0.5), rn(co, scale=0.1)
+            A, B = (f32n(n, ci, base=1.0), f32n(n, ci)) if pro else (None, None)
+            skip = rn(n, ho, ho, co) if sk else None
+            g = rn(n, ho, ho, co)
+            wt = k3._flip_t(w)
+
+            def sl(t, lo, hi):  # a contiguous slice of the batch (no copy)
+                return None if t is None else t[lo:hi]
+
+            def fwd(lo, hi, plain=False):
+                fn = k3.conv3x3_fwd_plain if plain else k3.conv3x3_fwd
+                return (fn(sl(x, lo, hi), w, bias, sl(A, lo, hi), sl(B, lo, hi),
+                           sl(skip, lo, hi), up),)
+
+            def dx(lo, hi, plain=False):
+                fn = k3.conv3x3_dx_plain if plain else k3.conv3x3_dx
+                return fn(sl(g, lo, hi), wt, sl(x, lo, hi), sl(A, lo, hi), sl(B, lo, hi))
+
+            side = f"{ho}^2 {ci}->{co}"
+            kinds = [("K-fwd", fwd, False)]
+            if pro and not up:
+                kinds.append(("K-dx-w" if ho >= 512 else "K-dx", dx, True))
+            for kind, call, is_dx in kinds:
+                ms1 = _time_ms(lambda: call(0, 1))
+                p1 = plan(1, is_dx)
+                for b in bs:
+                    got = call(0, b)
+                    err = 0.0
+                    for part, a, r in zip(("dx", "dA", "dB") if is_dx else ("out",), got,
+                                          call(0, b, plain=True)):
+                        e, rel = _rel_max(a, r)
+                        err = max(err, e)
+                        if rel > tol:
+                            raise AssertionError(f"{kind} {tag} {name} {side} b={b} {part}: "
+                                                 f"{rel:.3e} > {tol} against the plain version")
+                    pb = plan(b, is_dx)
+                    verdict = _hold_per_image(f"{kind} {tag} {name} {side} b={b}", got,
+                                              [call(i, i + 1) for i in range(b)],
+                                              pb["ksplit"] == p1["ksplit"], tol)
+                    ms = _time_ms(lambda: call(0, b)) / b
+                    _say14("a", f"{kind} {tag} {name:20s} {side} b={b}: max|err| vs plain "
+                                f"{err:.3e}; {verdict}; {ms:.4f} ms per image (b=1 {ms1:.4f}: "
+                                f"{ms / ms1:.2f}x); plan {_conv_plan_str(pb, f32)} (b=1: "
+                                f"{_conv_plan_str(p1, f32)})")
+                    rows.append(dict(kind=kind, dtype=tag, name=name, shape=side, b=b, ms=ms,
+                                     ms1=ms1, ksplit=pb["ksplit"], ksplit1=p1["ksplit"]))
+
+        # K-halo (f32: K-halo f32) on two shards of two images each
+        for name, hs, wd, ci, co, pro, sk in BATCH_HALO:
+            b = 2
+            xs = [rn(b, hs, wd, ci) for _ in range(2)]
+            w, bias = rn(3, 3, ci, co, scale=(9 * ci) ** -0.5), rn(co, scale=0.1)
+            A, B = (f32n(b, ci, base=1.0), f32n(b, ci)) if pro else (None, None)
+            skips = [rn(b, hs, wd, co) for _ in range(2)] if sk else None
+            gs = [rn(b, hs, wd, co) for _ in range(2)]
+
+            def run(lo, hi, plain=False):
+                def cut(ts):
+                    return None if ts is None else [t[lo:hi] for t in ts]
+
+                xs_ = [t.detach().requires_grad_(True) for t in cut(xs)]
+                a_, b_ = (None, None) if A is None else (A[lo:hi], B[lo:hi])
+                if plain:
+                    outs = conv_spmd.conv3x3_shards_plain(xs_, w, bias, a_, b_, cut(skips))
+                elif not pro:
+                    outs = conv_spmd.conv3x3(xs_, w, bias)
+                elif sk:
+                    outs = conv_spmd.conv3x3_gn_silu_add(xs_, a_, b_, w, bias, cut(skips))
+                else:
+                    outs = conv_spmd.conv3x3_gn_silu(xs_, a_, b_, w, bias)
+                dxs = torch.autograd.grad(outs, xs_, cut(gs))
+                return torch.cat(outs, 1).detach(), torch.cat(dxs, 1)
+
+            got, want = run(0, b), run(0, b, plain=True)
+            for part, a, r in zip(("fwd", "dx"), got, want):
+                err, rel = _rel_max(a, r)
+                if rel > tol:
+                    raise AssertionError(f"K-halo {tag} {name} shard {hs}x{wd} b={b} {part}: "
+                                         f"{rel:.3e} > {tol} against the plain version")
+            def halo_plan(bb, cin, cout):
+                if f32:
+                    return k3.f32_plan(bb, hs, wd, cin, cout, halo=True, sms=sms)
+                return k3.conv_plan(bb, hs, wd, cin, cout, halo=True, sms=sms)
+
+            plans = [halo_plan(bb, ci, co) for bb in (1, b)]
+            # the backward's K-halo runs on the cotangent, Cout -> Cin
+            same = all(halo_plan(1, i, o)["ksplit"] == halo_plan(b, i, o)["ksplit"]
+                       for i, o in ((ci, co), (co, ci)))
+            verdict = _hold_per_image(f"K-halo {tag} {name} shard {hs}x{wd} b={b}", got,
+                                      [run(i, i + 1) for i in range(b)], same, tol)
+            ms1, ms = _time_ms(lambda: run(0, 1)), _time_ms(lambda: run(0, b)) / b
+            _say14("a", f"K-halo {tag} {name:20s} 2 shards {hs}x{wd} {ci}->{co}, b={b} (fwd + "
+                        f"input grad): max|err| vs plain {err:.3e}; {verdict}; {ms:.4f} ms per "
+                        f"image (b=1 {ms1:.4f}); plan {_conv_plan_str(plans[1], f32)} (b=1: "
+                        f"{_conv_plan_str(plans[0], f32)})")
+            rows.append(dict(kind="K-halo", dtype=tag, name=name, shape=f"{hs}x{wd} {ci}->{co}",
+                             b=b, ms=ms, ms1=ms1, ksplit=plans[1]["ksplit"],
+                             ksplit1=plans[0]["ksplit"]))
+
+        # the attention at N = B * heads
+        plan_of = kattn.f32_attn_plan if f32 else kattn.attn_plan
+        atol = F32_TOL if f32 else ATTN_TOL
+        for heads, t, d in BATCH_ATTN:
+            n = BATCHES[-1]
+            qkv, g = rn(n, t, 3 * heads * d), rn(n, t, heads * d)
+
+            def attn(lo, hi):
+                q_, g_ = qkv[lo:hi], g[lo:hi]
+                out, lse = kattn.attention_fwd(q_, heads)
+                return out, kattn.attention_bwd(q_, out, lse, g_, heads)
+
+            def geometry(b):
+                return {k: v for k, v in plan_of(b, heads, t, d).items() if k != "grid"}
+
+            ms1 = _time_ms(lambda: attn(0, 1))
+            for b in BATCHES:
+                out, dqkv = attn(0, b)
+                q, k, v = kattn.split_heads(qkv[:b], heads)
+                err, rel = _rel_max(out, kattn.merge_heads(kattn.attention_fwd_plain(q, k, v), b))
+                grads = kattn.attention_bwd_plain(q, k, v, kattn.to_heads(g[:b], heads))
+                rel_b = max(_rel_max(a, kattn.merge_heads(r, b))[1]
+                            for a, r in zip(dqkv.chunk(3, dim=-1), grads))
+                if max(rel, rel_b) > atol:
+                    raise AssertionError(f"K-attn {tag} N={b}x{heads} T={t} d={d}: fwd {rel:.3e}"
+                                         f", bwd {rel_b:.3e} > {atol} against the plain version")
+                verdict = _hold_per_image(f"K-attn {tag} N={b}x{heads} T={t} d={d}",
+                                          (out, dqkv), [attn(i, i + 1) for i in range(b)],
+                                          geometry(b) == geometry(1), atol)
+                ms = _time_ms(lambda: attn(0, b)) / b
+                grid = plan_of(b, heads, t, d)["grid"]
+                _say14("a", f"K-attn-f + K-attn-b {tag} N = {b} x {heads} heads, T {t}, d {d}: "
+                            f"max rel err vs plain fwd {rel:.2e}, bwd {rel_b:.2e}; {verdict}; "
+                            f"{ms:.4f} ms per image (b=1 {ms1:.4f}); grids {grid}")
+                rows.append(dict(kind="K-attn", dtype=tag, name=f"heads {heads}",
+                                 shape=f"T {t} d {d}", b=b, ms=ms, ms1=ms1))
+    torch.cuda.synchronize()
+    return rows
+
+
+GRID_BATCHES = (1, 2, 4, 8)
+GRID_CUTN = (16, 32)
+GRID_REMAT = ("off", "full", "hires128")
+MEM_HEADROOM = 0.9  # a point must peak under this share of the card's memory
+
+
+def phase_memory_grid(k3, kattn, dev) -> dict:
+    """Phase 14c: the memory grid through ``tools/profile_step.measure``:
+    512px RN50x16 at b in GRID_BATCHES x cutn in GRID_CUTN, remat off /
+    full / hires128 (three guided steps each): peak GiB, ms per step and
+    the K-fwd launches a step (the recompute's). Before a point runs, its
+    peak is reckoned from the two largest measured batches of its row (the
+    per-image slope); a point reckoned over MEM_HEADROOM of the card's
+    memory is not run, and the reckoning is printed instead (a point that
+    runs out of memory fails the phase). Then the smallest 512px 16-cutout
+    batch where the port's gate (``api._resolve_remat``) engages, run under
+    the gate, must peak under MEM_HEADROOM. Then at 256px b = 2 (the
+    zero-init layers re-drawn) three guided steps with remat full and off
+    must give the same x (bit-equal predicted: the recompute runs the same
+    kernels on the same plans), and the K-fwd / K-attn-f launches full
+    remat adds must be one forward's (a fast-guidance step's). Returns
+    the grid by (cutn, remat, b)."""
+    import os
+
+    import torch
+
+    from cgd_tpu_torch import api
+    from cgd_tpu_torch.tools.profile_step import MEASURE_STEPS, measure, remat_policy
+
+    out = ROOT / "outputs" / "chip_smoke_14c"
+    total = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    limit = MEM_HEADROOM * total
+    grid = {}
+    for cutn in GRID_CUTN:
+        for remat in GRID_REMAT:
+            for b in GRID_BATCHES:
+                done = sorted((bb, r["peak_gib"]) for (c, rm, bb), r in grid.items()
+                              if (c, rm) == (cutn, remat) and "ms" in r)
+                if len(done) >= 2:
+                    (b0, p0), (b1, p1) = done[-2:]
+                    reckoned = p1 + (p1 - p0) / (b1 - b0) * (b - b1)
+                    if reckoned > limit:
+                        grid[(cutn, remat, b)] = {"reckoned_gib": reckoned}
+                        _say14("c", f"512px RN50x16 b={b} cutn={cutn} remat {remat}: not run, "
+                                    f"reckoned {reckoned:.2f} GiB = {p1:.2f} + "
+                                    f"{(p1 - p0) / (b1 - b0):.2f} GiB per image x {b - b1} "
+                                    f"(b={b0}, {b1} measured) > {limit:.1f} GiB")
+                        continue
+                _reset_launches(k3, kattn)
+                r = measure(512, "RN50x16", b, cutn, remat, device=str(dev), prefix=str(out))
+                steps = MEASURE_STEPS + 1  # the launches count the first step too
+                r["fwd_per_step"] = k3.LAUNCHES["conv3x3_fwd"] / steps
+                r["dx_per_step"] = (k3.LAUNCHES["conv3x3_dx"]
+                                    + k3.LAUNCHES["conv3x3_dx_wtiled"]) / steps
+                grid[(cutn, remat, b)] = r
+                if r["peak_gib"] > limit:
+                    raise AssertionError(f"phase 14c: b={b} cutn={cutn} remat {remat} peaked at "
+                                         f"{r['peak_gib']:.2f} GiB > {limit:.1f}")
+                _say14("c", f"512px RN50x16 b={b} cutn={cutn} remat {remat}: peak "
+                            f"{r['peak_gib']:.2f} GiB, {r['ms']:.1f} ms per guided step "
+                            f"({r['ms'] / b:.1f} ms per image); K-fwd {r['fwd_per_step']:g}, "
+                            f"K-dx {r['dx_per_step']:g} launches a step")
+    for cutn in GRID_CUTN:
+        off = grid[(cutn, "off", 1)]
+        for remat in ("full", "hires128"):
+            r = grid[(cutn, remat, 1)]
+            if r["dx_per_step"] != off["dx_per_step"] or not r["fwd_per_step"] > off["fwd_per_step"]:
+                raise AssertionError(f"phase 14c: remat {remat} launched K-fwd "
+                                     f"{r['fwd_per_step']:g} / K-dx {r['dx_per_step']:g} a step "
+                                     f"against off's {off['fwd_per_step']:g} / "
+                                     f"{off['dx_per_step']:g}")
+
+    # the gate: the smallest batch where it engages at 512px, 16 cutouts
+    saved = os.environ.pop("CGD_TPU_REMAT", None)
+    try:
+        b_gate = next(b for b in range(1, 257) if api._resolve_remat(512, b, 16))
+        _reset_launches(k3, kattn)
+        r = measure(512, "RN50x16", b_gate, 16, "auto", device=str(dev), prefix=str(out))
+    finally:
+        if saved is not None:
+            os.environ["CGD_TPU_REMAT"] = saved
+    fwd = k3.LAUNCHES["conv3x3_fwd"] / (MEASURE_STEPS + 1)
+    if r["peak_gib"] > limit or fwd != grid[(16, "full", 1)]["fwd_per_step"]:
+        raise AssertionError(f"phase 14c: the gate's point b={b_gate} peaked at "
+                             f"{r['peak_gib']:.2f} GiB (limit {limit:.1f}) with {fwd:g} K-fwd "
+                             "launches a step (full remat's expected)")
+    _say14("c", f"the gate engages at 512px 16 cutouts from b={b_gate}: remat full, peak "
+                f"{r['peak_gib']:.2f} GiB (under {limit:.1f} of {total:.1f}), {r['ms']:.1f} ms "
+                f"per guided step ({r['ms'] / b_gate:.1f} ms per image)")
+    grid["gate"] = dict(r, b=b_gate)
+
+    # remat full against off at 256px b = 2: the same x after three steps
+    first = _FirstStep(api, dev)
+    counts = {}
+    try:
+        for remat in ("off", "full", "fast"):
+            _reset_launches(k3, kattn)
+            with remat_policy("off" if remat == "fast" else remat):
+                for _ in api.clip_guided_diffusion(
+                        prompts=PROMPTS, image_size=256, num_cutouts=16, batch_size=2,
+                        timestep_respacing="ddim3", save_frequency=3, weights_mode="random",
+                        seed=0, device=str(dev), progress=False, prefix_path=out / remat,
+                        fast_guidance=remat == "fast"):
+                    pass
+            counts[remat] = (k3.LAUNCHES["conv3x3_fwd"] / 3, kattn.LAUNCHES["attn_fwd"] / 3)
+    finally:
+        first.close()
+    x_off, x_full = first.last[0], first.last[1]
+    d = (x_full - x_off).abs().max().item()
+    rel = ((x_full - x_off).norm() / x_off.norm()).item()
+    if d != 0.0 and not rel <= 1e-5:
+        raise AssertionError(f"phase 14c: 256px b=2 remat full vs off after three steps: rel L2 "
+                             f"{rel:.3e} > 1e-5")
+    extra = tuple(f - o for f, o in zip(counts["full"], counts["off"]))
+    if extra != counts["fast"]:
+        raise AssertionError(f"phase 14c: full remat added {extra} K-fwd / K-attn-f launches a "
+                             f"step, one forward launches {counts['fast']}")
+    _say14("c", f"256px b=2, three guided steps, remat full vs off: x max |diff| {d:.3e} "
+                f"({'bit-equal' if d == 0.0 else f'rel L2 {rel:.3e}'}); K-fwd / K-attn-f "
+                f"launches a step off {counts['off']}, full {counts['full']} (+{extra}: one "
+                f"forward, as a fast-guidance step's {counts['fast']})")
+    shutil.rmtree(out, ignore_errors=True)
+    return grid
+
+
+# phase 14e: each acceptance config's respacing (and skip, frame frequency)
+# cut so that it runs 10-25 steps: (respace, skip, freq) per config
+ACCEPTANCE_CUT = {
+    "cfg2_128_multiprompt": ("25", None, "10"),
+    "cfg3_256_init_vgg": ("ddim25", "12", "5"),
+    "cfg4_512_rn50x16": ("10", None, "5"),
+    "cfg5_256_nonsquare_reduce_mp4": ("ddim25", None, "5"),
+}
+
+
+def _cut_argv(argv, respace, skip, freq):
+    out = list(argv)
+    for flag, value in (("-respace", respace), ("-skip", skip), ("-freq", freq)):
+        if value is not None:
+            out[out.index(flag) + 1] = value
+    return out
+
+
+def phase_acceptance(dev, out_dir: Path) -> None:
+    """Phase 14e: BASELINE.md's acceptance configs 2-5 through
+    ``cgd_tpu_torch.tools.run_acceptance.run_config`` (a fresh CLI process
+    each, random weights), each with its respacing cut to 10-25 steps
+    (ACCEPTANCE_CUT; the tool's CONFIGS are copied and rewritten here). Each
+    must exit 0 and write its frames (cfg5: its MP4 where a muxer wrote it,
+    else its frames); prints s per step including the process's setup."""
+    import copy
+
+    from cgd_tpu_torch.tools import run_acceptance
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    init_path = out_dir / "init_256.png"
+    run_acceptance.make_init_image(init_path)
+    for key, cfg in run_acceptance.CONFIGS.items():
+        respace, skip, freq = ACCEPTANCE_CUT[key]
+        cfg = copy.deepcopy(cfg)
+        cfg["argv"] = _cut_argv(cfg["argv"], respace, skip, freq)
+        steps = int(respace.removeprefix("ddim")) - int(skip or 0)
+        if "-reduce" in cfg["argv"]:
+            steps -= int(int(respace.removeprefix("ddim")) * 0.2)
+        cfg["steps"] = steps
+        rec = run_acceptance.run_config(key, cfg, out_dir, init_path, timeout=600)
+        if rec["rc"] != 0 or not (rec["frames"] or rec["videos"]):
+            raise AssertionError(f"phase 14e: {key} rc {rec['rc']}, {rec['frames']} frames, "
+                                 f"videos {rec['videos']}: {rec.get('stderr_tail', '')}")
+        if "-mp4" in cfg["argv"] and not rec["videos"] and rec["frames"] == 0:
+            raise AssertionError(f"phase 14e: {key} wrote neither an MP4 nor its frames")
+        _say14("e", f"{key} ({' '.join(cfg['argv'][2:])}): rc 0, {steps} steps in "
+                    f"{rec['wall_s']} s with the process's setup ({rec['wall_s'] / steps:.3f} s "
+                    f"per step), {rec['frames']} frames, videos {rec['videos']}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_batch_e2e(k3, kattn, dev, out_dir: Path, step_s: float, peak: float) -> None:
+    """Phase 14b: the 256px ViT-B/32 ddim25 guided run through
+    ``api.clip_guided_diffusion`` at ``batch_size=4`` (the zero-init layers
+    re-drawn), bf16 and f32: the first step's x against the plain routing's
+    (BF16_STEP_TOL / F32_STEP_TOL), a frame directory per image, and over
+    frames every 6 steps ms per guided step (steps 7-12, host clock,
+    synchronised), device busy and idle share (torch.profiler, steps 13-18)
+    and peak memory, beside the same at b = 1 and phase 5's step; the
+    counters reset just before each run and read just after. Then the
+    ``data=2`` mesh (``make_mesh([dev, dev], data=2)``) at batch 2 and the
+    ``data=2, cut=2`` mesh (``make_mesh([dev] * 4, data=2)``: K-halo on
+    two images a shard) at batch 4, bf16 and f32, their first step's x
+    against the unsplit run's (5e-2 / 1e-3), launching K-halo and no
+    unsplit conv."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cgd_tpu_torch import api
+    from cgd_tpu_torch.io_utils.images import clean_and_combine_prompts
+    from cgd_tpu_torch.ops.nn import kernel_routing
+    from cgd_tpu_torch.parallel.mesh import make_mesh
+    from cgd_tpu_torch.tools.profile_step import _kernel_events
+
+    first = _FirstStep(api, dev)
+
+    def run(batch, dtype, tag, mesh=None, timed=False):
+        """A run's first step only, or (``timed``) frames at steps 0, 6, 12
+        and 18: returns its numbers and launches."""
+        kwargs = dict(prompts=PROMPTS, image_size=256, num_cutouts=16, batch_size=batch,
+                      clip_model_name="ViT-B/32", timestep_respacing="ddim25",
+                      save_frequency=6, weights_mode="random", seed=0, device=str(dev),
+                      progress=False, compute_dtype=dtype, mesh=mesh,
+                      prefix_path=out_dir / tag)
+        _reset_launches(k3, kattn)
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = api.clip_guided_diffusion(**kwargs)
+        stamps, prof = [], None
+        for batch_idx, _ in gen:
+            if batch_idx == batch - 1:  # a frame set written
+                torch.cuda.synchronize(dev)
+                stamps.append(time.perf_counter())
+                if not timed or len(stamps) == 4:
+                    break
+                if len(stamps) == 3:
+                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof.__enter__()
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        gen.close()
+        res = {"launches": _launches(k3, kattn), "peak": torch.cuda.max_memory_allocated(dev)}
+        if timed:
+            res["ms"] = (stamps[2] - stamps[1]) / 6 * 1e3
+            busy = sum(e.device_time_total for e in _kernel_events(prof)) / 1e3 / 6
+            res.update(busy=busy, idle=1 - busy / res["ms"])  # as profile_step reads it
+        return res
+
+    def rel_first(a: int, b: int) -> float:
+        xa, xb = first.x[a], first.x[b]
+        return ((xa - xb).norm() / xb.norm()).item()
+
+    try:
+        for dtype, tol in (("bfloat16", BF16_STEP_TOL), ("float32", F32_STEP_TOL)):
+            f32 = dtype == "float32"
+            with kernel_routing("plain"):
+                run(4, dtype, f"plain_{dtype}")
+            b4 = run(4, dtype, f"b4_{dtype}", timed=True)
+            unsplit_b4 = len(first.x) - 1
+            rel = rel_first(-1, -2)
+            if not rel <= tol:
+                raise AssertionError(f"phase 14b: b=4 {dtype} first step x vs the plain routing "
+                                     f"rel L2 {rel:.3e} > {tol}")
+            dirs = [Path(clean_and_combine_prompts(out_dir / f"b4_{dtype}", PROMPTS, i))
+                    for i in range(4)]
+            pngs = [sorted(d.glob("*.png")) for d in dirs]
+            if [len(p) for p in pngs] != [4] * 4:
+                raise AssertionError(f"phase 14b: frames per image directory "
+                                     f"{[len(p) for p in pngs]}, expected 4 each")
+            _check_pngs(pngs[-1])
+            names = (("conv3x3_fwd_f32", "conv3x3_dx_f32", "attn_fwd_f32", "attn_bwd_f32")
+                     if f32 else ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"))
+            _check_launched(b4["launches"], names, f"phase 14b b=4 {dtype}")
+            b1 = run(1, dtype, f"b1_{dtype}", timed=True)
+            _say14("b", f"256px ViT-B/32 ddim25 {dtype}, batch 4: first step's x vs the plain "
+                        f"routing rel L2 {rel:.3e} (bound {tol}); {b4['ms']:.1f} ms per guided "
+                        f"step ({b4['ms'] / 4:.1f} ms per image; b=1 in this phase "
+                        f"{b1['ms']:.1f} ms" + ("" if f32 else f", phase 5 {step_s * 1e3:.1f} ms")
+                        + f"), device busy {b4['busy']:.1f} ms (idle {b4['idle']:.0%}; b=1 "
+                        f"{b1['busy']:.1f} ms, idle {b1['idle']:.0%}), peak "
+                        f"{b4['peak'] / 2**30:.2f} GiB (b=1 {b1['peak'] / 2**30:.2f}" +
+                        ("" if f32 else f", phase 5 {peak / 2**30:.2f}") + f" GiB); four frame "
+                        f"directories of 4 frames; launches {b4['launches']}")
+            # the meshes against the unsplit run at the same batch
+            run(2, dtype, f"b2_{dtype}")
+            unsplit_b2 = len(first.x) - 1
+            halo = "conv3x3_fwd_halo_f32" if f32 else "conv3x3_fwd_halo"
+            for spec, batch, devices, ref in (("data=2", 2, [dev, dev], unsplit_b2),
+                                               ("data=2,cut=2", 4, [dev] * 4, unsplit_b4)):
+                mesh = make_mesh(devices, data=2)
+                m = run(batch, dtype, f"mesh_{spec}_{dtype}", mesh=mesh)
+                rel = rel_first(-1, ref)
+                if not rel <= tol:
+                    raise AssertionError(f"phase 14b: {spec} mesh b={batch} {dtype} first step "
+                                         f"x vs unsplit rel L2 {rel:.3e} > {tol}")
+                unsplit = {k: m["launches"][k] for k in ("conv3x3_fwd", "conv3x3_dx",
+                                                         "conv3x3_dx_wtiled", "conv3x3_fwd_f32",
+                                                         "conv3x3_dx_f32")}
+                _check_launched(m["launches"], (halo,), f"phase 14b {spec}")
+                if any(unsplit.values()):
+                    raise AssertionError(f"phase 14b: the {spec} mesh launched unsplit convs "
+                                         f"{unsplit}")
+                _say14("b", f"mesh {spec} ({mesh.shape}, one card) batch {batch} {dtype}: "
+                            f"first step's x vs the unsplit run rel L2 {rel:.3e} (bound {tol}); "
+                            f"{m['launches'][halo]} K-halo launches, no unsplit conv")
+    finally:
+        first.close()
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_remat_resume(k3, kattn, dev, out_dir: Path) -> None:
+    """Phase 14d: resume under remat, 256px bf16 batch 2, ddim10,
+    save_frequency 3, the zero-init layers re-drawn. Run A under
+    ``CGD_TPU_REMAT=1`` uninterrupted and run B the same closed after its
+    second frame: both checkpoints record ``unet_remat: true``. B resumed
+    with the variable unset adopts it (its K-fwd / K-dx launch ratio A's)
+    and ends bit-equal to A. Run C under ``CGD_TPU_REMAT=0``; B's
+    checkpoint with the key removed (as the port wrote them before the
+    key) resumes as false (C's launch ratio). Prints max |A - C|: remat
+    against none over ten steps."""
+    import os
+
+    import numpy as np
+
+    from cgd_tpu_torch import api
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    kwargs = dict(prompts=PROMPTS, image_size=256, num_cutouts=16, batch_size=2,
+                  timestep_respacing="ddim10", save_frequency=3, weights_mode="random", seed=0,
+                  device=str(dev), progress=False)
+    saved_env = os.environ.pop("CGD_TPU_REMAT", None)
+    first, frames = _FirstStep(api, dev), _Frames(api)
+
+    def run(tag, env=None, stop=None, **kw):
+        if env is None:
+            os.environ.pop("CGD_TPU_REMAT", None)
+        else:
+            os.environ["CGD_TPU_REMAT"] = env
+        _reset_launches(k3, kattn)
+        gen = api.clip_guided_diffusion(prefix_path=out_dir / tag, **kwargs, **kw)
+        for i, _ in enumerate(gen):
+            if stop is not None and i + 1 == stop:
+                break
+        gen.close()
+        dx = k3.LAUNCHES["conv3x3_dx"] + k3.LAUNCHES["conv3x3_dx_wtiled"]
+        return k3.LAUNCHES["conv3x3_fwd"] / dx
+
+    def meta(path):
+        return json.loads(str(np.load(path)["meta"]))
+
+    def final(tag):
+        return frames.by_dir[str(out_dir / tag)][-1], np.load(out_dir / f"{tag}.npz")["x"]
+
+    try:
+        ratio_a = run("A", "1", checkpoint_path=str(out_dir / "A.npz"))
+        run("B_part", "1", stop=4, checkpoint_path=str(out_dir / "B_part.npz"))
+        recorded = meta(out_dir / "A.npz")["unet_remat"], meta(out_dir / "B_part.npz")["unet_remat"]
+        if recorded != (True, True):
+            raise AssertionError(f"phase 14d: CGD_TPU_REMAT=1 checkpoints record {recorded}")
+        ratio_b = run("B", None, resume_from=str(out_dir / "B_part.npz"),
+                      checkpoint_path=str(out_dir / "B.npz"))
+        ratio_c = run("C", "0", checkpoint_path=str(out_dir / "C.npz"))
+        rec = dict(np.load(out_dir / "B_part.npz"))
+        legacy = meta(out_dir / "B_part.npz")
+        del legacy["unet_remat"]
+        rec["meta"] = json.dumps(legacy, sort_keys=True)
+        np.savez(out_dir / "L_part.npz", **rec)
+        ratio_l = run("L", None, resume_from=str(out_dir / "L_part.npz"),
+                      checkpoint_path=str(out_dir / "L.npz"))
+    finally:
+        frames.close()
+        first.close()
+        if saved_env is None:
+            os.environ.pop("CGD_TPU_REMAT", None)
+        else:
+            os.environ["CGD_TPU_REMAT"] = saved_env
+    (fa, xa), (fb, xb), (fc, xc), (fl, xl) = (final(t) for t in ("A", "B", "C", "L"))
+    ares, ac, al = max(_diff(fa, fb), _diff(xa, xb)), max(_diff(fa, fc), _diff(xa, xc)), \
+        max(_diff(fc, fl), _diff(xc, xl))
+    if ares != 0.0 or ratio_b != ratio_a:
+        raise AssertionError(f"phase 14d: the resumed remat run differs by {ares:.3e} (K-fwd / "
+                             f"K-dx {ratio_b:.3f}, run A {ratio_a:.3f})")
+    if ratio_l != ratio_c or ratio_c >= ratio_a or meta(out_dir / "L.npz")["unet_remat"]:
+        raise AssertionError(f"phase 14d: the checkpoint without the key resumed with K-fwd / "
+                             f"K-dx {ratio_l:.3f} (no remat {ratio_c:.3f}, remat {ratio_a:.3f})")
+    if not all(np.isfinite(v).all() for v in (fa, xa, fl, xl)):
+        raise AssertionError("phase 14d: non-finite frames or x")
+    _say14("d", f"256px bf16 batch 2, ddim10: CGD_TPU_REMAT=1 checkpoints record unet_remat "
+                f"true; resumed with the variable unset: remat adopted (K-fwd / K-dx launches "
+                f"{ratio_b:.3f}, run A {ratio_a:.3f}), max |A - resumed B| {ares:.3e} "
+                f"(bit-equal); the checkpoint without the key resumed as false ({ratio_l:.3f}, "
+                f"CGD_TPU_REMAT=0 {ratio_c:.3f}), max |C - resumed| {al:.3e}; remat against none "
+                f"over ten steps: max |A - C| {ac:.3e}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_14(k3, kattn, dev, step_s: float, peak: float) -> list:
+    """Phase 14, in order: (a) the kernels at b = 2, 4, 8, (b) the batch-4
+    guided run and the data meshes, (c) the memory grid and the gate, (d)
+    resume under remat, (e) the acceptance configs through the CLI.
+    Returns 14a's rows."""
+    t0 = time.perf_counter()
+    out = ROOT / "outputs" / "chip_smoke_14"
+    rows = phase_batch_kernels(k3, kattn, dev)
+    phase_batch_e2e(k3, kattn, dev, out / "batch", step_s, peak)
+    phase_memory_grid(k3, kattn, dev)
+    phase_remat_resume(k3, kattn, dev, out / "resume")
+    phase_acceptance(dev, out / "acceptance")
+    _say14("", f"phase 14 wall time {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "cgd_tpu_torch").is_dir():
@@ -3011,6 +3673,7 @@ def main() -> None:
     phase_f32_mesh_cli(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32_mesh_cli")
     phase_12(k3, kattn, dev, step_s, peak_256)
     phase_13(k3, kattn, dev)
+    phase_14(k3, kattn, dev, step_s, peak_256)
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),

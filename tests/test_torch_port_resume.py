@@ -14,7 +14,8 @@ own words: another run configuration, a checkpoint the JAX package wrote,
 one drawn on another device type, an unreadable file, a meta that does not
 parse, DPM state into a non-DPM run and the reverse; a checkpoint written
 after the last segment warns and yields nothing. The port's run meta has
-the JAX package's keys (read from cgd_tpu/api.py) less ``unet_remat``, plus
+the JAX package's keys (read from cgd_tpu/api.py), ``unet_remat`` included
+(tests/test_torch_port_remat.py holds its adoption on resume), plus
 ``package`` and ``generator``."""
 
 import ast
@@ -225,8 +226,9 @@ def test_the_run_meta_is_jax_less_remat_plus_package_and_generator(tiny):
     meta = json.loads(str(np.load(_checkpoint(tiny))["meta"]))
     jax_keys = _jax_run_meta_keys()
     assert "unet_remat" in jax_keys
-    assert set(meta) == (jax_keys - {"unet_remat"}) | {"package", "generator"}
+    assert set(meta) == jax_keys | {"package", "generator"}
     assert meta["package"] == "cgd_tpu_torch" and meta["generator"] == "cpu"
+    assert meta["unet_remat"] is False  # 64px: the gate says no
 
 
 def _guarded(tiny, ck, match):
