@@ -384,14 +384,14 @@ attn_bwd_dkdv(const __grid_constant__ BwdMaps maps, const float* __restrict__ ls
 
 template <int D>
 static int launch_bwd(const BwdMaps& maps, const void* lse, void* Dvec, void* dqkv, int batch,
-                      int T, int heads, int split, cudaStream_t s) {
+                      int T, int heads, int dh, int split, cudaStream_t s) {
   constexpr int b1 = DqLayout<D>::SMEM, b2 = DkdvLayout<D>::SMEM;
   static_assert(b1 + sizeof(Bars) <= SMEM_MAX && b2 + sizeof(Bars) <= SMEM_MAX, "shared memory");
   static const cudaError_t ok1 = allow_smem(attn_bwd_dq<D>, b1);
   static const cudaError_t ok2 = allow_smem(attn_bwd_dkdv<D>, b2);
   if (ok1 != cudaSuccess) return (int)ok1;
   if (ok2 != cudaSuccess) return (int)ok2;
-  const float scale = 1.f / sqrtf((float)D), sl2 = scale * LOG2E;
+  const float scale = 1.f / sqrtf((float)dh), sl2 = scale * LOG2E;
   const dim3 grid((T + ROWS - 1) / ROWS, batch * heads);
   const float* l = static_cast<const float*>(lse);
   bf16* g = static_cast<bf16*>(dqkv);
@@ -411,14 +411,14 @@ static int launch_bwd(const BwdMaps& maps, const void* lse, void* Dvec, void* dq
 // bf16 and lse [batch*heads, T] f32; dout [batch, T, heads*d] bf16, the
 // cotangent of out; Dvec [batch*heads, T] f32 scratch (D, written by launch
 // 1, read by launch 2) -> dqkv [batch, T, 3*heads*d] bf16 (dq | dk | dv in
-// qkv's layout). d in {64, 128, 192, 256}; tile and split as cgd_attn_fwd's,
-// stages bwd_stages(d).
+// qkv's layout). d in {64, 128, 192, 256} and dh as cgd_attn_fwd's; tile and
+// split as its, stages bwd_stages(d).
 // Pointers 16-byte aligned. Two launches on `stream`; returns the status.
 extern "C" int cgd_attn_bwd(const void* qkv, const void* out, const void* dout, const void* lse,
-                            void* Dvec, void* dqkv, int batch, int T, int heads, int d, int tile,
-                            int stages, int split, void* stream) {
+                            void* Dvec, void* dqkv, int batch, int T, int heads, int d, int dh,
+                            int tile, int stages, int split, void* stream) {
   using namespace cgd::attn;
-  if (!plan_ok(batch, T, heads, d, tile, stages, bwd_stages(d), split))
+  if (!plan_ok(batch, T, heads, d, tile, stages, bwd_stages(d), split) || dh < 1 || dh > d)
     return (int)cudaErrorInvalidValue;
   BwdMaps maps;
   const int c = heads * d;
@@ -426,10 +426,10 @@ extern "C" int cgd_attn_bwd(const void* qkv, const void* out, const void* dout, 
   if (int st = map_rows(&maps.out, out, batch, T, c)) return st;
   if (int st = map_rows(&maps.dout, dout, batch, T, c)) return st;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_bwd<64>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
-  if (d == 128) return launch_bwd<128>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
-  if (d == 192) return launch_bwd<192>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
-  return launch_bwd<256>(maps, lse, Dvec, dqkv, batch, T, heads, split, s);
+  if (d == 64) return launch_bwd<64>(maps, lse, Dvec, dqkv, batch, T, heads, dh, split, s);
+  if (d == 128) return launch_bwd<128>(maps, lse, Dvec, dqkv, batch, T, heads, dh, split, s);
+  if (d == 192) return launch_bwd<192>(maps, lse, Dvec, dqkv, batch, T, heads, dh, split, s);
+  return launch_bwd<256>(maps, lse, Dvec, dqkv, batch, T, heads, dh, split, s);
 }
 
 // Dynamic shared memory of one block of the Hopper bodies (kernel 0 = the

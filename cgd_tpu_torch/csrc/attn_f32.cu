@@ -409,7 +409,7 @@ __device__ __forceinline__ void add_half1(float (&acc)[COLS / 8][4], float* buf,
 template <int D>
 __global__ void __launch_bounds__(FwdLayout<D>::THREADS, 1)
 attn_fwd_f32_kernel(const __grid_constant__ CUtensorMap qkv, float* __restrict__ out,
-                    float* __restrict__ lse, int T, int heads) {
+                    float* __restrict__ lse, int T, int heads, int dh) {
   using L = FwdLayout<D>;
   static_assert(Check<L>::ok, "layout");
   constexpr int ST = L::ST, STAGES = L::STAGES;
@@ -441,7 +441,7 @@ attn_fwd_f32_kernel(const __grid_constant__ CUtensorMap qkv, float* __restrict__
   if constexpr (L::HALVES == 2) setmaxnreg_inc<CONSUMER_REGS>();
   const int cw = warp - L::PWARPS, half = cw / WARPS, r0 = 16 * (cw % WARPS);
   const int t = threadIdx.x & 3;
-  const float sl2 = LOG2E / sqrtf((float)D);
+  const float sl2 = LOG2E / sqrtf((float)dh);
   float o[COLS / 8][4];
 #pragma unroll
   for (int j = 0; j < COLS / 8; ++j)
@@ -543,7 +543,7 @@ __global__ void __launch_bounds__(DqLayout<D>::THREADS, 1)
 attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap qkv,
                        const __grid_constant__ CUtensorMap dout, const float* __restrict__ o_,
                        const float* __restrict__ lse, float* __restrict__ Dvec,
-                       float* __restrict__ dqkv, int T, int heads) {
+                       float* __restrict__ dqkv, int T, int heads, int dh) {
   using L = DqLayout<D>;
   static_assert(Check<L>::ok, "layout");
   constexpr int ST = L::ST, STAGES = L::STAGES;
@@ -576,7 +576,7 @@ attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap qkv,
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   if constexpr (L::HALVES == 2) setmaxnreg_inc<CONSUMER_REGS>();
   const int cw = warp - L::PWARPS, half = cw / WARPS, r0 = 16 * (cw % WARPS);
-  const float sl2 = LOG2E / sqrtf((float)D);
+  const float sl2 = LOG2E / sqrtf((float)dh);
   mbar_wait(&tile_full, 0);
   // D and lse*log2(e) of rows g, g + 8 (rows past T: D = 0, lse = +inf, so P = 0)
   float dd[2], l2[2];
@@ -632,7 +632,7 @@ attn_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap qkv,
   }
   add_half1<L::HALVES>(dq, smem + L::RING, half);
   if (half == 1) return;
-  const float scale = 1.f / sqrtf((float)D), mul[2] = {scale, scale};
+  const float scale = 1.f / sqrtf((float)dh), mul[2] = {scale, scale};
   store_acc(dq, mul, dqkv + (size_t)b * T * 3 * C + h * D + c0, q0 + r0, T, 3 * C);
 }
 
@@ -645,7 +645,7 @@ __global__ void __launch_bounds__(DkdvLayout<D>::THREADS, 1)
 attn_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap qkv,
                          const __grid_constant__ CUtensorMap dout, const float* __restrict__ lse,
                          const float* __restrict__ Dvec, float* __restrict__ dqkv, int T,
-                         int heads) {
+                         int heads, int dh) {
   using L = DkdvLayout<D>;
   static_assert(Check<L>::ok, "layout");
   constexpr int ST = L::ST, STAGES = L::STAGES;
@@ -691,7 +691,7 @@ attn_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap qkv,
   if constexpr (L::HALVES == 2) setmaxnreg_inc<CONSUMER_REGS>();
   const int cw = warp - L::PWARPS, half = cw / WARPS, r0 = 16 * (cw % WARPS);
   const int t = lane & 3;
-  const float sl2 = LOG2E / sqrtf((float)D);
+  const float sl2 = LOG2E / sqrtf((float)dh);
   float dk[COLS / 8][4], dv[COLS / 8][4];
 #pragma unroll
   for (int j = 0; j < COLS / 8; ++j)
@@ -732,7 +732,7 @@ attn_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap qkv,
   add_half1<L::HALVES>(dv, smem + L::RING, half);
   add_half1<L::HALVES>(dk, smem + L::RING, half);
   if (half == 1) return;
-  const float scale = 1.f / sqrtf((float)D), ks[2] = {scale, scale}, one[2] = {1.f, 1.f};
+  const float scale = 1.f / sqrtf((float)dh), ks[2] = {scale, scale}, one[2] = {1.f, 1.f};
   float* base = dqkv + (size_t)b * T * 3 * C + h * D + c0;
   store_acc(dk, ks, base + C, k0 + r0, T, 3 * C);
   store_acc(dv, one, base + 2 * C, k0 + r0, T, 3 * C);
@@ -763,20 +763,21 @@ static dim3 grid_of(int batch, int T, int heads, int d) {
 
 template <int D>
 static int launch_fwd(const void* qkv, float* out, float* lse, int batch, int T, int heads,
-                      cudaStream_t s) {
+                      int dh, cudaStream_t s) {
   using L = FwdLayout<D>;
   static const cudaError_t ok = allow_smem(attn_fwd_f32_kernel<D>, L::SMEM);
   if (ok != cudaSuccess) return (int)ok;
   CUtensorMap map;
   if (int st = map_rows(&map, qkv, batch, T, 3 * heads * D, L::ST)) return st;
   attn_fwd_f32_kernel<D><<<grid_of(batch, T, heads, D), L::THREADS, L::SMEM, s>>>(map, out, lse,
-                                                                                  T, heads);
+                                                                                  T, heads, dh);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 static int launch_bwd(const void* qkv, const float* out, const void* dout, const float* lse,
-                      float* Dvec, float* dqkv, int batch, int T, int heads, cudaStream_t s) {
+                      float* Dvec, float* dqkv, int batch, int T, int heads, int dh,
+                      cudaStream_t s) {
   using L1 = DqLayout<D>;
   using L2 = DkdvLayout<D>;
   static const cudaError_t ok1 = allow_smem(attn_bwd_dq_f32_kernel<D>, L1::SMEM);
@@ -789,15 +790,16 @@ static int launch_bwd(const void* qkv, const float* out, const void* dout, const
   if (int st = map_rows(&mg, dout, batch, T, heads * D, L1::ST)) return st;
   const dim3 grid = grid_of(batch, T, heads, D);
   attn_bwd_dq_f32_kernel<D><<<grid, L1::THREADS, L1::SMEM, s>>>(mq, mg, out, lse, Dvec, dqkv, T,
-                                                                heads);
+                                                                heads, dh);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   attn_bwd_dkdv_f32_kernel<D><<<grid, L2::THREADS, L2::SMEM, s>>>(mq, mg, lse, Dvec, dqkv, T,
-                                                                  heads);
+                                                                  heads, dh);
   return (int)cudaGetLastError();
 }
 
-static bool shape_ok(int batch, int T, int heads, int d) {
-  return batch > 0 && T > 0 && heads > 0 && (d == 64 || d == 128 || d == 192 || d == 256);
+static bool shape_ok(int batch, int T, int heads, int d, int dh) {
+  return batch > 0 && T > 0 && heads > 0 && (d == 64 || d == 128 || d == 192 || d == 256) &&
+         dh >= 1 && dh <= d;
 }
 
 }  // namespace attn32
@@ -805,44 +807,49 @@ static bool shape_ok(int batch, int T, int heads, int d) {
 
 // qkv [batch, T, 3*heads*d] f32 (q heads | k heads | v heads) -> out [batch,
 // T, heads*d] f32 and lse [batch*heads, T] f32 (natural log). d in {64, 128,
-// 192, 256}; tile, stages and cols are the launch plan's streamed K/V tile,
+// 192, 256}; dh <= d the head dim whose 1/sqrt(dh) scales the logits (d
+// itself, or the true head dim of heads zero-padded to d by the wrapper);
+// tile, stages and cols are the launch plan's streamed K/V tile,
 // ring stages and output columns per block (kernels/attention.py
 // f32_attn_plan), checked against this build. Pointers 16-byte aligned.
 // Returns the launch status (a cudaError_t, or ENCODE_ERROR + a CUresult).
 extern "C" int cgd_attn_fwd_f32(const void* qkv, void* out, void* lse, int batch, int T,
-                                int heads, int d, int tile, int stages, int cols, void* stream) {
+                                int heads, int d, int dh, int tile, int stages, int cols,
+                                void* stream) {
   using namespace cgd::attn32;
-  if (!shape_ok(batch, T, heads, d) || tile != fwd_tile(d) || stages != fwd_stages(d) ||
+  if (!shape_ok(batch, T, heads, d, dh) || tile != fwd_tile(d) || stages != fwd_stages(d) ||
       cols != COLS)
     return (int)cudaErrorInvalidValue;
   float *o = static_cast<float*>(out), *l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_fwd<64>(qkv, o, l, batch, T, heads, s);
-  if (d == 128) return launch_fwd<128>(qkv, o, l, batch, T, heads, s);
-  if (d == 192) return launch_fwd<192>(qkv, o, l, batch, T, heads, s);
-  return launch_fwd<256>(qkv, o, l, batch, T, heads, s);
+  if (d == 64) return launch_fwd<64>(qkv, o, l, batch, T, heads, dh, s);
+  if (d == 128) return launch_fwd<128>(qkv, o, l, batch, T, heads, dh, s);
+  if (d == 192) return launch_fwd<192>(qkv, o, l, batch, T, heads, dh, s);
+  return launch_fwd<256>(qkv, o, l, batch, T, heads, dh, s);
 }
 
 // The backward of cgd_attn_fwd_f32: qkv, its out and lse, the cotangent dout
-// [batch, T, heads*d] f32 -> dqkv [batch, T, 3*heads*d] f32. Dvec: [batch*heads,
+// [batch, T, heads*d] f32 -> dqkv [batch, T, 3*heads*d] f32 (d and dh as
+// cgd_attn_fwd_f32's). Dvec: [batch*heads,
 // T] f32 scratch (rowsum(dout o out), from launch 1 to launch 2). tile,
 // stages, cols: the plan's streamed tile and ring stages of both kernels and
 // its output columns per block, checked. Two launches. Returns the launch
 // status.
 extern "C" int cgd_attn_bwd_f32(const void* qkv, const void* out, const void* dout,
                                 const void* lse, void* Dvec, void* dqkv, int batch, int T,
-                                int heads, int d, int tile, int stages, int cols, void* stream) {
+                                int heads, int d, int dh, int tile, int stages, int cols,
+                                void* stream) {
   using namespace cgd::attn32;
-  if (!shape_ok(batch, T, heads, d) || tile != bwd_tile(d) || stages != bwd_stages(d) ||
+  if (!shape_ok(batch, T, heads, d, dh) || tile != bwd_tile(d) || stages != bwd_stages(d) ||
       cols != COLS)
     return (int)cudaErrorInvalidValue;
   const float *o = static_cast<const float*>(out), *l = static_cast<const float*>(lse);
   float *dv = static_cast<float*>(Dvec), *dq = static_cast<float*>(dqkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_bwd<64>(qkv, o, dout, l, dv, dq, batch, T, heads, s);
-  if (d == 128) return launch_bwd<128>(qkv, o, dout, l, dv, dq, batch, T, heads, s);
-  if (d == 192) return launch_bwd<192>(qkv, o, dout, l, dv, dq, batch, T, heads, s);
-  return launch_bwd<256>(qkv, o, dout, l, dv, dq, batch, T, heads, s);
+  if (d == 64) return launch_bwd<64>(qkv, o, dout, l, dv, dq, batch, T, heads, dh, s);
+  if (d == 128) return launch_bwd<128>(qkv, o, dout, l, dv, dq, batch, T, heads, dh, s);
+  if (d == 192) return launch_bwd<192>(qkv, o, dout, l, dv, dq, batch, T, heads, dh, s);
+  return launch_bwd<256>(qkv, o, dout, l, dv, dq, batch, T, heads, dh, s);
 }
 
 // Dynamic shared memory of one block (kernel 0 = the forward, 1 = the

@@ -223,7 +223,7 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap qkv, bf16* __restrict__ out,
 
 template <int D>
 static int launch_fwd(const CUtensorMap& map, void* out, void* lse, int batch, int T, int heads,
-                      int split, cudaStream_t s) {
+                      int dh, int split, cudaStream_t s) {
   constexpr int smem = FwdLayout<D>::SMEM;
   static_assert(smem + sizeof(Bars) <= SMEM_MAX, "shared memory");
   static const cudaError_t ok = allow_smem(attn_fwd_kernel<D>, smem);
@@ -231,7 +231,7 @@ static int launch_fwd(const CUtensorMap& map, void* out, void* lse, int batch, i
   const dim3 grid((T + ROWS - 1) / ROWS, batch * heads);
   attn_fwd_kernel<D><<<grid, NTHREADS, smem, s>>>(map, static_cast<bf16*>(out),
                                                   static_cast<float*>(lse), T, heads, split,
-                                                  LOG2E / sqrtf((float)D));
+                                                  LOG2E / sqrtf((float)dh));
   return (int)cudaGetLastError();
 }
 
@@ -240,21 +240,23 @@ static int launch_fwd(const CUtensorMap& map, void* out, void* lse, int batch, i
 
 // qkv [batch, T, 3*heads*d] bf16 (q heads | k heads | v heads) -> out [batch,
 // T, heads*d] bf16 and lse [batch*heads, T] f32 (natural log). d in {64,
-// 128, 192, 256}; tile, stages and split are the launch plan
+// 128, 192, 256}; dh <= d the head dim whose 1/sqrt(dh) scales the logits (d
+// itself, or the true head dim of heads zero-padded to d by the wrapper);
+// tile, stages and split are the launch plan
 // (kernels/attention.py attn_plan: 64, fwd_stages(d), and 2 where T > 64,
 // else 1), checked against this build.
 // Pointers 16-byte aligned. Returns the launch status (cudaError_t, or
 // cgd::ENCODE_ERROR + the CUresult of a failed tensor-map encode).
 extern "C" int cgd_attn_fwd(const void* qkv, void* out, void* lse, int batch, int T, int heads,
-                            int d, int tile, int stages, int split, void* stream) {
+                            int d, int dh, int tile, int stages, int split, void* stream) {
   using namespace cgd::attn;
-  if (!plan_ok(batch, T, heads, d, tile, stages, fwd_stages(d), split))
+  if (!plan_ok(batch, T, heads, d, tile, stages, fwd_stages(d), split) || dh < 1 || dh > d)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map;
   if (int st = map_rows(&map, qkv, batch, T, 3 * heads * d)) return st;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_fwd<64>(map, out, lse, batch, T, heads, split, s);
-  if (d == 128) return launch_fwd<128>(map, out, lse, batch, T, heads, split, s);
-  if (d == 192) return launch_fwd<192>(map, out, lse, batch, T, heads, split, s);
-  return launch_fwd<256>(map, out, lse, batch, T, heads, split, s);
+  if (d == 64) return launch_fwd<64>(map, out, lse, batch, T, heads, dh, split, s);
+  if (d == 128) return launch_fwd<128>(map, out, lse, batch, T, heads, dh, split, s);
+  if (d == 192) return launch_fwd<192>(map, out, lse, batch, T, heads, dh, split, s);
+  return launch_fwd<256>(map, out, lse, batch, T, heads, dh, split, s);
 }

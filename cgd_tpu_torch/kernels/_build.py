@@ -76,15 +76,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_conv3x3_f32_split.restype = i
     lib.cgd_conv3x3_f32_plan.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_int)]
     lib.cgd_conv3x3_f32_plan.restype = i
-    lib.cgd_attn_fwd.argtypes = [p] * 3 + [i] * 7 + [p]
+    lib.cgd_attn_fwd.argtypes = [p] * 3 + [i] * 8 + [p]
     lib.cgd_attn_fwd.restype = i
-    lib.cgd_attn_bwd.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.cgd_attn_bwd.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.cgd_attn_bwd.restype = i
     lib.cgd_attn_smem_bytes.argtypes = [i, i]
     lib.cgd_attn_smem_bytes.restype = i
-    lib.cgd_attn_fwd_f32.argtypes = [p] * 3 + [i] * 7 + [p]
+    lib.cgd_attn_fwd_f32.argtypes = [p] * 3 + [i] * 8 + [p]
     lib.cgd_attn_fwd_f32.restype = i
-    lib.cgd_attn_bwd_f32.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.cgd_attn_bwd_f32.argtypes = [p] * 6 + [i] * 8 + [p]
     lib.cgd_attn_bwd_f32.restype = i
     lib.cgd_attn_f32_smem_bytes.argtypes = [i, i]
     lib.cgd_attn_f32_smem_bytes.restype = i

@@ -27,9 +27,17 @@ producer warp, S and P in registers, one block per 64-column share of the
 output; the same fused qkv, log-sum-exp and two-launch backward;
 ``f32_attn_plan`` is their geometry).
 
+Head dims: the kernels are templates at d = 64, 128, 192 and 256
+(``HEAD_DIMS``). A head dim between them (the toy models' 16, say) runs on
+the next wider template: the wrappers zero-pad each head of q, k, v (and of
+the backward's out and cotangent) to that width, tell the kernel the true d
+so that the logits keep their 1/sqrt(d) scale, and slice the padded columns
+off the results (``fwd_padded`` / ``bwd_padded``; the padded columns of q
+and k add nothing to q k^T, and v's give output columns of zeros).
+
 Dispatch: a tensor on the CPU takes the plain versions; a CUDA tensor
-launches the kernels or raises (a head dim outside 64/128/192/256, a dtype
-other than bfloat16 or float32, a failed build). Nothing falls back.
+launches the kernels or raises (a head dim above 256, a dtype other than
+bfloat16 or float32, a failed build). Nothing falls back.
 """
 
 from __future__ import annotations
@@ -39,13 +47,14 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from cgd_tpu_torch.kernels import _build
 
 HEAD_DIMS = (64, 128, 192, 256)  # the kernels' templates
 
 # launches of each kernel since the last reset_launch_counts(), in all and by
-# head dim
+# the caller's head dim (a padded one under its own d)
 LAUNCHES = {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_f32": 0, "attn_bwd_f32": 0}
 LAUNCHES_BY_D = {d: dict.fromkeys(LAUNCHES, 0) for d in HEAD_DIMS}
 
@@ -69,15 +78,15 @@ def reset_launch_counts() -> None:
 
 def _count(name: str, d: int) -> None:
     LAUNCHES[name] += 1
-    LAUNCHES_BY_D[d][name] += 1
+    LAUNCHES_BY_D.setdefault(d, dict.fromkeys(LAUNCHES, 0))[name] += 1
 
 
 # ---------------------------------------------------------------------------
 # plain versions (CPU path, and the reference the kernels are held to)
 # ---------------------------------------------------------------------------
 
-def _probs(q, k):
-    d = q.shape[-1]
+def _probs(q, k, dh=None):
+    d = dh or q.shape[-1]
     scale = 1.0 / math.sqrt(math.sqrt(d))
     s = (q.float() * scale) @ (k.float() * scale).transpose(-1, -2)
     s = s - s.amax(-1, keepdim=True)
@@ -85,15 +94,17 @@ def _probs(q, k):
     return p / p.sum(-1, keepdim=True), scale * scale
 
 
-def attention_fwd_plain(q, k, v):
-    """softmax(q k^T / sqrt(d)) v for q, k, v [N, T, d]; f32 math, q's dtype out."""
-    p, _ = _probs(q, k)
+def attention_fwd_plain(q, k, v, dh=None):
+    """softmax(q k^T / sqrt(d)) v for q, k, v [N, T, d]; f32 math, q's dtype
+    out. ``dh`` replaces d in the scale (the kernels' contract at a padded
+    width)."""
+    p, _ = _probs(q, k, dh)
     return (p @ v.float()).to(q.dtype)
 
 
-def attention_bwd_plain(q, k, v, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def attention_bwd_plain(q, k, v, g, dh=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of attention_fwd_plain for cotangent g, P recomputed."""
-    p, s2 = _probs(q, k)
+    p, s2 = _probs(q, k, dh)
     g = g.float()
     dp = g @ v.float().transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
@@ -118,6 +129,52 @@ def merge_heads(x: torch.Tensor, batch: int) -> torch.Tensor:
     """[B*H, T, d] -> [B, T, H*d]."""
     n, t, d = x.shape
     return x.reshape(batch, n // batch, t, d).transpose(1, 2).reshape(batch, t, -1)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The template width that runs heads of width d: d itself, or the next
+    wider of ``HEAD_DIMS``."""
+    for dk in HEAD_DIMS:
+        if d <= dk:
+            return dk
+    raise ValueError(f"attention: head dim {d} has no kernel (at most {HEAD_DIMS[-1]})")
+
+
+def pad_heads(x: torch.Tensor, groups: int, d: int, dk: int) -> torch.Tensor:
+    """[B, T, groups*d] -> [B, T, groups*dk], each group of d channels
+    followed by dk - d zeros (contiguous)."""
+    b, t, _ = x.shape
+    return F.pad(x.reshape(b, t, groups, d), (0, dk - d)).reshape(b, t, groups * dk)
+
+
+def unpad_heads(x: torch.Tensor, groups: int, d: int, dk: int) -> torch.Tensor:
+    """The inverse of ``pad_heads``: the first d channels of each group
+    (contiguous: with one group the reshape alone would give a strided view,
+    which the kernels refuse)."""
+    b, t, _ = x.shape
+    return x.reshape(b, t, groups, dk)[..., :d].reshape(b, t, groups * d).contiguous()
+
+
+def fwd_padded(qkv: torch.Tensor, num_heads: int, d: int, dk: int, kernel):
+    """K-attn-f of heads of width d on the template of width dk >= d:
+    ``kernel(qkv, num_heads, dk, d) -> (out, lse)`` runs the template at
+    width dk with the logits scaled by 1/sqrt(d). Where dk > d, q, k, v go
+    in zero-padded per head and out's padded columns (zeros) come off."""
+    if dk == d:
+        return kernel(qkv, num_heads, d, d)
+    out, lse = kernel(pad_heads(qkv, 3 * num_heads, d, dk), num_heads, dk, d)
+    return unpad_heads(out, num_heads, d, dk), lse
+
+
+def bwd_padded(qkv, out, lse, g, num_heads: int, d: int, dk: int, kernel):
+    """K-attn-b as ``fwd_padded``: ``kernel(qkv, out, lse, g, num_heads, dk,
+    d) -> dqkv`` at width dk; qkv, out and g go in zero-padded per head (so
+    rowsum(g * out) is unchanged), dq / dk / dv come back unpadded."""
+    if dk == d:
+        return kernel(qkv, out, lse, g, num_heads, d, d)
+    dqkv = kernel(pad_heads(qkv, 3 * num_heads, d, dk), pad_heads(out, num_heads, d, dk), lse,
+                  pad_heads(g, num_heads, d, dk), num_heads, dk, d)
+    return unpad_heads(dqkv, 3 * num_heads, d, dk)
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +309,7 @@ def _check(name: str, num_heads: int, qkv: torch.Tensor, *more) -> Tuple[int, in
     """One pass over the tensors (device, dtype, contiguity, 16-byte
     alignment; ``more`` = (name, tensor, dtype) triples, dtype None for
     qkv's), then qkv's shape. Returns (b, t, c, plan), the plan of qkv's
-    dtype."""
+    dtype at the template width that runs its head dim."""
     dev = qkv.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
@@ -266,7 +323,7 @@ def _check(name: str, num_heads: int, qkv: torch.Tensor, *more) -> Tuple[int, in
     if c3 % 3 or c % num_heads:
         raise ValueError(f"{name}: qkv {tuple(qkv.shape)} does not split into 3 x {num_heads} heads")
     plan = f32_attn_plan if dt == torch.float32 else attn_plan
-    return b, t, c, plan(b, num_heads, t, c // num_heads)
+    return b, t, c, plan(b, num_heads, t, kernel_head_dim(c // num_heads))
 
 
 def _launch(dev: torch.device, fn, *args) -> int:
@@ -283,22 +340,29 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torc
     qkv's dtype, lse [B*H, T] f32, the per-row log-sum-exp of the scaled
     logits). f32 runs K-attn-f f32."""
     b, t, c, plan = _check("attention_fwd", num_heads, qkv)
-    out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
+    return fwd_padded(qkv, num_heads, c // num_heads, plan["d"],
+                      functools.partial(_fwd_kernel, plan=plan))
+
+
+def _fwd_kernel(qkv, num_heads: int, dk: int, dh: int, plan: dict):
+    """K-attn-f at template width dk on checked tensors, logits scaled by
+    1/sqrt(dh); launches counted under dh."""
+    b, t, _ = qkv.shape
+    out = torch.empty((b, t, num_heads * dk), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b * num_heads, t), dtype=torch.float32, device=qkv.device)
-    d = plan["d"]
     lib = _build.library()
     if qkv.dtype == torch.float32:
         status = _launch(qkv.device, lib.cgd_attn_fwd_f32, qkv.data_ptr(), out.data_ptr(),
-                         lse.data_ptr(), b, t, num_heads, d, plan["stream"]["fwd"],
+                         lse.data_ptr(), b, t, num_heads, dk, dh, plan["stream"]["fwd"],
                          plan["stages"]["fwd"], plan["cols"])
         _build.check(status, "attention_fwd (f32)")
-        _count("attn_fwd_f32", d)
+        _count("attn_fwd_f32", dh)
         return out, lse
     status = _launch(qkv.device, lib.cgd_attn_fwd, qkv.data_ptr(), out.data_ptr(),
-                     lse.data_ptr(), b, t, num_heads, d, plan["kv_tile"], plan["stages"]["fwd"],
-                     plan["split"])
+                     lse.data_ptr(), b, t, num_heads, dk, dh, plan["kv_tile"],
+                     plan["stages"]["fwd"], plan["split"])
     _build.check(status, "attention_fwd")
-    _count("attn_fwd", d)
+    _count("attn_fwd", dh)
     return out, lse
 
 
@@ -310,25 +374,32 @@ def attention_bwd(qkv, out, lse, g, num_heads: int) -> torch.Tensor:
                            ("lse", lse, torch.float32), ("g", g, None))
     if out.shape != (b, t, c) or g.shape != (b, t, c) or lse.shape != (b * num_heads, t):
         raise ValueError("attention_bwd: out / g / lse do not fit qkv")
+    return bwd_padded(qkv, out, lse, g, num_heads, c // num_heads, plan["d"],
+                      functools.partial(_bwd_kernel, plan=plan))
+
+
+def _bwd_kernel(qkv, out, lse, g, num_heads: int, dk: int, dh: int, plan: dict):
+    """K-attn-b at template width dk on checked tensors (scale 1/sqrt(dh))."""
     if qkv.dtype == torch.float32:
-        return _attention_bwd_f32(qkv, out, lse, g, num_heads, plan)
+        return _attention_bwd_f32(qkv, out, lse, g, num_heads, dk, dh, plan)
+    b, t, c3 = qkv.shape
     bf = torch.bfloat16
     # dqkv and the D scratch (f32 [B*H, T], at byte 2n: 16-byte aligned) in one
     # allocation
-    n = b * t * 3 * c
+    n = b * t * c3
     buf = torch.empty(n + 2 * b * num_heads * t, dtype=bf, device=qkv.device)
-    dqkv = buf.as_strided((b, t, 3 * c), (t * 3 * c, 3 * c, 1))
+    dqkv = buf.as_strided((b, t, c3), (t * c3, c3, 1))
     gbase = buf.data_ptr()
-    d = plan["d"]
     status = _launch(qkv.device, _build.library().cgd_attn_bwd, qkv.data_ptr(), out.data_ptr(),
-                     g.data_ptr(), lse.data_ptr(), gbase + 2 * n, gbase, b, t, num_heads, d,
+                     g.data_ptr(), lse.data_ptr(), gbase + 2 * n, gbase, b, t, num_heads, dk, dh,
                      plan["kv_tile"], plan["stages"]["bwd_dq"], plan["split"])
     _build.check(status, "attention_bwd")
-    _count("attn_bwd", d)
+    _count("attn_bwd", dh)
     return dqkv
 
 
-def _attention_bwd_f32(qkv, out, lse, g, num_heads: int, plan: dict) -> torch.Tensor:
+def _attention_bwd_f32(qkv, out, lse, g, num_heads: int, dk: int, dh: int,
+                       plan: dict) -> torch.Tensor:
     """K-attn-b f32 on checked tensors: dqkv [B, T, 3C] f32."""
     b, t, c3 = qkv.shape
     # dqkv and the D scratch (f32 [B*H, T], at element n: 16-byte aligned)
@@ -336,13 +407,12 @@ def _attention_bwd_f32(qkv, out, lse, g, num_heads: int, plan: dict) -> torch.Te
     n = b * t * c3
     buf = torch.empty(n + b * num_heads * t, dtype=torch.float32, device=qkv.device)
     dqkv = buf.as_strided((b, t, c3), (t * c3, c3, 1))
-    d = plan["d"]
     status = _launch(qkv.device, _build.library().cgd_attn_bwd_f32, qkv.data_ptr(),
                      out.data_ptr(), g.data_ptr(), lse.data_ptr(), buf.data_ptr() + 4 * n,
-                     buf.data_ptr(), b, t, num_heads, d, plan["stream"]["bwd_dq"],
+                     buf.data_ptr(), b, t, num_heads, dk, dh, plan["stream"]["bwd_dq"],
                      plan["stages"]["bwd_dq"], plan["cols"])
     _build.check(status, "attention_bwd (f32)")
-    _count("attn_bwd_f32", d)
+    _count("attn_bwd_f32", dh)
     return dqkv
 
 

@@ -18,7 +18,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    classes of the 256px and 512px UNets (the conv family, including the
    512px UNet's own 512^2 128->128 prologue+residual class, K-dx-w at
    512^2) and of the 128px model (the attention at every T and head dim,
-   with ragged T and batches at d = 192 / 256), checking that K-dx, K-dx-w
+   with ragged T and batches at d = 192 / 256; and at d = 16 and 32, the
+   toy models', zero-padded per head to the 64-wide template, in bf16 and
+   f32), checking that K-dx, K-dx-w
    and K-attn-b reruns are bit-identical (bound: max |err| <= 1% of the
    reference's max |value|, the order of bf16 rounding), and time both: every
    conv row by CUDA events and by its device time under torch.profiler,
@@ -182,7 +184,18 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    ``unet_remat`` adopted with the variable unset, bit-equal, and a
    checkpoint without the key resumed as false; (e) BASELINE.md's
    acceptance configs 2-5 through ``tools/run_acceptance.run_config`` (a
-   fresh CLI process each) at 10-25 steps.
+   fresh CLI process each) at 10-25 steps;
+15. the measuring and validation tools (``cgd_tpu_torch/tools``), every
+   line with the card's name and power limit: (a)
+   ``time_components.measure_components(256)``: UNet forward, forward +
+   input gradient and the guided step, counters reset just before and read
+   just after; (b) ``bench --respace ddim25`` in a fresh process: its JSON
+   line, ``flops_per_step`` equal to ``guided_step_flops``, 0 < ``mfu`` <=
+   1; (c) ``clip_score`` of a phase-5 frame in a fresh process against the
+   score computed here; (d) ``serve_throughput`` at 128px ddim10, both arms;
+   (e) ``first_real_run --dry-run`` on the card with the toy models (the
+   attention at d = 16); (f) the guided-quality proxy's ddim10 / dpm10 /
+   fast10 arms on the card against the CPU.
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
 from phase 7c, K-fwd f32's from phase 8, K-dx f32's and the f32
@@ -724,6 +737,77 @@ def phase_attention(kattn, dev, cases=ATTN_CASES, tag="3"):
                                    library_ms=eager["sdpa_bwd"], **bdb)
     torch.cuda.synchronize()
     return res
+
+
+# phase 3's attention rows at head dims between the templates (batch, N, T,
+# d): the toy 64px UNet's four heads of 16 at 32^2 (CGD_TPU_DEBUG_TINY=1,
+# phase 15e) and d = 32
+ATTN_PADDED = [(1, 4, 1024, 16), (1, 2, 256, 32)]
+
+
+def phase_attention_padded(kattn, dev, cases=ATTN_PADDED, tag="3") -> None:
+    """Phase 3's rows at d = 16 and 32: K-attn-f and K-attn-b in bf16 and
+    f32, each head zero-padded by the wrappers to the 64-wide template with
+    the true d's 1/sqrt(d) scale, against their plain versions at the true
+    width (ATTN_TOL in bf16, F32_TOL in f32), the backward's reruns
+    bit-identical, the launches counted under the true d; the kernels'
+    device time (torch.profiler, held to the call's CUDA-event time) and
+    eager time (CUDA events around 20 calls) beside SDPA's on the same q, k,
+    v (``attn_bench.calls``), the plain version's and the bound of the
+    unpadded work."""
+    import torch
+
+    from cgd_tpu_torch.tools import attn_bench
+
+    gen = torch.Generator(dev).manual_seed(4322)
+    for dtype, tol, peak in ((torch.bfloat16, ATTN_TOL, PEAK_BF16_FLOPS),
+                             (torch.float32, F32_TOL, PEAK_TF32_FLOPS)):
+        f32 = dtype == torch.float32
+        for bt, n, t, d in cases:
+            qkv = torch.randn(bt, t, 3 * n * d, generator=gen, device=dev).to(dtype)
+            g = torch.randn(bt, t, n * d, generator=gen, device=dev).to(dtype)
+            q, k, v = kattn.split_heads(qkv, n)
+            kattn.reset_launch_counts()
+            out, lse = kattn.attention_fwd(qkv, n)
+            dqkv = kattn.attention_bwd(qkv, out, lse, g, n)
+            by_d = dict(kattn.LAUNCHES_BY_D[d])
+            suffix = "_f32" if f32 else ""
+            if by_d[f"attn_fwd{suffix}"] != 1 or by_d[f"attn_bwd{suffix}"] != 1:
+                raise AssertionError(f"K-attn d = {d}: launches {by_d}, expected one each")
+            err, rel = _rel_max(out, kattn.merge_heads(kattn.attention_fwd_plain(q, k, v), bt))
+            name = f"{'f32' if f32 else 'bf16'} B{bt} N{n} T{t} d{d}"
+            if rel > tol:
+                raise AssertionError(f"K-attn-f {name}: {rel:.3e} > {tol}")
+            if not torch.equal(dqkv, kattn.attention_bwd(qkv, out, lse, g, n)):
+                raise AssertionError(f"K-attn-b {name}: repeated runs differ")
+            line = []
+            for part, a, b in zip(("dq", "dk", "dv"), dqkv.chunk(3, dim=-1),
+                                  kattn.attention_bwd_plain(q, k, v, kattn.to_heads(g, n))):
+                e, r = _rel_max(a, kattn.merge_heads(b, bt))
+                line.append(f"{part} {e:.3e} ({r:.2e})")
+                if r > tol:
+                    raise AssertionError(f"K-attn-b {name} {part}: {r:.3e} > {tol}")
+            gh = kattn.to_heads(g, n)
+            fns = attn_bench.calls(kattn, n, t, d, dev, dtype)  # kernels and SDPA, batch 1
+            dname = "float32" if f32 else "bfloat16"
+            dev_ms = {key: _device_ms(fn, _attn_fresh(n, t, d, key, dname), f"{key} {name}")
+                      for key, fn in fns.items()}
+            eager = {key: _time_ms(fn) for key, fn in fns.items()}
+            plain = {"fwd": _time_ms(lambda: kattn.attention_fwd_plain(q, k, v)),
+                     "bwd": _time_ms(lambda: kattn.attention_bwd_plain(q, k, v, gh))}
+            bdf = _bound(4 * n * t * t * d, _nbytes(qkv, out, lse), peak)
+            bdb = _bound(10 * n * t * t * d, _nbytes(qkv, out, lse, g, dqkv), peak)
+            print(f"[{tag}] K-attn {name} (padded to d = {kattn.kernel_head_dim(d)}, "
+                  f"scale 1/sqrt({d})): fwd max|err| {err:.3e} ({rel:.2e}), {', '.join(line)} "
+                  f"(bit-identical reruns; launches under d = {d}: {by_d}; SDPA backend "
+                  f"{_sdpa_backend(*(z[None].contiguous() for z in (q, k, v)))})")
+            for key, kern, sdpa, bd in (("fwd", "K-attn-f", "SDPA fwd", bdf),
+                                        ("bwd", "K-attn-b", "SDPA bwd", bdb)):
+                print(f"[{tag}]   {key}: kernel device {dev_ms[kern]:.4f} ms, eager "
+                      f"{eager[kern]:.4f} ms; SDPA device {dev_ms[sdpa]:.4f} ms, eager "
+                      f"{eager[sdpa]:.4f} ms; plain {plain[key]:.4f} ms"
+                      f"{_fmt(bd, dev_ms[kern])}")
+    torch.cuda.synchronize()
 
 
 def _redraw_zero_init(unet, gen) -> None:
@@ -3591,6 +3675,135 @@ def phase_14(k3, kattn, dev, step_s: float, peak: float) -> list:
     return rows
 
 
+def _say15(sub: str, msg: str) -> None:
+    """A phase-15 line, with the card and its power limit."""
+    print(f"[15{sub}] ({CARD}) {msg}")
+
+
+def _tool(args, timeout: float) -> str:
+    """``python -m cgd_tpu_torch.tools.<args>`` from the checkout: its
+    standard output (raises with its last output on a nonzero exit)."""
+    res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+                         text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"{' '.join(args)}: exit {res.returncode}\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    return res.stdout
+
+
+PROXY_TOL = 1e-4  # relative L2 error, a proxy arm on the card against the CPU
+
+
+def phase_15(k3, kattn, dev, step_s: float, frame: Path) -> None:
+    """Phase 15, the JAX package's measuring and validation tools through
+    their port (``cgd_tpu_torch/tools``), each line with the card and power
+    limit: (a) ``time_components.measure_components(256)``, the launch
+    counters reset just before and read just after (K-fwd, K-dx and the
+    attention at d = 64 launched); (b) ``bench`` at 256px ddim25 in a fresh
+    process: its JSON line, ``value`` finite, ``flops_per_step`` equal to
+    ``guided_step_flops`` of the configuration, 0 < ``mfu`` <= 1; (c)
+    ``clip_score`` of ``frame`` (a frame of phase 5) in a fresh process,
+    within 1e-3 of the score computed here from the same decoded image; (d)
+    ``serve_throughput`` at 128px ddim10, 3 requests from 2 clients, both
+    arms (every response a PNG); (e) ``first_real_run --dry-run`` on the
+    card, the toy models (the attention at d = 16, zero-padded to the
+    64-wide template), every phase passing, the launches by head dim; (f)
+    the guided-quality proxy's ddim10, dpm10 and fast10 arms on the card
+    against the same arms on the CPU, TF32 off (relative L2 <= PROXY_TOL)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch.io_utils.images import decode_image
+    from cgd_tpu_torch.models.clip.configs import CLIP_CONFIGS
+    from cgd_tpu_torch.models.unet import UNetConfig
+    from cgd_tpu_torch.registry import DIFFUSION_LOOKUP
+    from cgd_tpu_torch.tools import (bench, clip_score, first_real_run, guided_quality_proxy,
+                                     serve_throughput, time_components)
+    from cgd_tpu_torch.weights import resolve_clip
+
+    t0 = time.perf_counter()
+    out = ROOT / "outputs" / "chip_smoke_15"
+    shutil.rmtree(out, ignore_errors=True)
+
+    _reset_launches(k3, kattn)
+    ms = time_components.measure_components(256, str(dev), 10)
+    launches = _launches(k3, kattn)
+    _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"), "15a")
+    if not kattn.LAUNCHES_BY_D[64]["attn_fwd"]:
+        raise AssertionError("15a: no attention launch at d = 64")
+    _say15("a", f"256px ViT-B/32, bf16: UNet forward {ms['fwd']:.3f} ms, forward + input "
+                f"gradient {ms['fwd_grad']:.3f} ms, guided step (16 cutouts) {ms['step']:.3f} ms "
+                f"(ms per call, min of 3 runs of 10); phase 5's step wall {step_s * 1e3:.1f} ms; "
+                f"launches {launches}")
+
+    line = _tool(["cgd_tpu_torch.tools.bench", "--respace", "ddim25", "--stall-timeout", "600"],
+                 900).strip().splitlines()[-1]
+    rec = json.loads(line)
+    cfg = UNetConfig.from_flags(dict(DIFFUSION_LOOKUP["cond"][256]["model_flags"]))
+    want = bench.guided_step_flops(cfg, CLIP_CONFIGS["ViT-B/32"], 256, 1, 16, False)
+    if not (rec["value"] == rec["value"] and 0 < rec["value"] < float("inf")):
+        raise AssertionError(f"15b: value {rec['value']} is not a finite time")
+    if rec["flops_per_step"] != want:
+        raise AssertionError(f"15b: flops_per_step {rec['flops_per_step']} != {want}")
+    if not 0 < rec.get("mfu", -1) <= 1:
+        raise AssertionError(f"15b: mfu {rec.get('mfu')} outside (0, 1]")
+    _say15("b", f"bench --respace ddim25: {line}")
+
+    prompt = PROMPTS[0].split(":")[0]
+    line = _tool(["cgd_tpu_torch.tools.clip_score", "--prompt", prompt, "--weights-mode",
+                  "random", "--device", "cuda", str(frame)], 600).strip().splitlines()[-1]
+    sub = json.loads(line)["mean_clip_score"]
+    model, ccfg = resolve_clip("ViT-B/32", "random", dev)
+    here = float(clip_score.scores(model, clip_score.tokenize(prompt, ccfg, "random"),
+                                   clip_score.prepare(decode_image(frame),
+                                                      ccfg.input_resolution)[None])[0])
+    del model
+    if abs(sub - here) > 1e-3:
+        raise AssertionError(f"15c: clip_score {sub} vs in-process {here}")
+    _say15("c", f"clip_score of {frame.relative_to(ROOT)}: {line} (in-process {here:.6f}, "
+                f"|diff| {abs(sub - here):.2e})")
+
+    results = serve_throughput.run(["--size", "128", "--respace", "ddim10", "--requests", "3",
+                                    "--concurrency", "2", "--arms", "before,after",
+                                    "--timeout", "600"])
+    for r in results:
+        _say15("d", f"serve_throughput 128px ddim10, 3 requests, concurrency 2: {json.dumps(r)}")
+
+    saved = os.environ.get("CGD_TPU_DEBUG_TINY")
+    _reset_launches(k3, kattn)
+    try:
+        report = first_real_run.run(True, str(out / "first_real_run"), device=str(dev))
+    finally:
+        if saved is None:
+            os.environ.pop("CGD_TPU_DEBUG_TINY", None)
+        else:
+            os.environ["CGD_TPU_DEBUG_TINY"] = saved
+    by_d = {d: dict(n) for d, n in kattn.LAUNCHES_BY_D.items() if any(n.values())}
+    if not (by_d.get(16, {}).get("attn_fwd") and by_d.get(16, {}).get("attn_bwd")):
+        raise AssertionError(f"15e: no attention launch at d = 16: {by_d}")
+    _say15("e", f"first_real_run --dry-run on {report['device']}: phases "
+                f"{', '.join(report['phases'])} all PASS; clip score "
+                f"{report['parity_table']['cgd_tpu_torch_clip_score']['mean_clip_score']:.4f}; "
+                f"attention launches by head dim {by_d}; conv launches {dict(k3.LAUNCHES)}")
+
+    xs = guided_quality_proxy.x_start()
+    for mode in ("ddim", "dpm", "fast"):
+        got = {}
+        for d in (dev, torch.device("cpu")):
+            model_fn, builder_for, _ = guided_quality_proxy.solver_parts(d)
+            got[d.type] = guided_quality_proxy.run_arm(10, mode, model_fn, builder_for, xs,
+                                                        device=d)
+        rel = float(np.linalg.norm(got["cuda"] - got["cpu"]) / np.linalg.norm(got["cpu"]))
+        if not rel <= PROXY_TOL:
+            raise AssertionError(f"15f: proxy {mode}10 on the card vs the CPU: {rel:.3e}")
+        _say15("f", f"guided-quality proxy {mode}10: card vs CPU rel L2 {rel:.3e} "
+                    f"(bound {PROXY_TOL})")
+    shutil.rmtree(out, ignore_errors=True)
+    _say15("", f"phase 15 wall time {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "cgd_tpu_torch").is_dir():
@@ -3640,6 +3853,7 @@ def main() -> None:
     res["conv3x3_dx_wtiled"] = phase_dx_wtiled(k3, dev)
     res["conv3x3_fwd_f32"] = phase_kernels_f32(k3, dev)
     res.update(phase_attention(kattn, dev))
+    phase_attention_padded(kattn, dev)
     res["conv3x3_fwd_halo"] = phase_halo(k3, dev)
     phase_unet(dev, 256)
     phase_unet(dev, 512)
@@ -3674,6 +3888,11 @@ def main() -> None:
     phase_12(k3, kattn, dev, step_s, peak_256)
     phase_13(k3, kattn, dev)
     phase_14(k3, kattn, dev, step_s, peak_256)
+    frames = sorted(f for f in (ROOT / "outputs" / "chip_smoke").rglob("*.png")
+                    if "plain" not in f.relative_to(ROOT).parts)  # the kernels' run
+    if not frames:
+        raise AssertionError("phase 5 left no frame for phase 15c")
+    phase_15(k3, kattn, dev, step_s, frames[-1])
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),

@@ -620,19 +620,22 @@ def test_the_attention_entry_points_check_the_plan(dev):
     out = torch.empty(1, 128, 64, dtype=torch.bfloat16, device=dev)
     lse = torch.empty(1, 128, device=dev)
     lib, s = _build.library(), _build.stream(dev)
-    p = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 128, 1, 64)
+    p = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 128, 1, 64, 64)
     st = kattn.FWD_STAGES[64]
     assert lib.cgd_attn_fwd(*p, 64, st, 2, s) == 0
     for tile, stages, split in ((32, st, 2), (64, 2, 2), (64, st, 3)):
         assert lib.cgd_attn_fwd(*p, tile, stages, split, s) != 0
-    one_tile = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 64, 1, 64)
+    one_tile = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 64, 1, 64, 64)
     assert lib.cgd_attn_fwd(*one_tile, 64, st, 2, s) != 0  # consumer 1 would see none
     # d = 256 runs a two-stage ring: the count of d = 64 is refused there
     qkv4 = _rn(dev, 1, 128, 3 * 256, seed=12)
     out4 = torch.empty(1, 128, 256, dtype=torch.bfloat16, device=dev)
-    p4 = (qkv4.data_ptr(), out4.data_ptr(), lse.data_ptr(), 1, 128, 1, 256)
+    p4 = (qkv4.data_ptr(), out4.data_ptr(), lse.data_ptr(), 1, 128, 1, 256, 256)
     assert lib.cgd_attn_fwd(*p4, 64, kattn.FWD_STAGES[256], 2, s) == 0
     assert lib.cgd_attn_fwd(*p4, 64, st, 2, s) != 0
+    # the scale's head dim lies in 1..d
+    for dh in (0, 257):
+        assert lib.cgd_attn_fwd(*p4[:-1], dh, 64, kattn.FWD_STAGES[256], 2, s) != 0
     torch.cuda.synchronize()
 
 
@@ -646,8 +649,10 @@ def test_attention_function_uses_the_kernels(dev):
 
 
 def test_attention_unsupported_head_dim_or_dtype_raises(dev):
-    with pytest.raises(ValueError, match="head dim 32"):
-        kattn.attention_fwd(_rn(dev, 1, 16, 3 * 64), 2)
+    # a head dim between the templates runs padded (test_torch_port_attention_pad_cuda.py);
+    # one past the widest has no kernel
+    with pytest.raises(ValueError, match="head dim 320"):
+        kattn.attention_fwd(_rn(dev, 1, 16, 3 * 320), 1)
     with pytest.raises(TypeError, match="float64"):
         kattn.attention_fwd(_rn(dev, 1, 16, 3 * 64).double(), 1)
 
@@ -700,14 +705,14 @@ def test_the_f32_attention_entry_points_check_the_plan(dev):
     lib, s = _build.library(), _build.stream(dev)
     plan = kattn.f32_attn_plan(1, 1, 128, 256)
     st, sg, cols = plan["stream"], plan["stages"], plan["cols"]
-    p = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 128, 1, 256)
+    p = (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 128, 1, 256, 256)
     assert lib.cgd_attn_fwd_f32(*p, st["fwd"], sg["fwd"], cols, s) == 0
     for bad in ((16, sg["fwd"], cols), (st["fwd"], 2, cols), (st["fwd"], sg["fwd"], 128)):
         assert lib.cgd_attn_fwd_f32(*p, *bad, s) != 0, bad
     dqkv = torch.empty_like(qkv)
     dvec = torch.empty(1, 128, device=dev)
     pb = (qkv.data_ptr(), out.data_ptr(), out.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
-          dqkv.data_ptr(), 1, 128, 1, 256)
+          dqkv.data_ptr(), 1, 128, 1, 256, 256)
     assert st["bwd_dq"] == st["bwd_dkdv"] and sg["bwd_dq"] == sg["bwd_dkdv"]
     assert lib.cgd_attn_bwd_f32(*pb, st["bwd_dq"], sg["bwd_dq"], cols, s) == 0
     for bad in ((32, 3, 64), (16, 4, 64), (16, 3, 256)):  # d = 256: 16 rows, three stages

@@ -27,6 +27,9 @@ def test_every_port_module_is_listed():
     assert "cgd_tpu_torch.api" in MODULES
     assert "cgd_tpu_torch.cli" in MODULES
     assert "cgd_tpu_torch.serve" in MODULES and "cgd_tpu_torch.cog_predict" in MODULES
+    for tool in ("time_components", "bench", "clip_score", "first_real_run", "serve_throughput",
+                 "guided_quality_proxy"):
+        assert f"cgd_tpu_torch.tools.{tool}" in MODULES
     assert len(MODULES) >= 20
 
 
