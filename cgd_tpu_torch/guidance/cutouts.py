@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from cgd_tpu_torch.kernels import warp
+
 
 class CutoutSpec(NamedTuple):
     """Per-cutout crop coordinates (float32 tensors of shape [K])."""
@@ -114,7 +116,8 @@ def apply_augs(cutouts: torch.Tensor, d: AugDraws) -> torch.Tensor:
     left-right flip, then one projective warp (rotation, translation and a
     perspective term about the centre) sampled bilinearly with each index
     clamped to the image (``map_coordinates(order=1, mode="nearest")``; the
-    +-10% translation reaches the edges on every draw), then grayscale
+    +-10% translation reaches the edges on every draw; ``kernels.warp``,
+    whose backward sums in a fixed order), then grayscale
     (ITU-R 601 luma), then Gaussian noise of std 0.02 (the reference's four
     passes of 0.01). [n, h, w, c] -> the same, differentiable in the
     cutouts."""
@@ -138,15 +141,12 @@ def apply_augs(cutouts: torch.Tensor, d: AugDraws) -> torch.Tensor:
     wy0, wx0 = 1 - wy1, 1 - wx1
     iy = [(y0 + o).clamp(0, hh - 1).long() for o in (0, 1)]
     ix = [(x0 + o).clamp(0, ww - 1).long() for o in (0, 1)]
-    flat = x.reshape(n, hh * ww, c)
-
-    def tap(a, b):
-        idx = (iy[a] * ww + ix[b]).reshape(n, hh * ww, 1).expand(n, hh * ww, c)
-        return flat.gather(1, idx).reshape(n, hh, ww, c)
-
-    # the four corners summed in map_coordinates' order
-    x = ((wy0 * wx0)[..., None] * tap(0, 0) + (wy0 * wx1)[..., None] * tap(0, 1)
-         + (wy1 * wx0)[..., None] * tap(1, 0) + (wy1 * wx1)[..., None] * tap(1, 1))
+    # the four corners summed in map_coordinates' order; the backward is a
+    # fixed-order segment sum (K-warp-b on a card), not atomics
+    corners = ((0, 0), (0, 1), (1, 0), (1, 1))
+    idx = torch.stack([iy[a] * ww + ix[b] for a, b in corners])
+    weight = torch.stack([(wy0, wy1)[a] * (wx0, wx1)[b] for a, b in corners])
+    x = warp.bilinear_warp(x, idx, weight)
 
     luma = (0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2])[..., None]
     x = torch.where(d.gray[:, None, None, None], luma.expand_as(x), x)

@@ -88,6 +88,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_attn_bwd_f32.restype = i
     lib.cgd_attn_f32_smem_bytes.argtypes = [i, i]
     lib.cgd_attn_f32_smem_bytes.restype = i
+    lib.cgd_warp_bwd.argtypes = [p] * 5 + [i] * 2 + [p]
+    lib.cgd_warp_bwd.restype = i
     lib.cgd_error_string.argtypes = [i]
     lib.cgd_error_string.restype = ctypes.c_char_p
     return lib

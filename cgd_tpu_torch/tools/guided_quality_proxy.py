@@ -30,12 +30,13 @@ DPM-Solver++(2M) update):
    (``guidance.cutouts.make_cutouts``) of x_in, at ddim250, each arm one of
    the reference's speed flags (--reduce-clip, which also skips the first
    20% of the steps; --progressive-cutout; --cached-cutouts), against the
-   all-flags-off endpoint. The cutout coordinates of a step come from
-   numpy, keyed on (COORD_SEED, ref_t) (``step_coords``), so every arm sees
-   the same coordinates at the same step; the JAX tool keys them with
-   ``jax.random.fold_in(PRNGKey(COORD_SEED), ref_t)``, which torch cannot
-   reproduce, so this table's numbers differ from the JAX one's while its
-   claims are the same.
+   all-flags-off endpoint. The cutout coordinates of a step are the JAX
+   tool's: ``sample_cutout_coords`` under the key
+   ``fold_in(PRNGKey(COORD_SEED), ref_t)`` (``step_coords``; ref_t 0 for
+   cached cutouts), so every arm sees the same coordinates at the same
+   step, and the held-out set is drawn under ``PRNGKey(EVAL_SEED)``. Both
+   come from ``jax_prng``, ``jax.random``'s generator in numpy, bit for
+   bit, so this table is the JAX tool's on the same coordinates.
 
 Metrics: ``rms_vs_truth`` / ``rms_vs_baseline`` (RMS distance of the final
 sample to the experiment's reference endpoint), ``clip_objective`` (the
@@ -59,6 +60,7 @@ from cgd_tpu_torch.api import _TF32Off, resolve_device
 from cgd_tpu_torch.diffusion.gaussian import make_diffusion
 from cgd_tpu_torch.diffusion.sampler import GuidanceFns, SamplerConfig, sample_loop
 from cgd_tpu_torch.guidance.cutouts import CutoutSpec, make_cutouts
+from cgd_tpu_torch.tools import jax_prng
 
 MU, S2 = 0.3, 0.25
 STEPS = 1000
@@ -152,16 +154,23 @@ def make_solver_builder(diffusion, embed, target):
     return builder
 
 
-def step_coords(ref_t: int, cutn: int, side: int = SHAPE[1], seed: int = COORD_SEED):
-    """numpy cutout coordinates keyed on (seed, ref_t), drawn as
-    ``sample_cutout_coords`` draws them (size = floor(u (max - min) + min),
-    offsets uniform in [0, side - size]): (offset_x, offset_y, size), f32."""
-    rs = np.random.RandomState([seed, ref_t])
-    lo = min(side, CUT_SIZE)
-    size = np.floor(rs.rand(cutn) * (side - lo) + lo).astype(np.float32)
-    ox = np.floor(rs.rand(cutn) * (side - size + 1.0)).astype(np.float32)
-    oy = np.floor(rs.rand(cutn) * (side - size + 1.0)).astype(np.float32)
+def cutout_coords(key, cutn: int, side: int = SHAPE[1]):
+    """The JAX package's ``sample_cutout_coords(key, cutn, side, side,
+    CUT_SIZE)`` on a ``jax_prng`` key (size = floor(u (max - min) + min),
+    offsets uniform integers in [0, side - size]): (offset_x, offset_y,
+    size), f32."""
+    k_size, k_x, k_y = jax_prng.split(key, 3)
+    lo = np.float32(min(side, CUT_SIZE))
+    size = np.floor(jax_prng.uniform(k_size, cutn) * (np.float32(side) - lo) + lo)
+    ox = np.floor(jax_prng.uniform(k_x, cutn) * (np.float32(side) - size + np.float32(1.0)))
+    oy = np.floor(jax_prng.uniform(k_y, cutn) * (np.float32(side) - size + np.float32(1.0)))
     return ox, oy, size
+
+
+def step_coords(ref_t: int, cutn: int, side: int = SHAPE[1], seed: int = COORD_SEED):
+    """The cutout coordinates of step ref_t, as the JAX tool draws them:
+    ``cutout_coords`` under ``fold_in(PRNGKey(seed), ref_t)``."""
+    return cutout_coords(jax_prng.fold_in(jax_prng.prng_key(seed), ref_t), cutn, side)
 
 
 def make_flag_builder(diffusion, embed, target, cached_cutouts: bool, coords=step_coords):
@@ -278,9 +287,9 @@ def compute_flag_table(device="cuda") -> Dict[str, Dict[str, float]]:
     def builder_for(d, cached):
         return make_flag_builder(d, embed, target, cached)
 
-    # one evaluation cutout set for every arm
-    eval_spec = CutoutSpec(*(torch.from_numpy(a).to(dev)
-                             for a in step_coords(0, NUM_CUTOUTS, seed=EVAL_SEED)))
+    # one evaluation cutout set for every arm, under PRNGKey(EVAL_SEED) itself
+    eval_spec = CutoutSpec(*(torch.from_numpy(a).to(dev) for a in cutout_coords(
+        jax_prng.prng_key(EVAL_SEED), NUM_CUTOUTS)))
 
     def objective(final):
         with torch.no_grad():

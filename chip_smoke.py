@@ -145,23 +145,22 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    uninterrupted, run B closed after its second frame and resumed from its
    checkpoint, and a control resumed with its generator state overwritten
    by a fresh ``manual_seed``; max |A - C| and max |A - resumed B| over the
-   final frame and x (bit-equal where A and C are, else within |A - C|; the
-   control must differ by more), the checkpoint's bytes and the host ms a
-   segment its write takes; (b) the same at 128px with DPM-Solver++(2M)
+   final frame and x (both must be 0; the control must differ), the
+   checkpoint's bytes and the host ms a segment its write takes; (b) the same at 128px with DPM-Solver++(2M)
    (x0p across the checkpoint), whose checkpoint a run without
    ``dpm_solver`` refuses; (c) ``cgd_tpu_torch.serve`` in a thread on a
    free port (``--warmup 128:ddim10:16 --stall-timeout 600``): healthz,
    two lone then two overlapping 128px ddim10 requests (plain, and a
-   stream at save_frequency 5) each held to a direct API run, an f32
-   request overlapping a bf16 one (within rel L2 1e-3 of a lone f32 run,
-   no bf16 kernel among its launches, with PyTorch's default TF32 flags in
-   the process), 400 without a prompt on both paths, and a request on a
+   stream at save_frequency 5) each bit-equal to a direct API run, an f32
+   request overlapping a bf16 one (bit-equal to a lone f32 run, no bf16
+   kernel among its launches, with PyTorch's default TF32 flags in the
+   process), 400 without a prompt on both paths, and a request on a
    second daemon with ``--mesh cut=2`` over the card twice launching
    K-halo; (d) ``cli.main`` at 128px ddim10 with ``-gif -mp4 --log-losses
    --profile DIR --checkpoint P`` (a mux each, frames deleted only if both
    wrote, a trace naming a ``cgd::`` kernel, one loss line per guided
    step), then interrupted after its fourth frame and ``--resume``d: the
-   last frame held to the uninterrupted run's;
+   last frame bit-equal to the uninterrupted run's;
 14. batch > 1 and the memory policy, every line with the card's name and
    power limit: (a) every launch class at b = 2, 4 and 8 (and where the
    bf16 plan still splits K at 8, the first b where it does not), bf16
@@ -195,11 +194,30 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    score computed here; (d) ``serve_throughput`` at 128px ddim10, both arms;
    (e) ``first_real_run --dry-run`` on the card with the toy models (the
    attention at d = 16); (f) the guided-quality proxy's ddim10 / dpm10 /
-   fast10 arms on the card against the CPU.
+   fast10 arms on the card against the CPU;
+16. reproducibility, the reference's rule: every line with the card's name
+   and power limit: (a) the augmentation warp's backward at 16 cutouts of
+   224^2: how many distinct bit patterns 10 runs give on the gather route
+   it replaced (autograd's atomic ``scatter_add_``) and on K-warp-b
+   (``csrc/warp_bwd.cu``; one required), of ``apply_augs``' input gradient
+   and of one 64px guided step's gradient under ``use_augs``, with the
+   API's loss scales and with the CLIP loss alone
+   (``tools/augs_repro.py``); K-warp-b against its plain version on the
+   card and on the CPU (bound 1e-6 of the max), ten reruns bit-identical,
+   its segments, its time beside its index's, the plain version's and the
+   gather route's backward; (b) phase 13a's resume at 64px with
+   ``use_augs`` (the augmentations drawn from the generator), with the
+   API's loss scales and with the CLIP loss alone, bit-equal; (c) two runs
+   of 3 guided steps each, x compared bit for bit, at 256px: ``use_augs``
+   (the API's loss scales, and the CLIP loss alone; each also on the gather
+   route, a control), the init image with LPIPS and an image prompt, the
+   ``cut=2`` mesh on the one card, ``compute_dtype="float32"``, fast
+   guidance, ``batch_size=4``; every one must be bit-equal.
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
 from phase 7c, K-fwd f32's from phase 8, K-dx f32's and the f32
-attention's from phase 9c, K-halo f32's from phase 10c; each with its eager
+attention's from phase 9c, K-halo f32's from phase 10c, K-warp-b's from
+phase 16c's ``use_augs`` run; each with its eager
 and device time, its bound on the card and the library call's time where
 there is one; K-fwd f32's summed over one guided step's 39 launches), the
 whole run's wall time, and as its last line ``{"ok": true, "device":
@@ -235,6 +253,7 @@ PROMPTS = ["a watercolor painting of a lighthouse:1", "fog:0.5"]
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 # the LPIPS VGG16's 3x3 convs at a 256^2 input: (H = W, Cin, Cout, how many)
 VGG16_CONVS = [(256, 3, 64, 1), (256, 64, 64, 1), (128, 64, 128, 1), (128, 128, 128, 1),
                (64, 128, 256, 1), (64, 256, 256, 2), (32, 256, 512, 1), (32, 512, 512, 2),
@@ -831,10 +850,11 @@ class _FirstStep:
     fixed seed (as phases 4 and 9c; else its output and gradient are 0 and
     no kernel reaches the sample), and ``x`` records each run's x after its
     first yielded step. With ``stop``, the run is interrupted after that step
-    (the generator keeps its frame and ends). ``last`` records each run's x
-    after its last yielded step, when the run ends."""
+    (the generator keeps its frame and ends), or with ``stop=N`` after its
+    N-th yielded step. ``last`` records each run's x after its last yielded
+    step, when the run ends."""
 
-    def __init__(self, api, dev, stop: bool = False):
+    def __init__(self, api, dev, stop: int = 0):
         import torch
 
         self.api, self.x, self.last, self.stop = api, [], [], stop
@@ -846,16 +866,16 @@ class _FirstStep:
             return (unet, *rest)
 
         def spy(*a, **kw):
-            first, x = True, None
+            n, x = 0, None
             try:
                 for item in self.real[1](*a, **kw):
                     x = item[2]
-                    if first:
+                    if n == 0:
                         self.x.append(x.detach().float().clone())
                     yield item
-                    if first and self.stop:
+                    n += 1
+                    if n == self.stop:
                         raise KeyboardInterrupt
-                    first = False
             finally:
                 self.last.append(None if x is None else x.detach().float().clone())
 
@@ -1017,12 +1037,19 @@ def phase_lpips(k3, dev) -> None:
 
 
 def _launches(k3, kattn) -> dict:
-    return {**k3.LAUNCHES, **kattn.LAUNCHES}
+    """Every kernel's launches: the conv family's, the attention's and the
+    augmentation warp's backward (K-warp-b)."""
+    from cgd_tpu_torch.kernels import warp
+
+    return {**k3.LAUNCHES, **kattn.LAUNCHES, **warp.LAUNCHES}
 
 
 def _reset_launches(k3, kattn) -> None:
+    from cgd_tpu_torch.kernels import warp
+
     k3.reset_launch_counts()
     kattn.reset_launch_counts()
+    warp.reset_launch_counts()
 
 
 def _check_pngs(paths) -> None:
@@ -2200,19 +2227,11 @@ def _numpy_aug_draws(dev, calls: int = 25, n: int = 16, size: int = 224):
     out in call order; ``reset`` starts a run again, so two runs see the
     same augmentations at the same steps."""
     import numpy as np
-    import torch
 
-    from cgd_tpu_torch.guidance.cutouts import AugDraws
+    from cgd_tpu_torch.tools.augs_repro import numpy_draw
 
     rs = np.random.RandomState(1000)
-    lim = 0.4 / size
-    sets = []
-    for _ in range(calls):
-        arrays = (rs.rand(n) < 0.5, rs.uniform(-15, 15, n), rs.uniform(-0.1, 0.1, n),
-                  rs.uniform(-0.1, 0.1, n), rs.rand(n) < 0.7, rs.uniform(-lim, lim, (n, 2)),
-                  rs.rand(n) < 0.15, rs.randn(n, size, size, 3))
-        sets.append(AugDraws(*(torch.as_tensor(a if a.dtype == bool else a.astype(np.float32),
-                                               device=dev) for a in arrays)))
+    sets = [numpy_draw(dev, n, size, size, 3, rs) for _ in range(calls)]
     taken = [0]
 
     def draw(gen, n_, h, w, c):
@@ -2608,34 +2627,30 @@ def _diff(a, b) -> float:
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
 
 
-def _hold_resumed(phase: str, ab: float, ares: float, actrl: float) -> str:
-    """The determinism rule: the resumed run equals the uninterrupted one
-    bit for bit where two uninterrupted runs are bit-equal, and stays within
-    their difference where they are not; the control (the generator state
-    overwritten by a fresh ``manual_seed``) differs by more than that."""
-    if ab == 0.0 and ares != 0.0:
-        raise AssertionError(f"{phase}: two runs are bit-equal but the resumed run differs by "
-                             f"{ares:.3e}")
-    if ares > ab:
-        raise AssertionError(f"{phase}: the resumed run differs by {ares:.3e}, more than two "
-                             f"uninterrupted runs do ({ab:.3e})")
-    if not actrl > ab:
-        raise AssertionError(f"{phase}: the resume with a fresh generator state differs by "
-                             f"{actrl:.3e}, not more than two runs do ({ab:.3e})")
-    return "bit-equal" if ab == 0.0 else "within the runs' own difference"
+def _hold_resumed(phase: str, ab: float, ares: float, actrl: float) -> None:
+    """The determinism rule, the reference's: two uninterrupted runs are
+    bit-equal, and so are the resumed run and the uninterrupted one; the
+    control (the generator state overwritten by a fresh ``manual_seed``)
+    differs."""
+    if ab != 0.0:
+        raise AssertionError(f"{phase}: two uninterrupted runs differ by {ab:.3e}")
+    if ares != 0.0:
+        raise AssertionError(f"{phase}: the resumed run differs by {ares:.3e}")
+    if not actrl > 0.0:
+        raise AssertionError(f"{phase}: the resume with a fresh generator state does not differ")
 
 
-def phase_resume(dev, out_dir: Path, size: int, sub: str, **options) -> bool:
-    """Phases 13a (256px, bf16) and 13b (128px DPM-Solver++(2M)): ddim10,
+def phase_resume(dev, out_dir: Path, size: int, sub: str, phase: str = "13", **options) -> None:
+    """Phases 13a (256px, bf16), 13b (128px DPM-Solver++(2M)) and 16b (64px,
+    ``use_augs``; ``phase="16"``): ddim10,
     save_frequency 3, the zero-init layers re-drawn, through the API. Run A
     uninterrupted with ``checkpoint_path``; run B the same, closed after its
     second frame, then resumed from B's checkpoint to the end; run C a
     second uninterrupted run; and the control, B's checkpoint with its
     generator state overwritten by a fresh ``manual_seed(0)``. max |A - C|
     and max |A - resumed B| over the final frame and x are held to the
-    determinism rule (``_hold_resumed``). Prints the checkpoint's size and
-    the host ms per segment its write takes. Returns whether A and C were
-    bit-equal."""
+    determinism rule (``_hold_resumed``: both 0). Prints the checkpoint's
+    size and the host ms per segment its write takes."""
     import numpy as np
     import torch
 
@@ -2689,32 +2704,37 @@ def phase_resume(dev, out_dir: Path, size: int, sub: str, **options) -> bool:
             except ValueError as e:
                 refused = str(e).splitlines()[0]
             if refused is None:
-                raise AssertionError(f"phase 13{sub}: a DPM checkpoint resumed without dpm_solver")
+                raise AssertionError(f"phase {phase}{sub}: a DPM checkpoint resumed without "
+                                     "dpm_solver")
     finally:
         api._write_checkpoint = real_write
         frames.close()
         first.close()
     (fa, xa), (fb, xb), (fc, xc), (fk, xk) = (final(t) for t in ("A", "B", "C", "ctrl"))
     if not all(np.isfinite(v).all() for v in (fa, xa, fb, xb)):
-        raise AssertionError(f"phase 13{sub}: non-finite frames or x")
+        raise AssertionError(f"phase {phase}{sub}: non-finite frames or x")
     if int(part["next_seg"]) != 2 or n_b != n_a - 2:
-        raise AssertionError(f"phase 13{sub}: B's checkpoint at segment {int(part['next_seg'])}, "
-                             f"the resumed run wrote {n_b} of {n_a} frames")
+        raise AssertionError(f"phase {phase}{sub}: B's checkpoint at segment "
+                             f"{int(part['next_seg'])}, the resumed run wrote {n_b} of {n_a} "
+                             "frames")
     ab = max(_diff(fa, fc), _diff(xa, xc))
     ares = max(_diff(fa, fb), _diff(xa, xb))
     actrl = max(_diff(fa, fk), _diff(xa, xk))
-    verdict = _hold_resumed(f"phase 13{sub}", ab, ares, actrl)
+    _hold_resumed(f"phase {phase}{sub}", ab, ares, actrl)
     size_b = (out_dir / "A.npz").stat().st_size
-    what = "DPM-Solver++(2M), x0p across the checkpoint" if options.get("dpm_solver") else "bf16"
-    _say13(sub, f"resume at {size}px {what}, ddim10, save_frequency 3 (4 segments): max |A - C| "
-                f"{ab:.3e}, max |A - resumed B| {ares:.3e} ({verdict}), the fresh-state control "
-                f"{actrl:.3e}; checkpoint {size_b} bytes (the generator's state "
-                f"{part['generator'].size} of them), written in "
-                f"{1e3 * float(np.mean(writes)):.2f} ms of host time per segment "
-                f"({len(writes)} writes); run A {s_a:.2f} s"
-                + (f"; without dpm_solver: ValueError '{refused}'" if refused else ""))
+    what = ("DPM-Solver++(2M), x0p across the checkpoint" if options.get("dpm_solver")
+            else "bf16, use_augs (the augmentations drawn from the generator)"
+            + (", the CLIP loss alone" if options.get("tv_scale") == 0 else "")
+            if options.get("use_augs") else "bf16")
+    say = _say16 if phase == "16" else _say13
+    say(sub, f"resume at {size}px {what}, ddim10, save_frequency 3 (4 segments): max |A - C| "
+             f"{ab:.3e}, max |A - resumed B| {ares:.3e} (bit-equal), the fresh-state control "
+             f"{actrl:.3e}; checkpoint {size_b} bytes (the generator's state "
+             f"{part['generator'].size} of them), written in "
+             f"{1e3 * float(np.mean(writes)):.2f} ms of host time per segment "
+             f"({len(writes)} writes); run A {s_a:.2f} s"
+             + (f"; without dpm_solver: ValueError '{refused}'" if refused else ""))
     shutil.rmtree(out_dir, ignore_errors=True)
-    return ab == 0.0
 
 
 class _HolderLock:
@@ -2771,16 +2791,15 @@ class _RequestLaunches(dict):
         super().__setitem__(name, value)
 
 
-def phase_serve(k3, kattn, dev, out_dir: Path, deterministic: bool) -> None:
+def phase_serve(k3, kattn, dev, out_dir: Path) -> None:
     """Phase 13c: ``cgd_tpu_torch.serve`` on the card, in a thread on a free
     port, ``--weights-mode random --warmup 128:ddim10:16 --stall-timeout
     600`` (the zero-init layers re-drawn): healthz; two lone then two
     overlapping 128px ddim10 requests (one plain, one ``stream`` with
     save_frequency 5), each final frame held to a direct API call with the
-    same seed and keywords (bit-equal where phase 13a found the card
-    deterministic, else relative L2 <= F32_STEP_TOL), the wall times;
-    an f32 request overlapping a bf16 one: its final frame within relative
-    L2 F32_STEP_TOL of a lone f32 API run (with PyTorch's default TF32
+    same seed and keywords (bit-equal), the wall times;
+    an f32 request overlapping a bf16 one: its final frame bit-equal to a
+    lone f32 API run's (with PyTorch's default TF32
     flags in the process, which the f32 request must turn off and the
     other must not turn back on), and no bf16 kernel among its launches
     (``_RequestLaunches``); 400 for a request without a prompt on both paths; one
@@ -2842,13 +2861,12 @@ def phase_serve(k3, kattn, dev, out_dir: Path, deterministic: bool) -> None:
         with open(paths[-1], "rb") as f:
             return decode_png(f.read())
 
-    def hold(name, served, ref, f32=False):
+    def hold(name, served, ref):
         d = _diff(served, ref)
-        rel = float(np.linalg.norm(served.astype(np.float64) - ref) / np.linalg.norm(ref))
-        if (deterministic and not f32 and d != 0.0) or rel > F32_STEP_TOL:
+        if d != 0.0:
             raise AssertionError(f"phase 13c: {name} vs its direct API run: max |diff| {d} "
-                                 f"(of 255), rel L2 {rel:.3e}")
-        return f"{name} max |diff| {d:.0f} / 255, rel L2 {rel:.3e}"
+                                 "(of 255)")
+        return f"{name} bit-equal"
 
     plain = dict(base, prompt="served 1", seed=1)
     stream = dict(base, prompt="served 2", seed=2, stream=True, save_frequency=5)
@@ -2904,7 +2922,7 @@ def phase_serve(k3, kattn, dev, out_dir: Path, deterministic: bool) -> None:
         img_f32, _ = last_png(*mixed["f32"])
         last_png(*mixed["bf16"])
         ref_f32 = direct(3, FINAL_FRAME_ONLY, compute_dtype="float32")
-        f32_line = hold("f32", img_f32, ref_f32, f32=True)
+        f32_line = hold("f32", img_f32, ref_f32)
         f32_threads = [c for c in by_thread.values() if any(k.endswith("_f32") for k in c)]
         if len(f32_threads) != 1:
             raise AssertionError(f"phase 13c: f32 launches by {len(f32_threads)} requests: "
@@ -2948,14 +2966,14 @@ def phase_serve(k3, kattn, dev, out_dir: Path, deterministic: bool) -> None:
     shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def phase_cli_options(k3, kattn, dev, out_dir: Path, deterministic: bool) -> None:
+def phase_cli_options(k3, kattn, dev, out_dir: Path) -> None:
     """Phase 13d: ``cgd_tpu_torch.cli.main`` at 128px ddim10 (the zero-init
     layers re-drawn) with ``-gif -mp4 --log-losses --profile DIR
     --checkpoint P``: whether each mux wrote a file, the frames deleted only
     if both did, the trace naming a ``cgd::`` kernel, one loss line per
     guided step; then the same CLI with ``--checkpoint Q`` interrupted
-    after its fourth frame and ``--resume Q``: its last frame held to the
-    uninterrupted run's under the determinism rule."""
+    after its fourth frame and ``--resume Q``: its last frame bit-equal to
+    the uninterrupted run's."""
     import contextlib
     import io
 
@@ -3017,7 +3035,7 @@ def phase_cli_options(k3, kattn, dev, out_dir: Path, deterministic: bool) -> Non
     if len(frames.by_dir[str(out_dir / "part")]) != 4 or len(res) != 6:
         raise AssertionError("phase 13d: the interrupted / resumed runs' frame counts")
     d = _diff(full_last, res[-1])
-    if (deterministic and d != 0.0) or not np.isfinite(res[-1]).all():
+    if d != 0.0 or not np.isfinite(res[-1]).all():
         raise AssertionError(f"phase 13d: the resumed CLI run's last frame differs by {d:.3e}")
     _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "attn_fwd", "attn_bwd"), "phase 13d")
     _say13("d", f"CLI 128px ddim10 -gif -mp4 --log-losses --profile --checkpoint: "
@@ -3034,10 +3052,10 @@ def phase_13(k3, kattn, dev) -> None:
     DPM-Solver++(2M) run, (c) the daemon, (d) the CLI's options."""
     t0 = time.perf_counter()
     out = ROOT / "outputs" / "chip_smoke_13"
-    deterministic = phase_resume(dev, out / "resume256", 256, "a")
+    phase_resume(dev, out / "resume256", 256, "a")
     phase_resume(dev, out / "resume_dpm", 128, "b", dpm_solver=True)
-    phase_serve(k3, kattn, dev, out / "serve", deterministic)
-    phase_cli_options(k3, kattn, dev, out / "cli", deterministic)
+    phase_serve(k3, kattn, dev, out / "serve")
+    phase_cli_options(k3, kattn, dev, out / "cli")
     _say13("", f"phase 13 wall time {time.perf_counter() - t0:.1f} s")
 
 
@@ -3804,6 +3822,230 @@ def phase_15(k3, kattn, dev, step_s: float, frame: Path) -> None:
     _say15("", f"phase 15 wall time {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: reproducibility on the card (the augmentation warp's backward,
+# resume with use_augs, a repeat sweep over the paths)
+# ---------------------------------------------------------------------------
+
+WARP_TOL = 1e-6  # max |err| / max |ref|: K-warp-b against its plain version (f32 sums)
+REPEATS = 10     # runs of each gradient whose distinct bit patterns phase 16a counts
+
+
+def _say16(sub: str, msg: str) -> None:
+    """A phase-16 line, with the card and its power limit."""
+    print(f"[16{sub}] {msg} ({CARD})")
+
+
+def phase_warp(dev, out_dir: Path) -> dict:
+    """Phase 16a: the augmentation warp's backward at the main path's 16
+    cutouts of 224^2. How many distinct bit patterns REPEATS runs give, on
+    the gather route (autograd's atomic ``scatter_add_``) and on K-warp-b
+    (``tools/augs_repro.py``): of ``apply_augs``' input gradient with one
+    fixed draw, and of one 64px guided step's gradient under ``use_augs``,
+    with the API's loss scales and with the CLIP loss alone; K-warp-b must
+    give one. Then K-warp-b on the warp apply_augs built against its plain
+    version on the card (``index_add_``, atomic there; bound WARP_TOL of
+    the max) and on the CPU (the same order: bit-equal), ten reruns
+    bit-identical, its segments' lengths, and the times: the kernel (events,
+    device), the index it needs (sort and search), the plain version, and
+    the gather route's backward it replaced beside the new route's
+    (autograd on a kept graph, index included)."""
+    import torch
+
+    from cgd_tpu_torch.kernels import warp
+    from cgd_tpu_torch.tools import augs_repro
+
+    n, size = 16, 224
+    real, seen = warp.bilinear_warp, []
+
+    def spy(x, idx, weight):
+        seen.append((x.detach(), idx, weight))
+        return real(x, idx, weight)
+
+    def on(route, fn, *a, **kw):
+        warp.bilinear_warp = route
+        try:
+            return fn(*a, **kw)
+        finally:
+            warp.bilinear_warp = real
+
+    counts, apart = {}, {}
+    grads = [on(route, augs_repro.augs_grads, dev, REPEATS, n, size)
+             for route in (augs_repro.gather_warp, spy)]
+    counts["augs"] = tuple(augs_repro.distinct(g) for g in grads)
+    apart["augs"] = _rel_max(grads[1][0], grads[0][0])[1]
+    for key, scales in (("step", {}), ("step, CLIP loss alone", augs_repro.CLIP_ALONE)):
+        grads = [on(route, augs_repro.step_grads, dev, REPEATS, out_dir / f"{key}_{i}", **scales)
+                 for i, route in enumerate((augs_repro.gather_warp, real))]
+        counts[key] = tuple(augs_repro.distinct(g) for g in grads)
+        apart[key] = _rel_max(grads[1][0], grads[0][0])[1]
+    _say16("a", f"distinct bit patterns in {REPEATS} runs, the gather's autograd backward "
+                f"(scatter_add_, atomic) / K-warp-b, and the two routes' first gradients "
+                f"apart (of max): apply_augs' input gradient [{n}, {size}, {size}, 3] f32, one "
+                f"fixed draw, {counts['augs'][0]} / {counts['augs'][1]} ({apart['augs']:.3e}); "
+                f"one 64px guided step's gradient under use_augs (ViT-B/32, 16 cutouts, "
+                f"numpy-drawn augmentations) with the API's loss scales {counts['step'][0]} / "
+                f"{counts['step'][1]} ({apart['step']:.3e}), with the CLIP loss alone "
+                f"{counts['step, CLIP loss alone'][0]} / {counts['step, CLIP loss alone'][1]} "
+                f"({apart['step, CLIP loss alone']:.3e})")
+    if any(c[1] != 1 for c in counts.values()):
+        raise AssertionError(f"phase 16a: K-warp-b's gradients are not reproducible: {counts}")
+
+    xw, idx, weight = seen[0]
+    index = warp.warp_index(idx, weight)
+    nsrc = n * size * size
+    g = torch.randn(nsrc, 3, generator=torch.Generator(dev).manual_seed(17), device=dev)
+    out = warp.warp_bwd(g, index)
+    reruns = [warp.warp_bwd(g, index) for _ in range(10)]
+    if not all(torch.equal(r, out) for r in reruns):
+        raise AssertionError("phase 16a: K-warp-b reruns differ")
+    err, rel = _rel_max(out, warp.warp_bwd_plain(g, index))
+    cpu_plain = warp.warp_bwd_plain(g.cpu(), warp.WarpIndex(*(t.cpu() for t in index)))
+    cpu_err, cpu_rel = _rel_max(out.cpu(), cpu_plain)
+    if not max(rel, cpu_rel) <= WARP_TOL:
+        raise AssertionError(f"phase 16a: K-warp-b vs its plain version {rel:.3e} (card), "
+                             f"{cpu_rel:.3e} (CPU) of max > {WARP_TOL}")
+    seg = (index.offsets[1:] - index.offsets[:-1]).float()
+
+    def kernel():
+        warp.warp_bwd(g, index)
+
+    ms = _time_ms(kernel)
+    dms = _device_ms(kernel, None, f"K-warp-b {n}x{size}^2")
+    index_ms = _time_ms(lambda: warp.warp_index(idx, weight))
+    plain_ms = _time_ms(lambda: warp.warp_bwd_plain(g, index))
+    g4 = g.reshape(n, size, size, 3)
+    xg, xk = xw.clone().requires_grad_(True), xw.clone().requires_grad_(True)
+    out_g, out_k = augs_repro.gather_warp(xg, idx, weight), real(xk, idx, weight)
+
+    def gather_bwd():
+        torch.autograd.grad(out_g, xg, g4, retain_graph=True)
+
+    def kernel_bwd():
+        torch.autograd.grad(out_k, xk, g4, retain_graph=True)
+
+    lib_ms, new_ms = _time_ms(gather_bwd), _time_ms(kernel_bwd)
+    lib_dms = _device_ms(gather_bwd, None, "the gather's autograd backward")
+    new_dms = _device_ms(kernel_bwd, None, "the warp's backward, index included")
+    bound = _bound(2 * warp.TAPS * nsrc * 3,
+                   _nbytes(g, index.weight, index.pair, index.offsets, out), PEAK_F32_FLOPS)
+    _say16("a", f"K-warp-b at {n} cutouts of {size}^2 (the warp apply_augs built on the card): "
+                f"vs its plain version on the card max |err| {err:.3e} ({rel:.3e} of max), on "
+                f"the CPU {cpu_err:.3e} (bound {WARP_TOL} of max), 10 reruns bit-identical; "
+                f"segments: {int(seg.max())} pairs at most, {float(seg.mean()):.2f} on average, "
+                f"{int((seg == 0).sum())} of {nsrc} empty; kernel {ms:.4f} ms (events), "
+                f"{dms:.4f} ms device{_fmt(bound, dms)}; its index (sort + search) "
+                f"{index_ms:.4f} ms; plain version {plain_ms:.4f} ms; the warp's backward, "
+                f"index included: {new_ms:.4f} ms (events), {new_dms:.4f} ms device, against "
+                f"the gather's autograd backward it replaced {lib_ms:.4f} ms (events), "
+                f"{lib_dms:.4f} ms device")
+    return {"err": err, "ms": ms, "device_ms": dms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            **bound}
+
+
+def phase_repeat_sweep(k3, kattn, dev, out_dir: Path, size: int = 256) -> dict:
+    """Phase 16c: two runs of each configuration through the API, each
+    interrupted after 3 guided steps (ddim25, 16 cutouts, ViT-B/32, random
+    weights, the zero-init layers re-drawn), their x after the third step
+    compared bit for bit: 256px with ``use_augs``, with the API's loss
+    scales and with the CLIP loss alone; phase 8's init image with LPIPS and
+    an image prompt (random weights; skip 12, init_scale 1000); the
+    ``cut=2`` mesh on the one card; ``compute_dtype="float32"``; fast
+    guidance; ``batch_size=4``. Every pair must be bit-equal. The
+    ``use_augs`` cases run twice more on the gather route K-warp-b replaced,
+    a control whose difference says whether the check can see the atomics.
+    Counters reset just before each first run and read just after. Returns
+    the launches of the first ``use_augs`` run."""
+    import torch
+
+    from cgd_tpu_torch import api
+    from cgd_tpu_torch.io_utils.images import encode_png
+    from cgd_tpu_torch.kernels import warp
+    from cgd_tpu_torch.parallel.mesh import make_mesh
+    from cgd_tpu_torch.tools import augs_repro
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    init_png, prompt_png = out_dir / "init.png", out_dir / "prompt.png"
+    init_png.write_bytes(encode_png(_test_image(300, 260, 1)))
+    prompt_png.write_bytes(encode_png(_test_image(224, 320, 2)))
+    cases = [
+        ("use_augs", dict(use_augs=True)),
+        ("use_augs, the CLIP loss alone", dict(use_augs=True, **augs_repro.CLIP_ALONE)),
+        ("init image + LPIPS + image prompt",
+         dict(init_image=str(init_png), skip_timesteps=12, init_scale=1000,
+              image_prompts=[f"{prompt_png}:1"])),
+        ("mesh cut=2 (the card twice)", dict(mesh=make_mesh([dev, dev]))),
+        ("compute_dtype float32", dict(compute_dtype="float32")),
+        ("fast guidance", dict(fast_guidance=True)),
+        ("batch_size 4", dict(batch_size=4)),
+    ]
+    real = warp.bilinear_warp
+
+    def two_runs(tag, options, route):
+        """x after the third guided step of two runs, the first run's
+        launches and its wall time."""
+        first = _FirstStep(api, dev, stop=3)
+        warp.bilinear_warp = route
+        try:
+            for run in range(2):
+                if run == 0:
+                    _reset_launches(k3, kattn)
+                t0 = time.perf_counter()
+                for _ in api.clip_guided_diffusion(
+                        prompts=PROMPTS, image_size=size, num_cutouts=16,
+                        timestep_respacing="ddim25", weights_mode="random", seed=0,
+                        device=str(dev), progress=False, save_frequency=1,
+                        prefix_path=out_dir / f"{tag}_{run}", **options):
+                    pass
+                torch.cuda.synchronize()
+                if run == 0:
+                    launches, wall = _launches(k3, kattn), time.perf_counter() - t0
+        finally:
+            warp.bilinear_warp = real
+            first.close()
+        return first.last[-2], first.last[-1], launches, wall
+
+    lines, augs_launches = [], None
+    for i, (name, options) in enumerate(cases):
+        a, b, launches, wall = two_runs(i, options, real)
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"phase 16c: {name}: non-finite x")
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 16c: {name}: two runs differ after 3 guided steps by "
+                                 f"{(a - b).abs().max().item():.3e}")
+        control = ""
+        if options.get("use_augs"):
+            _check_launched(launches, ("warp_bwd",), "phase 16c")
+            augs_launches = augs_launches or launches
+            ga, gb, _, _ = two_runs(f"{i}g", options, augs_repro.gather_warp)
+            control = (f"; the gather route's two runs {(ga - gb).abs().max().item():.3e} "
+                       "apart")
+        lines.append(f"{size}px {name}: bit-equal ({wall:.2f} s a run; launches "
+                     f"{ {k: v for k, v in launches.items() if v} }){control}")
+    for line in lines:
+        _say16("c", f"two runs, x after 3 guided steps: {line}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return augs_launches
+
+
+def phase_16(k3, kattn, dev) -> tuple:
+    """Phase 16, in order: (a) the warp's backward, (b) resume at 64px with
+    ``use_augs``, (c) the repeat sweep. Returns (16a's kernel row, 16c's
+    ``use_augs`` launches)."""
+    t0 = time.perf_counter()
+    out = ROOT / "outputs" / "chip_smoke_16"
+    from cgd_tpu_torch.tools.augs_repro import CLIP_ALONE
+
+    row = phase_warp(dev, out / "warp")
+    phase_resume(dev, out / "resume_augs", 64, "b", phase="16", use_augs=True)
+    phase_resume(dev, out / "resume_augs_clip", 64, "b", phase="16", use_augs=True,
+                 **CLIP_ALONE)
+    launches = phase_repeat_sweep(k3, kattn, dev, out / "sweep")
+    shutil.rmtree(out, ignore_errors=True)
+    _say16("", f"phase 16 wall time {time.perf_counter() - t0:.1f} s")
+    return row, launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not (ROOT / "cgd_tpu_torch").is_dir():
@@ -3893,6 +4135,8 @@ def main() -> None:
     if not frames:
         raise AssertionError("phase 5 left no frame for phase 15c")
     phase_15(k3, kattn, dev, step_s, frames[-1])
+    res["warp_bwd"], augs_launches = phase_16(k3, kattn, dev)
+    launches["warp_bwd"] = augs_launches["warp_bwd"]
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),
@@ -3916,6 +4160,9 @@ def main() -> None:
         "conv3x3_fwd_halo_f32": ("cgd_tpu_torch/csrc/conv3x3_f32.cu",
                                  "cgd_tpu/kernels/conv_pallas.py:364 (explicit_halo at f32, via "
                                  "cgd_tpu/kernels/conv_spmd.py:139)"),
+        "warp_bwd": ("cgd_tpu_torch/csrc/warp_bwd.cu",
+                     "cgd_tpu/guidance/cutouts.py:151 (map_coordinates' transpose, XLA; no "
+                     "Pallas kernel)"),
     }
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

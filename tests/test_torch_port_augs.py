@@ -15,7 +15,12 @@ coordinates near 100 pixels from the centre, as far from an f64 evaluation
 as the op-by-op values are).
 
 Also: the draw's shapes, ranges and order, and one guided step with
-``use_augs`` against ``make_guided_step`` with the draws injected.
+``use_augs`` against ``make_guided_step`` with the draws injected; and the
+warp's own backward (``kernels/warp.py``, a fixed-order segment sum in
+place of a gather's atomic scatter on a card): its forward bit-equal to the
+four gathers it replaces, its gradient within 1e-6 of their autograd
+gradient's max on the CPU, its summation order a function of the draw
+alone. tests/test_torch_port_cuda.py holds the kernel to it on a card.
 """
 
 import numpy as np
@@ -30,6 +35,8 @@ from cgd_tpu.diffusion import sampler as jsampler  # noqa: E402
 from cgd_tpu.guidance import cutouts as jcutouts  # noqa: E402
 from cgd_tpu_torch.diffusion import sampler as tsampler  # noqa: E402
 from cgd_tpu_torch.guidance import cutouts as tcutouts  # noqa: E402
+from cgd_tpu_torch.kernels import warp as twarp  # noqa: E402
+from cgd_tpu_torch.tools.augs_repro import gather_warp  # noqa: E402
 from tests.test_torch_port_step import CUTN, _close, _draws, _pair, models  # noqa: E402,F401
 
 torch.set_num_threads(2)
@@ -150,3 +157,93 @@ def test_one_guided_step_with_augs_matches_jax(models, monkeypatch):
     assert seen == [(CUTN, res, res, 3)]
     _close(pred, pred_ref, "pred_xstart")
     _close(x_next, x_ref, "x_next")
+
+
+# ---- the warp's deterministic backward (kernels/warp.py) ------------------
+
+def _warp_case(n, size, seed):
+    """Cutouts, a probe and the warp's inputs (the flipped cutouts, the four
+    taps' source pixels and weights) of one draw, as apply_augs builds
+    them."""
+    rs = np.random.RandomState(seed)
+    cuts = torch.from_numpy(rs.rand(n, size, size, 3).astype(np.float32))
+    probe = torch.from_numpy(rs.randn(n, size, size, 3).astype(np.float32))
+    d = tcutouts.draw_augs(torch.Generator().manual_seed(seed), n, size, size, 3)
+    seen = {}
+    real = twarp.bilinear_warp
+
+    def spy(x, idx, weight):
+        seen.update(x=x.detach().clone(), idx=idx, weight=weight)
+        return real(x, idx, weight)
+
+    twarp.bilinear_warp = spy
+    try:
+        tcutouts.apply_augs(cuts, d)
+    finally:
+        twarp.bilinear_warp = real
+    return cuts, probe, d, seen
+
+
+WARP_CASES = [(4, 16, 0), (6, 24, 1), (3, 224, 3), (16, 64, 4)]
+
+
+@pytest.mark.parametrize("n,size,seed", WARP_CASES)
+def test_the_warp_forward_is_the_gathers_bit_for_bit(n, size, seed):
+    _, _, _, w = _warp_case(n, size, seed)
+    assert torch.equal(twarp.bilinear_warp(w["x"], w["idx"], w["weight"]),
+                       gather_warp(w["x"], w["idx"], w["weight"]))
+
+
+@pytest.mark.parametrize("n,size,seed", WARP_CASES)
+def test_the_warp_gradient_is_the_gathers(n, size, seed):
+    """The fixed-order backward against autograd through the four gathers,
+    on the CPU: within 1e-6 of the max |gradient| (f32 rounding; it sums in
+    the gathers' own order on the CPU, and is measured bit-equal)."""
+    _, probe, _, w = _warp_case(n, size, seed)
+    grads = []
+    for fn in (twarp.bilinear_warp, gather_warp):
+        x = w["x"].clone().requires_grad_(True)
+        (fn(x, w["idx"], w["weight"]) * probe).sum().backward()
+        grads.append(x.grad)
+    err = float((grads[0] - grads[1]).abs().max())
+    assert err <= 1e-6 * float(grads[1].abs().max()), err
+    assert float(grads[1].abs().max()) > 0
+
+
+def test_the_segment_order_depends_on_the_draw_only():
+    """warp_index sorts by (cutout, source pixel) and keeps each segment's
+    pairs in (tap, output pixel) order: the same for any weights and any
+    cotangent; each segment's start is its first pair; the plain backward is
+    that order's per-tap sums, ((S3 + S2) + S1) + S0, added one by one."""
+    n, size = 3, 12
+    _, _, _, w = _warp_case(n, size, 7)
+    idx, nsrc = w["idx"], n * size * size
+    a = twarp.warp_index(idx, w["weight"])
+    other = torch.rand(w["weight"].shape, generator=torch.Generator().manual_seed(1))
+    b = twarp.warp_index(idx, other)
+    assert torch.equal(a.key, b.key) and torch.equal(a.pair, b.pair)
+    assert torch.equal(a.offsets, b.offsets)
+    assert a.key.numel() == twarp.TAPS * nsrc and bool((a.key[1:] >= a.key[:-1]).all())
+    same = a.key[1:] == a.key[:-1]
+    assert bool((a.pair[1:][same] > a.pair[:-1][same]).all())  # (tap, output) order inside
+    starts = a.offsets.long()
+    assert int(starts[0]) == 0 and int(starts[-1]) == a.key.numel()
+    for s in (0, nsrc // 2, nsrc - 1):
+        assert bool((a.key[starts[s]:starts[s + 1]] == s).all())
+    # the plain backward, one addition at a time in numpy
+    g = torch.randn(nsrc, 3, generator=torch.Generator().manual_seed(2))
+    sums = np.zeros((twarp.TAPS, nsrc, 3), np.float32)
+    for key, pair, wt in zip(a.key.tolist(), a.pair.tolist(), a.weight.numpy()):
+        tap, p = divmod(pair, nsrc)
+        sums[tap, key] += wt * g[p].numpy()
+    want = ((sums[3] + sums[2]) + sums[1]) + sums[0]
+    np.testing.assert_array_equal(twarp.warp_bwd_plain(g, a).numpy(), want)
+
+
+def test_the_warp_backward_refuses_what_it_cannot_take():
+    _, _, _, w = _warp_case(2, 8, 0)
+    with pytest.raises(ValueError, match="taps"):
+        twarp.warp_index(w["idx"][:3], w["weight"][:3])
+    index = twarp.warp_index(w["idx"], w["weight"])
+    with pytest.raises(ValueError, match="no kernel"):
+        twarp._warp_bwd_kernel(torch.zeros(2 * 64, 3), index)

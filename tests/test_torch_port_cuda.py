@@ -978,3 +978,45 @@ def test_fast_guidance_launches_no_backward_kernel(dev, fast):
     assert torch.isfinite(x_next).all()
     assert k3.LAUNCHES["conv3x3_fwd"] > 0 and kattn.LAUNCHES["attn_fwd"] > 0
     assert (backward == 0) == fast
+
+
+@pytest.mark.parametrize("n,size", [(16, 224), (4, 24)])
+def test_the_warp_backward_matches_plain_and_reruns_identically(dev, n, size):
+    """K-warp-b (the augmentation warp's backward, csrc/warp_bwd.cu) at the
+    warp apply_augs builds on the card (16 cutouts of 224^2 on the main
+    path): against its plain version run on the CPU on the same index and
+    cotangent, within 1e-6 of the max (it adds in the plain version's
+    order: measured bit-equal); apply_augs' input gradient ten times
+    bit-identical, one launch each."""
+    from cgd_tpu_torch.guidance import cutouts
+    from cgd_tpu_torch.kernels import warp
+
+    gen = torch.Generator(dev).manual_seed(3)
+    cuts = torch.rand(n, size, size, 3, generator=gen, device=dev)
+    probe = torch.randn(n, size, size, 3, generator=gen, device=dev)
+    d = cutouts.draw_augs(gen, n, size, size, 3)
+    seen, real = [], warp.bilinear_warp
+
+    def spy(x, idx, weight):
+        seen.append((idx, weight))
+        return real(x, idx, weight)
+
+    grads = []
+    warp.reset_launch_counts()
+    warp.bilinear_warp = spy
+    try:
+        for _ in range(10):
+            x = cuts.clone().requires_grad_(True)
+            (cutouts.apply_augs(x, d) * probe).sum().backward()
+            grads.append(x.grad)
+    finally:
+        warp.bilinear_warp = real
+    torch.cuda.synchronize()
+    assert warp.LAUNCHES["warp_bwd"] == 10
+    assert all(torch.equal(g, grads[0]) for g in grads[1:])
+    index = warp.warp_index(*seen[0])
+    g = torch.randn(n * size * size, 3, generator=gen, device=dev)
+    got = warp.warp_bwd(g, index)
+    want = warp.warp_bwd_plain(g.cpu(), warp.WarpIndex(*(t.cpu() for t in index)))
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-6 * float(want.abs().max()), err

@@ -24,11 +24,12 @@ MODULES = sorted(
 def test_every_port_module_is_listed():
     assert "cgd_tpu_torch.kernels.conv3x3" in MODULES
     assert "cgd_tpu_torch.kernels.attention" in MODULES
+    assert "cgd_tpu_torch.kernels.warp" in MODULES
     assert "cgd_tpu_torch.api" in MODULES
     assert "cgd_tpu_torch.cli" in MODULES
     assert "cgd_tpu_torch.serve" in MODULES and "cgd_tpu_torch.cog_predict" in MODULES
     for tool in ("time_components", "bench", "clip_score", "first_real_run", "serve_throughput",
-                 "guided_quality_proxy"):
+                 "guided_quality_proxy", "jax_prng", "augs_repro"):
         assert f"cgd_tpu_torch.tools.{tool}" in MODULES
     assert len(MODULES) >= 20
 

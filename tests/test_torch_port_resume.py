@@ -8,7 +8,9 @@ one ``torch.Generator``, so its state travels with x, y and x0p. The claim
 held here is the JAX package's: a run interrupted after any segment and
 resumed gives the uninterrupted run's frames and x BIT FOR BIT (tolerance:
 none, ``torch.equal``), for DDIM, ancestral and DPM-Solver++(2M) steps and
-with ``reduce_clip`` + ``progressive_cutout``, at save_frequency 1 and 3. A
+with ``reduce_clip`` + ``progressive_cutout``, at save_frequency 1 and 3,
+and through the API with ``use_augs`` (the augmentations drawn from the
+generator after each step's cutouts, the warp's backward in a fixed order). A
 resume from a wrong generator state differs. The guards refuse, each in its
 own words: another run configuration, a checkpoint the JAX package wrote,
 one drawn on another device type, an unreadable file, a meta that does not
@@ -178,9 +180,10 @@ def _frames(paths):
     return [open(p, "rb").read() for _, p in paths]
 
 
-@pytest.mark.parametrize("dpm", [False, True], ids=["ddim", "dpm"])
-def test_checkpoint_and_resume_through_the_api_equal_the_uninterrupted_run(tiny, dpm):
-    kw = dict(KW, dpm_solver=dpm)
+@pytest.mark.parametrize("dpm,augs", [(False, False), (True, False), (False, True)],
+                         ids=["ddim", "dpm", "augs"])
+def test_checkpoint_and_resume_through_the_api_equal_the_uninterrupted_run(tiny, dpm, augs):
+    kw = dict(KW, dpm_solver=dpm, use_augs=augs)
     full = _frames(api.clip_guided_diffusion(prefix_path=tiny / "full", **kw))
     ck = str(tiny / "state.npz")
     gen = api.clip_guided_diffusion(prefix_path=tiny / "part", checkpoint_path=ck, **kw)
