@@ -125,6 +125,21 @@ def _warp_bwd_kernel(g: torch.Tensor, index: WarpIndex) -> torch.Tensor:
     return dx
 
 
+def gather_warp(x: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The warp's forward: the four taps gathered and summed weighted, in
+    map_coordinates' order. Called under autograd it is also the route
+    ``bilinear_warp`` replaced, whose backward on a card is ``scatter_add_``
+    with float atomics (the checks compare the two)."""
+    n, hh, ww, c = x.shape
+    flat = x.reshape(n, hh * ww, c)
+    out = None
+    for t in range(idx.shape[0]):  # the taps summed in their order
+        tap = flat.gather(1, idx[t].reshape(n, hh * ww, 1).expand(n, hh * ww, c))
+        term = weight[t][..., None] * tap.reshape(n, hh, ww, c)
+        out = term if out is None else out + term
+    return out
+
+
 class _BilinearWarp(torch.autograd.Function):
     """out = sum over taps t of weight[t] * x at idx[t]; its backward is
     ``warp_bwd`` (the gradient reaches x only: idx and weight come from the
@@ -132,15 +147,8 @@ class _BilinearWarp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, idx, weight):
-        n, hh, ww, c = x.shape
-        flat = x.reshape(n, hh * ww, c)
-        out = None
-        for t in range(idx.shape[0]):  # the taps summed in their order
-            tap = flat.gather(1, idx[t].reshape(n, hh * ww, 1).expand(n, hh * ww, c))
-            term = weight[t][..., None] * tap.reshape(n, hh, ww, c)
-            out = term if out is None else out + term
         ctx.save_for_backward(idx, weight)
-        return out
+        return gather_warp(x, idx, weight)
 
     @staticmethod
     def backward(ctx, g):

@@ -201,18 +201,20 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    it replaced (autograd's atomic ``scatter_add_``) and on K-warp-b
    (``csrc/warp_bwd.cu``; one required), of ``apply_augs``' input gradient
    and of one 64px guided step's gradient under ``use_augs``, with the
-   API's loss scales and with the CLIP loss alone
-   (``tools/augs_repro.py``); K-warp-b against its plain version on the
-   card and on the CPU (bound 1e-6 of the max), ten reruns bit-identical,
-   its segments, its time beside its index's, the plain version's and the
-   gather route's backward; (b) phase 13a's resume at 64px with
-   ``use_augs`` (the augmentations drawn from the generator), with the
-   API's loss scales and with the CLIP loss alone, bit-equal; (c) two runs
-   of 3 guided steps each, x compared bit for bit, at 256px: ``use_augs``
-   (the API's loss scales, and the CLIP loss alone; each also on the gather
-   route, a control), the init image with LPIPS and an image prompt, the
-   ``cut=2`` mesh on the one card, ``compute_dtype="float32"``, fast
-   guidance, ``batch_size=4``; every one must be bit-equal.
+   API's loss scales and with the CLIP loss alone; K-warp-b against its
+   plain version run on the CPU on the same inputs (bit-equal), ten reruns
+   bit-identical, its segments, its time beside its
+   index's, the plain version's, the gather route's backward and
+   ``index_put_(accumulate=True)``'s on the same pairs; (b) phase 13a's
+   resume at 64px with ``use_augs`` (the augmentations drawn from the
+   generator), with the API's loss scales and with the CLIP loss alone,
+   bit-equal; (c) two runs of 3 guided steps each, x compared bit for bit,
+   at 256px: ``use_augs`` (the API's loss scales, and the CLIP loss alone;
+   each also on the gather route, a control), the init image with LPIPS
+   and an image prompt, and with ``use_augs`` the ``cut=2`` mesh on the one
+   card, ``compute_dtype="float32"``, fast guidance and ``batch_size=4``;
+   every one must be bit-equal, every ``use_augs`` run must launch
+   K-warp-b.
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
 from phase 7c, K-fwd f32's from phase 8, K-dx f32's and the f32
@@ -2221,6 +2223,22 @@ def _say12(sub: str, msg: str) -> None:
     print(f"[12{sub}] {msg} ({CARD})")
 
 
+def _numpy_draw(dev, n: int, h: int, w: int, c: int, rs):
+    """One set of augmentation draws for n cutouts of h x w x c from the
+    numpy ``RandomState`` rs (``draw_augs``' fields, ranges and order)."""
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch.guidance.cutouts import AugDraws
+
+    lim = 0.4 / max(h, w)
+    arrays = (rs.rand(n) < 0.5, rs.uniform(-15, 15, n), rs.uniform(-0.1, 0.1, n),
+              rs.uniform(-0.1, 0.1, n), rs.rand(n) < 0.7, rs.uniform(-lim, lim, (n, 2)),
+              rs.rand(n) < 0.15, rs.randn(n, h, w, c))
+    return AugDraws(*(torch.as_tensor(a if a.dtype == bool else a.astype(np.float32), device=dev)
+                      for a in arrays))
+
+
 def _numpy_aug_draws(dev, calls: int = 25, n: int = 16, size: int = 224):
     """A draw_augs stand-in whose draws come from numpy, made up front (one
     set per call of a 25-step run, for n cutouts of size^2 x 3) and handed
@@ -2228,10 +2246,8 @@ def _numpy_aug_draws(dev, calls: int = 25, n: int = 16, size: int = 224):
     same augmentations at the same steps."""
     import numpy as np
 
-    from cgd_tpu_torch.tools.augs_repro import numpy_draw
-
     rs = np.random.RandomState(1000)
-    sets = [numpy_draw(dev, n, size, size, 3, rs) for _ in range(calls)]
+    sets = [_numpy_draw(dev, n, size, size, 3, rs) for _ in range(calls)]
     taken = [0]
 
     def draw(gen, n_, h, w, c):
@@ -3827,8 +3843,10 @@ def phase_15(k3, kattn, dev, step_s: float, frame: Path) -> None:
 # resume with use_augs, a repeat sweep over the paths)
 # ---------------------------------------------------------------------------
 
-WARP_TOL = 1e-6  # max |err| / max |ref|: K-warp-b against its plain version (f32 sums)
 REPEATS = 10     # runs of each gradient whose distinct bit patterns phase 16a counts
+# the guidance with the CLIP loss alone: with random weights the TV and range
+# losses' gradients can hide the warp's atomics in a step's gradient
+CLIP_ALONE = {"tv_scale": 0.0, "range_scale": 0.0}
 
 
 def _say16(sub: str, msg: str) -> None:
@@ -3836,24 +3854,113 @@ def _say16(sub: str, msg: str) -> None:
     print(f"[16{sub}] {msg} ({CARD})")
 
 
+def _distinct(tensors) -> int:
+    """How many distinct bit patterns there are among ``tensors``."""
+    import hashlib
+
+    return len({hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+                for t in tensors})
+
+
+def _augs_grads(dev, runs: int, n: int, size: int) -> list:
+    """``apply_augs``' input gradient, ``runs`` times, on the same cutouts,
+    draw and cotangent (from a seeded generator on ``dev``)."""
+    import torch
+
+    from cgd_tpu_torch.guidance import cutouts
+
+    gen = torch.Generator(dev).manual_seed(16)
+    cuts = torch.rand(n, size, size, 3, generator=gen, device=dev)
+    probe = torch.randn(n, size, size, 3, generator=gen, device=dev)
+    draw = cutouts.draw_augs(gen, n, size, size, 3)
+    grads = []
+    for _ in range(runs):
+        x = cuts.clone().requires_grad_(True)
+        (cutouts.apply_augs(x, draw) * probe).sum().backward()
+        grads.append(x.grad)
+    return grads
+
+
+def _step_grads(dev, runs: int, out_dir: Path, **scales) -> list:
+    """One 64px guided step's gradient with respect to x (ViT-B/32, 16
+    cutouts, ``use_augs`` with one numpy-drawn set of augmentations, random
+    weights with the UNet's zero-init layers re-drawn), ``runs`` times
+    inside one API run: at the first guided step the loss is built and
+    differentiated again with the generator's state restored each time;
+    then the run takes that step once and is interrupted. ``scales``: the
+    API's loss scales to override."""
+    import numpy as np
+    import torch
+
+    from cgd_tpu_torch import api
+    from cgd_tpu_torch.diffusion.sampler import GuidanceFns
+    from cgd_tpu_torch.guidance import cutouts
+
+    grads, fixed = [], []
+    real = api.make_guidance_builder, cutouts.draw_augs
+
+    def make(*a, **kw):
+        builder = real[0](*a, **kw)
+
+        def repeated(meta):
+            fns = builder(meta)
+
+            def loss_fn(x, out, ref_t, gen):
+                if not grads:
+                    state = gen.get_state()
+                    for _ in range(runs):
+                        gen.set_state(state)
+                        loss, _ = fns.loss_fn(x, out, ref_t, gen)
+                        grads.append(torch.autograd.grad(loss, x, retain_graph=True)[0])
+                    gen.set_state(state)
+                return fns.loss_fn(x, out, ref_t, gen)
+
+            return GuidanceFns(loss_fn, fns.grad_transform)
+
+        return repeated
+
+    def draw(gen, n, h, w, c):
+        if not fixed:
+            fixed.append(_numpy_draw(dev, n, h, w, c, np.random.RandomState(1000)))
+        return fixed[0]
+
+    first = _FirstStep(api, dev, stop=1)
+    api.make_guidance_builder, cutouts.draw_augs = make, draw
+    try:
+        for _ in api.clip_guided_diffusion(
+                prompts=PROMPTS, image_size=64, num_cutouts=16, clip_model_name="ViT-B/32",
+                timestep_respacing="ddim25", weights_mode="random", seed=0, device=str(dev),
+                use_augs=True, progress=False, save_frequency=1, prefix_path=out_dir, **scales):
+            pass
+    finally:
+        api.make_guidance_builder, cutouts.draw_augs = real
+        first.close()
+    if len(grads) != runs or not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError(f"phase 16a: {len(grads)} step gradients of {runs}, or non-finite")
+    return grads
+
+
 def phase_warp(dev, out_dir: Path) -> dict:
     """Phase 16a: the augmentation warp's backward at the main path's 16
     cutouts of 224^2. How many distinct bit patterns REPEATS runs give, on
-    the gather route (autograd's atomic ``scatter_add_``) and on K-warp-b
-    (``tools/augs_repro.py``): of ``apply_augs``' input gradient with one
-    fixed draw, and of one 64px guided step's gradient under ``use_augs``,
-    with the API's loss scales and with the CLIP loss alone; K-warp-b must
-    give one. Then K-warp-b on the warp apply_augs built against its plain
-    version on the card (``index_add_``, atomic there; bound WARP_TOL of
-    the max) and on the CPU (the same order: bit-equal), ten reruns
-    bit-identical, its segments' lengths, and the times: the kernel (events,
-    device), the index it needs (sort and search), the plain version, and
-    the gather route's backward it replaced beside the new route's
-    (autograd on a kept graph, index included)."""
+    the gather route (``warp.gather_warp`` under autograd: an atomic
+    ``scatter_add_``) and on K-warp-b: of ``apply_augs``' input gradient
+    with one fixed draw, and of one 64px guided step's gradient under
+    ``use_augs``, with the API's loss scales and with the CLIP loss alone;
+    K-warp-b must give one. Then K-warp-b on the warp apply_augs built:
+    against its plain version run on the CPU on the same inputs (the same
+    order: bit-equal, held; run on the card the plain version's
+    ``index_add_`` is atomic, so its distance there is printed, not held),
+    ten reruns bit-identical, its segments' lengths, and the times:
+    the kernel (events, device), the index it needs (sort and search), the
+    plain version, the gather route's backward it replaced beside the new
+    route's (autograd on a kept graph, index included), and
+    ``index_put_(accumulate=True)`` on the same pairs (the library's sorted
+    scatter, measured as an alternative: its distinct patterns in REPEATS
+    runs, its distance from the plain version, its time)."""
     import torch
 
     from cgd_tpu_torch.kernels import warp
-    from cgd_tpu_torch.tools import augs_repro
 
     n, size = 16, 224
     real, seen = warp.bilinear_warp, []
@@ -3870,14 +3977,13 @@ def phase_warp(dev, out_dir: Path) -> dict:
             warp.bilinear_warp = real
 
     counts, apart = {}, {}
-    grads = [on(route, augs_repro.augs_grads, dev, REPEATS, n, size)
-             for route in (augs_repro.gather_warp, spy)]
-    counts["augs"] = tuple(augs_repro.distinct(g) for g in grads)
+    grads = [on(route, _augs_grads, dev, REPEATS, n, size) for route in (warp.gather_warp, spy)]
+    counts["augs"] = tuple(_distinct(g) for g in grads)
     apart["augs"] = _rel_max(grads[1][0], grads[0][0])[1]
-    for key, scales in (("step", {}), ("step, CLIP loss alone", augs_repro.CLIP_ALONE)):
-        grads = [on(route, augs_repro.step_grads, dev, REPEATS, out_dir / f"{key}_{i}", **scales)
-                 for i, route in enumerate((augs_repro.gather_warp, real))]
-        counts[key] = tuple(augs_repro.distinct(g) for g in grads)
+    for key, scales in (("step", {}), ("step, CLIP loss alone", CLIP_ALONE)):
+        grads = [on(route, _step_grads, dev, REPEATS, out_dir / f"{key}_{i}", **scales)
+                 for i, route in enumerate((warp.gather_warp, real))]
+        counts[key] = tuple(_distinct(g) for g in grads)
         apart[key] = _rel_max(grads[1][0], grads[0][0])[1]
     _say16("a", f"distinct bit patterns in {REPEATS} runs, the gather's autograd backward "
                 f"(scatter_add_, atomic) / K-warp-b, and the two routes' first gradients "
@@ -3899,12 +4005,12 @@ def phase_warp(dev, out_dir: Path) -> dict:
     reruns = [warp.warp_bwd(g, index) for _ in range(10)]
     if not all(torch.equal(r, out) for r in reruns):
         raise AssertionError("phase 16a: K-warp-b reruns differ")
-    err, rel = _rel_max(out, warp.warp_bwd_plain(g, index))
+    card_rel = _rel_max(out, warp.warp_bwd_plain(g, index))[1]
     cpu_plain = warp.warp_bwd_plain(g.cpu(), warp.WarpIndex(*(t.cpu() for t in index)))
-    cpu_err, cpu_rel = _rel_max(out.cpu(), cpu_plain)
-    if not max(rel, cpu_rel) <= WARP_TOL:
-        raise AssertionError(f"phase 16a: K-warp-b vs its plain version {rel:.3e} (card), "
-                             f"{cpu_rel:.3e} (CPU) of max > {WARP_TOL}")
+    err, rel = _rel_max(out.cpu(), cpu_plain)
+    if not torch.equal(out.cpu(), cpu_plain):
+        raise AssertionError(f"phase 16a: K-warp-b vs its plain version (on the CPU, the same "
+                             f"inputs): max |err| {err:.3e} ({rel:.3e} of max), not bit-equal")
     seg = (index.offsets[1:] - index.offsets[:-1]).float()
 
     def kernel():
@@ -3916,7 +4022,7 @@ def phase_warp(dev, out_dir: Path) -> dict:
     plain_ms = _time_ms(lambda: warp.warp_bwd_plain(g, index))
     g4 = g.reshape(n, size, size, 3)
     xg, xk = xw.clone().requires_grad_(True), xw.clone().requires_grad_(True)
-    out_g, out_k = augs_repro.gather_warp(xg, idx, weight), real(xk, idx, weight)
+    out_g, out_k = warp.gather_warp(xg, idx, weight), real(xk, idx, weight)
 
     def gather_bwd():
         torch.autograd.grad(out_g, xg, g4, retain_graph=True)
@@ -3927,18 +4033,35 @@ def phase_warp(dev, out_dir: Path) -> dict:
     lib_ms, new_ms = _time_ms(gather_bwd), _time_ms(kernel_bwd)
     lib_dms = _device_ms(gather_bwd, None, "the gather's autograd backward")
     new_dms = _device_ms(kernel_bwd, None, "the warp's backward, index included")
+    # the same pairs through the library's sorted scatter (no index of ours)
+    src = (torch.arange(n, device=dev)[:, None] * (size * size)
+           + idx.reshape(warp.TAPS, n, size * size)).reshape(-1)
+
+    def index_put():
+        vals = (weight.reshape(warp.TAPS, nsrc, 1) * g).reshape(warp.TAPS * nsrc, 3)
+        return torch.zeros_like(g).index_put_((src,), vals, accumulate=True)
+
+    put = [index_put() for _ in range(REPEATS)]
+    put_rel = _rel_max(put[0], out)[1]
+    put_ms = _time_ms(index_put)
+    put_dms = _device_ms(index_put, None, "index_put_(accumulate=True)")
     bound = _bound(2 * warp.TAPS * nsrc * 3,
                    _nbytes(g, index.weight, index.pair, index.offsets, out), PEAK_F32_FLOPS)
     _say16("a", f"K-warp-b at {n} cutouts of {size}^2 (the warp apply_augs built on the card): "
-                f"vs its plain version on the card max |err| {err:.3e} ({rel:.3e} of max), on "
-                f"the CPU {cpu_err:.3e} (bound {WARP_TOL} of max), 10 reruns bit-identical; "
-                f"segments: {int(seg.max())} pairs at most, {float(seg.mean()):.2f} on average, "
-                f"{int((seg == 0).sum())} of {nsrc} empty; kernel {ms:.4f} ms (events), "
-                f"{dms:.4f} ms device{_fmt(bound, dms)}; its index (sort + search) "
-                f"{index_ms:.4f} ms; plain version {plain_ms:.4f} ms; the warp's backward, "
-                f"index included: {new_ms:.4f} ms (events), {new_dms:.4f} ms device, against "
-                f"the gather's autograd backward it replaced {lib_ms:.4f} ms (events), "
+                f"vs its plain version run on the CPU on the same inputs max |err| {err:.3e} "
+                f"(bit-equal required); the plain version run on the card (its index_add_ "
+                f"atomic, its order its own) {card_rel:.3e} of max away; 10 reruns "
+                f"bit-identical; segments: {int(seg.max())} pairs at most, "
+                f"{float(seg.mean()):.2f} on average, {int((seg == 0).sum())} of {nsrc} empty; "
+                f"kernel {ms:.4f} ms (events), {dms:.4f} ms device{_fmt(bound, dms)}; its index "
+                f"(sort + search) {index_ms:.4f} ms; plain version {plain_ms:.4f} ms; the warp's "
+                f"backward, index included: {new_ms:.4f} ms (events), {new_dms:.4f} ms device, "
+                f"against the gather's autograd backward it replaced {lib_ms:.4f} ms (events), "
                 f"{lib_dms:.4f} ms device")
+    _say16("a", f"index_put_(accumulate=True) on the same pairs (products included): "
+                f"{_distinct(put)} distinct bit patterns in {REPEATS} runs, "
+                f"{'bit-equal to' if torch.equal(put[0], out) else f'{put_rel:.3e} of max from'} "
+                f"K-warp-b, {put_ms:.4f} ms (events), {put_dms:.4f} ms device")
     return {"err": err, "ms": ms, "device_ms": dms, "plain_ms": plain_ms, "library_ms": lib_ms,
             **bound}
 
@@ -3949,35 +4072,37 @@ def phase_repeat_sweep(k3, kattn, dev, out_dir: Path, size: int = 256) -> dict:
     weights, the zero-init layers re-drawn), their x after the third step
     compared bit for bit: 256px with ``use_augs``, with the API's loss
     scales and with the CLIP loss alone; phase 8's init image with LPIPS and
-    an image prompt (random weights; skip 12, init_scale 1000); the
-    ``cut=2`` mesh on the one card; ``compute_dtype="float32"``; fast
-    guidance; ``batch_size=4``. Every pair must be bit-equal. The
-    ``use_augs`` cases run twice more on the gather route K-warp-b replaced,
-    a control whose difference says whether the check can see the atomics.
-    Counters reset just before each first run and read just after. Returns
-    the launches of the first ``use_augs`` run."""
+    an image prompt (random weights; skip 12, init_scale 1000); and with
+    ``use_augs``, each a path the warp's gradient runs through: the ``cut=2``
+    mesh on the one card (the cutouts split over it),
+    ``compute_dtype="float32"``, fast guidance, ``batch_size=4`` (64
+    cutouts). Every pair must be bit-equal, and every ``use_augs`` run must
+    launch K-warp-b. The first two cases run twice more on the gather route
+    K-warp-b replaced, a control whose difference says whether the check can
+    see the atomics. Counters reset just before each first run and read just
+    after. Returns the launches of the first ``use_augs`` run."""
     import torch
 
     from cgd_tpu_torch import api
     from cgd_tpu_torch.io_utils.images import encode_png
     from cgd_tpu_torch.kernels import warp
     from cgd_tpu_torch.parallel.mesh import make_mesh
-    from cgd_tpu_torch.tools import augs_repro
 
     out_dir.mkdir(parents=True, exist_ok=True)
     init_png, prompt_png = out_dir / "init.png", out_dir / "prompt.png"
     init_png.write_bytes(encode_png(_test_image(300, 260, 1)))
     prompt_png.write_bytes(encode_png(_test_image(224, 320, 2)))
-    cases = [
-        ("use_augs", dict(use_augs=True)),
-        ("use_augs, the CLIP loss alone", dict(use_augs=True, **augs_repro.CLIP_ALONE)),
+    augs = dict(use_augs=True)
+    cases = [  # (name, options, also on the gather route)
+        ("use_augs", augs, True),
+        ("use_augs, the CLIP loss alone", dict(**augs, **CLIP_ALONE), True),
         ("init image + LPIPS + image prompt",
          dict(init_image=str(init_png), skip_timesteps=12, init_scale=1000,
-              image_prompts=[f"{prompt_png}:1"])),
-        ("mesh cut=2 (the card twice)", dict(mesh=make_mesh([dev, dev]))),
-        ("compute_dtype float32", dict(compute_dtype="float32")),
-        ("fast guidance", dict(fast_guidance=True)),
-        ("batch_size 4", dict(batch_size=4)),
+              image_prompts=[f"{prompt_png}:1"]), False),
+        ("mesh cut=2 (the card twice), use_augs", dict(mesh=make_mesh([dev, dev]), **augs), False),
+        ("compute_dtype float32, use_augs", dict(compute_dtype="float32", **augs), False),
+        ("fast guidance, use_augs", dict(fast_guidance=True, **augs), False),
+        ("batch_size 4, use_augs", dict(batch_size=4, **augs), False),
     ]
     real = warp.bilinear_warp
 
@@ -4006,22 +4131,22 @@ def phase_repeat_sweep(k3, kattn, dev, out_dir: Path, size: int = 256) -> dict:
         return first.last[-2], first.last[-1], launches, wall
 
     lines, augs_launches = [], None
-    for i, (name, options) in enumerate(cases):
+    for i, (name, options, control) in enumerate(cases):
         a, b, launches, wall = two_runs(i, options, real)
         if not torch.isfinite(a).all():
             raise AssertionError(f"phase 16c: {name}: non-finite x")
         if not torch.equal(a, b):
             raise AssertionError(f"phase 16c: {name}: two runs differ after 3 guided steps by "
                                  f"{(a - b).abs().max().item():.3e}")
-        control = ""
         if options.get("use_augs"):
-            _check_launched(launches, ("warp_bwd",), "phase 16c")
+            _check_launched(launches, ("warp_bwd",), f"phase 16c {name}")
             augs_launches = augs_launches or launches
-            ga, gb, _, _ = two_runs(f"{i}g", options, augs_repro.gather_warp)
-            control = (f"; the gather route's two runs {(ga - gb).abs().max().item():.3e} "
-                       "apart")
+        said = ""
+        if control:
+            ga, gb, _, _ = two_runs(f"{i}g", options, warp.gather_warp)
+            said = f"; the gather route's two runs {(ga - gb).abs().max().item():.3e} apart"
         lines.append(f"{size}px {name}: bit-equal ({wall:.2f} s a run; launches "
-                     f"{ {k: v for k, v in launches.items() if v} }){control}")
+                     f"{ {k: v for k, v in launches.items() if v} }){said}")
     for line in lines:
         _say16("c", f"two runs, x after 3 guided steps: {line}")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -4034,8 +4159,6 @@ def phase_16(k3, kattn, dev) -> tuple:
     ``use_augs`` launches)."""
     t0 = time.perf_counter()
     out = ROOT / "outputs" / "chip_smoke_16"
-    from cgd_tpu_torch.tools.augs_repro import CLIP_ALONE
-
     row = phase_warp(dev, out / "warp")
     phase_resume(dev, out / "resume_augs", 64, "b", phase="16", use_augs=True)
     phase_resume(dev, out / "resume_augs_clip", 64, "b", phase="16", use_augs=True,

@@ -18,9 +18,8 @@ Also: the draw's shapes, ranges and order, and one guided step with
 ``use_augs`` against ``make_guided_step`` with the draws injected; and the
 warp's own backward (``kernels/warp.py``, a fixed-order segment sum in
 place of a gather's atomic scatter on a card): its forward bit-equal to the
-four gathers it replaces, its gradient within 1e-6 of their autograd
-gradient's max on the CPU, its summation order a function of the draw
-alone. tests/test_torch_port_cuda.py holds the kernel to it on a card.
+four gathers it replaces, its gradient bit-equal to their autograd
+gradient on the CPU, its summation order a function of the draw alone. tests/test_torch_port_cuda.py holds the kernel to it on a card.
 """
 
 import numpy as np
@@ -36,7 +35,6 @@ from cgd_tpu.guidance import cutouts as jcutouts  # noqa: E402
 from cgd_tpu_torch.diffusion import sampler as tsampler  # noqa: E402
 from cgd_tpu_torch.guidance import cutouts as tcutouts  # noqa: E402
 from cgd_tpu_torch.kernels import warp as twarp  # noqa: E402
-from cgd_tpu_torch.tools.augs_repro import gather_warp  # noqa: E402
 from tests.test_torch_port_step import CUTN, _close, _draws, _pair, models  # noqa: E402,F401
 
 torch.set_num_threads(2)
@@ -184,6 +182,20 @@ def _warp_case(n, size, seed):
     return cuts, probe, d, seen
 
 
+def gather_warp(x, idx, weight):
+    """The warp as apply_augs sampled it before kernels/warp.py: four
+    autograd gathers summed in map_coordinates' order, in one expression."""
+    n, hh, ww, c = x.shape
+    flat = x.reshape(n, hh * ww, c)
+
+    def tap(t):
+        i = idx[t].reshape(n, hh * ww, 1).expand(n, hh * ww, c)
+        return flat.gather(1, i).reshape(n, hh, ww, c)
+
+    return (weight[0][..., None] * tap(0) + weight[1][..., None] * tap(1)
+            + weight[2][..., None] * tap(2) + weight[3][..., None] * tap(3))
+
+
 WARP_CASES = [(4, 16, 0), (6, 24, 1), (3, 224, 3), (16, 64, 4)]
 
 
@@ -197,16 +209,15 @@ def test_the_warp_forward_is_the_gathers_bit_for_bit(n, size, seed):
 @pytest.mark.parametrize("n,size,seed", WARP_CASES)
 def test_the_warp_gradient_is_the_gathers(n, size, seed):
     """The fixed-order backward against autograd through the four gathers,
-    on the CPU: within 1e-6 of the max |gradient| (f32 rounding; it sums in
-    the gathers' own order on the CPU, and is measured bit-equal)."""
+    on the CPU: bit-equal, since it sums in the gathers' own order there
+    (each tap's scatter in output order, then the taps from the last)."""
     _, probe, _, w = _warp_case(n, size, seed)
     grads = []
     for fn in (twarp.bilinear_warp, gather_warp):
         x = w["x"].clone().requires_grad_(True)
         (fn(x, w["idx"], w["weight"]) * probe).sum().backward()
         grads.append(x.grad)
-    err = float((grads[0] - grads[1]).abs().max())
-    assert err <= 1e-6 * float(grads[1].abs().max()), err
+    assert torch.equal(grads[0], grads[1]), float((grads[0] - grads[1]).abs().max())
     assert float(grads[1].abs().max()) > 0
 
 
