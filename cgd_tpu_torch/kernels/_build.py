@@ -88,8 +88,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_attn_bwd_f32.restype = i
     lib.cgd_attn_f32_smem_bytes.argtypes = [i, i]
     lib.cgd_attn_f32_smem_bytes.restype = i
-    lib.cgd_warp_bwd.argtypes = [p] * 5 + [i] * 2 + [p]
+    lib.cgd_warp_bwd.argtypes = [p] * 7 + [i] * 3 + [p]
     lib.cgd_warp_bwd.restype = i
+    lib.cgd_warp_index_count.argtypes = [p] * 4 + [i] * 2 + [p]
+    lib.cgd_warp_index_count.restype = i
+    lib.cgd_warp_index_sort.argtypes = [p] * 7 + [i] + [p]
+    lib.cgd_warp_index_sort.restype = i
+    lib.cgd_warp_index_long.argtypes = [p] * 4 + [i] * 2 + [p]
+    lib.cgd_warp_index_long.restype = i
     lib.cgd_error_string.argtypes = [i]
     lib.cgd_error_string.restype = ctypes.c_char_p
     return lib

@@ -174,9 +174,11 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    per step, device busy and idle share and peak memory beside b = 1, then
    the ``data=2`` mesh at batch 2 and ``data=2, cut=2`` at batch 4 on the
    one card against the unsplit runs; (c) the memory grid through
-   ``tools/profile_step.measure``: 512px RN50x16 at b 1-8 x 16 / 32
-   cutouts, remat off / full / hires128, peak memory and ms per step (a
-   point reckoned past 90% of the card's memory is not run), the smallest
+   ``tools/profile_step.measure``: 512px RN50x16 at b 1-2 x 16 cutouts
+   (the full grid, b 1-8 x 16 / 32 cutouts, was a one-off calibration of
+   the gate, recorded in PERF.md), remat off / full / hires128, peak
+   memory and ms per step (a point reckoned past 90% of the card's memory
+   is not run), the smallest
    point where the port's gate engages, and remat full against off at
    256px b = 2 (the same x after three steps; the recompute's launches one
    forward's); (d) resume under ``CGD_TPU_REMAT=1``: the recorded
@@ -201,25 +203,33 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    it replaced (autograd's atomic ``scatter_add_``) and on K-warp-b
    (``csrc/warp_bwd.cu``; one required), of ``apply_augs``' input gradient
    and of one 64px guided step's gradient under ``use_augs``, with the
-   API's loss scales and with the CLIP loss alone; K-warp-b against its
-   plain version run on the CPU on the same inputs (bit-equal), ten reruns
-   bit-identical, its segments, its time beside its
-   index's, the plain version's, the gather route's backward and
-   ``index_put_(accumulate=True)``'s on the same pairs; (b) phase 13a's
+   API's loss scales and with the CLIP loss alone; then at that draw and at
+   ``tools/warp_bench.long_draw`` (clamped corners of hundreds of pairs a
+   tap): K-warp-i (``csrc/warp_index.cu``, the index) equal to its plain
+   version run on the CPU, K-warp-b against its plain version run on the
+   CPU on the same inputs (bit-equal), ten reruns one bit pattern, the
+   segments, and (``tools/warp_bench.calls``) the times of K-warp-b, the
+   index, the whole route, the gather route's backward,
+   ``index_put_(accumulate=True)`` on the same pairs and a stable
+   ``torch.sort`` of the bins; (b) phase 13a's
    resume at 64px with ``use_augs`` (the augmentations drawn from the
    generator), with the API's loss scales and with the CLIP loss alone,
    bit-equal; (c) two runs of 3 guided steps each, x compared bit for bit,
    at 256px: ``use_augs`` (the API's loss scales, and the CLIP loss alone;
    each also on the gather route, a control), the init image with LPIPS
    and an image prompt, and with ``use_augs`` the ``cut=2`` mesh on the one
-   card, ``compute_dtype="float32"``, fast guidance and ``batch_size=4``;
-   every one must be bit-equal, every ``use_augs`` run must launch
-   K-warp-b.
+   card, ``compute_dtype="float32"``, fast guidance and ``batch_size=4``,
+   and at 512px RN50x16 (its convs on cuDNN; the API's loss scales and the
+   CLIP loss alone); every one must be bit-equal, every ``use_augs`` run
+   must launch K-warp-i and K-warp-b, and
+   ``torch.use_deterministic_algorithms`` must stay off.
+
+Each phase's seconds are printed at the end.
 
 Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
 from phase 7c, K-fwd f32's from phase 8, K-dx f32's and the f32
-attention's from phase 9c, K-halo f32's from phase 10c, K-warp-b's from
-phase 16c's ``use_augs`` run; each with its eager
+attention's from phase 9c, K-halo f32's from phase 10c, K-warp-b's and
+K-warp-i's from phase 16c's ``use_augs`` run; each with its eager
 and device time, its bound on the card and the library call's time where
 there is one; K-fwd f32's summed over one guided step's 39 launches), the
 whole run's wall time, and as its last line ``{"ok": true, "device":
@@ -3311,8 +3321,10 @@ def phase_batch_kernels(k3, kattn, dev) -> list:
     return rows
 
 
-GRID_BATCHES = (1, 2, 4, 8)
-GRID_CUTN = (16, 32)
+# the full grid (b 1, 2, 4, 8 x 16 / 32 cutouts) calibrated the remat gate
+# once (PERF.md); the run keeps its smallest points and the gate's check
+GRID_BATCHES = (1, 2)
+GRID_CUTN = (16,)
 GRID_REMAT = ("off", "full", "hires128")
 MEM_HEADROOM = 0.9  # a point must peak under this share of the card's memory
 
@@ -3947,27 +3959,29 @@ def phase_warp(dev, out_dir: Path) -> dict:
     ``scatter_add_``) and on K-warp-b: of ``apply_augs``' input gradient
     with one fixed draw, and of one 64px guided step's gradient under
     ``use_augs``, with the API's loss scales and with the CLIP loss alone;
-    K-warp-b must give one. Then K-warp-b on the warp apply_augs built:
-    against its plain version run on the CPU on the same inputs (the same
-    order: bit-equal, held; run on the card the plain version's
-    ``index_add_`` is atomic, so its distance there is printed, not held),
-    ten reruns bit-identical, its segments' lengths, and the times:
-    the kernel (events, device), the index it needs (sort and search), the
-    plain version, the gather route's backward it replaced beside the new
-    route's (autograd on a kept graph, index included), and
-    ``index_put_(accumulate=True)`` on the same pairs (the library's sorted
-    scatter, measured as an alternative: its distinct patterns in REPEATS
-    runs, its distance from the plain version, its time)."""
+    K-warp-b must give one. Then at that draw and at
+    ``warp_bench.long_draw`` (clamped corners of hundreds of pairs a tap),
+    on the warp apply_augs built: K-warp-i's index equal to its plain
+    version's run on the CPU, field by field, and one pattern in REPEATS
+    runs; K-warp-b against its plain version run on the CPU on the same
+    inputs (the same order: bit-equal, held; run on the card the plain
+    version's ``index_add_`` is atomic, so its distance there is printed,
+    not held), REPEATS reruns one pattern; the segments' lengths; and the
+    times of ``warp_bench.calls``: K-warp-b (events, device), the index,
+    the whole route (autograd on a kept graph, index included), the gather
+    route's backward it replaced, ``index_put_(accumulate=True)`` on the
+    same pairs (the library's sorted scatter: its distinct patterns and
+    distance from K-warp-b too, at the main draw) and a stable
+    ``torch.sort`` of the bins (the library call beside the index), with
+    the plain versions' times. Returns the main draw's rows of K-warp-b
+    and K-warp-i."""
     import torch
 
     from cgd_tpu_torch.kernels import warp
+    from cgd_tpu_torch.tools import warp_bench
 
     n, size = 16, 224
-    real, seen = warp.bilinear_warp, []
-
-    def spy(x, idx, weight):
-        seen.append((x.detach(), idx, weight))
-        return real(x, idx, weight)
+    real = warp.bilinear_warp
 
     def on(route, fn, *a, **kw):
         warp.bilinear_warp = route
@@ -3977,7 +3991,7 @@ def phase_warp(dev, out_dir: Path) -> dict:
             warp.bilinear_warp = real
 
     counts, apart = {}, {}
-    grads = [on(route, _augs_grads, dev, REPEATS, n, size) for route in (warp.gather_warp, spy)]
+    grads = [on(route, _augs_grads, dev, REPEATS, n, size) for route in (warp.gather_warp, real)]
     counts["augs"] = tuple(_distinct(g) for g in grads)
     apart["augs"] = _rel_max(grads[1][0], grads[0][0])[1]
     for key, scales in (("step", {}), ("step, CLIP loss alone", CLIP_ALONE)):
@@ -3997,73 +4011,77 @@ def phase_warp(dev, out_dir: Path) -> dict:
     if any(c[1] != 1 for c in counts.values()):
         raise AssertionError(f"phase 16a: K-warp-b's gradients are not reproducible: {counts}")
 
-    xw, idx, weight = seen[0]
-    index = warp.warp_index(idx, weight)
-    nsrc = n * size * size
-    g = torch.randn(nsrc, 3, generator=torch.Generator(dev).manual_seed(17), device=dev)
-    out = warp.warp_bwd(g, index)
-    reruns = [warp.warp_bwd(g, index) for _ in range(10)]
-    if not all(torch.equal(r, out) for r in reruns):
-        raise AssertionError("phase 16a: K-warp-b reruns differ")
-    card_rel = _rel_max(out, warp.warp_bwd_plain(g, index))[1]
-    cpu_plain = warp.warp_bwd_plain(g.cpu(), warp.WarpIndex(*(t.cpu() for t in index)))
-    err, rel = _rel_max(out.cpu(), cpu_plain)
-    if not torch.equal(out.cpu(), cpu_plain):
-        raise AssertionError(f"phase 16a: K-warp-b vs its plain version (on the CPU, the same "
-                             f"inputs): max |err| {err:.3e} ({rel:.3e} of max), not bit-equal")
-    seg = (index.offsets[1:] - index.offsets[:-1]).float()
-
-    def kernel():
-        warp.warp_bwd(g, index)
-
-    ms = _time_ms(kernel)
-    dms = _device_ms(kernel, None, f"K-warp-b {n}x{size}^2")
-    index_ms = _time_ms(lambda: warp.warp_index(idx, weight))
-    plain_ms = _time_ms(lambda: warp.warp_bwd_plain(g, index))
-    g4 = g.reshape(n, size, size, 3)
-    xg, xk = xw.clone().requires_grad_(True), xw.clone().requires_grad_(True)
-    out_g, out_k = warp.gather_warp(xg, idx, weight), real(xk, idx, weight)
-
-    def gather_bwd():
-        torch.autograd.grad(out_g, xg, g4, retain_graph=True)
-
-    def kernel_bwd():
-        torch.autograd.grad(out_k, xk, g4, retain_graph=True)
-
-    lib_ms, new_ms = _time_ms(gather_bwd), _time_ms(kernel_bwd)
-    lib_dms = _device_ms(gather_bwd, None, "the gather's autograd backward")
-    new_dms = _device_ms(kernel_bwd, None, "the warp's backward, index included")
-    # the same pairs through the library's sorted scatter (no index of ours)
-    src = (torch.arange(n, device=dev)[:, None] * (size * size)
-           + idx.reshape(warp.TAPS, n, size * size)).reshape(-1)
-
-    def index_put():
-        vals = (weight.reshape(warp.TAPS, nsrc, 1) * g).reshape(warp.TAPS * nsrc, 3)
-        return torch.zeros_like(g).index_put_((src,), vals, accumulate=True)
-
-    put = [index_put() for _ in range(REPEATS)]
-    put_rel = _rel_max(put[0], out)[1]
-    put_ms = _time_ms(index_put)
-    put_dms = _device_ms(index_put, None, "index_put_(accumulate=True)")
-    bound = _bound(2 * warp.TAPS * nsrc * 3,
-                   _nbytes(g, index.weight, index.pair, index.offsets, out), PEAK_F32_FLOPS)
-    _say16("a", f"K-warp-b at {n} cutouts of {size}^2 (the warp apply_augs built on the card): "
-                f"vs its plain version run on the CPU on the same inputs max |err| {err:.3e} "
-                f"(bit-equal required); the plain version run on the card (its index_add_ "
-                f"atomic, its order its own) {card_rel:.3e} of max away; 10 reruns "
-                f"bit-identical; segments: {int(seg.max())} pairs at most, "
-                f"{float(seg.mean()):.2f} on average, {int((seg == 0).sum())} of {nsrc} empty; "
-                f"kernel {ms:.4f} ms (events), {dms:.4f} ms device{_fmt(bound, dms)}; its index "
-                f"(sort + search) {index_ms:.4f} ms; plain version {plain_ms:.4f} ms; the warp's "
-                f"backward, index included: {new_ms:.4f} ms (events), {new_dms:.4f} ms device, "
-                f"against the gather's autograd backward it replaced {lib_ms:.4f} ms (events), "
-                f"{lib_dms:.4f} ms device")
-    _say16("a", f"index_put_(accumulate=True) on the same pairs (products included): "
-                f"{_distinct(put)} distinct bit patterns in {REPEATS} runs, "
-                f"{'bit-equal to' if torch.equal(put[0], out) else f'{put_rel:.3e} of max from'} "
-                f"K-warp-b, {put_ms:.4f} ms (events), {put_dms:.4f} ms device")
-    return {"err": err, "ms": ms, "device_ms": dms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            **bound}
+    rows = {}
+    for draw in warp_bench.DRAWS:
+        fns = warp_bench.calls(draw, dev)
+        w = fns["inputs"]
+        idx, weight, g, index = w["idx"], w["weight"], w["g"], w["index"]
+        tag = f"{draw} draw, {w['n']} cutouts of {w['size']}^2"
+        plain_index = warp.warp_index_plain(idx.cpu(), weight.cpu())
+        for name, got, want in zip(warp.WarpIndex._fields, index, plain_index):
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"phase 16a: {tag}: K-warp-i's {name} differs from its "
+                                     f"plain version's run on the CPU")
+        index_patterns = _distinct(
+            [torch.cat([t.reshape(-1).view(torch.int32) for t in warp.warp_index(idx, weight)])
+             for _ in range(REPEATS)])
+        out = warp.warp_bwd(g, index)
+        patterns = _distinct([warp.warp_bwd(g, index) for _ in range(REPEATS)])
+        if patterns != 1 or index_patterns != 1:
+            raise AssertionError(f"phase 16a: {tag}: {index_patterns} / {patterns} distinct "
+                                 f"K-warp-i / K-warp-b results in {REPEATS} runs")
+        card_rel = _rel_max(out, warp.warp_bwd_plain(g, index))[1]
+        cpu_plain = warp.warp_bwd_plain(g.cpu(), plain_index)
+        err, rel = _rel_max(out.cpu(), cpu_plain)
+        if not torch.equal(out.cpu(), cpu_plain):
+            raise AssertionError(f"phase 16a: {tag}: K-warp-b vs its plain version (on the CPU, "
+                                 f"the same inputs): max |err| {err:.3e} ({rel:.3e} of max), "
+                                 "not bit-equal")
+        starts = index.offsets.long()
+        seg = (starts[warp.TAPS::warp.TAPS] - starts[:-1:warp.TAPS]).float()
+        n_long = int(index.n_long)
+        dms = {call: _device_ms(fns[call], lambda c=call: warp_bench.fresh(str(ROOT), draw, c),
+                                f"{call}, {tag}") for call in warp_bench.CALLS}
+        ms, index_ms = _time_ms(fns["kernel"]), _time_ms(fns["index"])
+        plain_ms = _time_ms(lambda: warp.warp_bwd_plain(g, index))
+        plain_index_ms = _time_ms(lambda: warp.warp_index_plain(idx, weight))
+        # each input read once, each output written once: the long list's
+        # entries that this draw has
+        bound = _bound(2 * idx.numel() * g.shape[1], _nbytes(g, index.weight, index.pair, index.offsets,
+                                                    index.long[:n_long], index.n_long, out),
+                       PEAK_F32_FLOPS)
+        index_bound = _bound(0, _nbytes(idx, weight, *index))
+        _say16("a", f"{tag} (the warp apply_augs built on the card): K-warp-i's index equal "
+                    f"to its plain version's run on the CPU (required), {index_patterns} pattern "
+                    f"in {REPEATS} runs; K-warp-b vs its plain version run on the CPU on the same "
+                    f"inputs max |err| {err:.3e} (bit-equal required), {patterns} pattern in "
+                    f"{REPEATS} runs; the plain version run on the card (its index_add_ atomic, "
+                    f"its order its own) {card_rel:.3e} of max away; segments: {int(seg.max())} "
+                    f"pairs at most, a bin {int(starts.diff().max())}, {float(seg.mean()):.2f} on "
+                    f"average, {n_long} over {warp.LONG_PAIRS}, {int((seg == 0).sum())} of "
+                    f"{seg.numel()} empty")
+        _say16("a", f"{tag}: K-warp-b {ms:.4f} ms (events), {dms['kernel']:.4f} ms device"
+                    f"{_fmt(bound, dms['kernel'])}; plain version {plain_ms:.4f} ms; K-warp-i "
+                    f"(the index) {index_ms:.4f} ms (events), {dms['index']:.4f} ms device"
+                    f"{_fmt(index_bound, dms['index'])}, its plain version (stable torch.sort "
+                    f"and a histogram) {plain_index_ms:.4f} ms, torch.sort of the bins alone "
+                    f"{dms['sort']:.4f} ms device; the warp's backward, index included: "
+                    f"{dms['route']:.4f} ms device, against the gather's autograd backward it "
+                    f"replaced {dms['gather']:.4f} ms device; index_put_(accumulate=True) on the "
+                    f"same pairs, products included, {dms['index_put']:.4f} ms device")
+        if draw == "main":
+            put = [fns["index_put"]() for _ in range(REPEATS)]
+            put_rel = _rel_max(put[0], out)[1]
+            _say16("a", f"{tag}: index_put_(accumulate=True) on the same pairs: "
+                        f"{_distinct(put)} distinct bit patterns in {REPEATS} runs, "
+                        f"{'bit-equal to' if torch.equal(put[0], out) else f'{put_rel:.3e} of max from'} "
+                        f"K-warp-b")
+            rows["warp_bwd"] = {"err": err, "ms": ms, "device_ms": dms["kernel"],
+                                "plain_ms": plain_ms, "library_ms": dms["gather"], **bound}
+            rows["warp_index"] = {"err": 0.0, "ms": index_ms, "device_ms": dms["index"],
+                                  "plain_ms": plain_index_ms, "library_ms": dms["sort"],
+                                  **index_bound}
+    return rows
 
 
 def phase_repeat_sweep(k3, kattn, dev, out_dir: Path, size: int = 256) -> dict:
@@ -4076,11 +4094,16 @@ def phase_repeat_sweep(k3, kattn, dev, out_dir: Path, size: int = 256) -> dict:
     ``use_augs``, each a path the warp's gradient runs through: the ``cut=2``
     mesh on the one card (the cutouts split over it),
     ``compute_dtype="float32"``, fast guidance, ``batch_size=4`` (64
-    cutouts). Every pair must be bit-equal, and every ``use_augs`` run must
-    launch K-warp-b. The first two cases run twice more on the gather route
-    K-warp-b replaced, a control whose difference says whether the check can
-    see the atomics. Counters reset just before each first run and read just
-    after. Returns the launches of the first ``use_augs`` run."""
+    cutouts); and 512px RN50x16 (bf16, batch 1), whose convs run on cuDNN
+    (its data-gradient algorithm is cuDNN's choice, with
+    ``cudnn.deterministic`` left at PyTorch's default), with the API's loss
+    scales and with the CLIP loss alone. Every pair must be bit-equal, and
+    every ``use_augs`` run must launch K-warp-i and K-warp-b. The first two
+    cases run twice more on the gather route K-warp-b replaced, a control
+    whose difference says whether the check can see the atomics. Counters
+    reset just before each first run and read just after.
+    ``torch.use_deterministic_algorithms`` (process-wide) must still be off
+    at the end. Returns the launches of the first ``use_augs`` run."""
     import torch
 
     from cgd_tpu_torch import api
@@ -4103,6 +4126,9 @@ def phase_repeat_sweep(k3, kattn, dev, out_dir: Path, size: int = 256) -> dict:
         ("compute_dtype float32, use_augs", dict(compute_dtype="float32", **augs), False),
         ("fast guidance, use_augs", dict(fast_guidance=True, **augs), False),
         ("batch_size 4, use_augs", dict(batch_size=4, **augs), False),
+        ("RN50x16", dict(image_size=512, clip_model_name="RN50x16"), False),
+        ("RN50x16, the CLIP loss alone",
+         dict(image_size=512, clip_model_name="RN50x16", **CLIP_ALONE), False),
     ]
     real = warp.bilinear_warp
 
@@ -4116,11 +4142,11 @@ def phase_repeat_sweep(k3, kattn, dev, out_dir: Path, size: int = 256) -> dict:
                 if run == 0:
                     _reset_launches(k3, kattn)
                 t0 = time.perf_counter()
-                for _ in api.clip_guided_diffusion(
-                        prompts=PROMPTS, image_size=size, num_cutouts=16,
-                        timestep_respacing="ddim25", weights_mode="random", seed=0,
-                        device=str(dev), progress=False, save_frequency=1,
-                        prefix_path=out_dir / f"{tag}_{run}", **options):
+                for _ in api.clip_guided_diffusion(**{
+                        **dict(prompts=PROMPTS, image_size=size, num_cutouts=16,
+                               timestep_respacing="ddim25", weights_mode="random", seed=0,
+                               device=str(dev), progress=False, save_frequency=1,
+                               prefix_path=out_dir / f"{tag}_{run}"), **options}):
                     pass
                 torch.cuda.synchronize()
                 if run == 0:
@@ -4139,34 +4165,51 @@ def phase_repeat_sweep(k3, kattn, dev, out_dir: Path, size: int = 256) -> dict:
             raise AssertionError(f"phase 16c: {name}: two runs differ after 3 guided steps by "
                                  f"{(a - b).abs().max().item():.3e}")
         if options.get("use_augs"):
-            _check_launched(launches, ("warp_bwd",), f"phase 16c {name}")
+            _check_launched(launches, ("warp_index", "warp_bwd"), f"phase 16c {name}")
             augs_launches = augs_launches or launches
         said = ""
         if control:
             ga, gb, _, _ = two_runs(f"{i}g", options, warp.gather_warp)
             said = f"; the gather route's two runs {(ga - gb).abs().max().item():.3e} apart"
-        lines.append(f"{size}px {name}: bit-equal ({wall:.2f} s a run; launches "
+        lines.append(f"{options.get('image_size', size)}px {name}: bit-equal ({wall:.2f} s a "
+                     f"run; launches "
                      f"{ {k: v for k, v in launches.items() if v} }){said}")
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("phase 16c: torch.use_deterministic_algorithms was switched on")
     for line in lines:
         _say16("c", f"two runs, x after 3 guided steps: {line}")
+    _say16("c", "torch.use_deterministic_algorithms off, cudnn.deterministic "
+                f"{torch.backends.cudnn.deterministic} (PyTorch's defaults)")
     shutil.rmtree(out_dir, ignore_errors=True)
     return augs_launches
 
 
 def phase_16(k3, kattn, dev) -> tuple:
     """Phase 16, in order: (a) the warp's backward, (b) resume at 64px with
-    ``use_augs``, (c) the repeat sweep. Returns (16a's kernel row, 16c's
-    ``use_augs`` launches)."""
+    ``use_augs``, (c) the repeat sweep. Returns (16a's rows of K-warp-b and
+    K-warp-i, 16c's ``use_augs`` launches)."""
     t0 = time.perf_counter()
     out = ROOT / "outputs" / "chip_smoke_16"
-    row = phase_warp(dev, out / "warp")
+    rows = phase_warp(dev, out / "warp")
     phase_resume(dev, out / "resume_augs", 64, "b", phase="16", use_augs=True)
     phase_resume(dev, out / "resume_augs_clip", 64, "b", phase="16", use_augs=True,
                  **CLIP_ALONE)
     launches = phase_repeat_sweep(k3, kattn, dev, out / "sweep")
     shutil.rmtree(out, ignore_errors=True)
     _say16("", f"phase 16 wall time {time.perf_counter() - t0:.1f} s")
-    return row, launches
+    return rows, launches
+
+
+PHASE_SECONDS = {}  # wall seconds by phase, printed at the end
+
+
+def _timed(phase: str, fn, *a, **kw):
+    """``fn(*a, **kw)``, its wall time added to ``phase``'s."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*a, **kw)
+    finally:
+        PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + time.perf_counter() - t0
 
 
 def main() -> None:
@@ -4197,11 +4240,13 @@ def main() -> None:
 
     t0 = time.perf_counter()
     lib = _build.library()
+    PHASE_SECONDS["2"] = time.perf_counter() - t0
     print(f"[2] kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
     # what ptxas said of the attention kernels (their consumers must not
-    # spill) and of the f32 conv body (f32conv::conv3x3_f32_kernel<BN, UP, EPI>)
-    for line in _attn_ptxas(_build.ptxas_log(), ("attn", "attn32", "f32conv")):
+    # spill), of the f32 conv body (f32conv::conv3x3_f32_kernel<BN, UP, EPI>)
+    # and of the warp's backward and its index (warpb::, warpi::)
+    for line in _attn_ptxas(_build.ptxas_log(), ("attn", "attn32", "f32conv", "warpb", "warpi")):
         print(f"[2] ptxas {line}")
     # the conv launches encode their TMA tensor maps on the host, per call
     buf = torch.empty(256 * 256 * 256, dtype=torch.bfloat16, device=dev)
@@ -4214,52 +4259,54 @@ def main() -> None:
 
     from cgd_tpu_torch.parallel.mesh import make_mesh
 
-    res = phase_kernels(k3, dev)
-    res["conv3x3_dx_wtiled"] = phase_dx_wtiled(k3, dev)
-    res["conv3x3_fwd_f32"] = phase_kernels_f32(k3, dev)
-    res.update(phase_attention(kattn, dev))
-    phase_attention_padded(kattn, dev)
-    res["conv3x3_fwd_halo"] = phase_halo(k3, dev)
-    phase_unet(dev, 256)
-    phase_unet(dev, 512)
-    phase_unet(dev, 128)
-    phase_lpips(k3, dev)
-    phase_split_unet(dev)
-    _, step_s, peak_256 = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke")
-    phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_128", size=128)
-    launches = phase_cli(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_512")
-    mesh_launches, mesh_step_s, _ = phase_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_mesh",
-                                           mesh=make_mesh([dev, dev]), unsplit_step_s=step_s)
+    res = _timed("3", phase_kernels, k3, dev)
+    res["conv3x3_dx_wtiled"] = _timed("3", phase_dx_wtiled, k3, dev)
+    res["conv3x3_fwd_f32"] = _timed("3", phase_kernels_f32, k3, dev)
+    res.update(_timed("3", phase_attention, kattn, dev))
+    _timed("3", phase_attention_padded, kattn, dev)
+    res["conv3x3_fwd_halo"] = _timed("7", phase_halo, k3, dev)
+    for size in (256, 512, 128):
+        _timed("4", phase_unet, dev, size)
+    _timed("4", phase_lpips, k3, dev)
+    _timed("7", phase_split_unet, dev)
+    _, step_s, peak_256 = _timed("5", phase_e2e, k3, kattn, dev, ROOT / "outputs" / "chip_smoke")
+    _timed("5", phase_e2e, k3, kattn, dev, ROOT / "outputs" / "chip_smoke_128", size=128)
+    launches = _timed("6", phase_cli, k3, kattn, dev, ROOT / "outputs" / "chip_smoke_512")
+    mesh_launches, mesh_step_s, _ = _timed(
+        "7", phase_e2e, k3, kattn, dev, ROOT / "outputs" / "chip_smoke_mesh",
+        mesh=make_mesh([dev, dev]), unsplit_step_s=step_s)
     launches["conv3x3_fwd_halo"] = mesh_launches["conv3x3_fwd_halo"]
-    ckpt_launches = phase_checkpoints(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_ckpts",
-                                      step_s)
+    ckpt_launches = _timed("8", phase_checkpoints, k3, kattn, dev,
+                           ROOT / "outputs" / "chip_smoke_ckpts", step_s)
     launches["conv3x3_fwd_f32"] = ckpt_launches["conv3x3_fwd_f32"]
-    f32 = phase_f32_kernels(k3, kattn, dev)
+    f32 = _timed("9", phase_f32_kernels, k3, kattn, dev)
     res["conv3x3_fwd_f32"]["err"] = max(res["conv3x3_fwd_f32"]["err"],
                                         f32.pop("conv3x3_fwd_f32")["err"])
     res.update(f32)
-    phase_f32_unets(k3, kattn, dev)
-    f32_launches, f32_step_s = phase_f32_e2e(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32",
-                                             step_s)
+    _timed("9", phase_f32_unets, k3, kattn, dev)
+    f32_launches, f32_step_s = _timed("9", phase_f32_e2e, k3, kattn, dev,
+                                      ROOT / "outputs" / "chip_smoke_f32", step_s)
     for name in ("conv3x3_dx_f32", "attn_fwd_f32", "attn_bwd_f32"):
         launches[name] = f32_launches[name]
-    res["conv3x3_fwd_halo_f32"] = phase_halo_f32(k3, dev)
-    phase_split_unet_f32(k3, dev)
-    mesh_f32_launches, _ = phase_f32_e2e(
-        k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32_mesh", mesh_step_s,
-        mesh=make_mesh([dev, dev]), f32_step_s=f32_step_s, say=_say10)
+    res["conv3x3_fwd_halo_f32"] = _timed("10", phase_halo_f32, k3, dev)
+    _timed("10", phase_split_unet_f32, k3, dev)
+    mesh_f32_launches, _ = _timed(
+        "10", phase_f32_e2e, k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32_mesh",
+        mesh_step_s, mesh=make_mesh([dev, dev]), f32_step_s=f32_step_s, say=_say10)
     launches["conv3x3_fwd_halo_f32"] = mesh_f32_launches["conv3x3_fwd_halo_f32"]
-    phase_f32_mesh_cli(k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32_mesh_cli")
-    phase_12(k3, kattn, dev, step_s, peak_256)
-    phase_13(k3, kattn, dev)
-    phase_14(k3, kattn, dev, step_s, peak_256)
+    _timed("10", phase_f32_mesh_cli, k3, kattn, dev, ROOT / "outputs" / "chip_smoke_f32_mesh_cli")
+    _timed("12", phase_12, k3, kattn, dev, step_s, peak_256)
+    _timed("13", phase_13, k3, kattn, dev)
+    _timed("14", phase_14, k3, kattn, dev, step_s, peak_256)
     frames = sorted(f for f in (ROOT / "outputs" / "chip_smoke").rglob("*.png")
                     if "plain" not in f.relative_to(ROOT).parts)  # the kernels' run
     if not frames:
         raise AssertionError("phase 5 left no frame for phase 15c")
-    phase_15(k3, kattn, dev, step_s, frames[-1])
-    res["warp_bwd"], augs_launches = phase_16(k3, kattn, dev)
-    launches["warp_bwd"] = augs_launches["warp_bwd"]
+    _timed("15", phase_15, k3, kattn, dev, step_s, frames[-1])
+    rows, augs_launches = _timed("16", phase_16, k3, kattn, dev)
+    res.update(rows)
+    for name in ("warp_index", "warp_bwd"):
+        launches[name] = augs_launches[name]
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),
@@ -4286,6 +4333,9 @@ def main() -> None:
         "warp_bwd": ("cgd_tpu_torch/csrc/warp_bwd.cu",
                      "cgd_tpu/guidance/cutouts.py:151 (map_coordinates' transpose, XLA; no "
                      "Pallas kernel)"),
+        "warp_index": ("cgd_tpu_torch/csrc/warp_index.cu",
+                       "cgd_tpu/guidance/cutouts.py:151 (the index of map_coordinates' "
+                       "transpose, XLA; no Pallas kernel)"),
     }
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
@@ -4297,6 +4347,8 @@ def main() -> None:
     ]
     print(f"[11] device readings still far under their CUDA-event time in a fresh process "
           f"(marked *): {MARKED or 'none'}")
+    for phase, seconds in PHASE_SECONDS.items():
+        print(f"[11] phase {phase}: {seconds:.1f} s")
     print(f"[11] chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s, the kernels' "
           "build included")
     print(json.dumps({"kernels": kernels}))

@@ -19,7 +19,11 @@ Also: the draw's shapes, ranges and order, and one guided step with
 warp's own backward (``kernels/warp.py``, a fixed-order segment sum in
 place of a gather's atomic scatter on a card): its forward bit-equal to the
 four gathers it replaces, its gradient bit-equal to their autograd
-gradient on the CPU, its summation order a function of the draw alone. tests/test_torch_port_cuda.py holds the kernel to it on a card.
+gradient on the CPU (also at a draw whose clamped corners collect hundreds
+of pairs a tap), its summation order a function of the draw alone, its
+index the sort-and-search index it replaced with each segment classed
+short or long. tests/test_torch_port_cuda.py holds the kernels to it on a
+card.
 """
 
 import numpy as np
@@ -35,6 +39,7 @@ from cgd_tpu.guidance import cutouts as jcutouts  # noqa: E402
 from cgd_tpu_torch.diffusion import sampler as tsampler  # noqa: E402
 from cgd_tpu_torch.guidance import cutouts as tcutouts  # noqa: E402
 from cgd_tpu_torch.kernels import warp as twarp  # noqa: E402
+from cgd_tpu_torch.tools.warp_bench import long_draw  # noqa: E402
 from tests.test_torch_port_step import CUTN, _close, _draws, _pair, models  # noqa: E402,F401
 
 torch.set_num_threads(2)
@@ -162,11 +167,13 @@ def test_one_guided_step_with_augs_matches_jax(models, monkeypatch):
 def _warp_case(n, size, seed):
     """Cutouts, a probe and the warp's inputs (the flipped cutouts, the four
     taps' source pixels and weights) of one draw, as apply_augs builds
-    them."""
-    rs = np.random.RandomState(seed)
+    them; seed "long": warp_bench.long_draw, whose clamped corners collect
+    hundreds of pairs a tap."""
+    rs = np.random.RandomState(7 if seed == "long" else seed)
     cuts = torch.from_numpy(rs.rand(n, size, size, 3).astype(np.float32))
     probe = torch.from_numpy(rs.randn(n, size, size, 3).astype(np.float32))
-    d = tcutouts.draw_augs(torch.Generator().manual_seed(seed), n, size, size, 3)
+    d = (long_draw(n, size, None) if seed == "long"
+         else tcutouts.draw_augs(torch.Generator().manual_seed(seed), n, size, size, 3))
     seen = {}
     real = twarp.bilinear_warp
 
@@ -196,7 +203,7 @@ def gather_warp(x, idx, weight):
             + weight[2][..., None] * tap(2) + weight[3][..., None] * tap(3))
 
 
-WARP_CASES = [(4, 16, 0), (6, 24, 1), (3, 224, 3), (16, 64, 4)]
+WARP_CASES = [(4, 16, 0), (6, 24, 1), (3, 224, 3), (16, 64, 4), (16, 64, "long")]
 
 
 @pytest.mark.parametrize("n,size,seed", WARP_CASES)
@@ -222,9 +229,9 @@ def test_the_warp_gradient_is_the_gathers(n, size, seed):
 
 
 def test_the_segment_order_depends_on_the_draw_only():
-    """warp_index sorts by (cutout, source pixel) and keeps each segment's
-    pairs in (tap, output pixel) order: the same for any weights and any
-    cotangent; each segment's start is its first pair; the plain backward is
+    """warp_index sorts by (cutout, source pixel, tap) and keeps each bin's
+    pairs in output pixel order: the same for any weights and any
+    cotangent; each bin's start is its first pair; the plain backward is
     that order's per-tap sums, ((S3 + S2) + S1) + S0, added one by one."""
     n, size = 3, 12
     _, _, _, w = _warp_case(n, size, 7)
@@ -232,23 +239,74 @@ def test_the_segment_order_depends_on_the_draw_only():
     a = twarp.warp_index(idx, w["weight"])
     other = torch.rand(w["weight"].shape, generator=torch.Generator().manual_seed(1))
     b = twarp.warp_index(idx, other)
-    assert torch.equal(a.key, b.key) and torch.equal(a.pair, b.pair)
-    assert torch.equal(a.offsets, b.offsets)
-    assert a.key.numel() == twarp.TAPS * nsrc and bool((a.key[1:] >= a.key[:-1]).all())
-    same = a.key[1:] == a.key[:-1]
-    assert bool((a.pair[1:][same] > a.pair[:-1][same]).all())  # (tap, output) order inside
+    for name in ("pair", "offsets", "long", "n_long"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
     starts = a.offsets.long()
-    assert int(starts[0]) == 0 and int(starts[-1]) == a.key.numel()
-    for s in (0, nsrc // 2, nsrc - 1):
-        assert bool((a.key[starts[s]:starts[s + 1]] == s).all())
+    assert a.pair.numel() == twarp.TAPS * nsrc and int(starts[0]) == 0
+    assert int(starts[-1]) == a.pair.numel() and bool((starts[1:] >= starts[:-1]).all())
+    bins = torch.repeat_interleave(torch.arange(twarp.TAPS * nsrc), starts.diff())
+    same = bins[1:] == bins[:-1]
+    assert bool((a.pair[1:][same] > a.pair[:-1][same]).all())  # output order inside a bin
+    # each pair's bin holds it: its tap's source pixel is the bin's
+    cut = a.pair.long() // (size * size)
+    tap_src = idx.reshape(twarp.TAPS, -1)[bins % twarp.TAPS, a.pair.long()]
+    assert torch.equal(cut * size * size + tap_src, bins // twarp.TAPS)
     # the plain backward, one addition at a time in numpy
     g = torch.randn(nsrc, 3, generator=torch.Generator().manual_seed(2))
     sums = np.zeros((twarp.TAPS, nsrc, 3), np.float32)
-    for key, pair, wt in zip(a.key.tolist(), a.pair.tolist(), a.weight.numpy()):
-        tap, p = divmod(pair, nsrc)
-        sums[tap, key] += wt * g[p].numpy()
+    for bin_, pair, wt in zip(bins.tolist(), a.pair.tolist(), a.weight.numpy()):
+        src, tap = divmod(bin_, twarp.TAPS)
+        sums[tap, src] += wt * g[pair].numpy()
     want = ((sums[3] + sums[2]) + sums[1]) + sums[0]
     np.testing.assert_array_equal(twarp.warp_bwd_plain(g, a).numpy(), want)
+
+
+def sort_and_search_index(idx, weight):
+    """The index as it was built before the bins took the tap and their
+    starts came from a histogram: a stable sort of the int64 keys cutout *
+    h * w + source pixel, each segment's start searched for; pair holds tap
+    * n * h * w + output pixel."""
+    taps, n, hh, ww = idx.shape
+    hw, nsrc = hh * ww, n * hh * ww
+    keys = (torch.arange(n)[:, None] * hw + idx.reshape(taps, n, hw)).reshape(-1)
+    key, perm = torch.sort(keys, stable=True)
+    offsets = torch.searchsorted(key, torch.arange(nsrc + 1))
+    return key, perm.int(), weight.reshape(-1)[perm].float(), offsets.int()
+
+
+@pytest.mark.parametrize("n,size,seed", WARP_CASES)
+def test_the_index_keeps_the_sort_and_search_segments_and_order(n, size, seed):
+    """The histogram index gives the sort-and-search index's segments,
+    their starts, their pairs' order and weights, and the same taps."""
+    _, _, _, w = _warp_case(n, size, seed)
+    nsrc = n * size * size
+    new = twarp.warp_index(w["idx"], w["weight"])
+    key, pair, weight, offsets = sort_and_search_index(w["idx"], w["weight"])
+    assert torch.equal(new.offsets[::twarp.TAPS], offsets)
+    assert torch.equal(new.pair, pair % nsrc) and torch.equal(new.weight, weight)
+    bins = torch.repeat_interleave(torch.arange(twarp.TAPS * nsrc), new.offsets.diff())
+    assert torch.equal(bins // twarp.TAPS, key) and torch.equal(bins % twarp.TAPS, pair // nsrc)
+
+
+@pytest.mark.parametrize("n,size,seed", WARP_CASES)
+def test_every_segment_is_short_or_long_and_the_long_list_ascends(n, size, seed):
+    """A segment (a source pixel's four bins) longer than LONG_PAIRS is
+    long, the others short; the index lists the long ones first, ascending,
+    then the short ones, ascending: each pixel once. The long draw's
+    clamped corners hold bins longer than one round of K-warp-b's
+    long-segment path (128 pairs)."""
+    _, _, _, w = _warp_case(n, size, seed)
+    index = twarp.warp_index(w["idx"], w["weight"])
+    starts = index.offsets.long()
+    seg = starts[twarp.TAPS::twarp.TAPS] - starts[:-1:twarp.TAPS]
+    n_long = int(index.n_long)
+    longs, shorts = index.long[:n_long].long(), index.long[n_long:].long()
+    assert n_long == int((seg > twarp.LONG_PAIRS).sum())
+    assert bool((seg[longs] > twarp.LONG_PAIRS).all()) and bool((seg[shorts] <= twarp.LONG_PAIRS).all())
+    assert bool((longs[1:] > longs[:-1]).all()) and bool((shorts[1:] > shorts[:-1]).all())
+    assert torch.equal(torch.sort(index.long.long())[0], torch.arange(seg.numel()))
+    if seed == "long":
+        assert int(starts.diff().max()) > 128 and n_long > 100
 
 
 def test_the_warp_backward_refuses_what_it_cannot_take():
@@ -258,3 +316,5 @@ def test_the_warp_backward_refuses_what_it_cannot_take():
     index = twarp.warp_index(w["idx"], w["weight"])
     with pytest.raises(ValueError, match="no kernel"):
         twarp._warp_bwd_kernel(torch.zeros(2 * 64, 3), index)
+    with pytest.raises(ValueError, match="no kernel"):
+        twarp._warp_index_kernel(w["idx"], w["weight"])

@@ -980,21 +980,26 @@ def test_fast_guidance_launches_no_backward_kernel(dev, fast):
     assert (backward == 0) == fast
 
 
-@pytest.mark.parametrize("n,size", [(16, 224), (4, 24)])
-def test_the_warp_backward_matches_plain_and_reruns_identically(dev, n, size):
-    """K-warp-b (the augmentation warp's backward, csrc/warp_bwd.cu) at the
-    warp apply_augs builds on the card (16 cutouts of 224^2 on the main
-    path): against its plain version run on the CPU on the same index and
-    cotangent, bit-equal (it adds in the plain version's order, each product
-    and sum rounded alone); apply_augs' input gradient ten times
-    bit-identical, one launch each."""
+@pytest.mark.parametrize("n,size,draw", [(16, 224, "random"), (4, 24, "random"), (16, 64, "long")])
+def test_the_warp_backward_matches_plain_and_reruns_identically(dev, n, size, draw):
+    """K-warp-b (the augmentation warp's backward, csrc/warp_bwd.cu) and its
+    index K-warp-i (csrc/warp_index.cu) at the warp apply_augs builds on the
+    card (16 cutouts of 224^2 on the main path; "long": warp_bench's draw
+    whose clamped corners collect hundreds of pairs a tap, more than one
+    round of the long-segment path): the index equal to its plain version's
+    run on the CPU, field by field; K-warp-b against its plain version run
+    on the CPU on the same index and cotangent, bit-equal (it adds in the
+    plain version's order, each product and sum rounded alone);
+    apply_augs' input gradient ten times bit-identical, one launch of each
+    a backward."""
     from cgd_tpu_torch.guidance import cutouts
     from cgd_tpu_torch.kernels import warp
+    from cgd_tpu_torch.tools.warp_bench import long_draw
 
     gen = torch.Generator(dev).manual_seed(3)
     cuts = torch.rand(n, size, size, 3, generator=gen, device=dev)
     probe = torch.randn(n, size, size, 3, generator=gen, device=dev)
-    d = cutouts.draw_augs(gen, n, size, size, 3)
+    d = long_draw(n, size, dev) if draw == "long" else cutouts.draw_augs(gen, n, size, size, 3)
     seen, real = [], warp.bilinear_warp
 
     def spy(x, idx, weight):
@@ -1012,10 +1017,16 @@ def test_the_warp_backward_matches_plain_and_reruns_identically(dev, n, size):
     finally:
         warp.bilinear_warp = real
     torch.cuda.synchronize()
-    assert warp.LAUNCHES["warp_bwd"] == 10
+    assert warp.LAUNCHES == {"warp_bwd": 10, "warp_index": 10}
     assert all(torch.equal(g, grads[0]) for g in grads[1:])
-    index = warp.warp_index(*seen[0])
+    idx, weight = seen[0]
+    index = warp.warp_index(idx, weight)
+    plain = warp.warp_index_plain(idx.cpu(), weight.cpu())
+    for name, got_t, want_t in zip(warp.WarpIndex._fields, index, plain):
+        assert torch.equal(got_t.cpu(), want_t), name
+    if draw == "long":
+        assert int(index.offsets.diff().max()) > 128 and int(index.n_long) > 100
     g = torch.randn(n * size * size, 3, generator=gen, device=dev)
     got = warp.warp_bwd(g, index)
-    want = warp.warp_bwd_plain(g.cpu(), warp.WarpIndex(*(t.cpu() for t in index)))
+    want = warp.warp_bwd_plain(g.cpu(), plain)
     assert torch.equal(got.cpu(), want), float((got.cpu() - want).abs().max())
