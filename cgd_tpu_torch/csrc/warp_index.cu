@@ -194,15 +194,22 @@ extern "C" int cgd_warp_index_sort(const void* bins, const void* slot, const voi
   return (int)cudaGetLastError();
 }
 
+// The length of cgd_warp_index_long's block_counts scratch for nsrc source
+// pixels: one entry per block of PIX pixels.
+extern "C" int cgd_warp_index_long_blocks(int nsrc) {
+  using namespace cgd::warpi;
+  return nsrc <= 0 ? 0 : (nsrc + PIX - 1) / PIX;
+}
+
 // offsets: [4 * nsrc + 1] int32, the bins' starts; block_counts:
-// [ceil(nsrc / 1024)] int32 scratch -> long_list: [nsrc] int32, the source
+// [cgd_warp_index_long_blocks(nsrc)] int32 scratch -> long_list: [nsrc] int32, the source
 // pixels whose segment holds more than long_pairs pairs, ascending, then
 // the others, ascending; n_long: [1] int32, how many are long.
 extern "C" int cgd_warp_index_long(const void* offsets, void* block_counts, void* long_list,
                                    void* n_long, int nsrc, int long_pairs, void* stream) {
   using namespace cgd::warpi;
   if (nsrc <= 0 || long_pairs < 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (nsrc + PIX - 1) / PIX;
+  const int blocks = cgd_warp_index_long_blocks(nsrc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   long_count_kernel<<<blocks, THREADS, 0, s>>>(static_cast<const int*>(offsets),
                                                static_cast<int*>(block_counts), nsrc, long_pairs);

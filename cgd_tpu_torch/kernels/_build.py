@@ -96,6 +96,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_warp_index_sort.restype = i
     lib.cgd_warp_index_long.argtypes = [p] * 4 + [i] * 2 + [p]
     lib.cgd_warp_index_long.restype = i
+    lib.cgd_warp_index_long_blocks.argtypes = [i]
+    lib.cgd_warp_index_long_blocks.restype = i
     lib.cgd_error_string.argtypes = [i]
     lib.cgd_error_string.restype = ctypes.c_char_p
     return lib

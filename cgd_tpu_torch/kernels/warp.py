@@ -51,7 +51,6 @@ TAPS = 4  # the bilinear corners, in map_coordinates' order
 # a segment longer than this is summed by a block (a warp per tap), a
 # shorter one by one thread
 LONG_PAIRS = 32
-_CLASS_PIXELS = 1024  # pixels a block of K-warp-i classes short or long (warp_index.cu PIX)
 _INT32_MAX = 2**31 - 1
 
 
@@ -133,8 +132,8 @@ def _warp_index_kernel(idx: torch.Tensor, weight: torch.Tensor) -> WarpIndex:
     offsets = torch.empty(pairs + 1, device=dev, dtype=i32)
     weight_out = torch.empty_like(weight)
     long, n_long = torch.empty(nsrc, device=dev, dtype=i32), torch.empty(1, device=dev, dtype=i32)
-    block_counts = torch.empty(-(-nsrc // _CLASS_PIXELS), device=dev, dtype=i32)
     lib, stream = _build.library(), _build.stream(dev)
+    block_counts = torch.empty(lib.cgd_warp_index_long_blocks(nsrc), device=dev, dtype=i32)
     with torch.cuda.device(dev):
         status = lib.cgd_warp_index_count(idx.data_ptr(), bins.data_ptr(), slot.data_ptr(),
                                           counts.data_ptr(), nsrc, hw, stream)

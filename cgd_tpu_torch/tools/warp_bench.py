@@ -15,6 +15,8 @@ a fresh process with ``--one DRAW:CALL --json``, and marked ``*`` if it
 still is). The calls:
 
 - ``index``: ``kernels.warp.warp_index`` on the warp ``apply_augs`` built;
+- ``index_plain``: ``kernels.warp.warp_index_plain`` on the same warp, run
+  on the card (a stable ``torch.sort`` of the bins, a histogram and a scan);
 - ``kernel``: ``kernels.warp.warp_bwd`` on that index and a seeded
   cotangent;
 - ``route``: the warp's backward as the guided step runs it, autograd
@@ -30,7 +32,7 @@ still is). The calls:
 commit (a ``git archive`` in a gitignored directory), so that two commits
 compare on one card in one call: run parent, change, change, parent, each
 in its own process. The calls use only what every commit with the warp's
-backward has. Needs a card.
+backward has (``index_plain`` where the commit has it). Needs a card.
 """
 
 from __future__ import annotations
@@ -48,7 +50,16 @@ else:  # run as a script: the sibling file, whatever --root imports
 
 PEAK_HBM_BYTES = 3.35e12
 DRAWS = ("main", "long")  # 16 cutouts of 224^2 from a seeded draw; long_draw(16, 64)
-CALLS = ("index", "kernel", "route", "gather", "index_put", "sort")
+CALLS = ("index", "index_plain", "kernel", "route", "gather", "index_put", "sort")
+
+
+def function_bytes(pairs: int, nsrc: int, c: int) -> int:
+    """The bytes the warp's backward must move, whatever its index's
+    layout: the cotangent g [nsrc, c] f32 and the pairs' weights (f32) and
+    output pixels (int32), in segment order, read once; each source pixel's
+    segment start (nsrc + 1, int32) read once; the gradient [nsrc, c] f32
+    written once. K-warp-b's bound is this over the HBM rate."""
+    return 4 * (2 * nsrc * c + 2 * pairs + nsrc + 1)
 
 
 def long_draw(n: int, size: int, dev):
@@ -120,6 +131,7 @@ def calls(draw: str, dev) -> dict:
 
     return {
         "index": lambda: warp.warp_index(idx, weight),
+        "index_plain": lambda: warp.warp_index_plain(idx, weight),
         "kernel": lambda: warp.warp_bwd(g, index),
         "route": lambda: torch.autograd.grad(out_k, xk, g4, retain_graph=True),
         "gather": lambda: torch.autograd.grad(out_g, xg, g4, retain_graph=True),
@@ -161,17 +173,18 @@ def main(argv=None) -> None:
     for draw in DRAWS:
         fns = calls(draw, dev)
         w = fns["inputs"]
-        index = w["index"]
-        nbytes = sum(t.numel() * t.element_size() for t in (w["g"], *index, w["g"]))
+        nbytes = function_bytes(w["idx"].numel(), *w["g"].shape)
         seg = torch.zeros(w["n"] * w["size"] ** 2, device=dev)  # pairs per source pixel
         seg.index_add_(0, (torch.arange(w["n"], device=dev)[:, None] * w["size"] ** 2
                            + w["idx"].reshape(4, w["n"], -1)).reshape(-1),
                        torch.ones(w["idx"].numel(), device=dev))
         print(f"{draw}: {w['n']} cutouts of {w['size']}^2, {w['idx'].numel()} pairs, the longest "
-              f"segment {int(seg.max())}, {int((seg > 32).sum())} over 32; K-warp-b's inputs "
-              f"and output {nbytes / 1e6:.1f} MB, bound {nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms",
-              flush=True)
+              f"segment {int(seg.max())}, {int((seg > 32).sum())} over 32; the backward's inputs "
+              f"and output {nbytes / 1e6:.1f} MB, K-warp-b's bound "
+              f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms", flush=True)
         for call in CALLS:
+            if call == "index_plain" and not hasattr(warp, "warp_index_plain"):
+                continue
             dms, kernels, mark, _, host = timing.checked_device_ms(
                 fns[call], lambda c=call: fresh(root, draw, c))
             print(f"  {call}: device {dms:.4f} ms{mark} in {kernels:g} kernels, eager "

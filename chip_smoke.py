@@ -174,12 +174,11 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    per step, device busy and idle share and peak memory beside b = 1, then
    the ``data=2`` mesh at batch 2 and ``data=2, cut=2`` at batch 4 on the
    one card against the unsplit runs; (c) the memory grid through
-   ``tools/profile_step.measure``: 512px RN50x16 at b 1-2 x 16 cutouts
+   ``tools/profile_step.measure``: 512px RN50x16 at b = 1 x 16 cutouts
    (the full grid, b 1-8 x 16 / 32 cutouts, was a one-off calibration of
    the gate, recorded in PERF.md), remat off / full / hires128, peak
-   memory and ms per step (a point reckoned past 90% of the card's memory
-   is not run), the smallest
-   point where the port's gate engages, and remat full against off at
+   memory and ms per step (each under 90% of the card's memory), the
+   smallest point where the port's gate engages, and remat full against off at
    256px b = 2 (the same x after three steps; the recompute's launches one
    forward's); (d) resume under ``CGD_TPU_REMAT=1``: the recorded
    ``unet_remat`` adopted with the variable unset, bit-equal, and a
@@ -209,7 +208,7 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    version run on the CPU, K-warp-b against its plain version run on the
    CPU on the same inputs (bit-equal), ten reruns one bit pattern, the
    segments, and (``tools/warp_bench.calls``) the times of K-warp-b, the
-   index, the whole route, the gather route's backward,
+   index and its plain version on the card, the whole route, the gather route's backward,
    ``index_put_(accumulate=True)`` on the same pairs and a stable
    ``torch.sort`` of the bins; (b) phase 13a's
    resume at 64px with ``use_augs`` (the augmentations drawn from the
@@ -220,7 +219,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    and an image prompt, and with ``use_augs`` the ``cut=2`` mesh on the one
    card, ``compute_dtype="float32"``, fast guidance and ``batch_size=4``,
    and at 512px RN50x16 (its convs on cuDNN; the API's loss scales and the
-   CLIP loss alone); every one must be bit-equal, every ``use_augs`` run
+   CLIP loss alone, and with ``use_augs``: the warp at 16 cutouts of
+   384^2); every one must be bit-equal, every ``use_augs`` run
    must launch K-warp-i and K-warp-b, and
    ``torch.use_deterministic_algorithms`` must stay off.
 
@@ -3323,28 +3323,22 @@ def phase_batch_kernels(k3, kattn, dev) -> list:
 
 # the full grid (b 1, 2, 4, 8 x 16 / 32 cutouts) calibrated the remat gate
 # once (PERF.md); the run keeps its smallest points and the gate's check
-GRID_BATCHES = (1, 2)
-GRID_CUTN = (16,)
 GRID_REMAT = ("off", "full", "hires128")
 MEM_HEADROOM = 0.9  # a point must peak under this share of the card's memory
 
 
-def phase_memory_grid(k3, kattn, dev) -> dict:
+def phase_memory_grid(k3, kattn, dev) -> None:
     """Phase 14c: the memory grid through ``tools/profile_step.measure``:
-    512px RN50x16 at b in GRID_BATCHES x cutn in GRID_CUTN, remat off /
-    full / hires128 (three guided steps each): peak GiB, ms per step and
-    the K-fwd launches a step (the recompute's). Before a point runs, its
-    peak is reckoned from the two largest measured batches of its row (the
-    per-image slope); a point reckoned over MEM_HEADROOM of the card's
-    memory is not run, and the reckoning is printed instead (a point that
-    runs out of memory fails the phase). Then the smallest 512px 16-cutout
+    512px RN50x16 at b = 1 and 16 cutouts, remat off / full / hires128
+    (three guided steps each): peak GiB, which must stay under
+    MEM_HEADROOM of the card's memory, ms per step and the K-fwd launches
+    a step (the recompute's). Then the smallest 512px 16-cutout
     batch where the port's gate (``api._resolve_remat``) engages, run under
     the gate, must peak under MEM_HEADROOM. Then at 256px b = 2 (the
     zero-init layers re-drawn) three guided steps with remat full and off
     must give the same x (bit-equal predicted: the recompute runs the same
     kernels on the same plans), and the K-fwd / K-attn-f launches full
-    remat adds must be one forward's (a fast-guidance step's). Returns
-    the grid by (cutn, remat, b)."""
+    remat adds must be one forward's (a fast-guidance step's)."""
     import os
 
     import torch
@@ -3356,44 +3350,27 @@ def phase_memory_grid(k3, kattn, dev) -> dict:
     total = torch.cuda.get_device_properties(dev).total_memory / 2**30
     limit = MEM_HEADROOM * total
     grid = {}
-    for cutn in GRID_CUTN:
-        for remat in GRID_REMAT:
-            for b in GRID_BATCHES:
-                done = sorted((bb, r["peak_gib"]) for (c, rm, bb), r in grid.items()
-                              if (c, rm) == (cutn, remat) and "ms" in r)
-                if len(done) >= 2:
-                    (b0, p0), (b1, p1) = done[-2:]
-                    reckoned = p1 + (p1 - p0) / (b1 - b0) * (b - b1)
-                    if reckoned > limit:
-                        grid[(cutn, remat, b)] = {"reckoned_gib": reckoned}
-                        _say14("c", f"512px RN50x16 b={b} cutn={cutn} remat {remat}: not run, "
-                                    f"reckoned {reckoned:.2f} GiB = {p1:.2f} + "
-                                    f"{(p1 - p0) / (b1 - b0):.2f} GiB per image x {b - b1} "
-                                    f"(b={b0}, {b1} measured) > {limit:.1f} GiB")
-                        continue
-                _reset_launches(k3, kattn)
-                r = measure(512, "RN50x16", b, cutn, remat, device=str(dev), prefix=str(out))
-                steps = MEASURE_STEPS + 1  # the launches count the first step too
-                r["fwd_per_step"] = k3.LAUNCHES["conv3x3_fwd"] / steps
-                r["dx_per_step"] = (k3.LAUNCHES["conv3x3_dx"]
-                                    + k3.LAUNCHES["conv3x3_dx_wtiled"]) / steps
-                grid[(cutn, remat, b)] = r
-                if r["peak_gib"] > limit:
-                    raise AssertionError(f"phase 14c: b={b} cutn={cutn} remat {remat} peaked at "
-                                         f"{r['peak_gib']:.2f} GiB > {limit:.1f}")
-                _say14("c", f"512px RN50x16 b={b} cutn={cutn} remat {remat}: peak "
-                            f"{r['peak_gib']:.2f} GiB, {r['ms']:.1f} ms per guided step "
-                            f"({r['ms'] / b:.1f} ms per image); K-fwd {r['fwd_per_step']:g}, "
-                            f"K-dx {r['dx_per_step']:g} launches a step")
-    for cutn in GRID_CUTN:
-        off = grid[(cutn, "off", 1)]
-        for remat in ("full", "hires128"):
-            r = grid[(cutn, remat, 1)]
-            if r["dx_per_step"] != off["dx_per_step"] or not r["fwd_per_step"] > off["fwd_per_step"]:
-                raise AssertionError(f"phase 14c: remat {remat} launched K-fwd "
-                                     f"{r['fwd_per_step']:g} / K-dx {r['dx_per_step']:g} a step "
-                                     f"against off's {off['fwd_per_step']:g} / "
-                                     f"{off['dx_per_step']:g}")
+    for remat in GRID_REMAT:
+        _reset_launches(k3, kattn)
+        r = measure(512, "RN50x16", 1, 16, remat, device=str(dev), prefix=str(out))
+        steps = MEASURE_STEPS + 1  # the launches count the first step too
+        r["fwd_per_step"] = k3.LAUNCHES["conv3x3_fwd"] / steps
+        r["dx_per_step"] = (k3.LAUNCHES["conv3x3_dx"] + k3.LAUNCHES["conv3x3_dx_wtiled"]) / steps
+        grid[remat] = r
+        if r["peak_gib"] > limit:
+            raise AssertionError(f"phase 14c: b=1 cutn=16 remat {remat} peaked at "
+                                 f"{r['peak_gib']:.2f} GiB > {limit:.1f}")
+        _say14("c", f"512px RN50x16 b=1 cutn=16 remat {remat}: peak {r['peak_gib']:.2f} GiB, "
+                    f"{r['ms']:.1f} ms per guided step; K-fwd {r['fwd_per_step']:g}, "
+                    f"K-dx {r['dx_per_step']:g} launches a step")
+    off = grid["off"]
+    for remat in ("full", "hires128"):
+        r = grid[remat]
+        if r["dx_per_step"] != off["dx_per_step"] or not r["fwd_per_step"] > off["fwd_per_step"]:
+            raise AssertionError(f"phase 14c: remat {remat} launched K-fwd "
+                                 f"{r['fwd_per_step']:g} / K-dx {r['dx_per_step']:g} a step "
+                                 f"against off's {off['fwd_per_step']:g} / "
+                                 f"{off['dx_per_step']:g}")
 
     # the gate: the smallest batch where it engages at 512px, 16 cutouts
     saved = os.environ.pop("CGD_TPU_REMAT", None)
@@ -3405,14 +3382,13 @@ def phase_memory_grid(k3, kattn, dev) -> dict:
         if saved is not None:
             os.environ["CGD_TPU_REMAT"] = saved
     fwd = k3.LAUNCHES["conv3x3_fwd"] / (MEASURE_STEPS + 1)
-    if r["peak_gib"] > limit or fwd != grid[(16, "full", 1)]["fwd_per_step"]:
+    if r["peak_gib"] > limit or fwd != grid["full"]["fwd_per_step"]:
         raise AssertionError(f"phase 14c: the gate's point b={b_gate} peaked at "
                              f"{r['peak_gib']:.2f} GiB (limit {limit:.1f}) with {fwd:g} K-fwd "
                              "launches a step (full remat's expected)")
     _say14("c", f"the gate engages at 512px 16 cutouts from b={b_gate}: remat full, peak "
                 f"{r['peak_gib']:.2f} GiB (under {limit:.1f} of {total:.1f}), {r['ms']:.1f} ms "
                 f"per guided step ({r['ms'] / b_gate:.1f} ms per image)")
-    grid["gate"] = dict(r, b=b_gate)
 
     # remat full against off at 256px b = 2: the same x after three steps
     first = _FirstStep(api, dev)
@@ -3445,7 +3421,6 @@ def phase_memory_grid(k3, kattn, dev) -> dict:
                 f"launches a step off {counts['off']}, full {counts['full']} (+{extra}: one "
                 f"forward, as a fast-guidance step's {counts['fast']})")
     shutil.rmtree(out, ignore_errors=True)
-    return grid
 
 
 # phase 14e: each acceptance config's respacing (and skip, frame frequency)
@@ -4045,11 +4020,9 @@ def phase_warp(dev, out_dir: Path) -> dict:
         ms, index_ms = _time_ms(fns["kernel"]), _time_ms(fns["index"])
         plain_ms = _time_ms(lambda: warp.warp_bwd_plain(g, index))
         plain_index_ms = _time_ms(lambda: warp.warp_index_plain(idx, weight))
-        # each input read once, each output written once: the long list's
-        # entries that this draw has
-        bound = _bound(2 * idx.numel() * g.shape[1], _nbytes(g, index.weight, index.pair, index.offsets,
-                                                    index.long[:n_long], index.n_long, out),
-                       PEAK_F32_FLOPS)
+        # the function's bytes, whatever the index's layout
+        bound = _bound(2 * idx.numel() * g.shape[1],
+                       warp_bench.function_bytes(idx.numel(), *g.shape), PEAK_F32_FLOPS)
         index_bound = _bound(0, _nbytes(idx, weight, *index))
         _say16("a", f"{tag} (the warp apply_augs built on the card): K-warp-i's index equal "
                     f"to its plain version's run on the CPU (required), {index_patterns} pattern "
@@ -4064,7 +4037,8 @@ def phase_warp(dev, out_dir: Path) -> dict:
                     f"{_fmt(bound, dms['kernel'])}; plain version {plain_ms:.4f} ms; K-warp-i "
                     f"(the index) {index_ms:.4f} ms (events), {dms['index']:.4f} ms device"
                     f"{_fmt(index_bound, dms['index'])}, its plain version (stable torch.sort "
-                    f"and a histogram) {plain_index_ms:.4f} ms, torch.sort of the bins alone "
+                    f"and a histogram) {plain_index_ms:.4f} ms (events), "
+                    f"{dms['index_plain']:.4f} ms device, torch.sort of the bins alone "
                     f"{dms['sort']:.4f} ms device; the warp's backward, index included: "
                     f"{dms['route']:.4f} ms device, against the gather's autograd backward it "
                     f"replaced {dms['gather']:.4f} ms device; index_put_(accumulate=True) on the "
@@ -4097,7 +4071,8 @@ def phase_repeat_sweep(k3, kattn, dev, out_dir: Path, size: int = 256) -> dict:
     cutouts); and 512px RN50x16 (bf16, batch 1), whose convs run on cuDNN
     (its data-gradient algorithm is cuDNN's choice, with
     ``cudnn.deterministic`` left at PyTorch's default), with the API's loss
-    scales and with the CLIP loss alone. Every pair must be bit-equal, and
+    scales and with the CLIP loss alone, and with ``use_augs`` (the warp's
+    backward at 16 cutouts of 384^2, after cuDNN's). Every pair must be bit-equal, and
     every ``use_augs`` run must launch K-warp-i and K-warp-b. The first two
     cases run twice more on the gather route K-warp-b replaced, a control
     whose difference says whether the check can see the atomics. Counters
@@ -4129,6 +4104,7 @@ def phase_repeat_sweep(k3, kattn, dev, out_dir: Path, size: int = 256) -> dict:
         ("RN50x16", dict(image_size=512, clip_model_name="RN50x16"), False),
         ("RN50x16, the CLIP loss alone",
          dict(image_size=512, clip_model_name="RN50x16", **CLIP_ALONE), False),
+        ("RN50x16, use_augs", dict(image_size=512, clip_model_name="RN50x16", **augs), False),
     ]
     real = warp.bilinear_warp
 

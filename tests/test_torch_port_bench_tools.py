@@ -34,8 +34,21 @@ def test_warp_bench_calls_run_on_the_cpu_and_the_route_is_the_plain_backward():
     assert torch.equal(route, plain) and torch.equal(gather, plain)
     torch.testing.assert_close(fns["index_put"]().reshape(route.shape), plain)
     assert torch.equal(fns["kernel"](), warp.warp_bwd_plain(g, index))
+    assert all(torch.equal(a, b) for a, b in zip(fns["index_plain"](), index))
     assert torch.equal(fns["sort"]()[0].diff().clamp(max=0), torch.zeros(g.shape[0] * 4 - 1,
                                                                          dtype=torch.int32))
+
+
+def test_the_backward_bound_counts_the_function_bytes_not_the_index_layout():
+    """K-warp-b's bound counts g and the gradient, each pair's weight and
+    output pixel, and one segment start per source pixel: 48.2 MB at 16
+    cutouts of 224^2 x 3, whatever the index holds besides (its per-bin
+    starts, the long list)."""
+    from cgd_tpu_torch.tools.warp_bench import function_bytes
+
+    nsrc = 16 * 224 * 224
+    assert function_bytes(4 * nsrc, nsrc, 3) == 4 * (6 * nsrc + 8 * nsrc + nsrc + 1)
+    assert round(function_bytes(4 * nsrc, nsrc, 3) / 1e6, 1) == 48.2
 
 
 def test_warp_bench_needs_a_card():
