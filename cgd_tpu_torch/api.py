@@ -26,7 +26,10 @@ guided step), W&B (``wandb_project``: the scalars and the per-step
 triptych; without ``wandb`` the run says so and goes on), ``async_frames``
 (PNG writes on a background thread), ``stall_pet`` (a progress callback for
 ``utils.watchdog.StallDetector``) and ``device_lock`` (the serving daemon's
-lock around the device-heavy part of a run). Nothing is refused.
+lock around the device-heavy part of a run). Nothing is refused. With
+``utils.tracing`` enabled the call records its spans: ``api.request`` from
+entry to return, and below it the models, the prompts, each segment and
+step of the loop and each frame (the caller's time at a yield in none).
 
 ``compute_dtype="float32"`` runs the UNet, CLIP and the glue in f32 (the
 conv family and the attention on their f32 kernels on a card; with
@@ -83,6 +86,7 @@ from cgd_tpu_torch.models.unet import rematerialized
 from cgd_tpu_torch.ops.nn import cast_conv_params
 from cgd_tpu_torch.ops.resample import resize
 from cgd_tpu_torch.parallel.mesh import shard_params_replicated, split_activation
+from cgd_tpu_torch.utils import tracing
 from cgd_tpu_torch.validate import OOM_ADVICE, check_parameters
 from cgd_tpu_torch.weights import CACHE_PATH, resolve_clip, resolve_lpips, resolve_unet
 
@@ -329,338 +333,351 @@ def clip_guided_diffusion(
     device_lock=None,
 ) -> Iterator[Tuple[int, str]]:
     config = dict(locals())  # the call's arguments, W&B's run config
-    if mesh is not None and any(d.type != torch.device(device).type for d in mesh.devices.flat):
-        raise ValueError(f"device={device!r} but the mesh's devices are {list(mesh.devices.flat)}")
-    dev = resolve_device(device)
-    if compute_dtype not in ("bfloat16", "float32"):
-        raise ValueError(f"compute_dtype must be 'bfloat16' or 'float32', got {compute_dtype!r}")
-
-    def say(msg):
-        if progress:
-            print(msg, flush=True)
-
-    wandb_run = wandb = None
-    if wandb_project is not None:
-        try:
-            import wandb
-
-            wandb_run = wandb.init(project=wandb_project, entity=wandb_entity, config=config)
-        except Exception as e:  # wandb not installed / offline
-            say(f"W&B unavailable ({e}); continuing without logging.")
-    else:
-        say("--wandb_project not specified. Skipping W&B integration.")
-
-    prompts, image_prompts = list(prompts), list(image_prompts)
-    check_parameters(
-        prompts=prompts, image_prompts=image_prompts, image_size=image_size,
-        timestep_respacing=timestep_respacing, diffusion_steps=diffusion_steps,
-        clip_model_name=clip_model_name, save_frequency=save_frequency,
-        noise_schedule=noise_schedule,
-    )
-    pet = stall_pet if stall_pet is not None else (lambda phase: None)
-
-    if not use_magnitude and image_size == 64:
-        use_magnitude = True
-        say("Enabling magnitude for 64x64 checkpoints.")
-    if mesh is not None:
-        dev = mesh.main
-        data_size = mesh.shape["data"]
-        if batch_size % data_size != 0:
+    with tracing.request("api.request", batch=batch_size) as request:
+        if mesh is not None and any(d.type != torch.device(device).type for d in mesh.devices.flat):
             raise ValueError(
-                f"batch_size {batch_size} is not divisible by the mesh "
-                f"'data' axis ({data_size}) — use --mesh data=N with "
-                "N dividing the batch, or --mesh auto/cut=M for batch 1"
-            )
-        if num_cutouts % mesh.size != 0:
-            say(
-                f"(warning) num_cutouts {num_cutouts} is not divisible by "
-                f"the {mesh.size}-device mesh; cutout shards will be uneven"
-            )
-        say(f"Mesh engaged: {mesh.shape}")
-    Path(prefix_path).mkdir(parents=True, exist_ok=True)
-    if weights_mode != "random":  # the checkpoints and their caches live there
-        Path(checkpoints_dir).mkdir(parents=True, exist_ok=True)
-    cdtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+                f"device={device!r} but the mesh's devices are {list(mesh.devices.flat)}")
+        dev = resolve_device(device)
+        if compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(
+                f"compute_dtype must be 'bfloat16' or 'float32', got {compute_dtype!r}")
 
-    # ---- models -------------------------------------------------------
-    pet("resolve model checkpoints")
-    clip_model, clip_cfg = resolve_clip(clip_model_name, weights_mode, dev, checkpoints_dir)
-    unet, unet_cfg, flags = resolve_unet(
-        image_size, class_cond, weights_mode,
-        flag_overrides={"diffusion_steps": diffusion_steps, "noise_schedule": noise_schedule},
-        device=dev, checkpoints_dir=checkpoints_dir,
-    )
-    if cdtype == torch.bfloat16:
-        cast_conv_params(unet, cdtype)
-        cast_conv_params(clip_model, cdtype)
-    if mesh is not None:
-        shard_params_replicated(unet, mesh)  # the split ops find the copies
-    if weights_mode == "random":
-        tokenizer = _FallbackTokenizer(clip_cfg.text.vocab_size)
-    else:
-        from cgd_tpu_torch.models.clip.tokenizer import get_tokenizer
+        def say(msg):
+            if progress:
+                print(msg, flush=True)
 
-        tokenizer = get_tokenizer()
-    gen = torch.Generator(dev).manual_seed(seed)
+        wandb_run = wandb = None
+        if wandb_project is not None:
+            try:
+                import wandb
 
-    # The device-heavy part runs holding ``device_lock`` when one is given
-    # (the daemon's: weight resolution, tokenization and validation above
-    # overlap another request's sampling); an f32 run takes it before its
-    # prompt encoding, since only the holder may set the TF32 flags.
-    prec = _TF32Off() if cdtype == torch.float32 else None
-    held = False
+                wandb_run = wandb.init(project=wandb_project, entity=wandb_entity, config=config)
+            except Exception as e:  # wandb not installed / offline
+                say(f"W&B unavailable ({e}); continuing without logging.")
+        else:
+            say("--wandb_project not specified. Skipping W&B integration.")
 
-    def take_device():
-        nonlocal held
-        if device_lock is not None and not held:
-            # keep petting while queued behind another generation's device
-            # phase: waiting for the card is not a stall
-            pet("waiting for device lock")
-            while not device_lock.acquire(timeout=5.0):
-                pet("waiting for device lock")
-            held = True
-        if prec is not None:
-            prec.enter()
+        prompts, image_prompts = list(prompts), list(image_prompts)
+        check_parameters(
+            prompts=prompts, image_prompts=image_prompts, image_size=image_size,
+            timestep_respacing=timestep_respacing, diffusion_steps=diffusion_steps,
+            clip_model_name=clip_model_name, save_frequency=save_frequency,
+            noise_schedule=noise_schedule,
+        )
+        pet = stall_pet if stall_pet is not None else (lambda phase: None)
 
-    try:
-        if prec is not None:
-            take_device()
-
-        # ---- prompt encoding ------------------------------------------
-        pet("encode prompts")
-        embeds, weights = [], []
-        parsed = [parse_prompt(p) for p in prompts]
-        if parsed:
-            tokens = tokenizer.tokenize([t for t, _ in parsed],
-                                        context_length=clip_cfg.text.context_length)
-            with torch.no_grad():
-                embeds.append(encode_text(clip_model, torch.as_tensor(tokens, device=dev)))
-            weights += [w for _, w in parsed]
-        for image_prompt in image_prompts:
-            path, weight = parse_prompt(image_prompt)
-            img = _prompt_image(path, image_size, dev)
-            spec = sample_cutout_coords(gen, num_cutouts, img.shape[1], img.shape[0],
-                                        clip_cfg.input_resolution)
-            embeds.append(encode_image_prompt(clip_model, clip_cfg, img, spec, strict_parity))
-            weights += [weight / num_cutouts] * num_cutouts
-        target_embeds = torch.cat(embeds)
-        weights = torch.as_tensor(normalize_weights(weights), device=dev)
-        if use_augs:
-            say("Augmentations enabled.")
-
-        # ---- init image -----------------------------------------------
-        init_tensor = lpips = None
-        side_y, side_x = image_size + height_offset, image_size + width_offset
-        if init_image:
-            if (height_offset or width_offset) and strict_parity:
-                # the reference resizes the init square (cgd/cgd.py:118) while
-                # the sample shape carries the offsets (cgd/cgd.py:252), and
-                # q_sample then fails on the shapes: fail loudly, as the JAX
-                # package does
+        if not use_magnitude and image_size == 64:
+            use_magnitude = True
+            say("Enabling magnitude for 64x64 checkpoints.")
+        if mesh is not None:
+            dev = mesh.main
+            data_size = mesh.shape["data"]
+            if batch_size % data_size != 0:
                 raise ValueError(
-                    "init_image with height/width offsets is broken in the "
-                    "reference (init resized to "
-                    f"({image_size},{image_size}) but sample shape is "
-                    f"({side_y},{side_x})); "
-                    "pass strict_parity=False to resize the init to the offset shape"
+                    f"batch_size {batch_size} is not divisible by the mesh "
+                    f"'data' axis ({data_size}) — use --mesh data=N with "
+                    "N dividing the batch, or --mesh auto/cut=M for batch 1"
                 )
-            arr = load_image_rgb(init_image, (side_x, side_y))
-            init_tensor = torch.from_numpy(arr)[None].repeat(batch_size, 1, 1, 1).to(dev)
-            if init_scale != 0:
-                lpips = resolve_lpips(weights_mode, dev, checkpoints_dir)
+            if num_cutouts % mesh.size != 0:
+                say(
+                    f"(warning) num_cutouts {num_cutouts} is not divisible by "
+                    f"the {mesh.size}-device mesh; cutout shards will be uneven"
+                )
+            say(f"Mesh engaged: {mesh.shape}")
+        Path(prefix_path).mkdir(parents=True, exist_ok=True)
+        if weights_mode != "random":  # the checkpoints and their caches live there
+            Path(checkpoints_dir).mkdir(parents=True, exist_ok=True)
+        cdtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
 
-        # ---- diffusion, guidance, sampler -----------------------------
-        diffusion = make_diffusion(
-            steps=flags.get("diffusion_steps", 1000),
-            noise_schedule=flags.get("noise_schedule", "linear"),
-            timestep_respacing=timestep_respacing,
-            rescale_timesteps=flags.get("rescale_timesteps", False),
-            learn_sigma=flags.get("learn_sigma", True),
-        )
-        if reduce_clip and skip_timesteps == 0:
-            skip_timesteps = int(diffusion.num_timesteps * 0.2)
-            say(f"Skipping first {skip_timesteps} timesteps (--reduce-clip optimization)")
-        cached_coords = None
-        if cached_cutouts:
-            # progressive_cutout floors a step's count at 4 / 8 cutouts, so
-            # the cache holds as many as the largest step takes
-            cache_n = max(num_cutouts, 8) if progressive_cutout else num_cutouts
-            cached_coords = sample_cutout_coords(
-                gen, cache_n, side_x, side_y, clip_cfg.input_resolution, cutout_power)
-        settings = GuidanceSettings(
-            clip_guidance_scale=clip_guidance_scale, tv_scale=tv_scale,
-            range_scale=range_scale, sat_scale=sat_scale, init_scale=init_scale,
-            use_magnitude=use_magnitude, use_augs=use_augs, cutout_power=cutout_power,
-            clip_compute_dtype=compute_dtype,
-        )
+        # ---- models -------------------------------------------------------
+        pet("resolve model checkpoints")
+        with tracing.span("api.models"):
+            clip_model, clip_cfg = resolve_clip(clip_model_name, weights_mode, dev,
+                                                checkpoints_dir)
+            unet, unet_cfg, flags = resolve_unet(
+                image_size, class_cond, weights_mode,
+                flag_overrides={"diffusion_steps": diffusion_steps,
+                                "noise_schedule": noise_schedule},
+                device=dev, checkpoints_dir=checkpoints_dir,
+            )
+            if cdtype == torch.bfloat16:
+                cast_conv_params(unet, cdtype)
+                cast_conv_params(clip_model, cdtype)
+            if mesh is not None:
+                shard_params_replicated(unet, mesh)  # the split ops find the copies
+        if weights_mode == "random":
+            tokenizer = _FallbackTokenizer(clip_cfg.text.vocab_size)
+        else:
+            from cgd_tpu_torch.models.clip.tokenizer import get_tokenizer
 
-        loss_cb = image_sink = None
-        if log_losses or wandb_run is not None:
-            # per guided step, as the JAX package's live host callback (the
-            # reference's tqdm.write + wandb.log, cgd/cgd.py:234-238); the
-            # step's gradient scalars come in a second call, which has no
-            # loss line (the JAX package prints an empty one)
-            def loss_cb(log):
-                line = "\t".join(f"{k}: {v:.3f}" for k, v in log.items() if "loss" in k.lower())
-                if log_losses and line:
-                    print(line, flush=True)
-                if wandb_run is not None:
-                    wandb_run.log(dict(log))
-        if wandb_run is not None:
-            sqrt_om = np.asarray(diffusion.sqrt_one_minus_alphas_cumprod)
+            tokenizer = get_tokenizer()
+        gen = torch.Generator(dev).manual_seed(seed)
 
-            def image_sink(step_ks, noisy, preds):
-                # the reference's triptych every guided step (cgd/cgd.py:180-186):
-                # noisy sample, denoised prediction, their blend (what CLIP sees);
-                # uint8 arrays, so that no Pillow is needed
-                for i, step_k in enumerate(step_ks):
-                    fac = float(sqrt_om[max(diffusion.num_timesteps - 1 - step_k, 0)])
-                    blend = preds[i] * fac + noisy[i] * (1.0 - fac)
-                    wandb_run.log({
-                        f"Generations - {timestep_respacing}": [
-                            wandb.Image(to_uint8(noisy[i][0]), caption="Noisy Sample"),
-                            wandb.Image(to_uint8(preds[i][0]), caption="Denoised Prediction"),
-                            wandb.Image(to_uint8(blend[0]), caption="Blended (what CLIP sees)"),
-                        ],
-                        "step": step_k,
-                    })
+        # The device-heavy part runs holding ``device_lock`` when one is given
+        # (the daemon's: weight resolution, tokenization and validation above
+        # overlap another request's sampling); an f32 run takes it before its
+        # prompt encoding, since only the holder may set the TF32 flags.
+        prec = _TF32Off() if cdtype == torch.float32 else None
+        held = False
 
-        builder = make_guidance_builder(
-            clip_model, clip_cfg, target_embeds, weights, diffusion, settings,
-            cached_coords=cached_coords, mesh=mesh, lpips=lpips,
-            init_image=init_tensor if lpips is not None else None, loss_callback=loss_cb)
-        sampler_cfg = SamplerConfig(
-            use_ddim=timestep_respacing.startswith("ddim"),
-            randomize_class=(randomize_class and class_cond),
-            num_classes=1000,
-            fast_guidance=fast_guidance,
-            dpm_solver=dpm_solver,
-        )
+        def take_device():
+            nonlocal held
+            if device_lock is not None and not held:
+                # keep petting while queued behind another generation's device
+                # phase: waiting for the card is not a stall
+                pet("waiting for device lock")
+                while not device_lock.acquire(timeout=5.0):
+                    pet("waiting for device lock")
+                held = True
+            if prec is not None:
+                prec.enter()
 
-        y_init = torch.zeros((batch_size,), dtype=torch.long, device=dev) if class_cond else None
-        shape = (batch_size, side_y, side_x, 3)
-        init_noise = noise_steps = None
-        if noise_file:  # recorded noise: {"init": [*shape], "steps": [n_steps, *shape]}
-            rec = np.load(noise_file)
-            init_noise = rec["init"] if "init" in rec.files else None
-            noise_steps = rec["steps"] if "steps" in rec.files else None
-
-        # ---- checkpoint / resume --------------------------------------
-        # everything that shapes the remaining segments or their guidance:
-        # the JAX package's run meta (cgd_tpu/api.py:755-785), plus this
-        # package's name and the device type the generator draws on (its
-        # stream, saved with the state, differs between devices)
-        use_remat = _resolve_remat(image_size, batch_size, num_cutouts)
-        run_meta = {
-            "seed": seed, "shape": list(shape),
-            "timestep_respacing": timestep_respacing,
-            "diffusion_steps": diffusion_steps, "noise_schedule": noise_schedule,
-            "skip_timesteps": int(skip_timesteps), "num_cutouts": int(num_cutouts),
-            "save_frequency": int(save_frequency), "reduce_clip": reduce_clip,
-            "progressive_cutout": progressive_cutout,
-            "fast_guidance": fast_guidance, "dpm_solver": dpm_solver,
-            "class_cond": class_cond,
-            "randomize_class": randomize_class, "strict_parity": strict_parity,
-            "prompts": list(prompts), "image_prompts": list(image_prompts),
-            "clip_model_name": clip_model_name,
-            # numeric knobs as floats: the API's int defaults and the CLI's
-            # argparse floats must give the same meta
-            "clip_guidance_scale": float(clip_guidance_scale),
-            "tv_scale": float(tv_scale),
-            "range_scale": float(range_scale), "sat_scale": float(sat_scale),
-            "init_scale": float(init_scale), "cutout_power": float(cutout_power),
-            "use_augs": use_augs, "use_magnitude": use_magnitude,
-            "cached_cutouts": cached_cutouts, "compute_dtype": compute_dtype,
-            "package": "cgd_tpu_torch", "generator": dev.type,
-            # the remat decision: a resume replays the graph its checkpoint
-            # was written under
-            "unet_remat": use_remat,
-        }
-        resume_state = state_sink = None
-        if resume_from:
-            resume_state = _read_checkpoint(resume_from, run_meta, dev.type)
-            use_remat = run_meta["unet_remat"] = resume_state["unet_remat"]
-            say(f"Resuming from {resume_from} at segment {resume_state['next_seg']}.")
-        run_meta = json.dumps(run_meta, sort_keys=True)
-
-        def unet_fn(x, t_model, y):
-            # an image height the 'cut' axis does not divide runs whole, as
-            # its levels below one that it does not divide (parallel/mesh.py)
-            if mesh is None or x.shape[1] % mesh.shape["cut"]:
-                return unet(x, t_model, y, compute_dtype=cdtype)
-            # split x over the mesh, run the split UNet, gather the output whole
-            return unet(split_activation(x, mesh), t_model, y, compute_dtype=cdtype).gather()
-
-        # the guidance gradient backprops through the UNet: recompute its
-        # forward in the backward (time for memory) where _resolve_remat says
-        model_fn = rematerialized(unet_fn) if use_remat else unet_fn
-        if checkpoint_path:
-            os.makedirs(os.path.dirname(os.path.abspath(checkpoint_path)), exist_ok=True)
-
-            def state_sink(next_seg, st):
-                data = {"next_seg": next_seg, "x": st["x"], "generator": st["generator"],
-                        "meta": run_meta}
-                if st["y"] is not None:
-                    data["y"] = st["y"]
-                if st["x0p"] is not None:  # dpm_solver multistep state
-                    data["x0p"] = st["x0p"]
-                _write_checkpoint(checkpoint_path, data)
-
-        steps_done = 0
-
-        def progress_cb(n_steps):
-            # after every segment: the finest liveness signal a hung card
-            # cannot fake
-            nonlocal steps_done
-            steps_done += n_steps
-            pet(f"sampling ({steps_done} steps done)")
-
-        take_device()
-        pet("compile + first sampling segment")
-        say(f"Sampling {diffusion.num_timesteps - skip_timesteps} steps at "
-            f"{side_y}x{side_x}px on {dev}")
-        t0 = time.perf_counter()
         try:
-            for step_k, pred_x0, _x_t in sample_loop(
-                diffusion, model_fn, builder, shape, gen, sampler_cfg,
-                skip_timesteps=skip_timesteps, init_image=init_tensor,
-                reduce_clip=reduce_clip, progressive_cutout=progressive_cutout,
-                num_cutouts=num_cutouts, save_frequency=save_frequency, y_init=y_init,
-                noise_override=noise_steps, init_noise=init_noise,
-                final_frame_parity=strict_parity, progress_cb=progress_cb,
-                image_sink=image_sink, state_sink=state_sink, resume=resume_state,
-            ):
-                frames = pred_x0.float().cpu().numpy()
-                for batch_idx in range(batch_size):
-                    path = log_image(frames[batch_idx], prefix_path, prompts, step_k,
-                                     batch_idx, use_async=async_frames)
-                    if prec is not None:  # the caller's flags while suspended
-                        prec.exit()
-                    yield batch_idx, path
-                    if prec is not None:
-                        prec.enter()
-        except KeyboardInterrupt:
-            # the frames written so far stay; the caller goes on with them
-            # (cgd_tpu/api.py:890-891, the reference's cgd/cgd.py:274-276)
-            say("Interrupted — partial frames kept.")
-            return
-        except RuntimeError as e:
-            if _out_of_memory(e):  # the reference's CUDA-OOM advice (cgd/cgd.py:277-283)
-                print(OOM_ADVICE)
-                print(f"(CLIP model currently: {clip_model_name})")
-            raise
-        say(f"Sampled in {time.perf_counter() - t0:.1f} s")
-    finally:
-        if prec is not None:
-            prec.exit()
-        if held:
-            device_lock.release()
-        if async_frames:
-            failed = flush_frames()
-            if failed:
-                print(f"(warning) {failed} asynchronous frame write(s) failed")
-        if wandb_run is not None:
-            wandb_run.finish()
+            if prec is not None:
+                take_device()
+
+            # ---- prompt encoding ------------------------------------------
+            pet("encode prompts")
+            with tracing.span("api.prompts", prompts=len(prompts) + len(image_prompts)):
+                embeds, weights = [], []
+                parsed = [parse_prompt(p) for p in prompts]
+                if parsed:
+                    tokens = tokenizer.tokenize([t for t, _ in parsed],
+                                                context_length=clip_cfg.text.context_length)
+                    with torch.no_grad():
+                        embeds.append(encode_text(clip_model,
+                                                  torch.as_tensor(tokens, device=dev)))
+                    weights += [w for _, w in parsed]
+                for image_prompt in image_prompts:
+                    path, weight = parse_prompt(image_prompt)
+                    img = _prompt_image(path, image_size, dev)
+                    spec = sample_cutout_coords(gen, num_cutouts, img.shape[1], img.shape[0],
+                                                clip_cfg.input_resolution)
+                    embeds.append(encode_image_prompt(clip_model, clip_cfg, img, spec,
+                                                      strict_parity))
+                    weights += [weight / num_cutouts] * num_cutouts
+                target_embeds = torch.cat(embeds)
+                weights = torch.as_tensor(normalize_weights(weights), device=dev)
+            if use_augs:
+                say("Augmentations enabled.")
+
+            # ---- init image -----------------------------------------------
+            init_tensor = lpips = None
+            side_y, side_x = image_size + height_offset, image_size + width_offset
+            if init_image:
+                if (height_offset or width_offset) and strict_parity:
+                    # the reference resizes the init square (cgd/cgd.py:118) while
+                    # the sample shape carries the offsets (cgd/cgd.py:252), and
+                    # q_sample then fails on the shapes: fail loudly, as the JAX
+                    # package does
+                    raise ValueError(
+                        "init_image with height/width offsets is broken in the "
+                        "reference (init resized to "
+                        f"({image_size},{image_size}) but sample shape is "
+                        f"({side_y},{side_x})); "
+                        "pass strict_parity=False to resize the init to the offset shape"
+                    )
+                arr = load_image_rgb(init_image, (side_x, side_y))
+                init_tensor = torch.from_numpy(arr)[None].repeat(batch_size, 1, 1, 1).to(dev)
+                if init_scale != 0:
+                    lpips = resolve_lpips(weights_mode, dev, checkpoints_dir)
+
+            # ---- diffusion, guidance, sampler -----------------------------
+            diffusion = make_diffusion(
+                steps=flags.get("diffusion_steps", 1000),
+                noise_schedule=flags.get("noise_schedule", "linear"),
+                timestep_respacing=timestep_respacing,
+                rescale_timesteps=flags.get("rescale_timesteps", False),
+                learn_sigma=flags.get("learn_sigma", True),
+            )
+            if reduce_clip and skip_timesteps == 0:
+                skip_timesteps = int(diffusion.num_timesteps * 0.2)
+                say(f"Skipping first {skip_timesteps} timesteps (--reduce-clip optimization)")
+            cached_coords = None
+            if cached_cutouts:
+                # progressive_cutout floors a step's count at 4 / 8 cutouts, so
+                # the cache holds as many as the largest step takes
+                cache_n = max(num_cutouts, 8) if progressive_cutout else num_cutouts
+                cached_coords = sample_cutout_coords(
+                    gen, cache_n, side_x, side_y, clip_cfg.input_resolution, cutout_power)
+            settings = GuidanceSettings(
+                clip_guidance_scale=clip_guidance_scale, tv_scale=tv_scale,
+                range_scale=range_scale, sat_scale=sat_scale, init_scale=init_scale,
+                use_magnitude=use_magnitude, use_augs=use_augs, cutout_power=cutout_power,
+                clip_compute_dtype=compute_dtype,
+            )
+
+            loss_cb = image_sink = None
+            if log_losses or wandb_run is not None:
+                # per guided step, as the JAX package's live host callback (the
+                # reference's tqdm.write + wandb.log, cgd/cgd.py:234-238); the
+                # step's gradient scalars come in a second call, which has no
+                # loss line (the JAX package prints an empty one)
+                def loss_cb(log):
+                    line = "\t".join(f"{k}: {v:.3f}" for k, v in log.items() if "loss" in k.lower())
+                    if log_losses and line:
+                        print(line, flush=True)
+                    if wandb_run is not None:
+                        wandb_run.log(dict(log))
+            if wandb_run is not None:
+                sqrt_om = np.asarray(diffusion.sqrt_one_minus_alphas_cumprod)
+
+                def image_sink(step_ks, noisy, preds):
+                    # the reference's triptych every guided step (cgd/cgd.py:180-186):
+                    # noisy sample, denoised prediction, their blend (what CLIP sees);
+                    # uint8 arrays, so that no Pillow is needed
+                    for i, step_k in enumerate(step_ks):
+                        fac = float(sqrt_om[max(diffusion.num_timesteps - 1 - step_k, 0)])
+                        blend = preds[i] * fac + noisy[i] * (1.0 - fac)
+                        wandb_run.log({
+                            f"Generations - {timestep_respacing}": [
+                                wandb.Image(to_uint8(noisy[i][0]), caption="Noisy Sample"),
+                                wandb.Image(to_uint8(preds[i][0]), caption="Denoised Prediction"),
+                                wandb.Image(to_uint8(blend[0]), caption="Blended (what CLIP sees)"),
+                            ],
+                            "step": step_k,
+                        })
+
+            builder = make_guidance_builder(
+                clip_model, clip_cfg, target_embeds, weights, diffusion, settings,
+                cached_coords=cached_coords, mesh=mesh, lpips=lpips,
+                init_image=init_tensor if lpips is not None else None, loss_callback=loss_cb)
+            sampler_cfg = SamplerConfig(
+                use_ddim=timestep_respacing.startswith("ddim"),
+                randomize_class=(randomize_class and class_cond),
+                num_classes=1000,
+                fast_guidance=fast_guidance,
+                dpm_solver=dpm_solver,
+            )
+
+            y_init = (torch.zeros((batch_size,), dtype=torch.long, device=dev)
+                      if class_cond else None)
+            shape = (batch_size, side_y, side_x, 3)
+            init_noise = noise_steps = None
+            if noise_file:  # recorded noise: {"init": [*shape], "steps": [n_steps, *shape]}
+                rec = np.load(noise_file)
+                init_noise = rec["init"] if "init" in rec.files else None
+                noise_steps = rec["steps"] if "steps" in rec.files else None
+
+            # ---- checkpoint / resume --------------------------------------
+            # everything that shapes the remaining segments or their guidance:
+            # the JAX package's run meta (cgd_tpu/api.py:755-785), plus this
+            # package's name and the device type the generator draws on (its
+            # stream, saved with the state, differs between devices)
+            use_remat = _resolve_remat(image_size, batch_size, num_cutouts)
+            run_meta = {
+                "seed": seed, "shape": list(shape),
+                "timestep_respacing": timestep_respacing,
+                "diffusion_steps": diffusion_steps, "noise_schedule": noise_schedule,
+                "skip_timesteps": int(skip_timesteps), "num_cutouts": int(num_cutouts),
+                "save_frequency": int(save_frequency), "reduce_clip": reduce_clip,
+                "progressive_cutout": progressive_cutout,
+                "fast_guidance": fast_guidance, "dpm_solver": dpm_solver,
+                "class_cond": class_cond,
+                "randomize_class": randomize_class, "strict_parity": strict_parity,
+                "prompts": list(prompts), "image_prompts": list(image_prompts),
+                "clip_model_name": clip_model_name,
+                # numeric knobs as floats: the API's int defaults and the CLI's
+                # argparse floats must give the same meta
+                "clip_guidance_scale": float(clip_guidance_scale),
+                "tv_scale": float(tv_scale),
+                "range_scale": float(range_scale), "sat_scale": float(sat_scale),
+                "init_scale": float(init_scale), "cutout_power": float(cutout_power),
+                "use_augs": use_augs, "use_magnitude": use_magnitude,
+                "cached_cutouts": cached_cutouts, "compute_dtype": compute_dtype,
+                "package": "cgd_tpu_torch", "generator": dev.type,
+                # the remat decision: a resume replays the graph its checkpoint
+                # was written under
+                "unet_remat": use_remat,
+            }
+            resume_state = state_sink = None
+            if resume_from:
+                resume_state = _read_checkpoint(resume_from, run_meta, dev.type)
+                use_remat = run_meta["unet_remat"] = resume_state["unet_remat"]
+                say(f"Resuming from {resume_from} at segment {resume_state['next_seg']}.")
+            run_meta = json.dumps(run_meta, sort_keys=True)
+
+            def unet_fn(x, t_model, y):
+                # an image height the 'cut' axis does not divide runs whole, as
+                # its levels below one that it does not divide (parallel/mesh.py)
+                if mesh is None or x.shape[1] % mesh.shape["cut"]:
+                    return unet(x, t_model, y, compute_dtype=cdtype)
+                # split x over the mesh, run the split UNet, gather the output whole
+                return unet(split_activation(x, mesh), t_model, y, compute_dtype=cdtype).gather()
+
+            # the guidance gradient backprops through the UNet: recompute its
+            # forward in the backward (time for memory) where _resolve_remat says
+            model_fn = rematerialized(unet_fn) if use_remat else unet_fn
+            if checkpoint_path:
+                os.makedirs(os.path.dirname(os.path.abspath(checkpoint_path)), exist_ok=True)
+
+                def state_sink(next_seg, st):
+                    data = {"next_seg": next_seg, "x": st["x"], "generator": st["generator"],
+                            "meta": run_meta}
+                    if st["y"] is not None:
+                        data["y"] = st["y"]
+                    if st["x0p"] is not None:  # dpm_solver multistep state
+                        data["x0p"] = st["x0p"]
+                    _write_checkpoint(checkpoint_path, data)
+
+            steps_done = 0
+
+            def progress_cb(n_steps):
+                # after every segment: the finest liveness signal a hung card
+                # cannot fake
+                nonlocal steps_done
+                steps_done += n_steps
+                pet(f"sampling ({steps_done} steps done)")
+
+            take_device()
+            pet("compile + first sampling segment")
+            say(f"Sampling {diffusion.num_timesteps - skip_timesteps} steps at "
+                f"{side_y}x{side_x}px on {dev}")
+            request.note(steps=diffusion.num_timesteps - skip_timesteps)
+            t0 = time.perf_counter()
+            try:
+                for step_k, pred_x0, _x_t in sample_loop(
+                    diffusion, model_fn, builder, shape, gen, sampler_cfg,
+                    skip_timesteps=skip_timesteps, init_image=init_tensor,
+                    reduce_clip=reduce_clip, progressive_cutout=progressive_cutout,
+                    num_cutouts=num_cutouts, save_frequency=save_frequency, y_init=y_init,
+                    noise_override=noise_steps, init_noise=init_noise,
+                    final_frame_parity=strict_parity, progress_cb=progress_cb,
+                    image_sink=image_sink, state_sink=state_sink, resume=resume_state,
+                ):
+                    with tracing.span("images.to_host", k=step_k):
+                        frames = pred_x0.float().cpu().numpy()
+                    for batch_idx in range(batch_size):
+                        path = log_image(frames[batch_idx], prefix_path, prompts, step_k,
+                                         batch_idx, use_async=async_frames)
+                        if prec is not None:  # the caller's flags while suspended
+                            prec.exit()
+                        with tracing.detached(request):  # the caller's time is its own
+                            yield batch_idx, path
+                        if prec is not None:
+                            prec.enter()
+            except KeyboardInterrupt:
+                # the frames written so far stay; the caller goes on with them
+                # (cgd_tpu/api.py:890-891, the reference's cgd/cgd.py:274-276)
+                say("Interrupted — partial frames kept.")
+                return
+            except RuntimeError as e:
+                if _out_of_memory(e):  # the reference's CUDA-OOM advice (cgd/cgd.py:277-283)
+                    print(OOM_ADVICE)
+                    print(f"(CLIP model currently: {clip_model_name})")
+                raise
+            say(f"Sampled in {time.perf_counter() - t0:.1f} s")
+        finally:
+            if prec is not None:
+                prec.exit()
+            if held:
+                device_lock.release()
+            if async_frames:
+                failed = flush_frames()
+                if failed:
+                    print(f"(warning) {failed} asynchronous frame write(s) failed")
+            if wandb_run is not None:
+                wandb_run.finish()
 
 
 def _out_of_memory(e: BaseException) -> bool:

@@ -13,7 +13,8 @@ holds no weights and no BPE merge table. Every flag of the JAX CLI is
 honoured: ``-gif`` / ``-mp4`` mux the frames (ffmpeg, else Pillow / OpenCV
 where importable; the frames are deleted only when every requested mux
 wrote a file), ``--profile DIR`` writes a ``torch.profiler`` Chrome trace
-(CPU and CUDA activities) to DIR, ``--log-losses`` prints a line of loss
+(CPU and CUDA activities) to DIR with the port's spans (``utils/tracing.py``)
+on a row of their own, on the trace's clock, ``--log-losses`` prints a line of loss
 scalars per guided step, ``--checkpoint`` / ``--resume`` save the sampling
 state after every segment and continue from it, and ``--stall-timeout``
 exits with code 117 (``utils.watchdog.STALL_EXIT_CODE``, after writing
@@ -30,6 +31,7 @@ import glob
 from pathlib import Path
 
 from cgd_tpu_torch.registry import CLIP_MODEL_NAMES
+from cgd_tpu_torch.utils import tracing
 from cgd_tpu_torch.weights import CACHE_PATH
 
 def build_parser() -> argparse.ArgumentParser:
@@ -164,6 +166,7 @@ def main(argv=None):
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
+        tracing.enable()
         profiler = profile(activities=activities)
         profiler.__enter__()
 
@@ -227,8 +230,12 @@ def main(argv=None):
     finally:
         if profiler is not None:
             profiler.__exit__(None, None, None)
+            spans = tracing.take()
+            tracing.disable()
             Path(args.profile).mkdir(parents=True, exist_ok=True)
-            profiler.export_chrome_trace(str(Path(args.profile) / "trace.json"))
+            trace_path = Path(args.profile) / "trace.json"
+            profiler.export_chrome_trace(str(trace_path))
+            tracing.add_to_chrome_trace(trace_path, spans)
             print(f"Profile trace written to {args.profile}")
 
     from cgd_tpu_torch.io_utils.images import clean_and_combine_prompts

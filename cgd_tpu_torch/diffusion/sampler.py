@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from cgd_tpu_torch.diffusion.gaussian import GaussianDiffusion, PMeanVariance
+from cgd_tpu_torch.utils.tracing import span
 
 
 class StepMeta(NamedTuple):
@@ -187,37 +188,42 @@ def make_guided_step(
         grad = None
         if guidance is not None:
             if cfg.fast_guidance:
-                with torch.no_grad():
+                with span("step.unet"), torch.no_grad():
                     out = forward(x)
             with torch.enable_grad():
                 x_ = x.detach().requires_grad_(True)
                 if not cfg.fast_guidance:
-                    out = forward(x_)
-                loss, log = guidance.loss_fn(x_, out, ref_t, gen)
-                (grads,) = torch.autograd.grad(loss, x_)
-            out = PMeanVariance(*(o.detach() for o in out))
-            grad, glog = guidance.grad_transform(-grads)  # negative gradient
-            log = {**log, **glog}
+                    with span("step.unet"):
+                        out = forward(x_)
+                with span("step.guidance"):
+                    loss, log = guidance.loss_fn(x_, out, ref_t, gen)
+                with span("step.backward"):
+                    (grads,) = torch.autograd.grad(loss, x_)
         else:
-            with torch.no_grad():
+            with span("step.unet"), torch.no_grad():
                 out = forward(x)
 
-        if cfg.dpm_solver:
-            x0_prev, t_prev, first = dpm_state
-            tp_batch = torch.full_like(t_batch, t_prev)
+        with span("step.update"):
+            if guidance is not None:
+                out = PMeanVariance(*(o.detach() for o in out))
+                grad, glog = guidance.grad_transform(-grads)  # negative gradient
+                log = {**log, **glog}
+            if cfg.dpm_solver:
+                x0_prev, t_prev, first = dpm_state
+                tp_batch = torch.full_like(t_batch, t_prev)
+                with torch.no_grad():
+                    x_next, x0g = diffusion.dpm_solver2m_step(
+                        out, x, t_batch, tp_batch, first, x0_prev, grad)
+                return x_next, out.pred_xstart, y, log, x0g
+            noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=torch.float32)
+            if noise_override is not None:
+                noise = noise_override
             with torch.no_grad():
-                x_next, x0g = diffusion.dpm_solver2m_step(
-                    out, x, t_batch, tp_batch, first, x0_prev, grad)
-            return x_next, out.pred_xstart, y, log, x0g
-        noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=torch.float32)
-        if noise_override is not None:
-            noise = noise_override
-        with torch.no_grad():
-            if cfg.use_ddim:
-                x_next = diffusion.ddim_sample_step(out, x, t_batch, noise, grad, eta=cfg.eta)
-            else:
-                x_next = diffusion.p_sample_step(out, x, t_batch, noise, grad)
-        return x_next, out.pred_xstart, y, log
+                if cfg.use_ddim:
+                    x_next = diffusion.ddim_sample_step(out, x, t_batch, noise, grad, eta=cfg.eta)
+                else:
+                    x_next = diffusion.p_sample_step(out, x, t_batch, noise, grad)
+            return x_next, out.pred_xstart, y, log
 
     return step
 
@@ -323,41 +329,45 @@ def sample_loop(
     for si, (k0, seg) in enumerate(segments):
         if si < start_seg:
             continue  # done by the checkpointed run
-        logs, noisy, preds = [], [], []
-        for k, meta in enumerate(seg, start=k0):
-            key = (meta.guided, meta.cutn)
-            if key not in steps:
-                guidance = guidance_builder(meta) if meta.guided else None
-                steps[key] = make_guided_step(diffusion, model_fn, guidance, cfg)
-            ref_t = diffusion.num_timesteps - 1 - k
-            x_in = x
-            if cfg.dpm_solver:  # deterministic: no step noise
-                x, pred_x0, y, log, x0p = steps[key](
-                    x, meta.t, ref_t, y, gen,
-                    dpm_state=(x0p, plan[max(k - 1, 0)].t, k == 0))
-            else:
-                nz = None
-                if noise_override is not None:
-                    nz = torch.as_tensor(noise_override[k], dtype=torch.float32, device=device)
-                x, pred_x0, y, log = steps[key](x, meta.t, ref_t, y, gen, noise_override=nz)
-            if meta.guided:
-                if loss_sink is not None:
-                    logs.append(log)
-                if image_sink is not None:
-                    noisy.append(x_in.float().cpu().numpy())
-                    preds.append(pred_x0.float().cpu().numpy())
-        if loss_sink is not None and logs:
-            loss_sink(k0, {name: torch.stack([lg[name] for lg in logs]).float().cpu().numpy()
-                           for name in logs[0]})
-        if image_sink is not None and noisy:
-            image_sink(list(range(k0, k0 + len(noisy))), np.stack(noisy), np.stack(preds))
-        if state_sink is not None:
-            state_sink(si + 1, {
-                "x": x.cpu().numpy(),
-                "y": None if y is None else y.cpu().numpy(),
-                "x0p": None if x0p is None else x0p.cpu().numpy(),
-                "generator": gen.get_state().numpy(),
-            })
+        with span("loop.segment", first=k0, steps=len(seg)):
+            logs, noisy, preds = [], [], []
+            for k, meta in enumerate(seg, start=k0):
+                key = (meta.guided, meta.cutn)
+                if key not in steps:
+                    guidance = guidance_builder(meta) if meta.guided else None
+                    steps[key] = make_guided_step(diffusion, model_fn, guidance, cfg)
+                ref_t = diffusion.num_timesteps - 1 - k
+                x_in = x
+                with span("step", k=k, guided=meta.guided, cutn=meta.cutn):
+                    if cfg.dpm_solver:  # deterministic: no step noise
+                        x, pred_x0, y, log, x0p = steps[key](
+                            x, meta.t, ref_t, y, gen,
+                            dpm_state=(x0p, plan[max(k - 1, 0)].t, k == 0))
+                    else:
+                        nz = None
+                        if noise_override is not None:
+                            nz = torch.as_tensor(noise_override[k], dtype=torch.float32,
+                                                 device=device)
+                        x, pred_x0, y, log = steps[key](x, meta.t, ref_t, y, gen,
+                                                        noise_override=nz)
+                if meta.guided:
+                    if loss_sink is not None:
+                        logs.append(log)
+                    if image_sink is not None:
+                        noisy.append(x_in.float().cpu().numpy())
+                        preds.append(pred_x0.float().cpu().numpy())
+            if loss_sink is not None and logs:
+                loss_sink(k0, {name: torch.stack([lg[name] for lg in logs]).float().cpu().numpy()
+                               for name in logs[0]})
+            if image_sink is not None and noisy:
+                image_sink(list(range(k0, k0 + len(noisy))), np.stack(noisy), np.stack(preds))
+            if state_sink is not None:
+                state_sink(si + 1, {
+                    "x": x.cpu().numpy(),
+                    "y": None if y is None else y.cpu().numpy(),
+                    "x0p": None if x0p is None else x0p.cpu().numpy(),
+                    "generator": gen.get_state().numpy(),
+                })
         last_k = k0 + len(seg) - 1
         if last_k in save_at:
             yield last_k, pred_x0, x

@@ -29,6 +29,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from cgd_tpu_torch.utils import tracing
+
 
 def alphanumeric_filter(s: str) -> str:
     return re.sub(r"[^\w\s]", "", s).replace(" ", "_")
@@ -125,14 +127,19 @@ def log_image(image_hwc: np.ndarray, base_path, txts: List[str], current_step: i
     """Save a frame and current.png; returns the frame's path. With
     ``use_async`` the PNG is encoded and written on a background thread:
     call ``flush_frames()`` before reading the files."""
-    dirname = clean_and_combine_prompts(base_path, txts, batch_idx)
-    os.makedirs(dirname, exist_ok=True)
-    filename = os.path.join(dirname, f"{current_step:04}.png")
-    paths = (os.path.join(os.getcwd(), "current.png"), filename)
-    if use_async:
-        _WRITER.submit(to_uint8(image_hwc), paths)
-    else:
-        _write_frame(encode_png(to_uint8(image_hwc)), paths)
+    with tracing.span("images.write", k=current_step) as sp:
+        dirname = clean_and_combine_prompts(base_path, txts, batch_idx)
+        os.makedirs(dirname, exist_ok=True)
+        filename = os.path.join(dirname, f"{current_step:04}.png")
+        paths = (os.path.join(os.getcwd(), "current.png"), filename)
+        rgb = to_uint8(image_hwc)
+        if use_async:
+            _WRITER.submit(rgb, paths)
+            sp.note(queued=rgb.nbytes)
+        else:
+            data = encode_png(rgb)
+            _write_frame(data, paths)
+            sp.note(bytes=len(data) * len(paths))
     return str(filename)
 
 

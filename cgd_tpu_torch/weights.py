@@ -34,7 +34,7 @@ from cgd_tpu_torch.models.clip.model import CLIP
 from cgd_tpu_torch.models.unet import UNet, UNetConfig
 from cgd_tpu_torch.models.vgg_lpips import VGGLPIPS
 from cgd_tpu_torch.registry import CLIP_MODEL_URLS, DIFFUSION_LOOKUP
-from cgd_tpu_torch.utils import pytree_io
+from cgd_tpu_torch.utils import pytree_io, tracing
 
 _WEIGHTS_SEED = 0  # random weights are fixed, as cgd_tpu's PRNGKey(0) init
 
@@ -43,20 +43,32 @@ def _converted_path(pt_path: str) -> str:
     return pt_path + ".npz.cgd"
 
 
-def _cached(npz_path: str, convert) -> Dict[str, np.ndarray]:
+def _cached(npz_path: str, convert, model: str) -> Dict[str, np.ndarray]:
     """The flat parameters from the converted cache, or ``convert()``'s,
     written to the cache first."""
     if os.path.exists(npz_path):
-        return pytree_io.load_flat(npz_path)
+        with tracing.span("weights.read", model=model, bytes=os.path.getsize(npz_path)):
+            return pytree_io.load_flat(npz_path)
     flat = convert()
     pytree_io.save_flat(npz_path, flat)
     return flat
 
 
-def _on_device(module: torch.nn.Module, flat: Dict[str, np.ndarray], device) -> torch.nn.Module:
-    """``module`` (built on the host) loaded from ``flat``, then moved to
-    ``device`` in one go."""
-    return load_flat(module, flat).to(device)
+def _on_device(build, flat: Dict[str, np.ndarray], device, model: str) -> torch.nn.Module:
+    """The module ``build()`` makes on the host, loaded from ``flat``, then
+    moved to ``device`` in one go."""
+    with tracing.span("weights.build", model=model):
+        module = build()
+    with tracing.span("weights.load", model=model):
+        load_flat(module, flat)
+    with tracing.span("weights.to_device", model=model):
+        return module.to(device)
+
+
+def _random(build, model: str):
+    """The module ``build()`` makes with its random initialisation."""
+    with tracing.span("weights.build", model=model):
+        return build()
 
 
 def resolve_unet(
@@ -82,7 +94,8 @@ def resolve_unet(
                 num_heads=1,
             )
         gen = torch.Generator(device).manual_seed(_WEIGHTS_SEED)
-        return UNet(cfg, device=device).init_weights(gen), cfg, flags
+        unet = _random(lambda: UNet(cfg, device=device).init_weights(gen), info["filename"])
+        return unet, cfg, flags
 
     pt_path = os.path.join(checkpoints_dir, info["filename"])
 
@@ -93,8 +106,8 @@ def resolve_unet(
 
         return convert_unet_checkpoint(pt_path, cfg)
 
-    flat = _cached(_converted_path(pt_path), convert)
-    return _on_device(UNet(cfg, device="cpu"), flat, device), cfg, flags
+    flat = _cached(_converted_path(pt_path), convert, info["filename"])
+    return _on_device(lambda: UNet(cfg, device="cpu"), flat, device, info["filename"]), cfg, flags
 
 
 def resolve_clip(model_name: str, mode: str = "random", device="cuda",
@@ -117,7 +130,7 @@ def resolve_clip(model_name: str, mode: str = "random", device="cuda",
                 embed_dim=64,
             )
         gen = torch.Generator(device).manual_seed(_WEIGHTS_SEED)
-        return CLIP(cfg, device=device).init_weights(gen), cfg
+        return _random(lambda: CLIP(cfg, device=device).init_weights(gen), model_name), cfg
 
     clip_dir = os.path.join(checkpoints_dir, "clip")
     filename = model_name.replace("/", "-") + ".pt"
@@ -130,8 +143,8 @@ def resolve_clip(model_name: str, mode: str = "random", device="cuda",
 
         return convert_clip_checkpoint(pt_path, cfg)
 
-    flat = _cached(_converted_path(pt_path), convert)
-    return _on_device(CLIP(cfg, device="cpu"), flat, device), cfg
+    flat = _cached(_converted_path(pt_path), convert, model_name)
+    return _on_device(lambda: CLIP(cfg, device="cpu"), flat, device, model_name), cfg
 
 
 def _resolve_custom_clip(pt_path: str, device) -> Tuple[CLIP, CLIPConfig]:
@@ -142,8 +155,9 @@ def _resolve_custom_clip(pt_path: str, device) -> Tuple[CLIP, CLIPConfig]:
 
     sd = load_torch_clip_sd(pt_path)
     cfg = infer_clip_config(sd, name=os.path.basename(pt_path))
-    flat = _cached(_converted_path(pt_path), lambda: convert_state_dict(sd, cfg))
-    return _on_device(CLIP(cfg, device="cpu"), flat, device), cfg
+    name = os.path.basename(pt_path)
+    flat = _cached(_converted_path(pt_path), lambda: convert_state_dict(sd, cfg), name)
+    return _on_device(lambda: CLIP(cfg, device="cpu"), flat, device, name), cfg
 
 
 def resolve_lpips(mode: str = "random", device="cuda",
@@ -154,8 +168,8 @@ def resolve_lpips(mode: str = "random", device="cuda",
     ``lpips_vgg.npz.cgd``."""
     if mode == "random":
         gen = torch.Generator(device).manual_seed(_WEIGHTS_SEED)
-        return VGGLPIPS(device=device).init_weights(gen)
+        return _random(lambda: VGGLPIPS(device=device).init_weights(gen), "lpips_vgg")
     from cgd_tpu_torch.convert.torch_lpips import convert_lpips
 
-    flat = _cached(os.path.join(checkpoints_dir, "lpips_vgg.npz.cgd"), convert_lpips)
-    return _on_device(VGGLPIPS(device="cpu"), flat, device)
+    flat = _cached(os.path.join(checkpoints_dir, "lpips_vgg.npz.cgd"), convert_lpips, "lpips_vgg")
+    return _on_device(lambda: VGGLPIPS(device="cpu"), flat, device, "lpips_vgg")

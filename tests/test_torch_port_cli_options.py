@@ -5,7 +5,8 @@ fallbacks, ``None`` when neither imports; the frames kept unless every
 requested mux wrote a file), ``--log-losses`` (one line per guided step,
 the keys and ``k: v:.3f`` format of the JAX package's live path), W&B
 (absent: the JAX package's message; present, a stub module: the scalars and
-the per-step triptych), ``--profile`` (a Chrome trace), asynchronous frames
+the per-step triptych), ``--profile`` (a Chrome trace, the port's spans in
+it on its clock), asynchronous frames
 (the same bytes as synchronous ones; failed writes counted and reported),
 and nothing refused any more. Frames are compared byte for byte
 (tolerance: none)."""
@@ -206,6 +207,25 @@ def test_profile_writes_a_chrome_trace(tiny, capsys):
     assert "Profile trace written to prof" in capsys.readouterr().out
     trace = json.loads((tiny / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+
+
+def test_profile_trace_holds_the_spans_on_its_clock(tiny, capsys):
+    from cgd_tpu_torch.utils import tracing
+
+    tcli.main([*ARGV, "--profile", "prof", "-q"])
+    assert tracing.span("after") is tracing.NO_SPAN and tracing.take() == []  # off again
+    events = json.loads((tiny / "prof" / "trace.json").read_text())["traceEvents"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    spans = [e for e in events if e.get("cat") == "cgd_span"]
+    assert ops and {e["pid"] for e in spans} == {tracing.CHROME_PID}
+    names = [e["name"] for e in spans]
+    assert names.count("api.request") == 1 and names.count("step") == 5
+    assert names.count("images.write") == 5
+    # the UNet's operators, recorded by the profiler, lie inside each step.unet span
+    for unet in (e for e in spans if e["name"] == "step.unet"):
+        inside = [o for o in ops
+                  if unet["ts"] <= o["ts"] and o["ts"] + o["dur"] <= unet["ts"] + unet["dur"]]
+        assert any(o["name"] == "aten::convolution" for o in inside)
 
 
 def test_async_frames_equal_sync_frames(tiny):
