@@ -26,7 +26,10 @@ guided step), W&B (``wandb_project``: the scalars and the per-step
 triptych; without ``wandb`` the run says so and goes on), ``async_frames``
 (PNG writes on a background thread), ``stall_pet`` (a progress callback for
 ``utils.watchdog.StallDetector``) and ``device_lock`` (the serving daemon's
-lock around the device-heavy part of a run). Nothing is refused. With
+lock around the device-heavy part of a run). Nothing is refused. A
+checkpoint's UNet and CLIP stay on the device between calls in one process
+(``weights.py``'s model cache): a call with the same files, configuration,
+device and ``compute_dtype`` as the last one reuses its modules. With
 ``utils.tracing`` enabled the call records its spans: ``api.request`` from
 entry to return, and below it the models, the prompts, each segment and
 step of the loop and each frame (the caller's time at a yield in none).
@@ -83,12 +86,17 @@ from cgd_tpu_torch.io_utils.images import (
 from cgd_tpu_torch.models.clip.configs import CLIP_MEAN, CLIP_STD, CLIPConfig
 from cgd_tpu_torch.models.clip.model import CLIP, encode_image, encode_text
 from cgd_tpu_torch.models.unet import rematerialized
-from cgd_tpu_torch.ops.nn import cast_conv_params
 from cgd_tpu_torch.ops.resample import resize
 from cgd_tpu_torch.parallel.mesh import shard_params_replicated, split_activation
 from cgd_tpu_torch.utils import tracing
 from cgd_tpu_torch.validate import OOM_ADVICE, check_parameters
-from cgd_tpu_torch.weights import CACHE_PATH, resolve_clip, resolve_lpips, resolve_unet
+from cgd_tpu_torch.weights import (
+    CACHE_PATH,
+    cache_counts,
+    resolve_clip,
+    resolve_lpips,
+    resolve_unet,
+)
 
 
 class _FallbackTokenizer:
@@ -110,6 +118,12 @@ class _FallbackTokenizer:
             row = [self.vocab_size - 2] + ids + [self.vocab_size - 1]
             out[i, : len(row)] = row
         return out
+
+
+def torch_dtype(compute_dtype: str) -> torch.dtype:
+    """The torch dtype a run's ``compute_dtype`` names: the UNet's and CLIP's
+    compute, and their conv kernels' (the model cache keys on it)."""
+    return torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
 
 
 def resolve_device(device) -> torch.device:
@@ -387,24 +401,24 @@ def clip_guided_diffusion(
         Path(prefix_path).mkdir(parents=True, exist_ok=True)
         if weights_mode != "random":  # the checkpoints and their caches live there
             Path(checkpoints_dir).mkdir(parents=True, exist_ok=True)
-        cdtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+        cdtype = torch_dtype(compute_dtype)
 
         # ---- models -------------------------------------------------------
         pet("resolve model checkpoints")
-        with tracing.span("api.models"):
+        # a checkpoint's models come from weights.py's model cache where the
+        # last call of their role had the same files, config, device and dtype
+        with tracing.span("api.models") as models_span, cache_counts() as counts:
             clip_model, clip_cfg = resolve_clip(clip_model_name, weights_mode, dev,
-                                                checkpoints_dir)
+                                                checkpoints_dir, conv_dtype=cdtype)
             unet, unet_cfg, flags = resolve_unet(
                 image_size, class_cond, weights_mode,
                 flag_overrides={"diffusion_steps": diffusion_steps,
                                 "noise_schedule": noise_schedule},
-                device=dev, checkpoints_dir=checkpoints_dir,
+                device=dev, checkpoints_dir=checkpoints_dir, conv_dtype=cdtype,
             )
-            if cdtype == torch.bfloat16:
-                cast_conv_params(unet, cdtype)
-                cast_conv_params(clip_model, cdtype)
             if mesh is not None:
                 shard_params_replicated(unet, mesh)  # the split ops find the copies
+            models_span.note(**counts)
         if weights_mode == "random":
             tokenizer = _FallbackTokenizer(clip_cfg.text.vocab_size)
         else:

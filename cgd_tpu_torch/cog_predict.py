@@ -1,9 +1,11 @@
 """Replicate / Cog predictor of the port, counterpart of the root
 ``cog_predict.py`` (the reference's surface, cog_predict.py:8-59):
-``setup()`` resolves the weights ``predict()`` uses, ``predict()`` maps the
-web parameters onto ``cgd_tpu_torch.api.clip_guided_diffusion`` and yields
-the frames' paths. Import-guarded, so that the module works without the
-``cog`` package (it exists only inside the Replicate container).
+``setup()`` resolves the weights ``predict()`` uses and leaves them on the
+device in the weights' model cache, ``predict()`` maps the web parameters
+onto ``cgd_tpu_torch.api.clip_guided_diffusion`` (which finds them there, so
+no call after ``setup()`` reads them again) and yields the frames' paths.
+Import-guarded, so that the module works without the ``cog`` package (it
+exists only inside the Replicate container).
 
 It runs the 256px unconditional model with CLIP ViT-B/32 on ``device``
 (the card, unless a caller sets ``device = "cpu"``); with an init image
@@ -30,16 +32,19 @@ except ImportError:  # cog only exists inside the Replicate container
 class ClipGuidedDiffusionPredictor(BasePredictor):
     device = "cuda"
     weights_mode = "auto"  # "random": no checkpoints (tests, smoke runs)
+    compute_dtype = "bfloat16"
 
     def setup(self):
         """Resolve (download and convert, once) the 256px unconditional
-        checkpoint and ViT-B/32, the weights predict() uses."""
-        from cgd_tpu_torch.api import resolve_device
+        checkpoint and ViT-B/32 as predict() runs them (its compute dtype's
+        convs), and keep them on the device for it."""
+        from cgd_tpu_torch.api import resolve_device, torch_dtype
         from cgd_tpu_torch.weights import resolve_clip, resolve_unet
 
-        dev = resolve_device(self.device)
-        resolve_clip("ViT-B/32", self.weights_mode, dev)
-        resolve_unet(256, class_cond=False, mode=self.weights_mode, device=dev)
+        dev, conv_dtype = resolve_device(self.device), torch_dtype(self.compute_dtype)
+        resolve_clip("ViT-B/32", self.weights_mode, dev, conv_dtype=conv_dtype)
+        resolve_unet(256, class_cond=False, mode=self.weights_mode, device=dev,
+                     conv_dtype=conv_dtype)
 
     def predict(
         self,
@@ -75,6 +80,7 @@ class ClipGuidedDiffusionPredictor(BasePredictor):
             progress=False,
             device=self.device,
             weights_mode=self.weights_mode,
+            compute_dtype=self.compute_dtype,
         )
         for _batch_idx, frame_path in gen:
             yield CogPath(frame_path)

@@ -25,7 +25,9 @@ Only the device-heavy sampling is serialized, behind one device lock (the
 API's ``device_lock``): each request's weight resolution, tokenization and
 validation run outside it, so request N+1's host prep overlaps request N's
 sampling; an f32 request also encodes its prompts inside the lock, since
-only the lock's holder may set the TF32 flags. In-flight requests are
+only the lock's holder may set the TF32 flags. A request whose checkpoints,
+size and dtype match the one before it takes that request's models from
+the weights' model cache, already on the card. In-flight requests are
 bounded by a semaphore of 3. ``CGD_TPU_SERVE_PIPELINE=0`` serializes whole
 requests (the control arm of a throughput comparison); it takes the lock
 BEFORE arming the stall detector, so a request queued behind another is not

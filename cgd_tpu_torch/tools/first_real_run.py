@@ -47,7 +47,13 @@ import torch
 from cgd_tpu_torch import api
 from cgd_tpu_torch.io_utils.download import CACHE_PATH
 from cgd_tpu_torch.registry import DIFFUSION_LOOKUP
-from cgd_tpu_torch.weights import _converted_path, resolve_clip, resolve_lpips, resolve_unet
+from cgd_tpu_torch.weights import (
+    _converted_path,
+    clear_model_cache,
+    resolve_clip,
+    resolve_lpips,
+    resolve_unet,
+)
 
 PROMPT = "an impressionist painting of a lighthouse at dawn"
 ROOT = Path(__file__).resolve().parents[2]
@@ -95,6 +101,7 @@ def run(dry_run: bool, out: str, checkpoints_dir: str = CACHE_PATH, device="cuda
     lpips = resolve_lpips(mode, dev, checkpoints_dir)
     counted("resolve_lpips_vgg", lpips)
     del unet, clip, lpips
+    clear_model_cache()  # the next phase reads the converted caches, not the kept models
 
     phase("cache_hit")
     if dry_run:

@@ -8,7 +8,7 @@ Reads the Chrome trace that the CLI's ``--profile`` writes (torch.profiler's
 events and the spans on a row of their own, one clock) and prints one JSON
 object: each span name's count, total and median ms; the guided step's
 split (the median ms a step of each ``step.*`` phase and of the step's own
-remainder); the weights read's GB/s; the four reductions below over the
+remainder); the weights read's GB/s; the five reductions below over the
 whole trace; and, where the trace holds device operations, the device's
 idle seconds by the innermost span open at the time on the request's thread
 ("no span" where none is).
@@ -19,6 +19,10 @@ and device operations as ``(start_ns, end_ns)`` on the same clock; ``lo`` /
 
 - ``weights_load_ms``: the median over the requests begun in the window of
   their ``api.models`` span;
+- ``models_hit_share``: the share of the models those ``api.models`` spans
+  resolved that came from the model cache (their ``hits`` over ``hits`` and
+  ``misses``); in a process that calls the API n times with the same
+  checkpoint files, (n - 1) / n;
 - ``step_host_ms``: the median over the window's guided ``step`` spans
   (those overlapping ``outside``, a profiled stretch, left out) of their
   host duration;
@@ -125,10 +129,22 @@ def innermost(spans, thread=None) -> List[Tuple[int, int, str]]:
     return out
 
 
-def weights_load_ms(spans, lo=None, hi=None) -> Optional[float]:
+def _models(spans, lo=None, hi=None) -> List[Dict]:
+    """The ``api.models`` spans of the requests begun in the window."""
     ds = as_dicts(spans)
     begun = {d["id"] for d in ds if d["name"] == "api.request" and _in(d, lo, hi)}
-    return _median([_ms(d) for d in ds if d["name"] == "api.models" and d["parent"] in begun])
+    return [d for d in ds if d["name"] == "api.models" and d["parent"] in begun]
+
+
+def weights_load_ms(spans, lo=None, hi=None) -> Optional[float]:
+    return _median([_ms(d) for d in _models(spans, lo, hi)])
+
+
+def models_hit_share(spans, lo=None, hi=None) -> Optional[float]:
+    ds = _models(spans, lo, hi)
+    hits = sum(d["counts"].get("hits", 0) for d in ds)
+    resolved = hits + sum(d["counts"].get("misses", 0) for d in ds)
+    return hits / resolved if resolved else None
 
 
 def _steps(spans, lo=None, hi=None, outside=None) -> List[Dict]:
@@ -222,6 +238,7 @@ def report(spans, device=(), lo=None, hi=None, outside=None) -> Dict:
         "step_phases_ms": step_phases_ms(ds, lo, hi, outside),
         "weights_read_gb_per_s": read_gb_per_s(ds),
         "weights_load_ms": weights_load_ms(ds, lo, hi),
+        "models_hit_share": models_hit_share(ds, lo, hi),
         "step_host_ms": step_host_ms(ds, lo, hi, outside),
         "frame_write_ms": frame_write_ms(ds, lo, hi),
     }

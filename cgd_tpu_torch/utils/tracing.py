@@ -33,8 +33,9 @@ The spans the port opens, named ``layer.what``:
     api.request      one clip_guided_diffusion call, from entry to return
                      (batch, steps); the time its caller holds it suspended
                      at a yield lies in no child span
-    api.models       the CLIP and UNet resolved, then cast (and replicated
-                     over a mesh)
+    api.models       the CLIP and UNet resolved, cast (and replicated over a
+                     mesh); hits, misses: the models served from the
+                     weights' model cache and those loaded
     weights.read     the converted cache read (model, bytes: the file's size)
     weights.build    a module built (on the host for a checkpoint, on the
                      run's device with its random init for random weights)

@@ -1603,20 +1603,26 @@ def phase_checkpoints(k3, kattn, dev, out_dir: Path, unsplit_step_s: float) -> d
         for pt in (ckpts / info["filename"], ckpts / "clip" / "ViT-B-32.pt",
                    ckpts / "vgg16-397923af.pth", ckpts / "lpips_vgg_v0.1.pth"):
             pt.unlink()  # the second resolve can only hit the caches
+        weights.clear_model_cache()  # and not the models the call kept on the card
         t1 = time.perf_counter()
-        loaded = (weights.resolve_unet(256, True, "auto", device=dev, checkpoints_dir=str(ckpts))[0],
-                  weights.resolve_clip("ViT-B/32", "auto", dev, str(ckpts))[0],
-                  weights.resolve_lpips("auto", dev, str(ckpts)))
+        with weights.cache_counts() as counts:
+            loaded = (weights.resolve_unet(256, True, "auto", device=dev,
+                                           checkpoints_dir=str(ckpts))[0],
+                      weights.resolve_clip("ViT-B/32", "auto", dev, str(ckpts))[0],
+                      weights.resolve_lpips("auto", dev, str(ckpts)))
         hit_s = time.perf_counter() - t1
     finally:
         api.log_image, torch_lpips.CACHE_PATH = real_log_image, real_cache
         tokenizer._DEFAULT_TOKENIZER = real_tok
+    if counts != {"hits": 0, "misses": 3}:
+        raise AssertionError(f"phase 8: the caches' read back was served from kept models: {counts}")
     for name, written, back in zip(("UNet", "CLIP", "LPIPS"), (unet, clip, lpips), loaded):
         a, b = written.state_dict(), back.state_dict()
         if a.keys() != b.keys() or not all(torch.equal(a[k], b[k].cpu()) for k in a):
             raise AssertionError(f"phase 8: the {name} read back from its cache is not the "
                                  "written one")
     del loaded
+    weights.clear_model_cache()  # the later phases' memory as without this phase
     steps = 25 - 12
     if len(paths) != 3 or len(frames) != 3:
         raise AssertionError(f"phase 8: expected frames at steps 0, 6, 12; got {paths}")

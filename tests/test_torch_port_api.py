@@ -27,10 +27,12 @@ from cgd_tpu.io_utils import images as jimages  # noqa: E402
 from cgd_tpu_torch import api  # noqa: E402
 from cgd_tpu_torch import registry as tregistry  # noqa: E402
 from cgd_tpu_torch import validate as tvalidate  # noqa: E402
+from cgd_tpu_torch import weights as tweights  # noqa: E402
 from cgd_tpu_torch.guidance.prompts import parse_prompt as tparse  # noqa: E402
 from cgd_tpu_torch.io_utils import images as timages  # noqa: E402
 from cgd_tpu_torch.models import vgg_lpips as tlpips  # noqa: E402
 from tests import torch_port_toy_checkpoints as toy  # noqa: E402
+from tests.torch_port_toy_checkpoints import no_kept_models  # noqa: E402,F401
 
 torch.set_num_threads(2)
 
@@ -308,6 +310,7 @@ def test_jax_keywords_the_port_now_honours(tiny, monkeypatch, name):
             prefix_path=tiny / "a", **kw)]
         os.remove(ckpts / "toy_unet.pt")
         os.remove(ckpts / "clip" / "ViT-B-32.pt")
+        tweights.clear_model_cache()  # read from the caches, not kept from the first run
         again = [open(p, "rb").read() for _, p in api.clip_guided_diffusion(
             prefix_path=tiny / "b", **kw)]
         assert first == again and len(first) == 2

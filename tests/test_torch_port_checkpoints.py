@@ -49,6 +49,7 @@ from cgd_tpu_torch.models.clip import configs as tconfigs  # noqa: E402
 from cgd_tpu_torch.models.clip import model as tclip  # noqa: E402
 from cgd_tpu_torch.utils import pytree_io as tio  # noqa: E402
 from tests import torch_port_toy_checkpoints as toy  # noqa: E402
+from tests.torch_port_toy_checkpoints import no_kept_models  # noqa: E402,F401
 from tests.torch_ref_models import (  # noqa: E402
     TorchADMUNet,
     TorchCLIPText,
@@ -326,6 +327,7 @@ def test_resolve_unet_auto_downloads_converts_caches_and_hits_the_cache(toy_regi
 
     monkeypatch.setattr(tunetconv, "convert_unet_checkpoint", refuse)
     os.remove(os.path.join(ckpts, "toy_unet.pt"))
+    tweights.clear_model_cache()  # the converted cache read, not the kept module
     again, _, _ = tweights.resolve_unet(32, True, "auto", device="cpu", checkpoints_dir=ckpts)
     _assert_flat_equal(_state(again), want)
     # the port's cache is the JAX package's: cgd_tpu reads it without the .pt
@@ -344,6 +346,7 @@ def test_resolve_clip_auto_and_a_custom_pt_convert_once(toy_registry, monkeypatc
     _assert_flat_equal(_state(model), want)
     monkeypatch.setattr(tclipconv, "convert_clip_checkpoint",
                         lambda *a: (_ for _ in ()).throw(AssertionError("converted again")))
+    tweights.clear_model_cache()
     again, _ = tweights.resolve_clip("ViT-B/32", "auto", "cpu", ckpts)
     _assert_flat_equal(_state(again), want)
 
@@ -370,6 +373,7 @@ def test_resolve_lpips_auto_converts_into_the_checkpoint_dir(tmp_path, monkeypat
     want = flatten_pytree(jlpipsconv.convert_lpips(vgg_path, lin_path))
     _assert_flat_equal(_state(model), want)
     os.remove(vgg_path)
+    tweights.clear_model_cache()
     again = tweights.resolve_lpips("auto", "cpu", str(ckpts))
     _assert_flat_equal(_state(again), want)
     # random mode: the layout of the JAX package's init

@@ -18,6 +18,7 @@ from cgd_tpu_torch import api as tapi  # noqa: E402
 from cgd_tpu_torch import cli as tcli  # noqa: E402
 from cgd_tpu_torch.io_utils.images import encode_png  # noqa: E402
 from tests import torch_port_toy_checkpoints as toy  # noqa: E402
+from tests.torch_port_toy_checkpoints import no_kept_models  # noqa: E402,F401
 
 torch.set_num_threads(2)
 

@@ -131,6 +131,7 @@ def test_a_toy_call_gives_one_request_tree(tracer, tiny):
     top = [s.name for s in sorted(kids[root.id], key=lambda s: s.start_ns)]
     assert top[:2] == ["api.models", "api.prompts"]
     models = next(s for s in kids[root.id] if s.name == "api.models")
+    assert models.counts == {"hits": 0, "misses": 0}  # random weights are never kept
     built = kids[models.id]
     assert [s.name for s in built] == ["weights.build", "weights.build"]
     assert {s.counts["model"] for s in built} == {"ViT-B/32", "64x64_diffusion.pt"}
@@ -198,7 +199,7 @@ def _d(name, sid, parent, a_ms, b_ms, request=1, thread=1, **counts):
 # two requests: the first begun before the window [100, 1000) ms, the second in it
 RECORDED = [
     _d("api.request", 1, None, 0, 500),
-    _d("api.models", 2, 1, 0, 60),
+    _d("api.models", 2, 1, 0, 60, hits=0, misses=2),
     _d("weights.read", 3, 2, 0, 20, model="m", bytes=2e9),
     _d("step", 4, 1, 150, 350, k=0, guided=True, cutn=16),
     _d("step.unet", 5, 4, 150, 200),
@@ -209,7 +210,7 @@ RECORDED = [
     _d("images.write", 10, 1, 360, 380, k=0, bytes=10),
     _d("images.write", 11, 1, 385, 395, k=0, bytes=10),
     _d("api.request", 20, None, 500, 990, request=2),
-    _d("api.models", 21, 20, 500, 580, request=2),
+    _d("api.models", 21, 20, 500, 580, request=2, hits=2, misses=0),
     _d("step", 22, 20, 600, 700, request=2, k=0, guided=True, cutn=16),
     _d("step", 23, 20, 700, 760, request=2, k=1, guided=False, cutn=16),
     _d("images.write", 24, 20, 800, 812, request=2, k=1, bytes=10),
@@ -221,6 +222,8 @@ def test_the_reductions_read_recorded_spans():
     lo, hi = 100 * ms, 1000 * ms
     assert span_report.weights_load_ms(RECORDED, lo, hi) == 80.0
     assert span_report.weights_load_ms(RECORDED) == 70.0
+    assert span_report.models_hit_share(RECORDED, lo, hi) == 1.0
+    assert span_report.models_hit_share(RECORDED) == 0.5  # (0 + 2) of (2 + 2)
     assert span_report.step_host_ms(RECORDED, lo, hi) == 150.0
     assert span_report.step_host_ms(RECORDED, lo, hi, outside=(600 * ms, 650 * ms)) == 200.0
     assert span_report.frame_write_ms(RECORDED, lo, hi) == 21.0  # (30 + 12) / 2
@@ -246,8 +249,9 @@ def test_the_reductions_read_recorded_spans():
     lambda s: span_report.frame_write_ms(s, 0, 1),
     lambda s: span_report.idle_in_step_pct(s, [], 0, 10),
     lambda s: span_report.read_gb_per_s(s),
+    lambda s: span_report.models_hit_share(s),
 ], ids=["weights_load_ms", "step_host_ms", "frame_write_ms", "idle_in_step_pct",
-        "read_gb_per_s"])
+        "read_gb_per_s", "models_hit_share"])
 def test_each_reduction_reads_none_from_nothing(reduce):
     assert reduce([]) is None
     assert reduce([_d("api.prompts", 1, None, 5, 6)]) is None
@@ -287,6 +291,8 @@ def test_spans_join_a_chrome_trace_on_its_clock(tracer, tmp_path):
 
 def test_the_report_tool_reads_a_trace(tracer, tmp_path, capsys):
     with tracer.request("api.request", batch=1):
+        with tracer.span("api.models", hits=1, misses=1):
+            pass
         with tracer.span("step", k=0, guided=True, cutn=2):
             with tracer.span("step.unet"):
                 time.sleep(0.002)
@@ -300,3 +306,4 @@ def test_the_report_tool_reads_a_trace(tracer, tmp_path, capsys):
     assert rep["spans"]["step"]["count"] == 1 and rep["step_host_ms"] >= 2.0
     assert rep["step_phases_ms"]["step.unet"] >= 2.0 and "idle_in_step_pct" not in rep
     assert rep["spans"]["step"]["median_ms"] == pytest.approx(rep["step_host_ms"])
+    assert rep["models_hit_share"] == 0.5

@@ -3,10 +3,15 @@ tests: a 64px class-conditional ADM UNet and a ViT CLIP from the torch
 replicas of tests/torch_ref_models.py, written as the published ``.pt``
 files into a ``checkpoints_dir``, with both packages' registries pointed at
 their toy configurations and the port's default tokenizer built from a tiny
-BPE merge table (the real tables and weights are not in the repository)."""
+BPE merge table (the real tables and weights are not in the repository).
+
+A test module that resolves these files imports ``no_kept_models``, so that
+each of its tests leaves the port's model cache (``cgd_tpu_torch/weights.py``)
+empty."""
 
 from __future__ import annotations
 
+import pytest
 import torch
 
 from cgd_tpu import weights as jweights
@@ -26,6 +31,13 @@ MERGES = ["t h", "th e</w>", "a n", "an d</w>", "i n", "in g</w>", "h e", "he l"
 VOCAB = 256 * 2 + len(MERGES) + 2  # bytes, bytes</w>, merges, the two specials
 TEXT = dict(context_length=16, vocab_size=VOCAB, width=32, heads=2, layers=1)
 VISION = (32, 8, 32, 1, 2)  # input resolution, patch, width, layers, heads
+
+
+@pytest.fixture(autouse=True)
+def no_kept_models():
+    """The test's kept models dropped after it, memory and all."""
+    yield
+    tweights.clear_model_cache()
 
 
 def write_lpips_pth(root) -> TorchLPIPSVgg:
