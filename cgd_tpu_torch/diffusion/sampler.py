@@ -203,7 +203,7 @@ def make_guided_step(
             with span("step.unet"), torch.no_grad():
                 out = forward(x)
 
-        with span("step.update"):
+        with span("step.update", ancestral=int(not (cfg.use_ddim or cfg.dpm_solver))):
             if guidance is not None:
                 out = PMeanVariance(*(o.detach() for o in out))
                 grad, glog = guidance.grad_transform(-grads)  # negative gradient

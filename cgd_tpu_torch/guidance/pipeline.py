@@ -34,6 +34,7 @@ from cgd_tpu_torch.models.clip.configs import CLIP_MEAN, CLIP_STD, CLIPConfig
 from cgd_tpu_torch.models.clip.model import CLIP, encode_image
 from cgd_tpu_torch.models.vgg_lpips import VGGLPIPS, lpips_distance
 from cgd_tpu_torch.parallel.mesh import Mesh, shard_params_replicated
+from cgd_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,15 +84,18 @@ def make_guidance_builder(
     compute_dtype = torch.bfloat16 if settings.clip_compute_dtype == "bfloat16" else torch.float32
     visuals = None if mesh is None else shard_params_replicated(clip_model.visual, mesh)
 
+    tower = "vit" if clip_cfg.is_vit else "resnet"
+
     def encode(cuts):
-        if mesh is None:
-            return encode_image(clip_model, cuts, compute_dtype=compute_dtype)
-        # cutn / mesh.size cutouts per device, in order (contiguous blocks,
-        # as cutout_sharding splits the leading axis)
-        parts = torch.tensor_split(cuts, mesh.size)
-        return torch.cat([
-            visuals[d](p.to(d).to(compute_dtype)).float().to(cuts.device)
-            for p, d in zip(parts, mesh.devices.flat) if len(p)])
+        with span("guidance.clip", tower=tower, images=cuts.shape[0], resolution=clip_size):
+            if mesh is None:
+                return encode_image(clip_model, cuts, compute_dtype=compute_dtype)
+            # cutn / mesh.size cutouts per device, in order (contiguous blocks,
+            # as cutout_sharding splits the leading axis)
+            parts = torch.tensor_split(cuts, mesh.size)
+            return torch.cat([
+                visuals[d](p.to(d).to(compute_dtype)).float().to(cuts.device)
+                for p, d in zip(parts, mesh.devices.flat) if len(p)])
 
     def builder(meta: StepMeta) -> GuidanceFns:
         cutn = meta.cutn

@@ -4,8 +4,8 @@ of ``cgd_tpu/models/clip/model.py``. Module paths follow the JAX pytree
 weights carry across by name; layouts are the JAX ones (NHWC images,
 ``[in, out]`` dense kernels, HWIO conv kernels). LayerNorm, the folded
 BatchNorm and softmax run in f32 islands inside bf16 activations. The
-ModifiedResNet's convs are plain ``F.conv2d`` (the JAX package runs them as
-XLA convs, outside its Pallas kernels).
+ModifiedResNet's 3x3 convs are plain ``F.conv2d`` and its 1x1s matmuls (the
+JAX package runs them as XLA convs, outside its Pallas kernels).
 """
 
 from __future__ import annotations
@@ -133,8 +133,13 @@ def _bn(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def _conv(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Bias-free NHWC conv with the HWIO kernel, symmetric k//2 padding."""
+    """Bias-free NHWC conv with the HWIO kernel, symmetric k//2 padding. A
+    1x1 conv of stride 1 is a matmul over the channels, as ``ops.nn.conv2d``
+    does it, so the bottlenecks' 1x1s are GEMMs and only the 3x3s reach
+    cuDNN."""
     k = p.kernel.to(x.dtype)
+    if k.shape[:2] == (1, 1) and stride == 1:
+        return x @ k[0, 0]
     out = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), stride=stride,
                    padding=(k.shape[0] // 2, k.shape[1] // 2))
     return out.permute(0, 2, 3, 1)

@@ -175,11 +175,12 @@ def _clip_image_flops(acc: _Flops, cfg: CLIPConfig, n: int) -> None:
         for i in range(blocks):
             s = stride if i == 0 else 1
             out_res = res // s
-            acc.conv(n, res * res, 1, cin, planes, True)
+            # the 1x1s are matmuls over the channels (models/clip/model.py:_conv)
+            acc.matmul(n * res * res, cin, planes)
             acc.conv(n, res * res, 9, planes, planes, True)
-            acc.conv(n, out_res * out_res, 1, planes, 4 * planes, True)
+            acc.matmul(n * out_res * out_res, planes, 4 * planes)
             if s > 1 or cin != 4 * planes:
-                acc.conv(n, out_res * out_res, 1, cin, 4 * planes, True)
+                acc.matmul(n * out_res * out_res, cin, 4 * planes)
             cin, res = 4 * planes, out_res
     c, t = 32 * w, res * res + 1
     acc.matmul(n, c, c)  # q of the mean token

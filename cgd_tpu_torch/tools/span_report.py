@@ -8,10 +8,12 @@ Reads the Chrome trace that the CLI's ``--profile`` writes (torch.profiler's
 events and the spans on a row of their own, one clock) and prints one JSON
 object: each span name's count, total and median ms; the guided step's
 split (the median ms a step of each ``step.*`` phase and of the step's own
-remainder); the weights read's GB/s; the five reductions below over the
-whole trace; and, where the trace holds device operations, the device's
-idle seconds by the innermost span open at the time on the request's thread
-("no span" where none is).
+remainder) and, beside it, the CLIP image tower's share of
+``step.guidance`` (``clip_ms_per_step``); the weights read's GB/s; the five
+reductions below over the whole trace; and, where the trace holds device
+operations, the device's idle seconds by the innermost span open at the
+time on the request's thread ("no span" where none is; ``guidance.clip``
+where the tower's launches were being made).
 
 The reductions take spans as ``tracing.Span`` objects or their ``as_dict()``
 and device operations as ``(start_ns, end_ns)`` on the same clock; ``lo`` /
@@ -178,6 +180,24 @@ def step_phases_ms(spans, lo=None, hi=None, outside=None) -> Dict[str, Optional[
     return out
 
 
+def clip_ms_per_step(spans, lo=None, hi=None, outside=None) -> Optional[float]:
+    """The median ms a guided step of its ``guidance.clip`` spans (the
+    image tower's forward over the cutouts), over the steps that open one."""
+    ds = as_dicts(spans)
+    steps = {d["id"] for d in _steps(ds, lo, hi, outside)}
+    parent = {d["id"]: d["parent"] for d in ds}
+    per: Dict[int, float] = defaultdict(float)
+    for d in ds:
+        if d["name"] != "guidance.clip":
+            continue
+        up = d["parent"]
+        while up is not None and up not in steps:
+            up = parent.get(up)
+        if up is not None:
+            per[up] += _ms(d)
+    return _median(list(per.values()))
+
+
 def frame_write_ms(spans, lo=None, hi=None) -> Optional[float]:
     points: Dict[tuple, List[Dict]] = defaultdict(list)
     for d in as_dicts(spans):
@@ -236,6 +256,7 @@ def report(spans, device=(), lo=None, hi=None, outside=None) -> Dict:
         "spans": {n: {"count": len(v), "total_ms": sum(v), "median_ms": statistics.median(v)}
                   for n, v in sorted(names.items())},
         "step_phases_ms": step_phases_ms(ds, lo, hi, outside),
+        "clip_ms_per_step": clip_ms_per_step(ds, lo, hi, outside),
         "weights_read_gb_per_s": read_gb_per_s(ds),
         "weights_load_ms": weights_load_ms(ds, lo, hi),
         "models_hit_share": models_hit_share(ds, lo, hi),

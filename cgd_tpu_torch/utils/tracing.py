@@ -47,8 +47,14 @@ The spans the port opens, named ``layer.what``:
     step             one guided-step call (k, guided, cutn), and inside it
     step.unet        the model forward with p_mean_variance
     step.guidance    the guidance loss: cutouts, CLIP, the losses
+    guidance.clip    inside step.guidance: the CLIP image tower's forward
+                     over the cutouts, split over a mesh's devices where
+                     there is one (tower: "resnet" or "vit", images: cutouts
+                     times batch, resolution: the tower's input side)
     step.backward    torch.autograd.grad of the loss
     step.update      the gradient transform, the noise draw and the update
+                     (ancestral: 1 for the ancestral update, 0 for DDIM and
+                     DPM-Solver)
     images.to_host   a save point's prediction copied to the host (waits for
                      the device's queued work)
     images.write     one log_image: the PNG encode and its writes (k,

@@ -9,6 +9,9 @@ CPU (toy models: CGD_TPU_DEBUG_TINY=1, random weights, 64px, f32).
   open, all under one request id; two calls give two.
 - The clock: an operator that ``torch.profiler`` records inside a span has
   its kineto start and end inside the span's interval.
+- ``guidance.clip`` opens once inside each guided step's ``step.guidance``
+  with the tower's counts, ``step.update`` says whether the update is
+  ancestral, and the report gives the tower's ms a step and its idle.
 """
 
 import json
@@ -250,11 +253,51 @@ def test_the_reductions_read_recorded_spans():
     lambda s: span_report.idle_in_step_pct(s, [], 0, 10),
     lambda s: span_report.read_gb_per_s(s),
     lambda s: span_report.models_hit_share(s),
+    lambda s: span_report.clip_ms_per_step(s),
 ], ids=["weights_load_ms", "step_host_ms", "frame_write_ms", "idle_in_step_pct",
-        "read_gb_per_s", "models_hit_share"])
+        "read_gb_per_s", "models_hit_share", "clip_ms_per_step"])
 def test_each_reduction_reads_none_from_nothing(reduce):
     assert reduce([]) is None
     assert reduce([_d("api.prompts", 1, None, 5, 6)]) is None
+
+
+@pytest.mark.parametrize("respacing,ancestral", [("ddim5", 0), ("5", 1)],
+                         ids=["ddim", "ancestral"])
+def test_the_clip_tower_span_and_the_update_kind(tracer, tiny, respacing, ancestral):
+    """``guidance.clip`` opens once in each guided step's ``step.guidance``,
+    with the tower's kind, the images it encodes (cutouts times batch) and
+    its input side; ``step.update`` says whether the update is ancestral."""
+    list(tapi.clip_guided_diffusion(**dict(KW, timestep_respacing=respacing), batch_size=2,
+                                    prefix_path=tiny / "a"))
+    spans = tracer.take()
+    kids = _children(spans)
+    steps = [s for s in spans if s.name == "step"]
+    assert len(steps) == 5 and all(s.counts["guided"] for s in steps)
+    for s in steps:
+        (guidance,) = [c for c in kids[s.id] if c.name == "step.guidance"]
+        (clip,) = kids[guidance.id]
+        assert clip.name == "guidance.clip"
+        assert clip.counts == {"tower": "vit", "images": 4, "resolution": 224}
+        assert guidance.start_ns <= clip.start_ns <= clip.end_ns <= guidance.end_ns
+        (update,) = [c for c in kids[s.id] if c.name == "step.update"]
+        assert update.counts == {"ancestral": ancestral}
+    assert sum(s.name == "guidance.clip" for s in spans) == 5
+
+
+def test_the_clip_tower_time_a_step_and_its_idle():
+    ms = 1_000_000
+    recorded = RECORDED + [_d("guidance.clip", 30, 6, 205, 225, tower="resnet", images=16,
+                              resolution=384)]
+    assert span_report.clip_ms_per_step(recorded, 100 * ms, 400 * ms) == 20.0
+    assert span_report.clip_ms_per_step(recorded, 500 * ms, 1000 * ms) is None
+    assert span_report.clip_ms_per_step(RECORDED) is None
+    # the device busy [150, 210) ms of [150, 260): idle 15 ms under the
+    # tower, 5 + 30 under step.guidance
+    rep = span_report.report(recorded, [(150 * ms, 210 * ms)], 150 * ms, 260 * ms)
+    assert rep["clip_ms_per_step"] == 20.0
+    assert rep["idle_s_by_span"]["guidance.clip"] == pytest.approx(0.015)
+    assert rep["idle_s_by_span"]["step.backward"] == pytest.approx(0.030)
+    assert rep["idle_s_by_span"]["step.guidance"] == pytest.approx(0.005)
 
 
 def test_innermost_names_each_piece_by_the_latest_begun_span():
