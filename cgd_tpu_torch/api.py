@@ -26,7 +26,11 @@ guided step), W&B (``wandb_project``: the scalars and the per-step
 triptych; without ``wandb`` the run says so and goes on), ``async_frames``
 (PNG writes on a background thread), ``stall_pet`` (a progress callback for
 ``utils.watchdog.StallDetector``) and ``device_lock`` (the serving daemon's
-lock around the device-heavy part of a run). Nothing is refused. A
+lock around the device-heavy part of a run). Nothing is refused. On one
+card the guided steps replay CUDA graphs (``diffusion/sampler.py``) except
+with a ``mesh``, ``log_losses`` / W&B (the losses read on the host each
+step) or a ``device_lock``, whose other holders prepare on the card while
+this call samples (a capture fails under another thread's device work). A
 checkpoint's UNet and CLIP stay on the device between calls in one process
 (``weights.py``'s model cache): a call with the same files, configuration,
 device and ``compute_dtype`` as the last one reuses its modules. With
@@ -553,7 +557,7 @@ def clip_guided_diffusion(
                         })
 
             builder = make_guidance_builder(
-                clip_model, clip_cfg, target_embeds, weights, diffusion, settings,
+                clip_model, clip_cfg, target_embeds, weights, settings,
                 cached_coords=cached_coords, mesh=mesh, lpips=lpips,
                 init_image=init_tensor if lpips is not None else None, loss_callback=loss_cb)
             sampler_cfg = SamplerConfig(
@@ -658,6 +662,7 @@ def clip_guided_diffusion(
                     noise_override=noise_steps, init_noise=init_noise,
                     final_frame_parity=strict_parity, progress_cb=progress_cb,
                     image_sink=image_sink, state_sink=state_sink, resume=resume_state,
+                    mesh=mesh, shared_device=device_lock is not None,
                 ):
                     with tracing.span("images.to_host", k=step_k):
                         frames = pred_x0.float().cpu().numpy()

@@ -7,6 +7,7 @@ steps with the fork's gradient conditioning. Images are NHWC float32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -52,6 +53,15 @@ class GaussianDiffusion:
         """arr[t] for a [B] index tensor, right-padded for NHWC broadcast (f32)."""
         vals = self._on(arr, t.device)[t]
         return vals.reshape(vals.shape + (1,) * (ndim - vals.ndim))
+
+    @functools.cached_property
+    def fixed_large_variance(self) -> np.ndarray:
+        """FIXED_LARGE's variance (the non-learned sigma): betas, with
+        posterior_variance[1] at t = 0."""
+        c = self.coeffs
+        if len(c.betas) > 1:
+            return np.append(c.posterior_variance[1], c.betas[1:])
+        return c.posterior_variance
 
     @property
     def num_timesteps(self) -> int:
@@ -109,13 +119,7 @@ class GaussianDiffusion:
             variance = torch.exp(log_variance)
         else:
             eps = model_output
-            # FIXED_LARGE: betas, with posterior_variance[1] at t=0
-            if len(c.betas) > 1:
-                var_arr = np.append(c.posterior_variance[1], c.betas[1:])
-            else:
-                var_arr = c.posterior_variance
-            variance = torch.as_tensor(var_arr.astype(np.float32), device=t.device)[t]
-            variance = variance.reshape((-1,) + (1,) * (nd - 1)) * torch.ones_like(x)
+            variance = self._bcast(self.fixed_large_variance, t, nd) * torch.ones_like(x)
             log_variance = torch.log(variance.clamp_min(1e-20))
         eps = eps.float()
         pred_xstart = self.predict_xstart_from_eps(x, t, eps)

@@ -11,7 +11,9 @@ gating) over the segments of ``segment_plan``, emitting (step,
 pred_xstart, x_t) at their save points, starting from an init image noised
 to the first step when the leading steps are skipped. After every segment
 it can hand its state to a ``state_sink``, and ``resume`` continues a run
-from such a state bit for bit (the generator's state travels with x).
+from such a state bit for bit (the generator's state travels with x). On
+one card each step function is captured as a CUDA graph after its first
+eager run and replayed from then on (``_StepGraph``), bit for bit.
 
 ``build_step_plan`` and ``segment_plan`` are copies of the JAX package's
 pure-Python plan helpers, pinned to the originals by
@@ -123,12 +125,29 @@ def segment_plan(
 ModelFn = Callable[..., torch.Tensor]
 
 
+class Blend(NamedTuple):
+    """The guidance blend of one step, x_in = pred_xstart * fac + x * rest,
+    fac = sqrt(1 - abar[ref_t]) (cgd/cgd.py:177): ``fac`` and ``rest`` = 1 -
+    fac, both rounded in float32 on the host, are 0-d float32 tensors on the
+    step's device, filled before the step runs, so that a replayed step
+    reads this step's values. ``ref_t`` is the host's index: a loss that
+    reads it needs the host every step (``GuidanceFns.host_reads``)."""
+
+    ref_t: int
+    fac: torch.Tensor
+    rest: torch.Tensor
+
+
 class GuidanceFns(NamedTuple):
-    """loss_fn(x, out: PMeanVariance, ref_t: int, gen) -> (scalar, log dict);
-    grad_transform(grad) -> (grad, log dict)."""
+    """loss_fn(x, out: PMeanVariance, blend: Blend, gen) -> (scalar, log dict);
+    grad_transform(grad) -> (grad, log dict). ``host_reads``: the step needs
+    the host inside it (a callback that reads the losses as floats, data
+    made on the host each step), so it is never replayed from a CUDA
+    graph."""
 
     loss_fn: Callable
     grad_transform: Callable
+    host_reads: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,19 +168,20 @@ class SamplerConfig:
     dpm_solver: bool = False
 
 
-def make_guided_step(
-    diffusion: GaussianDiffusion,
-    model_fn: ModelFn,
-    guidance: Optional[GuidanceFns],
-    cfg: SamplerConfig,
-):
-    """Returns step(x, t, ref_t, y, gen, noise_override=None, dpm_state=None)
-    -> (x_next, pred_xstart, y_next, log), and with ``cfg.dpm_solver``
+class GuidedStep:
+    """step(x, t, ref_t, y, gen, noise_override=None, dpm_state=None) ->
+    (x_next, pred_xstart, y_next, log), and with ``cfg.dpm_solver``
     (x_next, pred_xstart, y_next, log, x0_guided). ``t`` is the spaced
     timestep and ``ref_t`` the reference-bookkeeping timestep the guidance
     blend's `fac` lookup uses (cgd/cgd.py:177 quirk). ``dpm_state`` =
     (x0_prev, t_prev, first): the previous step's x0_guided, its timestep
     and whether this is the run's first step.
+
+    The step's per-step values live in device tensors of the step's own,
+    filled in place before each call (``inputs``: t and t_prev with
+    ``fill_``, the blend's ``Blend.fac`` / ``rest``), and ``core`` is the
+    step over tensors alone, so that a CUDA graph of ``core``
+    (``_StepGraph``) replays it at every step.
 
     Random draws come from ``gen``, in this order: the class labels
     (``randomize_class``), the guidance's cutout coordinates, its
@@ -173,14 +193,47 @@ def make_guided_step(
     under ``torch.no_grad()`` and the loss is differentiated with respect to
     x through the blend alone: no UNet graph is built or kept."""
 
-    def step(x, t: int, ref_t: int, y, gen: torch.Generator, noise_override=None,
-             dpm_state=None):
+    def __init__(self, diffusion: GaussianDiffusion, model_fn: ModelFn,
+                 guidance: Optional[GuidanceFns], cfg: SamplerConfig):
+        self.diffusion, self.model_fn, self.guidance, self.cfg = diffusion, model_fn, guidance, cfg
+        self._sqrt_om = np.asarray(diffusion.sqrt_one_minus_alphas_cumprod, np.float32)
+        self._bufs = None  # (t, t_prev, fac, rest)
+
+    @property
+    def host_reads(self) -> bool:
+        return self.guidance is not None and self.guidance.host_reads
+
+    def inputs(self, x, t: int, ref_t: int, t_prev: int):
+        """The step's t, t_prev ([B] long) and blend, filled in place (made
+        anew for another batch or device)."""
+        b, dev = x.shape[0], x.device
+        if self._bufs is None or self._bufs[0].shape[0] != b or self._bufs[0].device != dev:
+            self._bufs = (torch.empty(b, dtype=torch.long, device=dev),
+                          torch.empty(b, dtype=torch.long, device=dev),
+                          torch.empty((), dtype=torch.float32, device=dev),
+                          torch.empty((), dtype=torch.float32, device=dev))
+        t_batch, tp_batch, fac, rest = self._bufs
+        t_batch.fill_(t)
+        tp_batch.fill_(t_prev)
+        f = self._sqrt_om[ref_t]  # f32, as the JAX blend
+        fac.fill_(float(f))
+        rest.fill_(float(np.float32(1.0) - f))
+        return t_batch, tp_batch, Blend(ref_t, fac, rest)
+
+    def __call__(self, x, t: int, ref_t: int, y, gen: torch.Generator, noise_override=None,
+                 dpm_state=None):
+        x0_prev, t_prev, first = dpm_state if dpm_state is not None else (None, t, False)
+        t_batch, tp_batch, blend = self.inputs(x, t, ref_t, t_prev)
+        return self.core(x, t_batch, blend, y, gen, noise_override, x0_prev, tp_batch, first)
+
+    def core(self, x, t_batch, blend: Blend, y, gen: torch.Generator, noise_override, x0_prev,
+             tp_batch, first: bool):
+        diffusion, guidance, cfg = self.diffusion, self.guidance, self.cfg
         if cfg.randomize_class and y is not None:
             y = torch.randint(0, cfg.num_classes, y.shape, generator=gen, device=y.device)
-        t_batch = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
 
         def forward(x_):
-            model_out = model_fn(x_, diffusion.model_time(t_batch), y)
+            model_out = self.model_fn(x_, diffusion.model_time(t_batch), y)
             return diffusion.p_mean_variance(
                 model_out, x_, t_batch, clip_denoised=cfg.clip_denoised)
 
@@ -196,7 +249,7 @@ def make_guided_step(
                     with span("step.unet"):
                         out = forward(x_)
                 with span("step.guidance"):
-                    loss, log = guidance.loss_fn(x_, out, ref_t, gen)
+                    loss, log = guidance.loss_fn(x_, out, blend, gen)
                 with span("step.backward"):
                     (grads,) = torch.autograd.grad(loss, x_)
         else:
@@ -209,8 +262,6 @@ def make_guided_step(
                 grad, glog = guidance.grad_transform(-grads)  # negative gradient
                 log = {**log, **glog}
             if cfg.dpm_solver:
-                x0_prev, t_prev, first = dpm_state
-                tp_batch = torch.full_like(t_batch, t_prev)
                 with torch.no_grad():
                     x_next, x0g = diffusion.dpm_solver2m_step(
                         out, x, t_batch, tp_batch, first, x0_prev, grad)
@@ -225,7 +276,100 @@ def make_guided_step(
                     x_next = diffusion.p_sample_step(out, x, t_batch, noise, grad)
             return x_next, out.pred_xstart, y, log
 
-    return step
+
+def make_guided_step(
+    diffusion: GaussianDiffusion,
+    model_fn: ModelFn,
+    guidance: Optional[GuidanceFns],
+    cfg: SamplerConfig,
+) -> GuidedStep:
+    """The guided step (``GuidedStep``), run eagerly at each call."""
+    return GuidedStep(diffusion, model_fn, guidance, cfg)
+
+
+def _captures(device: torch.device, mesh, host_reads: bool, shared_device: bool) -> bool:
+    """The graph rule: a step is captured as a CUDA graph and replayed when
+    it runs on one CUDA device, nothing inside it needs the host and no
+    other thread works on the device meanwhile. It runs eagerly every time
+    on the CPU, over a ``mesh`` (the model and the guidance split over its
+    devices), where its guidance reads on the host
+    (``GuidanceFns.host_reads``: a loss callback) and on a
+    ``shared_device``: another thread's allocation, copy or
+    synchronization during a capture fails both (the serving daemon
+    prepares the next request on the card while one samples)."""
+    return device.type == "cuda" and mesh is None and not host_reads and not shared_device
+
+
+def _copied(out):
+    """The step's outputs, out of the graph's static buffers."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: v.clone() for k, v in out.items()}
+    return out
+
+
+class _StepGraph:
+    """A ``GuidedStep`` (its key ``key``) as one CUDA graph of its ``core``,
+    captured at the first call and replayed at every call; the same
+    signature and results as the step, bit for bit.
+
+    The inputs that change per step are static tensors: t, t_prev and the
+    blend (the step's own, filled by ``GuidedStep.inputs``), and copies of
+    x, y, the noise override and x0_prev, refilled before each replay.
+    ``gen`` is registered with the graph, so each replay draws the class
+    labels, cutout coordinates, augmentations and step noise from the
+    generator's offset at that time and advances it as the eager step does.
+    The outputs are static tensors too, and each call returns copies of
+    them. The graphs of one ``sample_loop`` call share the memory ``pool``;
+    nothing of them outlives the call.
+
+    The kernels' launch counters (``kernels.launch_counters``) count at a
+    launch from the host; a replay launches what its capture recorded and
+    adds those counts, so they read as under the eager step."""
+
+    def __init__(self, step: GuidedStep, key, gen: torch.Generator, pool):
+        self.step, self.key, self.gen, self.pool = step, key, gen, pool
+        self.graph = None
+
+    def __call__(self, x, t: int, ref_t: int, y, gen: torch.Generator, noise_override=None,
+                 dpm_state=None):
+        x0_prev, t_prev, first = dpm_state if dpm_state is not None else (None, t, False)
+        t_batch, tp_batch, blend = self.step.inputs(x, t, ref_t, t_prev)
+        if first or gen is not self.gen or self.graph is not None and t_batch is not self.t:
+            raise ValueError("a graphed step runs one batch on one device from one generator, "
+                             "and not a run's first step")
+        if self.graph is None:
+            self.static = [None if v is None else v.clone() for v in (x, y, noise_override,
+                                                                       x0_prev)]
+            self._capture(t_batch, blend, tp_batch)
+        else:
+            for buf, v in zip(self.static, (x, y, noise_override, x0_prev)):
+                if buf is not None:
+                    buf.copy_(v)
+        self.graph.replay()
+        for counter, name, n in self.launches:
+            counter[name] += n
+        return tuple(_copied(o) for o in self.outs)
+
+    def _capture(self, t_batch, blend: Blend, tp_batch) -> None:
+        from cgd_tpu_torch.kernels import launch_counters
+
+        guided, cutn = self.key
+        x, y, noise, x0_prev = self.static
+        before = {(id(c), k): n for c in launch_counters() for k, n in c.items()}
+        with span("step.capture", guided=guided, cutn=cutn):
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.gen)
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.outs = self.step.core(x, t_batch, blend, y, self.gen, noise, x0_prev,
+                                           tp_batch, False)
+        # what the capture counted is launched at each replay, and counted there
+        self.launches = [(c, k, n - before.get((id(c), k), 0)) for c in launch_counters()
+                         for k, n in c.items() if n > before.get((id(c), k), 0)]
+        for counter, name, n in self.launches:
+            counter[name] -= n
+        self.graph, self.t = graph, t_batch
 
 
 def sample_loop(
@@ -251,6 +395,8 @@ def sample_loop(
     image_sink=None,
     state_sink=None,
     resume: Optional[dict] = None,
+    mesh=None,
+    shared_device: bool = False,
 ) -> Iterator[Tuple[int, torch.Tensor, torch.Tensor]]:
     """Run the guided schedule, yielding (step_index, pred_xstart, x_t) at
     the save points: every ``save_frequency`` steps plus the final step
@@ -284,7 +430,16 @@ def sample_loop(
     segments see the draws the uninterrupted run saw (class labels, cutout
     coordinates, augmentations, step noise, in that order per step) and
     give its frames bit for bit. The JAX package derives each segment's key
-    from the seed instead, so its checkpoints carry no generator state."""
+    from the seed instead, so its checkpoints carry no generator state.
+
+    On one CUDA device (``_captures``: no ``mesh``, the model and guidance
+    split over its devices, no guidance that reads on the host, and not a
+    ``shared_device``, which other threads use during the loop) each key's
+    first step runs eagerly, its second is captured as a CUDA graph
+    (``_StepGraph``), and that graph is replayed for the key's every later
+    step: the same kernels, draws and results, bit for bit, without the
+    host's dispatch of each operation. The graphs are freed when the call
+    ends."""
     plan = build_step_plan(diffusion.num_timesteps, skip_timesteps, reduce_clip,
                            progressive_cutout, num_cutouts)
     segments, save_at = segment_plan(plan, save_frequency, final_frame_parity, skip_timesteps)
@@ -325,7 +480,9 @@ def sample_loop(
         if cfg.dpm_solver:
             x0p = torch.as_tensor(resume["x0p"], dtype=torch.float32).to(device)
         gen.set_state(torch.as_tensor(resume["generator"], dtype=torch.uint8).cpu())
-    steps = {}  # one step function per distinct (guided, cutn)
+    steps = {}  # one step function per distinct (guided, cutn), and then its graph
+    graph_next = {}  # the keys whose next step is captured (the rule, asked once a key)
+    pool = None  # the memory pool of this call's graphs
     for si, (k0, seg) in enumerate(segments):
         if si < start_seg:
             continue  # done by the checkpointed run
@@ -333,14 +490,21 @@ def sample_loop(
             logs, noisy, preds = [], [], []
             for k, meta in enumerate(seg, start=k0):
                 key = (meta.guided, meta.cutn)
-                if key not in steps:
+                step = steps.get(key)
+                if step is None:  # a key's first step runs eagerly, the run's first among them
                     guidance = guidance_builder(meta) if meta.guided else None
-                    steps[key] = make_guided_step(diffusion, model_fn, guidance, cfg)
+                    step = steps[key] = make_guided_step(diffusion, model_fn, guidance, cfg)
+                    graph_next[key] = isinstance(step, GuidedStep) and _captures(
+                        device, mesh, step.host_reads, shared_device)
+                elif graph_next.pop(key, False):
+                    pool = torch.cuda.graph_pool_handle() if pool is None else pool
+                    step = steps[key] = _StepGraph(step, key, gen, pool)
                 ref_t = diffusion.num_timesteps - 1 - k
                 x_in = x
-                with span("step", k=k, guided=meta.guided, cutn=meta.cutn):
+                with span("step", k=k, guided=meta.guided, cutn=meta.cutn,
+                          graph=int(isinstance(step, _StepGraph))):
                     if cfg.dpm_solver:  # deterministic: no step noise
-                        x, pred_x0, y, log, x0p = steps[key](
+                        x, pred_x0, y, log, x0p = step(
                             x, meta.t, ref_t, y, gen,
                             dpm_state=(x0p, plan[max(k - 1, 0)].t, k == 0))
                     else:
@@ -348,8 +512,7 @@ def sample_loop(
                         if noise_override is not None:
                             nz = torch.as_tensor(noise_override[k], dtype=torch.float32,
                                                  device=device)
-                        x, pred_x0, y, log = steps[key](x, meta.t, ref_t, y, gen,
-                                                        noise_override=nz)
+                        x, pred_x0, y, log = step(x, meta.t, ref_t, y, gen, noise_override=nz)
                 if meta.guided:
                     if loss_sink is not None:
                         logs.append(log)

@@ -1,11 +1,11 @@
 """The CLIP guidance loss, counterpart of ``cgd_tpu/guidance/pipeline.py``:
-blend x̂₀ with x by fac = sqrt(1-ᾱ[ref_t]), cut out `cutn` crops, CLIP-encode
-them, weighted spherical distances against the prompt embeddings, plus the
-range / TV / saturation losses and, with an init image, the LPIPS VGG
-distance of the blend to it times ``init_scale``. ``use_augs`` augments the
-cutouts before CLIP (``cutouts.draw_augs`` then ``apply_augs``). The sampler
-differentiates the returned scalar with respect to x through UNet, cutouts,
-CLIP and the VGG.
+blend x̂₀ with x by the step's ``Blend`` (fac = sqrt(1-ᾱ[ref_t])), cut out
+`cutn` crops, CLIP-encode them, weighted spherical distances against the
+prompt embeddings, plus the range / TV / saturation losses and, with an
+init image, the LPIPS VGG distance of the blend to it times
+``init_scale``. ``use_augs`` augments the cutouts before CLIP
+(``cutouts.draw_augs`` then ``apply_augs``). The sampler differentiates the
+returned scalar with respect to x through UNet, cutouts, CLIP and the VGG.
 
 With a mesh the cutouts are split over every mesh device (the JAX package's
 ``cutout_sharding``), CLIP runs on each, and the embeddings are gathered in
@@ -20,8 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cgd_tpu_torch.diffusion.gaussian import GaussianDiffusion, PMeanVariance
-from cgd_tpu_torch.diffusion.sampler import GuidanceFns, StepMeta
+from cgd_tpu_torch.diffusion.gaussian import PMeanVariance
+from cgd_tpu_torch.diffusion.sampler import Blend, GuidanceFns, StepMeta
 from cgd_tpu_torch.guidance import cutouts as _cutouts
 from cgd_tpu_torch.guidance.cutouts import CutoutSpec, make_cutouts, sample_cutout_coords
 from cgd_tpu_torch.guidance.losses import (
@@ -55,7 +55,6 @@ def make_guidance_builder(
     clip_cfg: CLIPConfig,
     target_embeds: torch.Tensor,  # [P, D] f32
     weights: torch.Tensor,  # [P] f32, normalized (sum |.| = 1)
-    diffusion: GaussianDiffusion,
     settings: GuidanceSettings,
     *,
     cached_coords: Optional[CutoutSpec] = None,
@@ -74,13 +73,14 @@ def make_guidance_builder(
     taps are computed anew every step, as in the JAX package. A
     ``loss_callback`` gets each guided step's loss scalars, then its
     gradient scalars, as floats (a device sync per step), as the JAX
-    package's host callback does."""
+    package's host callback does; such a step reads on the host
+    (``GuidanceFns.host_reads``), so it is never replayed from a CUDA
+    graph."""
     use_init_loss = lpips is not None and init_image is not None
     clip_size = clip_cfg.input_resolution
     device = target_embeds.device
     mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=device)
     std = torch.tensor(CLIP_STD, dtype=torch.float32, device=device)
-    sqrt_om = np.asarray(diffusion.sqrt_one_minus_alphas_cumprod, np.float32)
     compute_dtype = torch.bfloat16 if settings.clip_compute_dtype == "bfloat16" else torch.float32
     visuals = None if mesh is None else shard_params_replicated(clip_model.visual, mesh)
 
@@ -100,10 +100,9 @@ def make_guidance_builder(
     def builder(meta: StepMeta) -> GuidanceFns:
         cutn = meta.cutn
 
-        def loss_fn(x, out: PMeanVariance, ref_t: int, gen: torch.Generator):
+        def loss_fn(x, out: PMeanVariance, blend: Blend, gen: torch.Generator):
             b, side_y, side_x = x.shape[0], x.shape[1], x.shape[2]
-            fac = sqrt_om[ref_t]  # f32, as the JAX blend
-            x_in = out.pred_xstart * float(fac) + x * float(np.float32(1.0) - fac)
+            x_in = out.pred_xstart * blend.fac + x * blend.rest
             if cached_coords is not None:
                 spec = CutoutSpec(*(c[:cutn] for c in cached_coords))
             else:
@@ -149,7 +148,7 @@ def make_guidance_builder(
                 loss_callback({k: float(v) for k, v in log.items()})
             return grad, log
 
-        return GuidanceFns(loss_fn, grad_transform)
+        return GuidanceFns(loss_fn, grad_transform, host_reads=loss_callback is not None)
 
     return builder
 

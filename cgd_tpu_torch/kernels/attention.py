@@ -55,6 +55,7 @@ HEAD_DIMS = (64, 128, 192, 256)  # the kernels' templates
 
 # launches of each kernel since the last reset_launch_counts(), in all and by
 # the caller's head dim (a padded one under its own d)
+# (a replayed CUDA graph adds what its capture counted: launch_counters)
 LAUNCHES = {"attn_fwd": 0, "attn_bwd": 0, "attn_fwd_f32": 0, "attn_bwd_f32": 0}
 LAUNCHES_BY_D = {d: dict.fromkeys(LAUNCHES, 0) for d in HEAD_DIMS}
 

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from cgd_tpu_torch.kernels import _build
 
 # launches of each kernel since the last reset_launch_counts()
+# (a replayed CUDA graph adds what its capture counted: launch_counters)
 LAUNCHES = {"conv3x3_fwd": 0, "conv3x3_fwd_halo": 0, "conv3x3_dx": 0, "conv3x3_dx_wtiled": 0,
             "conv3x3_fwd_f32": 0, "conv3x3_fwd_halo_f32": 0, "conv3x3_dx_f32": 0}
 

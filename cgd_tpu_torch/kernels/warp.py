@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from cgd_tpu_torch.kernels import _build
 
 # launches of each kernel since the last reset_launch_counts()
+# (a replayed CUDA graph adds what its capture counted: launch_counters)
 LAUNCHES = {"warp_bwd": 0, "warp_index": 0}
 
 TAPS = 4  # the bilinear corners, in map_coordinates' order

@@ -17,6 +17,7 @@ applied to this tree: the distance runs in f32.
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import torch
@@ -80,10 +81,17 @@ def vgg_taps(model: VGGLPIPS, x: torch.Tensor) -> List[torch.Tensor]:
     return taps
 
 
+@functools.lru_cache(maxsize=None)
+def _shift_scale(device: torch.device):
+    """LPIPS' input shift and scale on ``device``, made once: a step that
+    a CUDA graph replays copies nothing from the host."""
+    return (torch.tensor(_SHIFT, dtype=torch.float32, device=device),
+            torch.tensor(_SCALE, dtype=torch.float32, device=device))
+
+
 def lpips_distance(model: VGGLPIPS, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Perceptual distance of x and y, [B, H, W, 3] in [-1, 1] -> [B]."""
-    shift = torch.tensor(_SHIFT, dtype=torch.float32, device=x.device)
-    scale = torch.tensor(_SCALE, dtype=torch.float32, device=x.device)
+    shift, scale = _shift_scale(x.device)
 
     def prep(im):
         return (im.float() - shift) / scale

@@ -31,7 +31,9 @@ the weights' model cache, already on the card. In-flight requests are
 bounded by a semaphore of 3. ``CGD_TPU_SERVE_PIPELINE=0`` serializes whole
 requests (the control arm of a throughput comparison); it takes the lock
 BEFORE arming the stall detector, so a request queued behind another is not
-taken for a stall.
+taken for a stall. Pipelined requests run their guided steps eagerly: a
+CUDA graph's capture fails under another thread's device work (the API's
+``device_lock`` says so to the sampler); serialized ones replay graphs.
 
 ``--warmup SIZE:RESPACE[:CUTN]`` runs the real generator once per spec
 before the port is bound (``cgd_tpu_torch/warmup.py``: the kernels' build,

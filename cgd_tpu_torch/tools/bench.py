@@ -227,8 +227,8 @@ def make_step(unet, clip, clip_cfg: CLIPConfig, diffusion, cutn: int, use_ddim: 
     settings = GuidanceSettings(
         clip_compute_dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
     builder = make_guidance_builder(
-        clip, clip_cfg, torch.from_numpy(target).to(dev), torch.ones(1, device=dev), diffusion,
-        settings, cached_coords=cached_coords)
+        clip, clip_cfg, torch.from_numpy(target).to(dev), torch.ones(1, device=dev), settings,
+        cached_coords=cached_coords)
 
     def model_fn(x, t_model, y):
         return unet(x, t_model, y, compute_dtype=dtype)

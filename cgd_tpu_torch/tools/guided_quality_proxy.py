@@ -137,17 +137,16 @@ def build_model_fn(device) -> Callable:
 # guidance builders (the sampler's GuidanceFns contract)
 # ---------------------------------------------------------------------------
 
-def _blend(diffusion, x, out, ref_t: int):
-    fac = np.asarray(diffusion.sqrt_one_minus_alphas_cumprod, np.float32)[ref_t]
-    return out.pred_xstart * float(fac) + x * float(np.float32(1.0) - fac)
+def _blend(x, out, blend):
+    return out.pred_xstart * blend.fac + x * blend.rest
 
 
-def make_solver_builder(diffusion, embed, target):
+def make_solver_builder(embed, target):
     """The whole-image toy-CLIP loss (the solver table: no cutouts)."""
 
     def builder(meta):
-        def loss_fn(x, out, ref_t, gen):
-            return CGS * spherical(embed(_blend(diffusion, x, out, ref_t)), target).sum(), {}
+        def loss_fn(x, out, blend, gen):
+            return CGS * spherical(embed(_blend(x, out, blend)), target).sum(), {}
 
         return GuidanceFns(loss_fn, lambda g: (g, {}))
 
@@ -173,19 +172,20 @@ def step_coords(ref_t: int, cutn: int, side: int = SHAPE[1], seed: int = COORD_S
     return cutout_coords(jax_prng.fold_in(jax_prng.prng_key(seed), ref_t), cutn, side)
 
 
-def make_flag_builder(diffusion, embed, target, cached_cutouts: bool, coords=step_coords):
+def make_flag_builder(embed, target, cached_cutouts: bool, coords=step_coords):
     """The cutout toy-CLIP loss (the flag table): meta.cutn real cutouts of
     x_in, the coordinates ``coords(ref_t, cutn)`` (fresh per step) or
     ``coords(0, cutn)`` (cached)."""
 
     def builder(meta):
-        def loss_fn(x, out, ref_t, gen):
-            c = coords(0 if cached_cutouts else ref_t, meta.cutn)
+        def loss_fn(x, out, blend, gen):
+            c = coords(0 if cached_cutouts else blend.ref_t, meta.cutn)
             spec = CutoutSpec(*(torch.from_numpy(np.asarray(a)).to(x.device) for a in c))
-            cuts = make_cutouts(_blend(diffusion, x, out, ref_t), spec, CUT_SIZE)
+            cuts = make_cutouts(_blend(x, out, blend), spec, CUT_SIZE)
             return CGS * spherical(embed(cuts), target).mean() * SHAPE[0], {}
 
-        return GuidanceFns(loss_fn, lambda g: (g, {}))
+        # the coordinates are made on the host each step
+        return GuidanceFns(loss_fn, lambda g: (g, {}), host_reads=True)
 
     return builder
 
@@ -206,7 +206,7 @@ def run_arm(n_steps: int, mode: str, model_fn, builder_for, x_start, *, device,
     off.enter()
     try:
         for _k, _pred, x in sample_loop(
-                d, model_fn, builder_for(d, cached_cutouts), SHAPE,
+                d, model_fn, builder_for(cached_cutouts), SHAPE,
                 torch.Generator(device).manual_seed(0), cfg, skip_timesteps=skip,
                 reduce_clip=reduce_clip, progressive_cutout=progressive_cutout,
                 num_cutouts=num_cutouts, save_frequency=10 ** 9,
@@ -252,8 +252,8 @@ def solver_parts(device):
     model_fn = build_model_fn(device)
     embed, target = build_tower(device)
 
-    def builder_for(d, cached):
-        return make_solver_builder(d, embed, target)
+    def builder_for(cached):
+        return make_solver_builder(embed, target)
 
     def objective(final):
         with torch.no_grad():
@@ -284,8 +284,8 @@ def compute_flag_table(device="cuda") -> Dict[str, Dict[str, float]]:
     model_fn = build_model_fn(dev)
     embed, target = build_tower(dev)
 
-    def builder_for(d, cached):
-        return make_flag_builder(d, embed, target, cached)
+    def builder_for(cached):
+        return make_flag_builder(embed, target, cached)
 
     # one evaluation cutout set for every arm, under PRNGKey(EVAL_SEED) itself
     eval_spec = CutoutSpec(*(torch.from_numpy(a).to(dev) for a in cutout_coords(

@@ -9,7 +9,7 @@ events and the spans on a row of their own, one clock) and prints one JSON
 object: each span name's count, total and median ms; the guided step's
 split (the median ms a step of each ``step.*`` phase and of the step's own
 remainder) and, beside it, the CLIP image tower's share of
-``step.guidance`` (``clip_ms_per_step``); the weights read's GB/s; the five
+``step.guidance`` (``clip_ms_per_step``); the weights read's GB/s; the
 reductions below over the whole trace; and, where the trace holds device
 operations, the device's idle seconds by the innermost span open at the
 time on the request's thread ("no span" where none is; ``guidance.clip``
@@ -25,9 +25,15 @@ and device operations as ``(start_ns, end_ns)`` on the same clock; ``lo`` /
   resolved that came from the model cache (their ``hits`` over ``hits`` and
   ``misses``); in a process that calls the API n times with the same
   checkpoint files, (n - 1) / n;
-- ``step_host_ms``: the median over the window's guided ``step`` spans
-  (those overlapping ``outside``, a profiled stretch, left out) of their
-  host duration;
+- ``step_host_ms``: the median over the window's guided eager ``step``
+  spans (``graph`` 0: a replayed step's span times one graph launch;
+  those overlapping ``outside``, a profiled stretch, left out) of their
+  host duration; the step's phase split and ``clip_ms_per_step`` read the
+  same steps;
+- ``replayed_share``: the share of the window's ``step`` spans that
+  replayed a CUDA graph (``graph`` 1);
+- ``capture_ms``: the median over the window's ``step.capture`` spans of
+  their duration;
 - ``frame_write_ms``: the median over the window's save points of the
   summed ``images.write`` spans of that save point (``images.to_host``,
   which waits for the device's queued work, left out);
@@ -150,11 +156,12 @@ def models_hit_share(spans, lo=None, hi=None) -> Optional[float]:
 
 
 def _steps(spans, lo=None, hi=None, outside=None) -> List[Dict]:
-    """The guided ``step`` spans begun in the window and not overlapping
-    ``outside`` (start_ns, end_ns)."""
+    """The guided eager ``step`` spans begun in the window and not
+    overlapping ``outside`` (start_ns, end_ns)."""
     out = []
     for d in as_dicts(spans):
-        if d["name"] != "step" or not d["counts"].get("guided") or not _in(d, lo, hi):
+        c = d["counts"]
+        if d["name"] != "step" or not c.get("guided") or c.get("graph") or not _in(d, lo, hi):
             continue
         if outside is not None and d["end_ns"] > outside[0] and d["start_ns"] < outside[1]:
             continue
@@ -164,6 +171,16 @@ def _steps(spans, lo=None, hi=None, outside=None) -> List[Dict]:
 
 def step_host_ms(spans, lo=None, hi=None, outside=None) -> Optional[float]:
     return _median([_ms(d) for d in _steps(spans, lo, hi, outside)])
+
+
+def replayed_share(spans, lo=None, hi=None) -> Optional[float]:
+    steps = [d for d in as_dicts(spans) if d["name"] == "step" and _in(d, lo, hi)]
+    return sum(bool(d["counts"].get("graph")) for d in steps) / len(steps) if steps else None
+
+
+def capture_ms(spans, lo=None, hi=None) -> Optional[float]:
+    return _median([_ms(d) for d in as_dicts(spans)
+                    if d["name"] == "step.capture" and _in(d, lo, hi)])
 
 
 def step_phases_ms(spans, lo=None, hi=None, outside=None) -> Dict[str, Optional[float]]:
@@ -261,6 +278,8 @@ def report(spans, device=(), lo=None, hi=None, outside=None) -> Dict:
         "weights_load_ms": weights_load_ms(ds, lo, hi),
         "models_hit_share": models_hit_share(ds, lo, hi),
         "step_host_ms": step_host_ms(ds, lo, hi, outside),
+        "replayed_share": replayed_share(ds, lo, hi),
+        "capture_ms": capture_ms(ds, lo, hi),
         "frame_write_ms": frame_write_ms(ds, lo, hi),
     }
     if device and ds:

@@ -44,7 +44,12 @@ The spans the port opens, named ``layer.what``:
     api.prompts      the prompt encoding (prompts)
     loop.segment     one sample_loop segment, its sinks included (first,
                      steps)
-    step             one guided-step call (k, guided, cutn), and inside it
+    step             one guided-step call (k, guided, cutn; graph: 1 where
+                     the call replays the step's CUDA graph, 0 where it runs
+                     eagerly); the phases below open inside an eager step
+                     and inside a capture, not under a replay, where the
+                     host does none of their work
+    step.capture     inside a step: its CUDA graph captured (guided, cutn)
     step.unet        the model forward with p_mean_variance
     step.guidance    the guidance loss: cutouts, CLIP, the losses
     guidance.clip    inside step.guidance: the CLIP image tower's forward

@@ -2483,11 +2483,12 @@ def phase_reduce_cli(k3, kattn, dev, out_dir: Path) -> None:
         def build(meta):
             fns = inner(meta)
 
-            def loss_fn(x, out, ref_t, gen):
-                guided.append((ref_t, meta.cutn, tuple(x.shape)))
-                return fns.loss_fn(x, out, ref_t, gen)
+            def loss_fn(x, out, blend, gen):
+                guided.append((blend.ref_t, meta.cutn, tuple(x.shape)))
+                return fns.loss_fn(x, out, blend, gen)
 
-            return fns._replace(loss_fn=loss_fn)
+            # it records on the host at every guided step: never replayed
+            return fns._replace(loss_fn=loss_fn, host_reads=True)
 
         return build
 
@@ -3898,15 +3899,15 @@ def _step_grads(dev, runs: int, out_dir: Path, **scales) -> list:
         def repeated(meta):
             fns = builder(meta)
 
-            def loss_fn(x, out, ref_t, gen):
+            def loss_fn(x, out, blend, gen):
                 if not grads:
                     state = gen.get_state()
                     for _ in range(runs):
                         gen.set_state(state)
-                        loss, _ = fns.loss_fn(x, out, ref_t, gen)
+                        loss, _ = fns.loss_fn(x, out, blend, gen)
                         grads.append(torch.autograd.grad(loss, x, retain_graph=True)[0])
                     gen.set_state(state)
-                return fns.loss_fn(x, out, ref_t, gen)
+                return fns.loss_fn(x, out, blend, gen)
 
             return GuidanceFns(loss_fn, fns.grad_transform)
 

@@ -82,7 +82,7 @@ def test_each_image_of_a_batch_is_its_lone_step(models, use_ddim):
     diff = tgauss.make_diffusion(steps=1000, timestep_respacing="ddim25" if use_ddim else "25")
     builder = tpipe.make_guidance_builder(
         models["clip"], models["tccfg"], torch.from_numpy(d["targets"]),
-        torch.from_numpy(d["weights"]), diff,
+        torch.from_numpy(d["weights"]),
         tpipe.GuidanceSettings(clip_guidance_scale=1000.0, tv_scale=150.0, range_scale=50.0,
                                clip_compute_dtype="float32"),
         cached_coords=CutoutSpec(*(torch.from_numpy(c) for c in d["coords"])))

@@ -960,7 +960,7 @@ def test_fast_guidance_launches_no_backward_kernel(dev, fast):
     unet = UNet(cfg, device=dev).init_weights(gen)
     cast_conv_params(unet, torch.bfloat16)
 
-    def loss_fn(x, out, ref_t, g):
+    def loss_fn(x, out, blend, g):
         return (out.pred_xstart * 0.5 + x * 0.5).square().sum(), {}
 
     step = make_guided_step(

@@ -157,7 +157,7 @@ def _pair(models, d, respacing):
         use_init_loss=True, cached_coords=JSpec(*d["coords"]))
     tbuilder = tpipe.make_guidance_builder(
         models["clip"], models["tccfg"], torch.from_numpy(d["targets"]),
-        torch.from_numpy(d["weights"]), tdiff, tpipe.GuidanceSettings(**settings),
+        torch.from_numpy(d["weights"]), tpipe.GuidanceSettings(**settings),
         cached_coords=TSpec(*(torch.from_numpy(c) for c in d["coords"])),
         lpips=models["lpips"],
         init_image=torch.from_numpy(d["init"]))

@@ -403,7 +403,7 @@ def test_one_guided_step_on_a_mesh_matches_jax(models):
         cached_coords=JSpec(*d["coords"]), mesh=jm)
     tb = tpipe.make_guidance_builder(
         models["clip"], models["tccfg"], torch.from_numpy(d["targets"]),
-        torch.from_numpy(d["weights"]), tdiff, tpipe.GuidanceSettings(**settings),
+        torch.from_numpy(d["weights"]), tpipe.GuidanceSettings(**settings),
         cached_coords=TSpec(*(torch.from_numpy(c) for c in d["coords"])), mesh=tm)
 
     def jmodel_split(params, x, t, r, y):

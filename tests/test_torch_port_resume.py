@@ -50,7 +50,7 @@ def _builder(meta):
     """A toy guidance that draws from the generator every guided step, as
     the cutouts do (so the generator's state matters to the result)."""
 
-    def loss_fn(x, out, ref_t, gen):
+    def loss_fn(x, out, blend, gen):
         w = torch.rand(x.shape, generator=gen, device=x.device)
         loss = 1e-3 * ((out.pred_xstart * w) ** 2).sum() * meta.cutn
         return loss, {"Total Loss": loss.detach()}

@@ -197,7 +197,7 @@ def test_recorded_noise_replays_and_leaves_the_other_draws_alone(models):
 
     builder = tpipe.make_guidance_builder(
         models["clip"], models["tccfg"], torch.from_numpy(d["targets"]),
-        torch.from_numpy(d["weights"]), tdiff,
+        torch.from_numpy(d["weights"]),
         tpipe.GuidanceSettings(clip_compute_dtype="float32", use_augs=True))
     cfg = tsampler.SamplerConfig(use_ddim=True, eta=0.5, randomize_class=True, num_classes=10)
     shape = (1, SIZE, SIZE, 3)

@@ -108,7 +108,7 @@ def test_a_flag_arm_matches_jax_with_the_same_coordinates(jq):
                        num_cutouts=tq.NUM_CUTOUTS, **flags)
     tembed, ttarget = tq.build_tower("cpu")
     got = tq.run_arm(10, "ddim", tq.build_model_fn("cpu"),
-                     lambda d, cached: tq.make_flag_builder(d, tembed, ttarget, cached), xs,
+                     lambda cached: tq.make_flag_builder(tembed, ttarget, cached), xs,
                      device="cpu", num_cutouts=tq.NUM_CUTOUTS, **flags)
     assert _rel(got, want) <= REL_TOL, _rel(got, want)
 

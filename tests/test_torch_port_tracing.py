@@ -12,6 +12,9 @@ CPU (toy models: CGD_TPU_DEBUG_TINY=1, random weights, 64px, f32).
 - ``guidance.clip`` opens once inside each guided step's ``step.guidance``
   with the tower's counts, ``step.update`` says whether the update is
   ancestral, and the report gives the tower's ms a step and its idle.
+- A step says whether it replayed a CUDA graph (``graph``, 0 on the CPU);
+  the report reads the host's step time over eager steps alone, the share
+  of steps replayed and the median ``step.capture``.
 """
 
 import json
@@ -142,6 +145,7 @@ def test_a_toy_call_gives_one_request_tree(tracer, tiny):
     steps = [s for g in segs for s in kids[g.id]]
     assert [s.counts["k"] for s in steps] == [0, 1, 2, 3, 4]
     assert all(s.name == "step" and s.counts["guided"] and s.counts["cutn"] == 2 for s in steps)
+    assert all(s.counts["graph"] == 0 for s in steps)  # eager on the CPU
     for s in steps:
         assert {c.name for c in kids[s.id]} == PHASES
         assert all(c.parent == s.id for c in kids[s.id])
@@ -246,6 +250,33 @@ def test_the_reductions_read_recorded_spans():
     assert sum(by.values()) == pytest.approx(0.185)  # the idle time, all of it named
 
 
+def test_the_replayed_steps_and_their_captures():
+    """``step_host_ms`` and the phase split read eager steps alone (a
+    replayed step's span times one graph launch); the share of steps
+    replayed and the median capture are read beside them."""
+    ms = 1_000_000
+    recorded = [
+        _d("step", 1, None, 0, 200, k=0, guided=True, cutn=16, graph=0),
+        _d("step.unet", 2, 1, 0, 50),
+        _d("step", 3, None, 200, 500, k=1, guided=True, cutn=16, graph=1),
+        _d("step.capture", 4, 3, 200, 450, guided=True, cutn=16),
+        _d("step.unet", 5, 4, 200, 260),
+        _d("step", 6, None, 500, 502, k=2, guided=True, cutn=16, graph=1),
+        _d("step", 7, None, 502, 504, k=3, guided=True, cutn=16, graph=1),
+        _d("step", 8, None, 504, 704, k=4, guided=True, cutn=8, graph=0),
+        _d("step", 9, None, 704, 804, k=5, guided=True, cutn=8, graph=1),
+        _d("step.capture", 10, 9, 704, 794, guided=True, cutn=8),
+    ]
+    assert span_report.step_host_ms(recorded) == 200.0
+    assert span_report.step_phases_ms(recorded)["step.unet"] == 25.0  # (50 + 0) / 2
+    assert span_report.replayed_share(recorded) == pytest.approx(4 / 6)
+    assert span_report.replayed_share(recorded, 500 * ms, 504 * ms) == 1.0
+    assert span_report.capture_ms(recorded) == 170.0  # (250 + 90) / 2
+    assert span_report.capture_ms(recorded, 0, 500 * ms) == 250.0
+    rep = span_report.report(recorded)
+    assert rep["replayed_share"] == pytest.approx(4 / 6) and rep["capture_ms"] == 170.0
+
+
 @pytest.mark.parametrize("reduce", [
     lambda s: span_report.weights_load_ms(s, 0, 1),
     lambda s: span_report.step_host_ms(s),
@@ -254,8 +285,10 @@ def test_the_reductions_read_recorded_spans():
     lambda s: span_report.read_gb_per_s(s),
     lambda s: span_report.models_hit_share(s),
     lambda s: span_report.clip_ms_per_step(s),
+    lambda s: span_report.replayed_share(s),
+    lambda s: span_report.capture_ms(s),
 ], ids=["weights_load_ms", "step_host_ms", "frame_write_ms", "idle_in_step_pct",
-        "read_gb_per_s", "models_hit_share", "clip_ms_per_step"])
+        "read_gb_per_s", "models_hit_share", "clip_ms_per_step", "replayed_share", "capture_ms"])
 def test_each_reduction_reads_none_from_nothing(reduce):
     assert reduce([]) is None
     assert reduce([_d("api.prompts", 1, None, 5, 6)]) is None
