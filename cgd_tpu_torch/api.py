@@ -2,55 +2,35 @@
 
 Counterpart of ``cgd_tpu/api.py``: same keyword names, same generator
 contract — yields ``(batch_idx, saved_frame_path)`` per saved frame — and the
-same output tree. The slice ported so far: text prompts with weights and
-image prompts, class-conditional or unconditional ADM UNet (64-512px) with
-the published checkpoints (``weights_mode="auto"``: the reference's
-``.pt`` files in ``checkpoints_dir``, converted once to the JAX package's
-``.npz.cgd`` cache) or random weights, any CLIP tower (ViT or
-ModifiedResNet, or a local ``.pt``), the CLIP BPE tokenizer, DDIM
-(``timestep_respacing="ddimN"``), ancestral or DPM-Solver++(2M)
-(``dpm_solver``) sampling, ``fast_guidance``, an init image with
-``skip_timesteps`` and the LPIPS VGG loss (``init_scale``), cutouts (fresh
-or cached, ``progressive_cutout``) and their augmentations (``use_augs``),
-``reduce_clip``, the spherical / TV / range / saturation losses, the
-magnitude clamp, non-square samples (``height_offset`` / ``width_offset``),
-recorded noise (``noise_file``: an npz of ``init`` [b, h, w, 3] and
-``steps`` [n, b, h, w, 3]), ``strict_parity`` either way, and ``mesh=``
-(``cgd_tpu_torch.parallel.mesh``): batch split over 'data', the UNet's
-activations split by height over 'cut' (every 3x3 conv on K-halo), the
-cutouts split over every mesh device. Also the JAX package's run services:
-``checkpoint_path`` / ``resume_from`` (the sampling state after every
-segment, the generator's state with it; a resumed run gives the
-uninterrupted run's frames), ``log_losses`` (a line of loss scalars per
-guided step), W&B (``wandb_project``: the scalars and the per-step
-triptych; without ``wandb`` the run says so and goes on), ``async_frames``
-(PNG writes on a background thread), ``stall_pet`` (a progress callback for
-``utils.watchdog.StallDetector``) and ``device_lock`` (the serving daemon's
-lock around the device-heavy part of a run). Nothing is refused. On one
-card the guided steps replay CUDA graphs (``diffusion/sampler.py``) except
-with a ``mesh``, ``log_losses`` / W&B (the losses read on the host each
-step) or a ``device_lock``, whose other holders prepare on the card while
-this call samples (a capture fails under another thread's device work). A
-checkpoint's UNet and CLIP stay on the device between calls in one process
-(``weights.py``'s model cache): a call with the same files, configuration,
-device and ``compute_dtype`` as the last one reuses its modules. With
-``utils.tracing`` enabled the call records its spans: ``api.request`` from
-entry to return, and below it the models, the prompts, each segment and
-step of the loop and each frame (the caller's time at a yield in none).
+same output tree. Nothing is refused: the ADM UNets (64-512px) from the
+reference's checkpoints (``weights_mode="auto"``: the ``.pt`` files in
+``checkpoints_dir``, converted once to the ``.npz.cgd`` cache) or random
+weights, any CLIP tower, every sampler, guidance and cutout option, recorded
+noise (``noise_file``: an npz of ``init`` [b, h, w, 3] and ``steps`` [n, b,
+h, w, 3]), ``mesh=`` (``parallel.mesh``: batch over 'data', the UNet by
+height over 'cut', the cutouts over every device) and the JAX package's run
+services (``checkpoint_path`` / ``resume_from``, ``log_losses``, W&B,
+``async_frames``, ``stall_pet``, the serving daemon's ``device_lock``).
 
-``compute_dtype="float32"`` runs the UNet, CLIP and the glue in f32 (the
-conv family and the attention on their f32 kernels on a card; with
-``mesh=`` the height-split convs on K-halo f32) with TF32 off for cuDNN and
-cuBLAS while the run's device work goes on, and the caller's flags back
-whenever it yields or ends. The flags are process-global, so with a
-``device_lock`` only the lock's holder sets them, and an f32 run takes the
-lock before its prompt encoding (a bfloat16 run's prep stays outside it):
-two generators interleaved through one lock each see their own flags.
+A call runs in named stages: its checks, W&B, the models (kept on the device
+across calls by ``weights.py``'s model cache), the prompts
+(``_encode_prompts``), the init image (``_init_image``), the diffusion, the
+guidance with its host sinks (``_host_sinks``) and the sampler, the run meta
+(``_run_meta``) and resume, then the loop. On one card the guided steps
+replay CUDA graphs (``diffusion/sampler.py``) except with a ``mesh``,
+``log_losses`` / W&B (the losses read on the host each step) or a
+``device_lock``, whose other holders work on the card while this call
+samples. With ``utils.tracing`` enabled the call records its spans:
+``api.request`` from entry to return, and below it the models, the prompts,
+each segment and step of the loop and each frame (the caller's time at a
+yield in none).
 
-The UNet forward is rematerialized under the guidance gradient where
-``_resolve_remat`` says its saved activations would not fit the card
-(``CGD_TPU_REMAT=0/1`` forces either way); the decision is part of the run
-meta, and a resume adopts the checkpoint's.
+``_DeviceHold`` holds the process-global device state: the ``device_lock``
+and, at ``compute_dtype="float32"`` (the UNet, CLIP and the glue in f32),
+cuDNN's and cuBLAS's TF32 off, with the caller's flags back whenever the
+generator yields or ends. Only the lock's holder sets the flags, so an f32
+run takes the hold before its prompt encoding and a bfloat16 run just before
+sampling: two generators interleaved through one lock each see their own.
 
 The signature is ``cgd_tpu.api.clip_guided_diffusion``'s, keyword for keyword
 and default for default (tests/test_torch_port_api.py pins it), except
@@ -61,6 +41,8 @@ taken and, as in the JAX package's sampling, never applied.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -89,6 +71,7 @@ from cgd_tpu_torch.io_utils.images import (
 )
 from cgd_tpu_torch.models.clip.configs import CLIP_MEAN, CLIP_STD, CLIPConfig
 from cgd_tpu_torch.models.clip.model import CLIP, encode_image, encode_text
+from cgd_tpu_torch.models.clip.tokenizer import get_tokenizer
 from cgd_tpu_torch.models.unet import rematerialized
 from cgd_tpu_torch.ops.resample import resize
 from cgd_tpu_torch.parallel.mesh import shard_params_replicated, split_activation
@@ -193,12 +176,9 @@ class _TF32Off:
             self.saved = None
 
 
-# the no-remat 512px guided step's peak device memory in GiB at batch b and
-# c cutouts, bf16, fit to chip_smoke.py phase 14c's grid (512px RN50x16,
-# NVIDIA H100 80GB HBM3, 700 W; within 0.6 GiB of the largest peak each
-# point read over three runs):
-# (_REMAT_FIXED + _REMAT_FIXED_PER_CUTOUT * c)
-#     + b * (_REMAT_PER_IMAGE + _REMAT_PER_IMAGE_CUTOUT * c)
+# the no-remat 512px step's peak GiB at batch b and c cutouts, fit to the grid
+# below within 0.6 GiB of each point's largest peak: (_REMAT_FIXED +
+# _REMAT_FIXED_PER_CUTOUT * c) + b * (_REMAT_PER_IMAGE + _REMAT_PER_IMAGE_CUTOUT * c)
 _REMAT_FIXED, _REMAT_FIXED_PER_CUTOUT = -1.688, 0.253
 _REMAT_PER_IMAGE, _REMAT_PER_IMAGE_CUTOUT = 2.774, 0.157
 _REMAT_LIMIT_GIB = 0.9 * 79.2  # 90% of what torch reports for the 80 GB card
@@ -211,11 +191,10 @@ def _resolve_remat(image_size: int, batch_size: int, num_cutouts: int) -> bool:
     TPU v5e's of the JAX package.
 
     Only where the no-remat step does not fit with headroom: its peak
-    device memory, reckoned from the 512px grid (chip_smoke.py phase 14c;
-    bf16, NVIDIA H100 80GB HBM3, 700 W), over 90% of the card's 79.2 GiB.
-    Peak GiB with no remat / full remat / ``remat_min_dim=128``, the
-    largest of three runs (the smaller 32-cutout points moved by up to 3.8
-    GiB from run to run):
+    device memory over 90% of the card's 79.2 GiB. Peak GiB with no remat
+    / full remat / ``remat_min_dim=128``, the largest of three runs of
+    chip_smoke.py phase 14c (512px RN50x16, bf16, NVIDIA H100 80GB HBM3,
+    700 W; the smaller 32-cutout points moved by up to 3.8 GiB):
 
         b=1 cutn16   7.65 /  5.29 /  6.63
         b=8 cutn16  44.68 / 26.55 / 37.76
@@ -243,24 +222,22 @@ def _resolve_remat(image_size: int, batch_size: int, num_cutouts: int) -> bool:
 
 def _write_checkpoint(path: str, data: dict) -> None:
     """The sampling state as an npz, atomically (``.tmp`` + ``os.replace``):
-    a reader never sees half a file."""
+    a reader never sees half a file. Entries that are None are left out."""
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as f:
-        np.savez(f, **data)
+        np.savez(f, **{k: v for k, v in data.items() if v is not None})
     os.replace(tmp, path)
 
 
 def _read_checkpoint(path: str, run_meta: dict, device_type: str) -> dict:
     """The resume state of checkpoint ``path`` for a run of meta
-    ``run_meta`` drawing on ``device_type``, with the UNet remat decision
-    it was written under (``unet_remat``), which the resumed run adopts in
-    place of its own: the meta is compared with that value in. A
-    checkpoint without the key was written before the decision joined the
-    meta, when no run of this package rematerialized: it reads as False.
-    Raises ValueError for a file that is unreadable or whose meta does not
-    parse, one the JAX package wrote (no generator state, another random
-    stream), one drawn on another device type, and one of another run
-    configuration, each in its own words."""
+    ``run_meta`` drawing on ``device_type``, with the remat decision it was
+    written under (``unet_remat``; False where the key predates it), which
+    the resumed run adopts: the meta is compared with it in. Raises
+    ValueError, each in its own words, for a file unreadable or whose meta
+    does not parse, one the JAX package wrote (no generator state, another
+    random stream), one drawn on another device type or another run
+    configuration."""
     try:
         rec = np.load(path)
         meta = str(rec["meta"])
@@ -298,6 +275,223 @@ def _read_checkpoint(path: str, run_meta: dict, device_type: str) -> dict:
         "x0p": rec["x0p"] if "x0p" in rec.files else None,
         "generator": rec["generator"],
     }
+
+
+class _DeviceHold:
+    """The process-global device state a run holds while its device work
+    goes on: the ``device_lock`` where one is given (the daemon's: weight
+    resolution, tokenization and validation overlap another request's
+    sampling) and, for an f32 run, TF32 off (``_TF32Off``). ``take()`` is
+    idempotent and pets every 5 s while queued (waiting for the card is not
+    a stall); ``suspended()``, around a ``yield``, gives the caller's flags
+    back meanwhile; ``release()`` puts them back, then releases the lock."""
+
+    def __init__(self, device_lock, f32: bool, pet):
+        self.lock, self.pet, self.held = device_lock, pet, False
+        self.tf32 = _TF32Off() if f32 else None
+
+    def take(self) -> None:
+        if self.lock is not None and not self.held:
+            self.pet("waiting for device lock")
+            while not self.lock.acquire(timeout=5.0):
+                self.pet("waiting for device lock")
+            self.held = True
+        if self.tf32 is not None:
+            self.tf32.enter()
+
+    @contextlib.contextmanager
+    def suspended(self):
+        if self.tf32 is not None:
+            self.tf32.exit()
+        yield
+        if self.tf32 is not None:
+            self.tf32.enter()
+
+    def release(self) -> None:
+        if self.tf32 is not None:
+            self.tf32.exit()
+        if self.held:
+            self.held = False
+            self.lock.release()
+
+
+def _run_device(device, mesh, compute_dtype: str) -> torch.device:
+    """The call's device, its mesh's devices of its type and its dtype checked."""
+    if mesh is not None and any(d.type != torch.device(device).type for d in mesh.devices.flat):
+        raise ValueError(f"device={device!r} but the mesh's devices are {list(mesh.devices.flat)}")
+    dev = resolve_device(device)
+    if compute_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"compute_dtype must be 'bfloat16' or 'float32', got {compute_dtype!r}")
+    return dev
+
+
+def _mesh_device(mesh, batch_size: int, num_cutouts: int, say) -> torch.device:
+    """The device a ``mesh`` run drives, once its batch splits over 'data'."""
+    data_size = mesh.shape["data"]
+    if batch_size % data_size != 0:
+        raise ValueError(f"batch_size {batch_size} is not divisible by the mesh 'data' axis "
+                         f"({data_size}) — use --mesh data=N with N dividing the batch, or "
+                         "--mesh auto/cut=M for batch 1")
+    if num_cutouts % mesh.size != 0:
+        say(f"(warning) num_cutouts {num_cutouts} is not divisible by the {mesh.size}-device "
+            "mesh; cutout shards will be uneven")
+    say(f"Mesh engaged: {mesh.shape}")
+    return mesh.main
+
+
+def _start_wandb(project, entity, config: dict, say):
+    """The W&B run, or None without a project or where wandb cannot start."""
+    if project is None:
+        say("--wandb_project not specified. Skipping W&B integration.")
+        return None
+    try:
+        import wandb
+
+        return wandb.init(project=project, entity=entity, config=config)
+    except Exception as e:  # wandb not installed / offline
+        say(f"W&B unavailable ({e}); continuing without logging.")
+        return None
+
+
+def _encode_prompts(clip_model: CLIP, clip_cfg: CLIPConfig, tokenizer, prompts, image_prompts,
+                    *, image_size: int, num_cutouts: int, strict_parity: bool,
+                    gen: torch.Generator, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(target_embeds, weights)``: the text prompts through CLIP's text
+    tower, then each image prompt's cutouts (drawn from ``gen``) through its
+    image tower, each 1/num_cutouts of its prompt's weight; normalized."""
+    embeds, weights = [], []
+    parsed = [parse_prompt(p) for p in prompts]
+    if parsed:
+        tokens = tokenizer.tokenize([t for t, _ in parsed],
+                                    context_length=clip_cfg.text.context_length)
+        with torch.no_grad():
+            embeds.append(encode_text(clip_model, torch.as_tensor(tokens, device=device)))
+        weights += [w for _, w in parsed]
+    for image_prompt in image_prompts:
+        path, weight = parse_prompt(image_prompt)
+        img = _prompt_image(path, image_size, device)
+        spec = sample_cutout_coords(gen, num_cutouts, img.shape[1], img.shape[0],
+                                    clip_cfg.input_resolution)
+        embeds.append(encode_image_prompt(clip_model, clip_cfg, img, spec, strict_parity))
+        weights += [weight / num_cutouts] * num_cutouts
+    return torch.cat(embeds), torch.as_tensor(normalize_weights(weights), device=device)
+
+
+def _init_image(init_image: Optional[str], *, image_size: int, side_y: int, side_x: int,
+                batch_size: int, strict_parity: bool, init_scale: float, weights_mode: str,
+                device, checkpoints_dir: str):
+    """``(init, lpips)``: the init image [batch, side_y, side_x, 3] on the
+    device and, under ``init_scale``, the LPIPS VGG; None where unused."""
+    if not init_image:
+        return None, None
+    if (side_y, side_x) != (image_size, image_size) and strict_parity:
+        # the reference resizes the init square (cgd/cgd.py:118) while the
+        # sample shape carries the offsets (cgd/cgd.py:252), and q_sample
+        # then fails on the shapes: fail loudly, as the JAX package does
+        raise ValueError(
+            "init_image with height/width offsets is broken in the reference (init resized to "
+            f"({image_size},{image_size}) but sample shape is ({side_y},{side_x})); "
+            "pass strict_parity=False to resize the init to the offset shape")
+    arr = load_image_rgb(init_image, (side_x, side_y))
+    init = torch.from_numpy(arr)[None].repeat(batch_size, 1, 1, 1).to(device)
+    return init, resolve_lpips(weights_mode, device, checkpoints_dir) if init_scale else None
+
+
+def _host_sinks(log_losses: bool, wandb_run, diffusion, timestep_respacing: str):
+    """``(loss_cb, image_sink)`` for ``log_losses`` and W&B; None where
+    unused. ``loss_cb`` gets a guided step's loss scalars (the reference's
+    tqdm.write + wandb.log, cgd/cgd.py:234-238), then its gradient scalars,
+    which print no line; ``image_sink`` logs the reference's triptych every
+    guided step (cgd/cgd.py:180-186) as uint8 arrays, with no Pillow."""
+    if not (log_losses or wandb_run is not None):
+        return None, None
+
+    def loss_cb(log):
+        line = "\t".join(f"{k}: {v:.3f}" for k, v in log.items() if "loss" in k.lower())
+        if log_losses and line:
+            print(line, flush=True)
+        if wandb_run is not None:
+            wandb_run.log(dict(log))
+
+    if wandb_run is None:
+        return loss_cb, None
+    import wandb
+
+    sqrt_om = np.asarray(diffusion.sqrt_one_minus_alphas_cumprod)
+
+    def image_sink(step_ks, noisy, preds):
+        for i, step_k in enumerate(step_ks):
+            fac = float(sqrt_om[max(diffusion.num_timesteps - 1 - step_k, 0)])
+            blend = preds[i] * fac + noisy[i] * (1.0 - fac)
+            wandb_run.log({
+                f"Generations - {timestep_respacing}": [
+                    wandb.Image(to_uint8(noisy[i][0]), caption="Noisy Sample"),
+                    wandb.Image(to_uint8(preds[i][0]), caption="Denoised Prediction"),
+                    wandb.Image(to_uint8(blend[0]), caption="Blended (what CLIP sees)"),
+                ],
+                "step": step_k,
+            })
+
+    return loss_cb, image_sink
+
+
+# the run meta's entries that are the call's arguments as given, and its
+# numeric knobs, as floats: the API's int defaults and the CLI's argparse
+# floats must give the same meta
+_META_ARGS = ("seed", "timestep_respacing", "diffusion_steps", "noise_schedule", "reduce_clip",
+              "progressive_cutout", "fast_guidance", "dpm_solver", "class_cond",
+              "randomize_class", "strict_parity", "clip_model_name", "use_augs",
+              "cached_cutouts", "compute_dtype")
+_META_FLOATS = ("clip_guidance_scale", "tv_scale", "range_scale", "sat_scale", "init_scale",
+                "cutout_power")
+
+
+def _run_meta(args: dict, *, skip_timesteps: int, use_magnitude: bool, generator: str,
+              unet_remat: bool) -> dict:
+    """The meta a checkpoint is keyed on, from the call's arguments and what
+    the call settled: the JAX package's run meta (cgd_tpu/api.py:755-785),
+    plus this package's name, the device type the generator draws on (its
+    stream differs between devices) and the remat decision."""
+    meta = {k: args[k] for k in _META_ARGS}
+    meta.update({k: float(args[k]) for k in _META_FLOATS})
+    size = args["image_size"]
+    meta.update(
+        shape=[args["batch_size"], size + args["height_offset"], size + args["width_offset"], 3],
+        skip_timesteps=int(skip_timesteps), num_cutouts=int(args["num_cutouts"]),
+        save_frequency=int(args["save_frequency"]), prompts=list(args["prompts"]),
+        image_prompts=list(args["image_prompts"]), use_magnitude=use_magnitude,
+        package="cgd_tpu_torch", generator=generator, unet_remat=unet_remat)
+    return meta
+
+
+def _save_state(path: str, run_meta: str, next_seg: int, state: dict) -> None:
+    """The sampler's ``state_sink`` under ``checkpoint_path``."""
+    _write_checkpoint(path, dict(state, next_seg=next_seg, meta=run_meta))
+
+
+class _StepsDone:
+    """The sampler's ``progress_cb``: a pet after every segment, the finest
+    liveness signal a hung card cannot fake."""
+
+    def __init__(self, pet):
+        self.pet, self.n = pet, 0
+
+    def __call__(self, n_steps: int) -> None:
+        self.n += n_steps
+        self.pet(f"sampling ({self.n} steps done)")
+
+
+def _model_fn(unet, mesh, cdtype: torch.dtype, remat: bool):
+    """The UNet as the sampler calls it: over a mesh x split by height over
+    'cut' (a height it does not divide runs whole, as in parallel/mesh.py),
+    the output gathered whole; under ``remat`` recomputed in the backward."""
+
+    def unet_fn(x, t_model, y):
+        if mesh is None or x.shape[1] % mesh.shape["cut"]:
+            return unet(x, t_model, y, compute_dtype=cdtype)
+        return unet(split_activation(x, mesh), t_model, y, compute_dtype=cdtype).gather()
+
+    return rematerialized(unet_fn) if remat else unet_fn
 
 
 def clip_guided_diffusion(
@@ -350,164 +544,67 @@ def clip_guided_diffusion(
     stall_pet=None,
     device_lock=None,
 ) -> Iterator[Tuple[int, str]]:
-    config = dict(locals())  # the call's arguments, W&B's run config
+    config = dict(locals())  # the call's arguments: W&B's run config, the run meta's source
     with tracing.request("api.request", batch=batch_size) as request:
-        if mesh is not None and any(d.type != torch.device(device).type for d in mesh.devices.flat):
-            raise ValueError(
-                f"device={device!r} but the mesh's devices are {list(mesh.devices.flat)}")
-        dev = resolve_device(device)
-        if compute_dtype not in ("bfloat16", "float32"):
-            raise ValueError(
-                f"compute_dtype must be 'bfloat16' or 'float32', got {compute_dtype!r}")
-
-        def say(msg):
-            if progress:
-                print(msg, flush=True)
-
-        wandb_run = wandb = None
-        if wandb_project is not None:
-            try:
-                import wandb
-
-                wandb_run = wandb.init(project=wandb_project, entity=wandb_entity, config=config)
-            except Exception as e:  # wandb not installed / offline
-                say(f"W&B unavailable ({e}); continuing without logging.")
-        else:
-            say("--wandb_project not specified. Skipping W&B integration.")
-
+        dev = _run_device(device, mesh, compute_dtype)
+        say = functools.partial(print, flush=True) if progress else (lambda msg: None)
+        wandb_run = _start_wandb(wandb_project, wandb_entity, config, say)
         prompts, image_prompts = list(prompts), list(image_prompts)
-        check_parameters(
-            prompts=prompts, image_prompts=image_prompts, image_size=image_size,
-            timestep_respacing=timestep_respacing, diffusion_steps=diffusion_steps,
-            clip_model_name=clip_model_name, save_frequency=save_frequency,
-            noise_schedule=noise_schedule,
-        )
+        check_parameters(prompts=prompts, image_prompts=image_prompts, image_size=image_size,
+                         timestep_respacing=timestep_respacing, diffusion_steps=diffusion_steps,
+                         clip_model_name=clip_model_name, save_frequency=save_frequency,
+                         noise_schedule=noise_schedule)
         pet = stall_pet if stall_pet is not None else (lambda phase: None)
-
         if not use_magnitude and image_size == 64:
             use_magnitude = True
             say("Enabling magnitude for 64x64 checkpoints.")
         if mesh is not None:
-            dev = mesh.main
-            data_size = mesh.shape["data"]
-            if batch_size % data_size != 0:
-                raise ValueError(
-                    f"batch_size {batch_size} is not divisible by the mesh "
-                    f"'data' axis ({data_size}) — use --mesh data=N with "
-                    "N dividing the batch, or --mesh auto/cut=M for batch 1"
-                )
-            if num_cutouts % mesh.size != 0:
-                say(
-                    f"(warning) num_cutouts {num_cutouts} is not divisible by "
-                    f"the {mesh.size}-device mesh; cutout shards will be uneven"
-                )
-            say(f"Mesh engaged: {mesh.shape}")
+            dev = _mesh_device(mesh, batch_size, num_cutouts, say)
         Path(prefix_path).mkdir(parents=True, exist_ok=True)
         if weights_mode != "random":  # the checkpoints and their caches live there
             Path(checkpoints_dir).mkdir(parents=True, exist_ok=True)
         cdtype = torch_dtype(compute_dtype)
 
-        # ---- models -------------------------------------------------------
+        # ---- models (weights.py's model cache keeps them across calls) ----
         pet("resolve model checkpoints")
-        # a checkpoint's models come from weights.py's model cache where the
-        # last call of their role had the same files, config, device and dtype
         with tracing.span("api.models") as models_span, cache_counts() as counts:
             clip_model, clip_cfg = resolve_clip(clip_model_name, weights_mode, dev,
                                                 checkpoints_dir, conv_dtype=cdtype)
             unet, unet_cfg, flags = resolve_unet(
-                image_size, class_cond, weights_mode,
+                image_size, class_cond, weights_mode, device=dev, conv_dtype=cdtype,
                 flag_overrides={"diffusion_steps": diffusion_steps,
-                                "noise_schedule": noise_schedule},
-                device=dev, checkpoints_dir=checkpoints_dir, conv_dtype=cdtype,
-            )
+                                "noise_schedule": noise_schedule}, checkpoints_dir=checkpoints_dir)
             if mesh is not None:
                 shard_params_replicated(unet, mesh)  # the split ops find the copies
             models_span.note(**counts)
-        if weights_mode == "random":
-            tokenizer = _FallbackTokenizer(clip_cfg.text.vocab_size)
-        else:
-            from cgd_tpu_torch.models.clip.tokenizer import get_tokenizer
-
-            tokenizer = get_tokenizer()
+        tokenizer = (_FallbackTokenizer(clip_cfg.text.vocab_size) if weights_mode == "random"
+                     else get_tokenizer())
         gen = torch.Generator(dev).manual_seed(seed)
 
-        # The device-heavy part runs holding ``device_lock`` when one is given
-        # (the daemon's: weight resolution, tokenization and validation above
-        # overlap another request's sampling); an f32 run takes it before its
-        # prompt encoding, since only the holder may set the TF32 flags.
-        prec = _TF32Off() if cdtype == torch.float32 else None
-        held = False
-
-        def take_device():
-            nonlocal held
-            if device_lock is not None and not held:
-                # keep petting while queued behind another generation's device
-                # phase: waiting for the card is not a stall
-                pet("waiting for device lock")
-                while not device_lock.acquire(timeout=5.0):
-                    pet("waiting for device lock")
-                held = True
-            if prec is not None:
-                prec.enter()
-
+        hold = _DeviceHold(device_lock, cdtype == torch.float32, pet)
         try:
-            if prec is not None:
-                take_device()
-
-            # ---- prompt encoding ------------------------------------------
+            if cdtype == torch.float32:  # only the holder sets the flags: from the prompts on
+                hold.take()
             pet("encode prompts")
             with tracing.span("api.prompts", prompts=len(prompts) + len(image_prompts)):
-                embeds, weights = [], []
-                parsed = [parse_prompt(p) for p in prompts]
-                if parsed:
-                    tokens = tokenizer.tokenize([t for t, _ in parsed],
-                                                context_length=clip_cfg.text.context_length)
-                    with torch.no_grad():
-                        embeds.append(encode_text(clip_model,
-                                                  torch.as_tensor(tokens, device=dev)))
-                    weights += [w for _, w in parsed]
-                for image_prompt in image_prompts:
-                    path, weight = parse_prompt(image_prompt)
-                    img = _prompt_image(path, image_size, dev)
-                    spec = sample_cutout_coords(gen, num_cutouts, img.shape[1], img.shape[0],
-                                                clip_cfg.input_resolution)
-                    embeds.append(encode_image_prompt(clip_model, clip_cfg, img, spec,
-                                                      strict_parity))
-                    weights += [weight / num_cutouts] * num_cutouts
-                target_embeds = torch.cat(embeds)
-                weights = torch.as_tensor(normalize_weights(weights), device=dev)
+                target_embeds, weights = _encode_prompts(
+                    clip_model, clip_cfg, tokenizer, prompts, image_prompts,
+                    image_size=image_size, num_cutouts=num_cutouts,
+                    strict_parity=strict_parity, gen=gen, device=dev)
             if use_augs:
                 say("Augmentations enabled.")
-
-            # ---- init image -----------------------------------------------
-            init_tensor = lpips = None
             side_y, side_x = image_size + height_offset, image_size + width_offset
-            if init_image:
-                if (height_offset or width_offset) and strict_parity:
-                    # the reference resizes the init square (cgd/cgd.py:118) while
-                    # the sample shape carries the offsets (cgd/cgd.py:252), and
-                    # q_sample then fails on the shapes: fail loudly, as the JAX
-                    # package does
-                    raise ValueError(
-                        "init_image with height/width offsets is broken in the "
-                        "reference (init resized to "
-                        f"({image_size},{image_size}) but sample shape is "
-                        f"({side_y},{side_x})); "
-                        "pass strict_parity=False to resize the init to the offset shape"
-                    )
-                arr = load_image_rgb(init_image, (side_x, side_y))
-                init_tensor = torch.from_numpy(arr)[None].repeat(batch_size, 1, 1, 1).to(dev)
-                if init_scale != 0:
-                    lpips = resolve_lpips(weights_mode, dev, checkpoints_dir)
+            init_tensor, lpips = _init_image(
+                init_image, image_size=image_size, side_y=side_y, side_x=side_x,
+                batch_size=batch_size, strict_parity=strict_parity, init_scale=init_scale,
+                weights_mode=weights_mode, device=dev, checkpoints_dir=checkpoints_dir)
 
             # ---- diffusion, guidance, sampler -----------------------------
             diffusion = make_diffusion(
-                steps=flags.get("diffusion_steps", 1000),
+                steps=flags.get("diffusion_steps", 1000), timestep_respacing=timestep_respacing,
                 noise_schedule=flags.get("noise_schedule", "linear"),
-                timestep_respacing=timestep_respacing,
                 rescale_timesteps=flags.get("rescale_timesteps", False),
-                learn_sigma=flags.get("learn_sigma", True),
-            )
+                learn_sigma=flags.get("learn_sigma", True))
             if reduce_clip and skip_timesteps == 0:
                 skip_timesteps = int(diffusion.num_timesteps * 0.2)
                 say(f"Skipping first {skip_timesteps} timesteps (--reduce-clip optimization)")
@@ -522,132 +619,41 @@ def clip_guided_diffusion(
                 clip_guidance_scale=clip_guidance_scale, tv_scale=tv_scale,
                 range_scale=range_scale, sat_scale=sat_scale, init_scale=init_scale,
                 use_magnitude=use_magnitude, use_augs=use_augs, cutout_power=cutout_power,
-                clip_compute_dtype=compute_dtype,
-            )
-
-            loss_cb = image_sink = None
-            if log_losses or wandb_run is not None:
-                # per guided step, as the JAX package's live host callback (the
-                # reference's tqdm.write + wandb.log, cgd/cgd.py:234-238); the
-                # step's gradient scalars come in a second call, which has no
-                # loss line (the JAX package prints an empty one)
-                def loss_cb(log):
-                    line = "\t".join(f"{k}: {v:.3f}" for k, v in log.items() if "loss" in k.lower())
-                    if log_losses and line:
-                        print(line, flush=True)
-                    if wandb_run is not None:
-                        wandb_run.log(dict(log))
-            if wandb_run is not None:
-                sqrt_om = np.asarray(diffusion.sqrt_one_minus_alphas_cumprod)
-
-                def image_sink(step_ks, noisy, preds):
-                    # the reference's triptych every guided step (cgd/cgd.py:180-186):
-                    # noisy sample, denoised prediction, their blend (what CLIP sees);
-                    # uint8 arrays, so that no Pillow is needed
-                    for i, step_k in enumerate(step_ks):
-                        fac = float(sqrt_om[max(diffusion.num_timesteps - 1 - step_k, 0)])
-                        blend = preds[i] * fac + noisy[i] * (1.0 - fac)
-                        wandb_run.log({
-                            f"Generations - {timestep_respacing}": [
-                                wandb.Image(to_uint8(noisy[i][0]), caption="Noisy Sample"),
-                                wandb.Image(to_uint8(preds[i][0]), caption="Denoised Prediction"),
-                                wandb.Image(to_uint8(blend[0]), caption="Blended (what CLIP sees)"),
-                            ],
-                            "step": step_k,
-                        })
-
+                clip_compute_dtype=compute_dtype)
+            loss_cb, image_sink = _host_sinks(log_losses, wandb_run, diffusion,
+                                              timestep_respacing)
             builder = make_guidance_builder(
                 clip_model, clip_cfg, target_embeds, weights, settings,
                 cached_coords=cached_coords, mesh=mesh, lpips=lpips,
                 init_image=init_tensor if lpips is not None else None, loss_callback=loss_cb)
             sampler_cfg = SamplerConfig(
-                use_ddim=timestep_respacing.startswith("ddim"),
+                use_ddim=timestep_respacing.startswith("ddim"), num_classes=1000,
                 randomize_class=(randomize_class and class_cond),
-                num_classes=1000,
-                fast_guidance=fast_guidance,
-                dpm_solver=dpm_solver,
-            )
-
+                fast_guidance=fast_guidance, dpm_solver=dpm_solver)
             y_init = (torch.zeros((batch_size,), dtype=torch.long, device=dev)
                       if class_cond else None)
-            shape = (batch_size, side_y, side_x, 3)
-            init_noise = noise_steps = None
-            if noise_file:  # recorded noise: {"init": [*shape], "steps": [n_steps, *shape]}
-                rec = np.load(noise_file)
-                init_noise = rec["init"] if "init" in rec.files else None
-                noise_steps = rec["steps"] if "steps" in rec.files else None
+            # recorded noise: {"init": [*shape], "steps": [n_steps, *shape]}
+            rec = np.load(noise_file) if noise_file else None
+            init_noise = rec["init"] if rec is not None and "init" in rec.files else None
+            noise_steps = rec["steps"] if rec is not None and "steps" in rec.files else None
 
-            # ---- checkpoint / resume --------------------------------------
-            # everything that shapes the remaining segments or their guidance:
-            # the JAX package's run meta (cgd_tpu/api.py:755-785), plus this
-            # package's name and the device type the generator draws on (its
-            # stream, saved with the state, differs between devices)
+            # ---- run meta, checkpoint / resume ----------------------------
             use_remat = _resolve_remat(image_size, batch_size, num_cutouts)
-            run_meta = {
-                "seed": seed, "shape": list(shape),
-                "timestep_respacing": timestep_respacing,
-                "diffusion_steps": diffusion_steps, "noise_schedule": noise_schedule,
-                "skip_timesteps": int(skip_timesteps), "num_cutouts": int(num_cutouts),
-                "save_frequency": int(save_frequency), "reduce_clip": reduce_clip,
-                "progressive_cutout": progressive_cutout,
-                "fast_guidance": fast_guidance, "dpm_solver": dpm_solver,
-                "class_cond": class_cond,
-                "randomize_class": randomize_class, "strict_parity": strict_parity,
-                "prompts": list(prompts), "image_prompts": list(image_prompts),
-                "clip_model_name": clip_model_name,
-                # numeric knobs as floats: the API's int defaults and the CLI's
-                # argparse floats must give the same meta
-                "clip_guidance_scale": float(clip_guidance_scale),
-                "tv_scale": float(tv_scale),
-                "range_scale": float(range_scale), "sat_scale": float(sat_scale),
-                "init_scale": float(init_scale), "cutout_power": float(cutout_power),
-                "use_augs": use_augs, "use_magnitude": use_magnitude,
-                "cached_cutouts": cached_cutouts, "compute_dtype": compute_dtype,
-                "package": "cgd_tpu_torch", "generator": dev.type,
-                # the remat decision: a resume replays the graph its checkpoint
-                # was written under
-                "unet_remat": use_remat,
-            }
+            run_meta = _run_meta(config, skip_timesteps=skip_timesteps,
+                                 use_magnitude=use_magnitude, generator=dev.type,
+                                 unet_remat=use_remat)
             resume_state = state_sink = None
             if resume_from:
                 resume_state = _read_checkpoint(resume_from, run_meta, dev.type)
                 use_remat = run_meta["unet_remat"] = resume_state["unet_remat"]
                 say(f"Resuming from {resume_from} at segment {resume_state['next_seg']}.")
-            run_meta = json.dumps(run_meta, sort_keys=True)
-
-            def unet_fn(x, t_model, y):
-                # an image height the 'cut' axis does not divide runs whole, as
-                # its levels below one that it does not divide (parallel/mesh.py)
-                if mesh is None or x.shape[1] % mesh.shape["cut"]:
-                    return unet(x, t_model, y, compute_dtype=cdtype)
-                # split x over the mesh, run the split UNet, gather the output whole
-                return unet(split_activation(x, mesh), t_model, y, compute_dtype=cdtype).gather()
-
-            # the guidance gradient backprops through the UNet: recompute its
-            # forward in the backward (time for memory) where _resolve_remat says
-            model_fn = rematerialized(unet_fn) if use_remat else unet_fn
             if checkpoint_path:
                 os.makedirs(os.path.dirname(os.path.abspath(checkpoint_path)), exist_ok=True)
+                state_sink = functools.partial(_save_state, checkpoint_path,
+                                               json.dumps(run_meta, sort_keys=True))
 
-                def state_sink(next_seg, st):
-                    data = {"next_seg": next_seg, "x": st["x"], "generator": st["generator"],
-                            "meta": run_meta}
-                    if st["y"] is not None:
-                        data["y"] = st["y"]
-                    if st["x0p"] is not None:  # dpm_solver multistep state
-                        data["x0p"] = st["x0p"]
-                    _write_checkpoint(checkpoint_path, data)
-
-            steps_done = 0
-
-            def progress_cb(n_steps):
-                # after every segment: the finest liveness signal a hung card
-                # cannot fake
-                nonlocal steps_done
-                steps_done += n_steps
-                pet(f"sampling ({steps_done} steps done)")
-
-            take_device()
+            # ---- the loop -------------------------------------------------
+            hold.take()  # a bfloat16 run's prep stays outside the device lock
             pet("compile + first sampling segment")
             say(f"Sampling {diffusion.num_timesteps - skip_timesteps} steps at "
                 f"{side_y}x{side_x}px on {dev}")
@@ -655,12 +661,13 @@ def clip_guided_diffusion(
             t0 = time.perf_counter()
             try:
                 for step_k, pred_x0, _x_t in sample_loop(
-                    diffusion, model_fn, builder, shape, gen, sampler_cfg,
+                    diffusion, _model_fn(unet, mesh, cdtype, use_remat), builder,
+                    (batch_size, side_y, side_x, 3), gen, sampler_cfg,
                     skip_timesteps=skip_timesteps, init_image=init_tensor,
                     reduce_clip=reduce_clip, progressive_cutout=progressive_cutout,
                     num_cutouts=num_cutouts, save_frequency=save_frequency, y_init=y_init,
                     noise_override=noise_steps, init_noise=init_noise,
-                    final_frame_parity=strict_parity, progress_cb=progress_cb,
+                    final_frame_parity=strict_parity, progress_cb=_StepsDone(pet),
                     image_sink=image_sink, state_sink=state_sink, resume=resume_state,
                     mesh=mesh, shared_device=device_lock is not None,
                 ):
@@ -669,12 +676,9 @@ def clip_guided_diffusion(
                     for batch_idx in range(batch_size):
                         path = log_image(frames[batch_idx], prefix_path, prompts, step_k,
                                          batch_idx, use_async=async_frames)
-                        if prec is not None:  # the caller's flags while suspended
-                            prec.exit()
-                        with tracing.detached(request):  # the caller's time is its own
+                        # the caller's flags, and its time its own, while suspended
+                        with hold.suspended(), tracing.detached(request):
                             yield batch_idx, path
-                        if prec is not None:
-                            prec.enter()
             except KeyboardInterrupt:
                 # the frames written so far stay; the caller goes on with them
                 # (cgd_tpu/api.py:890-891, the reference's cgd/cgd.py:274-276)
@@ -687,14 +691,9 @@ def clip_guided_diffusion(
                 raise
             say(f"Sampled in {time.perf_counter() - t0:.1f} s")
         finally:
-            if prec is not None:
-                prec.exit()
-            if held:
-                device_lock.release()
-            if async_frames:
-                failed = flush_frames()
-                if failed:
-                    print(f"(warning) {failed} asynchronous frame write(s) failed")
+            hold.release()  # the caller's flags, then the lock
+            if async_frames and (failed := flush_frames()):
+                print(f"(warning) {failed} asynchronous frame write(s) failed")
             if wandb_run is not None:
                 wandb_run.finish()
 

@@ -391,7 +391,6 @@ def sample_loop(
     init_noise=None,  # [*shape]: recorded starting noise
     final_frame_parity: bool = False,
     progress_cb: Optional[Callable[[int], None]] = None,
-    loss_sink=None,
     image_sink=None,
     state_sink=None,
     resume: Optional[dict] = None,
@@ -415,9 +414,8 @@ def sample_loop(
     run's global step.
 
     The steps run in the segments of ``segment_plan``; after each segment:
-    ``loss_sink(seg_start, {name: np.ndarray[n]})`` gets the log scalars of
-    its guided steps, ``image_sink(step_ks, noisy, preds)`` each guided
-    step's incoming x_t and pred_xstart (numpy, [n, *shape]),
+    ``image_sink(step_ks, noisy, preds)`` gets each guided step's incoming
+    x_t and pred_xstart (numpy, [n, *shape]),
     ``state_sink(next_seg, {"x", "y", "x0p", "generator"})`` the state to
     continue from (numpy; ``generator`` is ``gen.get_state()``, y and x0p
     None where the run has none), called BEFORE the segment's frame is
@@ -487,15 +485,14 @@ def sample_loop(
         if si < start_seg:
             continue  # done by the checkpointed run
         with span("loop.segment", first=k0, steps=len(seg)):
-            logs, noisy, preds = [], [], []
+            noisy, preds = [], []
             for k, meta in enumerate(seg, start=k0):
                 key = (meta.guided, meta.cutn)
                 step = steps.get(key)
                 if step is None:  # a key's first step runs eagerly, the run's first among them
                     guidance = guidance_builder(meta) if meta.guided else None
                     step = steps[key] = make_guided_step(diffusion, model_fn, guidance, cfg)
-                    graph_next[key] = isinstance(step, GuidedStep) and _captures(
-                        device, mesh, step.host_reads, shared_device)
+                    graph_next[key] = _captures(device, mesh, step.host_reads, shared_device)
                 elif graph_next.pop(key, False):
                     pool = torch.cuda.graph_pool_handle() if pool is None else pool
                     step = steps[key] = _StepGraph(step, key, gen, pool)
@@ -504,7 +501,7 @@ def sample_loop(
                 with span("step", k=k, guided=meta.guided, cutn=meta.cutn,
                           graph=int(isinstance(step, _StepGraph))):
                     if cfg.dpm_solver:  # deterministic: no step noise
-                        x, pred_x0, y, log, x0p = step(
+                        x, pred_x0, y, _log, x0p = step(
                             x, meta.t, ref_t, y, gen,
                             dpm_state=(x0p, plan[max(k - 1, 0)].t, k == 0))
                     else:
@@ -512,16 +509,10 @@ def sample_loop(
                         if noise_override is not None:
                             nz = torch.as_tensor(noise_override[k], dtype=torch.float32,
                                                  device=device)
-                        x, pred_x0, y, log = step(x, meta.t, ref_t, y, gen, noise_override=nz)
-                if meta.guided:
-                    if loss_sink is not None:
-                        logs.append(log)
-                    if image_sink is not None:
-                        noisy.append(x_in.float().cpu().numpy())
-                        preds.append(pred_x0.float().cpu().numpy())
-            if loss_sink is not None and logs:
-                loss_sink(k0, {name: torch.stack([lg[name] for lg in logs]).float().cpu().numpy()
-                               for name in logs[0]})
+                        x, pred_x0, y, _log = step(x, meta.t, ref_t, y, gen, noise_override=nz)
+                if meta.guided and image_sink is not None:
+                    noisy.append(x_in.float().cpu().numpy())
+                    preds.append(pred_x0.float().cpu().numpy())
             if image_sink is not None and noisy:
                 image_sink(list(range(k0, k0 + len(noisy))), np.stack(noisy), np.stack(preds))
             if state_sink is not None:

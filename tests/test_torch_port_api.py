@@ -8,6 +8,7 @@ and the copied prompt parser, tokenizer, registry and parameter validation
 pinned to the originals."""
 
 import inspect
+import json
 import os
 import struct
 import threading
@@ -464,3 +465,234 @@ def test_the_oom_advice_names_the_jax_packages_flags_for_the_card():
     assert "GPU" in tvalidate.OOM_ADVICE and "HBM" not in tvalidate.OOM_ADVICE
     assert "TPU" not in tvalidate.OOM_ADVICE
 
+
+
+# ---- the run meta ---------------------------------------------------------
+# Each case: the call's arguments beside KW's device / weights, what the call
+# settles (skip_timesteps after reduce_clip, use_magnitude at 64px, the
+# generator's device type, the remat gate) and the meta's JSON as the API
+# wrote it before its body was cut into stages: a checkpoint written then
+# resumes now only if these bytes stay.
+META_CASES = {
+    "defaults": (
+        dict(prompts=["a lighthouse"]),
+        dict(skip_timesteps=0, use_magnitude=False, generator="cpu", unet_remat=False),
+        '{"cached_cutouts": false, "class_cond": true, "clip_guidance_scale": 1000.0, '
+        '"clip_model_name": "ViT-B/32", "compute_dtype": "bfloat16", "cutout_power": 1.0, '
+        '"diffusion_steps": 1000, "dpm_solver": false, "fast_guidance": false, '
+        '"generator": "cpu", "image_prompts": [], "init_scale": 0.0, '
+        '"noise_schedule": "linear", "num_cutouts": 16, "package": "cgd_tpu_torch", '
+        '"progressive_cutout": false, "prompts": ["a lighthouse"], "randomize_class": true, '
+        '"range_scale": 50.0, "reduce_clip": false, "sat_scale": 0.0, "save_frequency": 25, '
+        '"seed": 0, "shape": [1, 128, 128, 3], "skip_timesteps": 0, "strict_parity": true, '
+        '"timestep_respacing": "1000", "tv_scale": 150.0, "unet_remat": false, '
+        '"use_augs": false, "use_magnitude": false}'),
+    "remat512_batch16": (
+        dict(prompts=["a lighthouse"], image_size=512, batch_size=16),
+        dict(skip_timesteps=0, use_magnitude=False, generator="cpu", unet_remat=True),
+        '{"cached_cutouts": false, "class_cond": true, "clip_guidance_scale": 1000.0, '
+        '"clip_model_name": "ViT-B/32", "compute_dtype": "bfloat16", "cutout_power": 1.0, '
+        '"diffusion_steps": 1000, "dpm_solver": false, "fast_guidance": false, '
+        '"generator": "cpu", "image_prompts": [], "init_scale": 0.0, '
+        '"noise_schedule": "linear", "num_cutouts": 16, "package": "cgd_tpu_torch", '
+        '"progressive_cutout": false, "prompts": ["a lighthouse"], "randomize_class": true, '
+        '"range_scale": 50.0, "reduce_clip": false, "sat_scale": 0.0, "save_frequency": 25, '
+        '"seed": 0, "shape": [16, 512, 512, 3], "skip_timesteps": 0, "strict_parity": true, '
+        '"timestep_respacing": "1000", "tv_scale": 150.0, "unet_remat": true, '
+        '"use_augs": false, "use_magnitude": false}'),
+    "f32_dpm_progressive_cached": (
+        dict(prompts=["a red cube:2", "blue sky"], image_size=64, num_cutouts=12,
+             compute_dtype="float32", dpm_solver=True, progressive_cutout=True,
+             cached_cutouts=True, reduce_clip=True, timestep_respacing="ddim10",
+             clip_guidance_scale=500, tv_scale=80.5, seed=5),
+        dict(skip_timesteps=2, use_magnitude=True, generator="cpu", unet_remat=False),
+        '{"cached_cutouts": true, "class_cond": true, "clip_guidance_scale": 500.0, '
+        '"clip_model_name": "ViT-B/32", "compute_dtype": "float32", "cutout_power": 1.0, '
+        '"diffusion_steps": 1000, "dpm_solver": true, "fast_guidance": false, '
+        '"generator": "cpu", "image_prompts": [], "init_scale": 0.0, '
+        '"noise_schedule": "linear", "num_cutouts": 12, "package": "cgd_tpu_torch", '
+        '"progressive_cutout": true, "prompts": ["a red cube:2", "blue sky"], '
+        '"randomize_class": true, "range_scale": 50.0, "reduce_clip": true, '
+        '"sat_scale": 0.0, "save_frequency": 25, "seed": 5, "shape": [1, 64, 64, 3], '
+        '"skip_timesteps": 2, "strict_parity": true, "timestep_respacing": "ddim10", '
+        '"tv_scale": 80.5, "unet_remat": false, "use_augs": false, "use_magnitude": true}'),
+    "offsets_image_prompts": (
+        dict(prompts=["x"], image_prompts=["prompt.png:2"], height_offset=16, width_offset=-32,
+             strict_parity=False, batch_size=2, seed=7, use_augs=True, num_cutouts=2,
+             sat_scale=3, class_cond=False, randomize_class=False, image_size=256,
+             timestep_respacing="25", diffusion_steps=500, noise_schedule="cosine",
+             save_frequency=5, skip_timesteps=3, fast_guidance=True, cutout_power=0.5),
+        dict(skip_timesteps=3, use_magnitude=False, generator="cpu", unet_remat=False),
+        '{"cached_cutouts": false, "class_cond": false, "clip_guidance_scale": 1000.0, '
+        '"clip_model_name": "ViT-B/32", "compute_dtype": "bfloat16", "cutout_power": 0.5, '
+        '"diffusion_steps": 500, "dpm_solver": false, "fast_guidance": true, '
+        '"generator": "cpu", "image_prompts": ["prompt.png:2"], "init_scale": 0.0, '
+        '"noise_schedule": "cosine", "num_cutouts": 2, "package": "cgd_tpu_torch", '
+        '"progressive_cutout": false, "prompts": ["x"], "randomize_class": false, '
+        '"range_scale": 50.0, "reduce_clip": false, "sat_scale": 3.0, "save_frequency": 5, '
+        '"seed": 7, "shape": [2, 272, 224, 3], "skip_timesteps": 3, "strict_parity": false, '
+        '"timestep_respacing": "25", "tv_scale": 150.0, "unet_remat": false, '
+        '"use_augs": true, "use_magnitude": false}'),
+}
+
+
+@pytest.mark.parametrize("path", ["direct", "through the API"])
+@pytest.mark.parametrize("case", list(META_CASES))
+def test_the_run_meta_keeps_its_bytes(tiny, monkeypatch, case, path):
+    """``_run_meta`` alone, and as a checkpoint of the call holds it (the
+    loop stubbed to hand over one state), gives the recorded JSON."""
+    monkeypatch.delenv("CGD_TPU_REMAT", raising=False)
+    given, settled, want = META_CASES[case]
+    args = {**{k: p.default for k, p in inspect.signature(api.clip_guided_diffusion)
+               .parameters.items()}, "weights_mode": "random", "device": "cpu", **given}
+    if path == "direct":
+        assert json.dumps(api._run_meta(args, **settled), sort_keys=True) == want
+        return
+    (tiny / "prompt.png").write_bytes(timages.encode_png(np.full((40, 48, 3), 128, np.uint8)))
+
+    def one_state(*a, state_sink, **kw):
+        state_sink(1, {"x": np.zeros(1), "y": None, "x0p": None,
+                       "generator": np.zeros(1, np.uint8)})
+        return iter(())
+
+    monkeypatch.setattr(api, "sample_loop", one_state)
+    assert list(api.clip_guided_diffusion(**{**args, "progress": False,
+                                             "prefix_path": tiny / "o",
+                                             "checkpoint_path": str(tiny / "ck.npz")})) == []
+    assert str(np.load(tiny / "ck.npz")["meta"]) == want
+
+
+# ---- the device hold ------------------------------------------------------
+
+def _flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.fixture
+def caller_flags():
+    """The caller's TF32 flags both on for the test, the machine's after."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = _flags()
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    yield
+    cudnn.allow_tf32, matmul.allow_tf32 = prev
+
+
+class _Lock:
+    """A device lock that records into ``events`` each acquisition and each
+    release with the TF32 flags at that moment; its first ``busy`` tries
+    fail, as while another run holds it."""
+
+    def __init__(self, events, busy=0):
+        self.events, self.busy, self.held = events, busy, False
+
+    def acquire(self, timeout=-1):
+        assert timeout == 5.0 and not self.held
+        if self.busy:
+            self.busy -= 1
+            return False
+        self.held = True
+        self.events.append("acquire")
+        return True
+
+    def release(self):
+        assert self.held
+        self.held = False
+        self.events.append(("release", _flags()))
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_the_device_hold_takes_the_lock_at_its_stage_and_lends_the_flags_at_each_yield(
+        tiny, monkeypatch, caller_flags, compute_dtype):
+    """A bfloat16 run takes the lock only at sampling, an f32 run before
+    its prompts; an f32 run samples with TF32 off; the caller's flags are
+    back at every yield, and when the lock is released at the end."""
+    events = []
+    lock, real_loop = _Lock(events), api.sample_loop
+
+    def spy(*a, **kw):
+        for item in real_loop(*a, **kw):
+            events.append(("sampling", _flags()))
+            yield item
+
+    monkeypatch.setattr(api, "sample_loop", spy)
+    for _ in api.clip_guided_diffusion(**{**KW, "compute_dtype": compute_dtype},
+                                       prefix_path=tiny / "o", save_frequency=2,
+                                       device_lock=lock, stall_pet=events.append):
+        events.append(("yield", _flags()))
+    taken, prompts = events.index("acquire"), events.index("encode prompts")
+    if compute_dtype == "float32":
+        assert taken < prompts
+    else:
+        assert prompts < taken < events.index("compile + first sampling segment")
+    marks = [e for e in events if isinstance(e, tuple)]
+    inside = {(False, False)} if compute_dtype == "float32" else {(True, True)}
+    assert {f for what, f in marks if what == "sampling"} == inside
+    assert [f for what, f in marks if what == "yield"] == [(True, True)] * 3
+    assert events.count("acquire") == 1 and events[-1] == ("release", (True, True))
+    assert not lock.held and _flags() == (True, True)
+
+
+@pytest.mark.parametrize("end", ["exception", "close"])
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_the_device_hold_is_given_back_after_an_exception_and_a_close(
+        tiny, monkeypatch, caller_flags, compute_dtype, end):
+    """A run that raises mid-sampling, and one closed by its caller after
+    its first frame, put the caller's flags back and release the lock."""
+    events = []
+    lock = _Lock(events)
+    kw = dict(KW, compute_dtype=compute_dtype, prefix_path=tiny / "o", device_lock=lock)
+    if end == "exception":
+        boom = ValueError("boom")
+        monkeypatch.setattr(api, "sample_loop",
+                            _loop_raising_after_one_frame(api.sample_loop, boom))
+        with pytest.raises(ValueError, match="boom"):
+            list(api.clip_guided_diffusion(**kw))
+    else:
+        gen = api.clip_guided_diffusion(**kw)
+        next(gen)
+        assert lock.held
+        gen.close()
+    assert events == ["acquire", ("release", (True, True))]
+    assert not lock.held and _flags() == (True, True)
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bfloat16", "float32"])
+def test_the_device_hold_pets_while_queued_and_is_idempotent(caller_flags, f32):
+    """``take`` pets once before its first try and after each failed one,
+    then holds; a second ``take`` and a second ``release`` do nothing;
+    ``suspended`` lends the caller's flags; ``release`` puts the flags back
+    before it releases the lock."""
+    events = []
+    lock = _Lock(events, busy=2)
+    hold = api._DeviceHold(lock, f32, events.append)
+    hold.take()
+    hold.take()
+    off = (not f32, not f32)
+    assert events == ["waiting for device lock"] * 3 + ["acquire"] and _flags() == off
+    with hold.suspended():
+        assert _flags() == (True, True)
+    assert _flags() == off
+    hold.release()
+    hold.release()
+    assert events[4:] == [("release", (True, True))] and not lock.held
+
+
+def test_the_waiting_pet_arrives_while_another_run_holds_the_lock():
+    """With a real lock held by another thread, the pet comes while it is
+    held; the hold gets the lock once the other thread lets it go."""
+    lock, pets = threading.Lock(), []
+    lock.acquire()
+    other = threading.Timer(0.2, lock.release)
+
+    def pet(phase):
+        pets.append((phase, lock.locked()))
+        if len(pets) == 1:
+            other.start()
+
+    hold = api._DeviceHold(lock, False, pet)
+    hold.take()
+    other.join()
+    assert pets == [("waiting for device lock", True)] and hold.held and lock.locked()
+    hold.release()
+    assert not lock.locked()

@@ -136,16 +136,28 @@ def test_a_wrong_generator_state_gives_another_run():
 
 
 def test_loss_and_image_sinks_get_every_guided_step():
+    """The losses reach the host inside the guidance, as the API's loss
+    callback does (a step that reads them is never replayed from a graph);
+    the image sink gets every guided step's x_t and prediction after each
+    segment."""
     logs, taps = [], []
+
+    def builder(meta):
+        inner = _builder(meta)
+
+        def loss_fn(x, out, blend, gen):
+            loss, log = inner.loss_fn(x, out, blend, gen)
+            logs.append({k: float(v) for k, v in log.items()})
+            return loss, log
+
+        return GuidanceFns(loss_fn, inner.grad_transform, host_reads=True)
+
     d = make_diffusion(steps=100, timestep_respacing="10")
-    outs = list(sample_loop(d, _model_fn, _builder, SHAPE, torch.Generator().manual_seed(0),
+    outs = list(sample_loop(d, _model_fn, builder, SHAPE, torch.Generator().manual_seed(0),
                             SamplerConfig(use_ddim=True), save_frequency=4,
-                            loss_sink=lambda k, lg: logs.append((k, lg)),
                             image_sink=lambda ks, n, p: taps.append((ks, n.shape, p.shape))))
     assert [o[0] for o in outs] == [0, 4, 8, 9]
-    assert [k for k, _ in logs] == [0, 1, 5, 9]
-    assert sum(len(lg["Total Loss"]) for _, lg in logs) == 10
-    assert set(logs[0][1]) == {"Total Loss", "Grad"}
+    assert len(logs) == 10 and set(logs[0]) == {"Total Loss"}
     assert [ks for ks, _, _ in taps] == [[0], [1, 2, 3, 4], [5, 6, 7, 8], [9]]
     assert taps[1][1] == taps[1][2] == (4, *SHAPE)
 
