@@ -6,7 +6,7 @@ def launch_counters():
     wrappers add 1 to at each launch (each module's ``LAUNCHES`` and the
     attention's ``LAUNCHES_BY_D``). A CUDA graph's replay adds what its
     capture counted (``diffusion.sampler._StepGraph``)."""
-    from cgd_tpu_torch.kernels import attention, conv3x3, warp
+    from cgd_tpu_torch.kernels import attention, bn_act, conv3x3, warp
 
-    return [conv3x3.LAUNCHES, warp.LAUNCHES, attention.LAUNCHES,
+    return [conv3x3.LAUNCHES, warp.LAUNCHES, attention.LAUNCHES, bn_act.LAUNCHES,
             *attention.LAUNCHES_BY_D.values()]

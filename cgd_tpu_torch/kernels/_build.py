@@ -98,6 +98,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cgd_warp_index_long.restype = i
     lib.cgd_warp_index_long_blocks.argtypes = [i]
     lib.cgd_warp_index_long_blocks.restype = i
+    ll = ctypes.c_longlong
+    lib.cgd_bn_act_fwd.argtypes = [p] * 7 + [ll, i, ll, i, i, i, p]
+    lib.cgd_bn_act_fwd.restype = i
+    lib.cgd_bn_act_bwd.argtypes = [p] * 6 + [ll, i, ll, i, i, i, p]
+    lib.cgd_bn_act_bwd.restype = i
     lib.cgd_error_string.argtypes = [i]
     lib.cgd_error_string.restype = ctypes.c_char_p
     return lib

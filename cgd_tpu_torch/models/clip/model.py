@@ -5,7 +5,9 @@ weights carry across by name; layouts are the JAX ones (NHWC images,
 ``[in, out]`` dense kernels, HWIO conv kernels). LayerNorm, the folded
 BatchNorm and softmax run in f32 islands inside bf16 activations. The
 ModifiedResNet's 3x3 convs are plain ``F.conv2d`` and its 1x1s matmuls (the
-JAX package runs them as XLA convs, outside its Pallas kernels).
+JAX package runs them as XLA convs, outside its Pallas kernels); its
+BatchNorm, residual add and ReLU are one pass each way (``ops.nn.bn_relu``:
+K-bn on a card, bit-equal to the f32-island chain).
 """
 
 from __future__ import annotations
@@ -127,11 +129,6 @@ class ViT(nn.Module):
 # ModifiedResNet visual tower
 # ---------------------------------------------------------------------------
 
-def _bn(p, x: torch.Tensor) -> torch.Tensor:
-    """Folded (inference) BatchNorm: x*scale + bias in f32, cast back."""
-    return (x.float() * p.scale + p.bias).to(x.dtype)
-
-
 def _conv(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """Bias-free NHWC conv with the HWIO kernel, symmetric k//2 padding. A
     1x1 conv of stride 1 is a matmul over the channels, as ``ops.nn.conv2d``
@@ -161,17 +158,15 @@ class Bottleneck(nn.Module):
             self.down_bn = Norm(planes * 4, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(_bn(self.bn1, _conv(self.conv1, x)))
-        out = F.relu(_bn(self.bn2, _conv(self.conv2, out)))
+        out = cnn.bn_relu(self.bn1, _conv(self.conv1, x))
+        out = cnn.bn_relu(self.bn2, _conv(self.conv2, out))
         if self.stride > 1:
             out = cnn.avg_pool_2x(out)  # anti-aliased rect-2 downsample
-        out = _bn(self.bn3, _conv(self.conv3, out))
-        identity = x
-        if self.down_conv is not None:
-            if self.stride > 1:
-                identity = cnn.avg_pool_2x(identity)
-            identity = _bn(self.down_bn, _conv(self.down_conv, identity))
-        return F.relu(out + identity)
+        out = _conv(self.conv3, out)
+        if self.down_conv is None:
+            return cnn.bn_relu(self.bn3, out, x)
+        identity = cnn.avg_pool_2x(x) if self.stride > 1 else x
+        return cnn.bn_relu(self.bn3, out, _conv(self.down_conv, identity), self.down_bn)
 
 
 class AttnPool(nn.Module):
@@ -238,9 +233,9 @@ class ModifiedResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, R, R, 3] normalized images -> [B, embed_dim]."""
-        h = F.relu(_bn(self.bn1, _conv(self.conv1, x, stride=2)))
-        h = F.relu(_bn(self.bn2, _conv(self.conv2, h)))
-        h = F.relu(_bn(self.bn3, _conv(self.conv3, h)))
+        h = cnn.bn_relu(self.bn1, _conv(self.conv1, x, stride=2))
+        h = cnn.bn_relu(self.bn2, _conv(self.conv2, h))
+        h = cnn.bn_relu(self.bn3, _conv(self.conv3, h))
         h = cnn.avg_pool_2x(h)
         for i in range(4):
             for blk in getattr(self, f"layer{i + 1}"):

@@ -16,12 +16,15 @@ as attributes: ``p.kernel``/``p.bias`` (conv, dense), ``p.scale``/``p.bias``
 Kernel routing: by default every 3x3 stride-1 pad-1 conv goes through the
 conv family of ``cgd_tpu_torch.kernels.conv3x3`` and the UNet's attention
 through ``cgd_tpu_torch.kernels.attention`` (hand-written CUDA kernels on a
-CUDA tensor, their plain versions on a CPU tensor), and the ResBlock chain
-GroupNorm -> SiLU -> conv is fused into the conv kernel's load prologue.
+CUDA tensor, their plain versions on a CPU tensor), the ResBlock chain
+GroupNorm -> SiLU -> conv is fused into the conv kernel's load prologue, and
+the CLIP ResNet's folded BatchNorm -> [residual add] -> ReLU runs on K-bn
+(``cgd_tpu_torch.kernels.bn_act``) on a CUDA tensor.
 ``kernel_routing("plain")`` forces the unfused PyTorch chains of the JAX
-package's defaults (cuDNN convs and the einsum/softmax attention on the
-card); it exists to compare the kernels with PyTorch's own ops. The default
-equals the JAX package with ``CGD_TPU_PALLAS_ATTN=1``.
+package's defaults (cuDNN convs, the einsum/softmax attention and the
+BatchNorm's f32 island on the card); it exists to compare the kernels with
+PyTorch's own ops. The default equals the JAX package with
+``CGD_TPU_PALLAS_ATTN=1``.
 
 Height-split activations (``cgd_tpu_torch.parallel.mesh.Split``, the
 counterpart of the JAX package's ``spatial_sharding``) are taken by the conv
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from cgd_tpu_torch.kernels import attention as kattn
+from cgd_tpu_torch.kernels import bn_act as kbn
 from cgd_tpu_torch.kernels import conv3x3 as k3
 from cgd_tpu_torch.kernels import conv_spmd
 from cgd_tpu_torch.parallel.mesh import Split, split_activation
@@ -52,9 +56,10 @@ _routing_override: Optional[str] = None  # see kernel_routing()
 
 @contextlib.contextmanager
 def kernel_routing(mode: Optional[str]):
-    """Force the routing of the convs and the attention for the dynamic
-    extent: ``"plain"`` (unfused PyTorch ops: F.conv2d, einsum/softmax) or
-    ``None`` (the default: the kernels). Process-local and restored on exit."""
+    """Force the routing of the convs, the attention and the ResNet's
+    BatchNorm for the dynamic extent: ``"plain"`` (unfused PyTorch ops:
+    F.conv2d, einsum/softmax, the f32 island) or ``None`` (the default: the
+    kernels). Process-local and restored on exit."""
     global _routing_override
     if mode not in (None, "plain"):
         raise ValueError(f"kernel_routing mode must be None or 'plain', got {mode!r}")
@@ -325,6 +330,19 @@ def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     s = x.float().reshape(b, h // 2, 2, w // 2, 2, c).sum((2, 4))
     return s.to(x.dtype) * 0.25
+
+
+def bn_relu(p, x: torch.Tensor, identity: Optional[torch.Tensor] = None,
+            down=None) -> torch.Tensor:
+    """relu(bn(x)), relu(bn(x) + identity), or relu(bn(x) + down_bn(identity))
+    given ``down`` (the down-projection's BatchNorm): the folded (inference)
+    BatchNorm ``x*scale + bias`` in f32, cast back, as the CLIP ResNet runs
+    it. K-bn on a CUDA tensor on the kernel route, the PyTorch chain on a CPU
+    tensor or under ``kernel_routing("plain")``; the same bits either way."""
+    ds, db = (None, None) if down is None else (down.scale, down.bias)
+    if _kernel_route() and x.is_cuda:
+        return kbn.bn_act(x, p.scale, p.bias, identity, ds, db)
+    return kbn.bn_act_plain(x, p.scale, p.bias, identity, ds, db)
 
 
 def cat_channels(a, b):

@@ -32,7 +32,12 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    plain version (cuDNN in full f32; bound 1% of the reference's max) and,
    beside cuDNN's, against f64, timed beside cuDNN's f32 conv with TF32 off
    and on, with its share of the TF32 bound, and summed over one guided
-   step's 39 launches;
+   step's 39 launches; K-bn (``kernels.bn_act``) forward and backward at
+   CLIP RN50x16's site shapes (16 cutouts of 384^2: the largest site, a
+   bn1 / bn2 site, the stem's NCHW view and a down-projection site), bf16
+   and f32, against its plain version run on the card (the f32-island
+   chain and autograd's backward of it; bit-equal required, reruns
+   bit-identical), timed beside the chain with its bound in bytes;
 4. the full-width 256px, 512px and 128px class-conditional UNets (random
    weights, every zero-init conv re-drawn so the kernels' output reaches the
    result): forward and input gradient with the kernels against
@@ -59,7 +64,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    class-conditional ADM guided by CLIP RN50x16, 16 cutouts, ddim25, random
    weights, with the same checks (the first step's x against the CLI's
    under the plain routing, interrupted after that step), the step time of
-   the plain routing before and after it, and the run's peak device memory;
+   the plain routing before and after it, the run's peak device memory, and
+   K-bn's launches (counters reset just before the run): 123 each way a
+   guided step (83 in mode a, 36 in b, 4 in c);
 7. the height-split mesh path on the one card, ``make_mesh([dev, dev])``
    (cut=2, shards run one after the other): (a) K-halo through
    ``kernels.conv_spmd``, forward and input gradient, against its plain
@@ -226,12 +233,13 @@ Phases, each of which raises (and the script exits nonzero) on failure:
 
 Each phase's seconds are printed at the end.
 
-Prints a JSON line of per-kernel results (launches from phase 6, K-halo's
-from phase 7c, K-fwd f32's from phase 8, K-dx f32's and the f32
-attention's from phase 9c, K-halo f32's from phase 10c, K-warp-b's and
-K-warp-i's from phase 16c's ``use_augs`` run; each with its eager
-and device time, its bound on the card and the library call's time where
-there is one; K-fwd f32's summed over one guided step's 39 launches), the
+Prints a JSON line of per-kernel results (launches from phase 6, K-bn's
+among them, K-halo's from phase 7c, K-fwd f32's from phase 8, K-dx f32's
+and the f32 attention's from phase 9c, K-halo f32's from phase 10c,
+K-warp-b's and K-warp-i's from phase 16c's ``use_augs`` run; each with
+its eager and device time, its bound on the card and the library call's
+time where there is one; K-fwd f32's summed over one guided step's 39
+launches; K-bn's at its largest site, against the chain it replaced), the
 whole run's wall time, and as its last line ``{"ok": true, "device":
 {...}}``.
 Needs one card; builds everything it runs.
@@ -841,6 +849,106 @@ def phase_attention_padded(kattn, dev, cases=ATTN_PADDED, tag="3") -> None:
     torch.cuda.synchronize()
 
 
+# phase 3's K-bn sites of CLIP RN50x16 at BN_ACT_CUTOUTS cutouts of 384^2
+# (name, H = W, C, mode, layout): the largest site (bn3 and its identity),
+# a bn1 / bn2 site, the stem's (an NCHW tensor seen as NHWC: the element
+# path) and a down-projection site
+BN_ACT_CUTOUTS = 16
+# K-bn's launches each way in one guided RN50x16 step, by mode (phase 6)
+BN_ACT_PER_STEP = (("a", 83), ("b", 36), ("c", 4))
+BN_ACT_SITES = (("96x384b", 96, 384, "b", "nhwc"), ("96x96a", 96, 96, "a", "nhwc"),
+                ("192x48a-stem", 192, 48, "a", "nchw"), ("48x768c", 48, 768, "c", "nhwc"))
+
+
+def bn_act_bytes(n: int, itemsize: int, mode: str, bwd: bool) -> int:
+    """K-bn's bytes a call of n elements: forward reads x (and the identity
+    in modes b and c) and writes y; backward reads y and dy and writes dx
+    (and the identity's gradient in modes b and c)."""
+    arrays = (4 if mode != "a" else 3) if bwd else (3 if mode != "a" else 2)
+    return arrays * n * itemsize
+
+
+def phase_bn_act(dev, tag="3") -> dict:
+    """Phase 3's K-bn rows: ``kernels.bn_act``'s forward and backward on the
+    card against its plain version run on the card (``bn_act_plain``, the
+    f32-island chain, and autograd's backward of it) at BN_ACT_SITES, bf16
+    and f32: bit-equal (required), reruns bit-identical; each timed by CUDA
+    events and by its device time beside the chain's, with its bound in
+    bytes over the HBM bandwidth. Returns the rows ``bn_act_fwd`` /
+    ``bn_act_bwd``: the largest error over every case, the times at the
+    largest site in bf16."""
+    import torch
+
+    from cgd_tpu_torch.kernels import bn_act as kbn
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    gen = torch.Generator(dev).manual_seed(4323)
+    res = {"bn_act_fwd": {"err": 0.0, "library_ms": None},
+           "bn_act_bwd": {"err": 0.0, "library_ms": None}}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, h, c, mode, layout in BN_ACT_SITES:
+            def act():
+                t = torch.randn(BN_ACT_CUTOUTS, h, h, c, generator=gen, device=dev).to(dtype)
+                return (t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+                        if layout == "nchw" else t)
+
+            x, dy = act(), act()
+            r = act() if mode != "a" else None
+            s = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+            b = 0.1 * torch.randn(c, generator=gen, device=dev)
+            sd, bd = (s.flip(0), b.flip(0)) if mode == "c" else (None, None)
+            xg = x.detach().requires_grad_(True)
+            rg = None if r is None else r.detach().requires_grad_(True)
+            graph = kbn.bn_act_plain(xg, s, b, rg, sd, bd)
+            leaves = [t for t in (xg, rg) if t is not None]
+            want = (graph.detach(), *torch.autograd.grad(graph, leaves, dy, retain_graph=True))
+
+            calls = {
+                "fwd": lambda: kbn.bn_act_fwd(x, s, b, r, sd, bd),
+                "bwd": lambda: kbn.bn_act_bwd(y, dy, s, mode, sd),
+            }
+            kbn.reset_launch_counts()
+            y = calls["fwd"]()
+            got = (y, *(t for t in calls["bwd"]() if t is not None))
+            if kbn.LAUNCHES[f"bn_act_fwd_{mode}"] != 1 or kbn.LAUNCHES[f"bn_act_bwd_{mode}"] != 1:
+                raise AssertionError(f"K-bn {name}: launches {kbn.LAUNCHES}, expected one each way")
+            again = (calls["fwd"](), *(t for t in calls["bwd"]() if t is not None))
+            tdt = "bf16" if dtype == torch.bfloat16 else "f32"
+            for part, g, w, a in zip(("y", "dx", "d identity"), got, want, again):
+                err = _rel_max(g, w)[0]
+                row = res["bn_act_fwd" if part == "y" else "bn_act_bwd"]
+                row["err"] = max(row["err"], err)
+                if not torch.equal(bits(g), bits(w)):
+                    raise AssertionError(f"K-bn {name} {tdt} {part}: not bit-equal to the chain "
+                                         f"(max |err| {err:.3e})")
+                if not torch.equal(bits(g), bits(a)):
+                    raise AssertionError(f"K-bn {name} {tdt} {part}: repeated runs differ")
+
+            def plain_fwd():
+                with torch.no_grad():
+                    kbn.bn_act_plain(x, s, b, r, sd, bd)
+
+            plains = {"fwd": plain_fwd,
+                      "bwd": lambda: torch.autograd.grad(graph, leaves, dy, retain_graph=True)}
+            n = x.numel()
+            for way in ("fwd", "bwd"):
+                ms = _time_ms(calls[way])
+                dms = _device_ms(calls[way], label=f"K-bn {way} {name} {tdt}")
+                pms = _time_ms(plains[way])
+                pdms, pk, _ = _checked(plains[way], label=f"chain {way} {name} {tdt}")
+                bd_ = _bound(0, bn_act_bytes(n, x.element_size(), mode, way == "bwd"))
+                print(f"[{tag}] K-bn {way} {tdt} {BN_ACT_CUTOUTS}x{h}^2x{c} mode {mode} "
+                      f"({layout}): bit-equal to the chain, bit-identical reruns; kernel "
+                      f"{ms:.4f} ms, device {dms:.4f} ms; the chain {pms:.4f} ms, device "
+                      f"{pdms:.4f} ms in {pk:g} kernels{_fmt(bd_, dms)}")
+                if (name, dtype) == (BN_ACT_SITES[0][0], torch.bfloat16):
+                    res[f"bn_act_{way}"].update(ms=ms, device_ms=dms, plain_ms=pms, **bd_)
+    torch.cuda.synchronize()
+    return res
+
+
 def _redraw_zero_init(unet, gen) -> None:
     """Re-draw every zero-init conv / projection of a random UNet (uniform,
     1/sqrt(fan-in)): with them zero its output, and its gradient, are
@@ -1049,19 +1157,21 @@ def phase_lpips(k3, dev) -> None:
 
 
 def _launches(k3, kattn) -> dict:
-    """Every kernel's launches: the conv family's, the attention's and the
-    augmentation warp's backward (K-warp-b)."""
-    from cgd_tpu_torch.kernels import warp
+    """Every kernel's launches: the conv family's, the attention's, the
+    augmentation warp's (K-warp-b, K-warp-i) and K-bn's by direction and
+    mode."""
+    from cgd_tpu_torch.kernels import bn_act, warp
 
-    return {**k3.LAUNCHES, **kattn.LAUNCHES, **warp.LAUNCHES}
+    return {**k3.LAUNCHES, **kattn.LAUNCHES, **warp.LAUNCHES, **bn_act.LAUNCHES}
 
 
 def _reset_launches(k3, kattn) -> None:
-    from cgd_tpu_torch.kernels import warp
+    from cgd_tpu_torch.kernels import bn_act, warp
 
     k3.reset_launch_counts()
     kattn.reset_launch_counts()
     warp.reset_launch_counts()
+    bn_act.reset_launch_counts()
 
 
 def _check_pngs(paths) -> None:
@@ -1253,6 +1363,11 @@ def phase_cli(k3, kattn, dev, out_dir: Path) -> dict:
     _check_pngs((*pngs, "current.png"))
     _check_launched(launches, ("conv3x3_fwd", "conv3x3_dx", "conv3x3_dx_wtiled", "attn_fwd",
                                "attn_bwd"), "phase 6")
+    # K-bn at every one of RN50x16's 123 sites, once each way a guided step
+    bn = {k: v / 25 for k, v in launches.items() if k.startswith("bn_act_")}
+    if bn != {f"bn_act_{way}_{m}": n for way in ("fwd", "bwd") for m, n in BN_ACT_PER_STEP}:
+        raise AssertionError(f"phase 6: K-bn's launches per guided step {bn}, not "
+                             f"{dict(BN_ACT_PER_STEP)} each way")
     step_s = (stamps[-1] - stamps[0]) / 24
     print(f"[6] CLI 512px RN50x16 ddim25 guided sampling (zero-init layers re-drawn): first "
           f"step's x vs the plain routing's CLI rel L2 {rel:.3e} (bound {BF16_STEP_TOL}); "
@@ -4247,6 +4362,7 @@ def main() -> None:
     res["conv3x3_fwd_f32"] = _timed("3", phase_kernels_f32, k3, dev)
     res.update(_timed("3", phase_attention, kattn, dev))
     _timed("3", phase_attention_padded, kattn, dev)
+    res.update(_timed("3", phase_bn_act, dev))
     res["conv3x3_fwd_halo"] = _timed("7", phase_halo, k3, dev)
     for size in (256, 512, 128):
         _timed("4", phase_unet, dev, size)
@@ -4290,6 +4406,8 @@ def main() -> None:
     res.update(rows)
     for name in ("warp_index", "warp_bwd"):
         launches[name] = augs_launches[name]
+    for way in ("fwd", "bwd"):  # phase 6's, all three modes
+        launches[f"bn_act_{way}"] = sum(launches[f"bn_act_{way}_{m}"] for m in "abc")
 
     meta = {
         "conv3x3_fwd": ("cgd_tpu_torch/csrc/conv3x3_fwd.cu", "cgd_tpu/kernels/conv_pallas.py:364"),
@@ -4319,6 +4437,12 @@ def main() -> None:
         "warp_index": ("cgd_tpu_torch/csrc/warp_index.cu",
                        "cgd_tpu/guidance/cutouts.py:151 (the index of map_coordinates' "
                        "transpose, XLA; no Pallas kernel)"),
+        "bn_act_fwd": ("cgd_tpu_torch/csrc/bn_act.cu",
+                       "cgd_tpu/models/clip/model.py:154 and :189-201 (the folded BatchNorm, "
+                       "residual add and ReLU, XLA; no Pallas kernel)"),
+        "bn_act_bwd": ("cgd_tpu_torch/csrc/bn_act.cu",
+                       "cgd_tpu/models/clip/model.py:154 and :189-201 (their transpose, XLA; no "
+                       "Pallas kernel)"),
     }
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
